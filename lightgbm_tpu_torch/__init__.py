@@ -1,8 +1,10 @@
 """lightgbm_tpu_torch: the PyTorch/CUDA port of lightgbm_tpu.
 
-This slice trains binary (and L2 regression) GBDT models with the serial
-learner on the partition (arena) engine, whose four kernels are written by
-hand for Hopper (csrc/*.cu), and predicts on the host:
+The port trains binary (and L2 regression) GBDT models with the serial
+learner on the partition (arena) engine, with f32 or quantized int8
+gradients (`tpu_quantized_grad`), on the carried arena where the JAX package
+picks it; its six kernels are written by hand for Hopper (csrc/*.cu).  It
+predicts on the host:
 
     booster = lightgbm_tpu_torch.train(params,
                                        lightgbm_tpu_torch.Dataset(X, y),

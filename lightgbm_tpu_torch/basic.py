@@ -70,6 +70,15 @@ class Dataset:
             self.data = None
         return self
 
+    def set_weight(self, weight) -> "Dataset":
+        """Set (or, with None, clear) the row weights; a constructed
+        dataset keeps its bins."""
+        self.weight = weight
+        if self._binned is not None:
+            self._binned.metadata.set_weights(
+                np.asarray(weight) if weight is not None else None)
+        return self
+
 
 class Booster:
     """Booster over the port's GBDT driver."""

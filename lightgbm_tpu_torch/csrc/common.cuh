@@ -20,13 +20,26 @@ enum : int {
 };
 
 // The arena of the partition engine (ops/partition_kernel.py): a segment is
-// a contiguous column range of every plane.
-struct Arena {
+// a contiguous column range of every plane.  P is the payload type: float
+// (gradient, hessian) or int8_t (their quantized codes).
+template <typename P>
+struct ArenaT {
   uint8_t* bins;    // [G, cap] feature bins
-  float* gh;        // [2, cap] gradient, hessian
+  P* gh;            // [2, cap] payload
   int* rid;         // [cap] row id
   long long cap;
 };
+
+// Copy column s of src to column d of dst, every plane.
+template <typename P>
+__device__ __forceinline__ void move_row(const ArenaT<P>& src, long long s,
+                                         const ArenaT<P>& dst, long long d,
+                                         int G) {
+  for (int c = 0; c < G; ++c) dst.bins[c * dst.cap + d] = src.bins[c * src.cap + s];
+  dst.gh[d] = src.gh[s];
+  dst.gh[dst.cap + d] = src.gh[src.cap + s];
+  dst.rid[d] = src.rid[s];
+}
 
 // NaN-propagating min/max: jnp.maximum/jnp.minimum semantics, which the
 // reference scan relies on (fmaxf would swallow a NaN).

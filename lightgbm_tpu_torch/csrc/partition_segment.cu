@@ -1,4 +1,5 @@
-// K3: stable two-way partition of one arena segment (decision mode).
+// K3: stable two-way partition of one arena segment (decision mode), for
+// an arena of f32 g/h or of int8 codes.
 //
 // Replaces: lightgbm_tpu/ops/partition_pallas.py _partition_kernel
 // (launched by partition_segment, pl.pallas_call at :528) in its decision
@@ -21,9 +22,10 @@
 // The segment and the decision are read from the device vector sc, so the
 // host launches a fixed grid and never learns a child's size.
 //
-// What bounds it on an H100: bytes.  Each row (G bin bytes, 8 bytes of g/h,
-// a 4-byte row id) is read once and written once: 2*n*(G+12) bytes, 0.25 ms
-// for the 10.5M-row Higgs root at 3.35 TB/s.  This version moves the
+// What bounds it on an H100: bytes.  Each row (G bin bytes, 8 bytes of g/h
+// or 2 of codes, a 4-byte row id) is read once and written once:
+// 2*n*(G+12) or 2*n*(G+6) bytes, 0.25 or 0.21 ms for the 10.5M-row Higgs
+// root at 3.35 TB/s.  This version moves the
 // stream-A rows twice (through the scratch arena), reads the decision
 // channel twice, and writes single bytes per plane, so it is not at that
 // bound; a decoupled look-back scan with in-place A writes is later work.
@@ -49,14 +51,6 @@ __device__ __forceinline__ int goes_a(const uint8_t* chan, long long col,
   return (goleft[chan[col]] != 0) ^ xr;
 }
 
-__device__ __forceinline__ void move_row(const Arena& src, long long s,
-                                         const Arena& dst, long long d, int G) {
-  for (int c = 0; c < G; ++c) dst.bins[c * dst.cap + d] = src.bins[c * src.cap + s];
-  dst.gh[d] = src.gh[s];
-  dst.gh[dst.cap + d] = src.gh[src.cap + s];
-  dst.rid[d] = src.rid[s];
-}
-
 // Sum of v over the block; every thread gets the total.
 __device__ int block_sum(int v, int* red) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
@@ -70,13 +64,14 @@ __device__ int block_sum(int v, int* red) {
 }
 
 __global__ void __launch_bounds__(PART_THREADS)
-count_kernel(Arena a, const int* __restrict__ sc,
+count_kernel(const uint8_t* __restrict__ bins, long long cap,
+             const int* __restrict__ sc,
              const uint8_t* __restrict__ goleft, int* __restrict__ block_a) {
   __shared__ int red[PART_WARPS];
   const long long start = sc[SC_START];
   const long long cnt = sc[SC_CNT];
   const int xr = sc[SC_XR];
-  const uint8_t* chan = a.bins + (long long)sc[SC_CHAN] * a.cap;
+  const uint8_t* chan = bins + (long long)sc[SC_CHAN] * cap;
   const long long chunk = chunk_rows(cnt, gridDim.x);
   const long long lo = blockIdx.x * chunk;
   const long long hi = min(lo + chunk, cnt);
@@ -87,8 +82,9 @@ count_kernel(Arena a, const int* __restrict__ sc,
   if (threadIdx.x == 0) block_a[blockIdx.x] = total;
 }
 
+template <typename P>
 __global__ void __launch_bounds__(PART_THREADS)
-scatter_kernel(Arena a, Arena scratch, int* __restrict__ sc,
+scatter_kernel(ArenaT<P> a, ArenaT<P> scratch, int* __restrict__ sc,
                const uint8_t* __restrict__ goleft,
                const int* __restrict__ block_a, int G) {
   __shared__ int red[PART_WARPS];
@@ -151,14 +147,34 @@ scatter_kernel(Arena a, Arena scratch, int* __restrict__ sc,
   }
 }
 
+template <typename P>
 __global__ void __launch_bounds__(PART_THREADS)
-copy_back_kernel(Arena scratch, Arena a, const int* __restrict__ sc, int G) {
+copy_back_kernel(ArenaT<P> scratch, ArenaT<P> a, const int* __restrict__ sc, int G) {
   const long long n_a = sc[SC_CNT_A];
   const long long dst_a = sc[SC_DST_A];
   const long long stride = (long long)gridDim.x * PART_THREADS;
   for (long long i = (long long)blockIdx.x * PART_THREADS + threadIdx.x; i < n_a;
        i += stride)
     move_row(scratch, i, a, dst_a + i, G);
+}
+
+template <typename P>
+int launch(uint8_t* bins, P* gh, int* rid, long long cap, uint8_t* sbins,
+           P* sgh, int* srid, long long scap, int* sc, const uint8_t* goleft,
+           int* block_a, int nblocks, int G, cudaStream_t stream) {
+  if (G < 1 || nblocks < 1) return (int)cudaErrorInvalidValue;
+  const ArenaT<P> a{bins, gh, rid, cap};
+  const ArenaT<P> s{sbins, sgh, srid, scap};
+  count_kernel<<<nblocks, PART_THREADS, 0, stream>>>(bins, cap, sc, goleft,
+                                                     block_a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  scatter_kernel<P><<<nblocks, PART_THREADS, 0, stream>>>(a, s, sc, goleft,
+                                                          block_a, G);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  copy_back_kernel<P><<<nblocks, PART_THREADS, 0, stream>>>(s, a, sc, G);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -168,15 +184,17 @@ LGBT_API int lgbt_partition_segment(uint8_t* bins, float* gh, int* rid,
                                     int* srid, long long scap, int* sc,
                                     const uint8_t* goleft, int* block_a,
                                     int nblocks, int G, cudaStream_t stream) {
-  if (G < 1 || nblocks < 1) return (int)cudaErrorInvalidValue;
-  const Arena a{bins, gh, rid, cap};
-  const Arena s{sbins, sgh, srid, scap};
-  count_kernel<<<nblocks, PART_THREADS, 0, stream>>>(a, sc, goleft, block_a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  scatter_kernel<<<nblocks, PART_THREADS, 0, stream>>>(a, s, sc, goleft, block_a, G);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  copy_back_kernel<<<nblocks, PART_THREADS, 0, stream>>>(s, a, sc, G);
-  return (int)cudaGetLastError();
+  return launch<float>(bins, gh, rid, cap, sbins, sgh, srid, scap, sc, goleft,
+                       block_a, nblocks, G, stream);
+}
+
+LGBT_API int lgbt_partition_segment_i8(uint8_t* bins, int8_t* codes, int* rid,
+                                       long long cap, uint8_t* sbins,
+                                       int8_t* scodes, int* srid,
+                                       long long scap, int* sc,
+                                       const uint8_t* goleft, int* block_a,
+                                       int nblocks, int G,
+                                       cudaStream_t stream) {
+  return launch<int8_t>(bins, codes, rid, cap, sbins, scodes, srid, scap, sc,
+                        goleft, block_a, nblocks, G, stream);
 }

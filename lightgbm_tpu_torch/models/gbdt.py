@@ -1,12 +1,27 @@
 """GBDT boosting driver of the port's main path.
 
 Port of the k=1 subset of lightgbm_tpu/models/gbdt.py `_train_one_iter_impl`
-(:496-687) in the shape of its fused fast path (`_build_fused_iter`,
-:719-836, the non-carried branch): gradients on the device, one tree grown
-by the partition engine on the pristine arena with every row in the bag,
-the score updated from the grower's per-row leaf values (emit="score"),
-shrinkage and boost-from-average, and ONE packed host fetch per tree.  The
-model text is the reference v2 format, so models load in both packages.
+(:496-687) in the shape of its fused fast paths: gradients on the device,
+optionally quantized to int8 codes (`tpu_quantized_grad`), one tree grown by
+the partition engine with every row in the bag, the score updated from the
+grower's per-row leaf values (emit="score"), shrinkage and
+boost-from-average, and ONE packed host fetch per tree.  The model text is
+the reference v2 format, so models load in both packages.
+
+Two paths, chosen by the JAX rule (`_carried_ok`, gbdt.py:847-869, with the
+objective's `carry_fields` gate):
+
+- carried (`_run_fused_iter_carried`, :904-1016): the tree roots at one of
+  two arena slots holding every row in the order the previous tree left
+  them, and K6 compacts the finished tree into the other slot.  The JAX
+  arena also carries the score and label planes, because a TPU cannot
+  cheaply scatter by row id (:838-845); here the score stays in row order
+  and K4 updates it, and each tree's gradients, computed in row order, are
+  gathered into the slot's order by its row ids before they are quantized.
+  The codes, histograms and carried row order equal JAX's;
+- non-carried (`_build_fused_iter`, :719-836): the tree roots at the
+  pristine block, for weighted objectives and the other configurations
+  `_carried_ok` refuses.
 
 Configurations this slice does not run raise NotImplementedError naming the
 ROADMAP.md item that will bring them; none is served by a substitute.
@@ -22,8 +37,10 @@ from ..config import Config
 from ..io.dataset import BinnedDataset
 from ..objective import ObjectiveFunction, create_objective
 from ..ops.grow import pack_tree_arrays, unpack_tree_vectors
+from ..ops import quantize as qz
+from ..ops import threefry
 from ..ops.grow_partition import grow_tree_partition
-from ..ops.partition_kernel import Arena, init_pristine
+from ..ops.partition_kernel import TILE, Arena, init_pristine, pristine_work0
 from ..ops.split import SplitParams
 from ..utils import log
 from .tree import Tree
@@ -50,8 +67,6 @@ def check_supported(cfg: Config) -> None:
         no("bagging", "queue 1, item 11: bagging")
     if cfg.num_class > 1:
         no("multiclass", "queue 1, item 11: objectives")
-    if cfg.tpu_quantized_grad:
-        no("tpu_quantized_grad", "queue 1, item 9: quantized gradients")
     if cfg.forcedsplits_filename:
         no("forced splits", "queue 1, item 11: forced splits")
     if cfg.tree_learner != "serial" or cfg.num_machines > 1:
@@ -85,6 +100,8 @@ class GBDT:
         self.feature_infos: List[str] = []
         self._feat_rng = np.random.RandomState(config.feature_fraction_seed)
         self._truncation_warned = False
+        self._quantized = False
+        self._carried_active = False
         if train_set is not None:
             self._setup_train(train_set)
 
@@ -133,12 +150,49 @@ class GBDT:
             self.score += torch.as_tensor(
                 np.asarray(ds.metadata.init_score, np.float32).reshape(-1),
                 device=dev)
+        self._quantized = bool(cfg.tpu_quantized_grad)
+        self._quant_seed = int(cfg.tpu_quantized_seed or cfg.seed)
+        if self._quantized and not qz.overflow_safe(
+                n, bits=cfg.tpu_quantized_bits):
+            # gbdt.py:1346-1357: the JAX package sums codes in f32, which
+            # rounds past this many rows in one bin; the port sums in int32
+            log.warning(
+                "tpu_quantized_grad: %d rows exceed the single-bin "
+                "integer-exactness envelope of f32 code sums (%d rows/bin); "
+                "the port's int32 histograms stay exact, the JAX package's "
+                "may round if one bin captures more than that", n,
+                qz.exact_rows(cfg.tpu_quantized_bits))
         # pristine layout (gbdt.py:1281-1282): factor >= 4 covers the
         # pristine block, the redirected root copy and the bump region
         self.arena = Arena(n, ds.num_features, max(cfg.tpu_arena_factor, 4),
-                           dev)
+                           dev, quantized=self._quantized)
         init_pristine(self.arena, ds.device_bins(dev).t())
         self.max_leaves = L
+        self._carried_active = self._carried_ok()
+        if self._carried_active:
+            self._init_carried()
+
+    def _carried_ok(self) -> bool:
+        """gbdt.py:847-869: the objective's carry gate, and a bump region
+        past both root slots of at least 2 align(n) columns."""
+        if not self.objective.carry_ok():
+            return False
+        n_al = -(-self.num_data // TILE) * TILE
+        bump0 = pristine_work0(self.num_data) + 2 * (n_al + TILE)
+        return self.arena.cap - bump0 >= 2 * n_al
+
+    def _init_carried(self) -> None:
+        """gbdt.py:871-902: two root slots past the pristine block, the bump
+        region past both; slot 0 gets a copy of the pristine rows."""
+        n = self.num_data
+        n_al = -(-n // TILE) * TILE
+        s0 = pristine_work0(n)
+        self._carry_slots = (s0, s0 + n_al + TILE)
+        self._carry_bump0 = self._carry_slots[1] + n_al + TILE
+        self._carry_parity = 0
+        a = self.arena
+        a.bins[:, s0:s0 + n] = a.bins[:, :n]
+        a.rid[s0:s0 + n] = a.rid[:n]
 
     # ------------------------------------------------------------------ #
     def _feature_sample(self) -> torch.Tensor:
@@ -178,12 +232,36 @@ class GBDT:
             self.iter += 1
             return False
         grad, hess = self.objective.get_gradients(self.score)
+        grad, hess = grad.to(torch.float32), hess.to(torch.float32)
+        kw = {}
+        if self._carried_active:
+            p = self._carry_parity
+            root0 = self._carry_slots[p]
+            # the carried root's order: JAX computes the same elementwise
+            # gradients from its carried score planes (gbdt.py:931-939)
+            rid = self.arena.rid[root0:root0 + self.num_data].long()
+            grad, hess = grad[rid], hess[rid]
+            kw = dict(carried_root=root0, carried_bump0=self._carry_bump0,
+                      carry_dst=self._carry_slots[1 - p])
+        if self._quantized:
+            # the carried path draws its noise by arena position under the
+            # iteration's key (gbdt.py:947-951, :1000); the non-carried one
+            # by row under the key folded with the class (:755-756, :802)
+            key = qz.quantize_key(self._quant_seed, self.iter)
+            if not self._carried_active:
+                key = threefry.fold_in(key, 0)
+            grad, hess, g_scale, h_scale = qz.quantize_gradients(grad, hess,
+                                                                 key)
+            kw["quant_scales"] = (g_scale, h_scale)
         arrays, delta, truncated = grow_tree_partition(
-            self.arena, grad.to(torch.float32), hess.to(torch.float32),
+            self.arena, grad, hess,
             self._feature_sample(), self.num_bins, self.default_bins,
             self.missing_types, self.split_params, self.monotone,
             self.penalty, max_leaves=self.max_leaves,
-            max_depth=cfg.max_depth, max_bin=self.max_bin, emit="score")
+            max_depth=cfg.max_depth, max_bin=self.max_bin, emit="score",
+            **kw)
+        if self._carried_active:
+            self._carry_parity = 1 - p
         self.score += delta * torch.tensor(self.shrinkage_rate,
                                            dtype=torch.float32)
         ivec, fvec = pack_tree_arrays(arrays)

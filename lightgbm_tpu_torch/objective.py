@@ -53,6 +53,12 @@ class ObjectiveFunction:
     def _raw_gradients(self, score):
         raise NotImplementedError
 
+    def carry_ok(self) -> bool:
+        """True when the driver may run the carried arena: the gate of the
+        JAX objective's `carry_fields` (objective.py:107-111), which is
+        None for every objective but the two below."""
+        return False
+
     def boost_from_score(self, class_id: int = 0) -> float:
         return 0.0
 
@@ -82,6 +88,11 @@ class RegressionL2Loss(ObjectiveFunction):
 
     def _raw_gradients(self, score):
         return score - self.label, torch.ones_like(score)
+
+    def carry_ok(self) -> bool:
+        # the exact type: a subclass with other gradients must opt in
+        # itself (objective.py:187-193)
+        return type(self) is RegressionL2Loss and self.weights is None
 
     def boost_from_score(self, class_id: int = 0) -> float:
         label = self.label.double().cpu().numpy()
@@ -153,6 +164,11 @@ class BinaryLogloss(ObjectiveFunction):
         grad = response * self._label_weight
         hess = abs_resp * (self.sigmoid - abs_resp) * self._label_weight
         return grad, hess
+
+    def carry_ok(self) -> bool:
+        # objective.py:467-475
+        return (type(self) is BinaryLogloss and self.weights is None
+                and self.need_train)
 
     def boost_from_score(self, class_id: int = 0) -> float:
         if not self.need_train:

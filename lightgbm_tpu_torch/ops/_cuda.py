@@ -41,13 +41,24 @@ _ENTRY_POINTS = {
     "split_scan": {
         "lgbt_split_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
     "segment_histogram": {
-        "lgbt_segment_histogram": [_P, _P, _P, _P, _I, _I, _LL, _I, _P]},
+        "lgbt_segment_histogram": [_P, _P, _P, _P, _I, _I, _LL, _I, _P],
+        "lgbt_segment_histogram_i8": [_P, _P, _P, _P, _I, _I, _LL, _I, _P]},
+    "fused_root_histogram": {
+        "lgbt_fused_root_histogram": [_P, _P, _P, _LL, _P, _P, _I, _I, _LL,
+                                      _I, _P]},
     "partition_segment": {
         "lgbt_partition_segment": [_P, _P, _P, _LL, _P, _P, _P, _LL, _P, _P,
-                                   _P, _I, _I, _P]},
+                                   _P, _I, _I, _P],
+        "lgbt_partition_segment_i8": [_P, _P, _P, _LL, _P, _P, _P, _LL, _P,
+                                      _P, _P, _I, _I, _P]},
     "scatter_segments": {
         "lgbt_scatter_segments_f32": [_P, _P, _P, _P, _P, _I, _I, _P],
         "lgbt_scatter_segments_i32": [_P, _P, _P, _P, _P, _I, _I, _P]},
+    "compact_carry": {
+        "lgbt_compact_carry": [_P, _P, _P, _LL, _P, _P, _I, _P, _P, _LL, _I,
+                               _I, _P],
+        "lgbt_compact_carry_i8": [_P, _P, _P, _LL, _P, _P, _I, _P, _P, _LL,
+                                  _I, _I, _P]},
 }
 
 LAUNCHES: Counter = Counter()
@@ -73,7 +84,7 @@ def find_nvcc() -> str:
 
 def _lib_path(stem: str) -> Path:
     h = hashlib.sha1()
-    for p in (CSRC / "common.cuh", CSRC / (stem + ".cu")):
+    for p in sorted(CSRC.glob("*.cuh")) + [CSRC / (stem + ".cu")]:
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / ("%s-%s.so" % (stem, h.hexdigest()[:12]))

@@ -1,19 +1,33 @@
 """Partition-engine leaf-wise tree growth (serial learner, numerical data).
 
 Port of `grow_tree_partition_impl` (lightgbm_tpu/ops/grow_partition.py:91)
-in the form the GBDT driver's fused path runs it: serial, numerical
-features, every row in the bag (`full_bag`), the pristine arena layout, a
-dense per-leaf histogram cache, and `emit="score"|"leaf_ids"`.  Rows live
-grouped by leaf in the arena (ops/partition_kernel.py), so each split costs
-O(parent) to partition and O(smaller child) to histogram; the sibling's
-histogram comes by subtraction from the parent's.
+in the forms the GBDT driver's fused paths run it: serial, numerical
+features, every row in the bag (`full_bag`), a dense per-leaf histogram
+cache, `emit="score"|"leaf_ids"`, f32 or quantized gradients, and the
+pristine or the carried root.  Rows live grouped by leaf in the arena
+(ops/partition_kernel.py), so each split costs O(parent) to partition and
+O(smaller child) to histogram; the sibling's histogram comes by subtraction
+from the parent's.
 
 Segments come from a bump allocator in ALLOC=256-column units: the larger
-child is rewritten in place over its parent (stream A; the root's first
-split goes to `work0`, off the read-only pristine block) and the smaller
-child is appended at the cursor (stream B).  When the cursor would run past
-the arena the split does not apply, growth stops, and the truncation flag
-is raised, as in the JAX engine.
+child is rewritten in place over its parent (stream A; the pristine root's
+first split goes to `work0`, off the read-only pristine block) and the
+smaller child is appended at the cursor (stream B).  When the cursor would
+run past the arena the split does not apply, growth stops, and the
+truncation flag is raised, as in the JAX engine.
+
+Quantized mode (a quantized arena): the gradients arrive as int8 codes with
+their two f32 scales; K5 writes the root's codes and builds its histogram
+in one pass, K2 returns exact int32 code sums, and every histogram is
+dequantized as it leaves its kernel, so the cache, the sibling subtraction
+and the split scans run on f32 as in JAX (grow_partition.py:765-769).
+
+Carried mode (`carried_root`): the root segment is an already assembled
+block of all n rows in the order the previous tree left them (the driver's
+carried arena); it is rewritten in place by the first split, the bump
+allocator starts at `carried_bump0`, and `carry_dst` has K6 compact the
+finished tree's segments, in leaf-index order, into the block the next
+tree roots at.
 
 The JAX loop is one `lax.while_loop`; here it is a Python loop of exactly
 max_leaves-1 steps whose state lives in device tensors.  A step that cannot
@@ -25,14 +39,17 @@ and the caller syncs once per tree when it fetches the packed tree.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from .grow import TreeArrays
 from .partition_kernel import (ALLOC, SC_CNT_A, SC_CNT_B, SC_DST_B, SC_LEN,
-                               TILE, Arena, partition_segment, pristine_work0,
-                               scatter_segments, segment_histogram)
+                               TILE, Arena, compact_carry,
+                               fused_refresh_histogram, partition_segment,
+                               pristine_work0, scatter_segments,
+                               segment_histogram)
+from .quantize import dequantize_hist
 from .split import SplitParams
 from .split_kernel import (_OF, _OG, _OLC, _OLG, _OLH, _OLO, _ODL, _ORC, _ORG,
                            _ORH, _ORO, _OT, NEG, NEG_GATE,
@@ -64,13 +81,23 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
                         monotone: Optional[torch.Tensor] = None,
                         penalty: Optional[torch.Tensor] = None, *,
                         max_leaves: int, max_depth: int = -1, max_bin: int,
-                        emit: str = "leaf_ids"):
-    """Grow one leaf-wise tree on the arena's pristine rows.
+                        emit: str = "leaf_ids",
+                        quant_scales: Optional[Tuple[torch.Tensor,
+                                                     torch.Tensor]] = None,
+                        carried_root: Optional[int] = None,
+                        carried_bump0: int = 0,
+                        carry_dst: Optional[int] = None):
+    """Grow one leaf-wise tree on the arena's rows.
+
+    grad and hess [n] are f32 for an f32 arena; for a quantized arena they
+    are the int8 codes and quant_scales their (g_scale, h_scale).  They are
+    in the order of the root segment: row order for the pristine root,
+    the block's order for a carried root at column `carried_root`.
 
     Returns (TreeArrays on the arena's device, out [n], truncated): out is
     each row's unshrunk leaf value (emit="score") or leaf id
-    (emit="leaf_ids"); truncated is a 0-d bool tensor, True when the arena
-    ran out of room."""
+    (emit="leaf_ids") in row order; truncated is a 0-d bool tensor, True
+    when the arena ran out of room."""
     dev = arena.device
     n, G = arena.num_data, arena.num_groups
     F = num_bins.shape[0]
@@ -82,19 +109,48 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
         raise ValueError("partition engine supports n < 2^24 rows")
     if emit not in ("score", "leaf_ids"):
         raise ValueError("emit must be 'score' or 'leaf_ids', got %r" % emit)
+    if arena.quantized != (quant_scales is not None):
+        raise ValueError("a quantized arena takes quant_scales, an f32 arena "
+                         "none")
     L, N, B = max_leaves, max(max_leaves - 1, 1), max_bin
     f32, i64 = torch.float32, torch.long
     work0 = pristine_work0(n)
     cap = arena.cap
+    if carried_root is None:
+        root_s0 = 0
+        cursor0 = work0 + _align(n, TILE)
+    else:
+        # carried slots lie past the pristine block, so the first split's
+        # dst_a below is the root itself: no redirect (gbdt.py:963)
+        if carried_root < work0:
+            raise ValueError("carried_root %d lies in the pristine block "
+                             "(below %d)" % (carried_root, work0))
+        root_s0 = int(carried_root)
+        cursor0 = int(carried_bump0)
 
-    # per-tree assembly: only the g/h planes of the pristine block change
-    arena.gh[0, :n] = grad
-    arena.gh[1, :n] = hess
+    if arena.quantized:
+        g_scale, h_scale = quant_scales
+
+        def seg_hist(seg):
+            return dequantize_hist(segment_histogram(arena, seg, B), g_scale,
+                                   h_scale)
+    else:
+        def seg_hist(seg):
+            return segment_histogram(arena, seg, B)
 
     # ---- root ---------------------------------------------------------------
-    sc0 = torch.tensor([0, n] + [0] * (SC_LEN - 2), dtype=torch.int32,
+    # per-tree assembly: only the root's payload planes change; quantized,
+    # K5 writes the codes while it builds the root histogram
+    sc0 = torch.tensor([root_s0, n] + [0] * (SC_LEN - 2), dtype=torch.int32,
                        device=dev)
-    root_hist = segment_histogram(arena, sc0[0:2], B)
+    if arena.quantized:
+        root_hist = dequantize_hist(
+            fused_refresh_histogram(arena, torch.stack([grad, hess]),
+                                    sc0[0:2], B), g_scale, h_scale)
+    else:
+        arena.payload[0, root_s0:root_s0 + n] = grad
+        arena.payload[1, root_s0:root_s0 + n] = hess
+        root_hist = seg_hist(sc0[0:2])
     root_g = root_hist[0, :, 0].sum()
     root_h = root_hist[0, :, 1].sum()
     fvec1 = build_feature_statics(num_bins, default_bins, missing_types,
@@ -115,6 +171,7 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
     leaf_mat[:, _LMAX] = torch.inf
     leaf_mat[0, _LC] = float(n)
     leaf_seg = torch.zeros((L, 2), dtype=torch.int32, device=dev)
+    leaf_seg[0, 0] = root_s0
     leaf_seg[0, 1] = n
     node_mat = torch.zeros((N, 10), dtype=f32, device=dev)
     hist_cache = torch.zeros((L,) + tuple(root_hist.shape), dtype=f32,
@@ -122,7 +179,7 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
     hist_cache[0] = root_hist
 
     nl = torch.ones(1, dtype=i64, device=dev)
-    cursor = torch.full((1,), work0 + _align(n, TILE), dtype=i64, device=dev)
+    cursor = torch.full((1,), cursor0, dtype=i64, device=dev)
     truncated = torch.zeros((), dtype=torch.bool, device=dev)
     bv = torch.arange(256, dtype=i64, device=dev)
     fstat = torch.stack([missing_types, default_bins, num_bins - 1],
@@ -163,7 +220,7 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
                           zl, zl, feat[0], left_smaller.long()]
                          ).to(torch.int32)
         partition_segment(arena, sc, go_left)
-        small_hist = segment_histogram(arena, sc[SC_DST_B:SC_DST_B + 2], B)
+        small_hist = seg_hist(sc[SC_DST_B:SC_DST_B + 2])
         cnt_b, cnt_a = sc[SC_CNT_B].long(), sc[SC_CNT_A].long()
 
         parent_hist = hist_cache.index_select(0, bi)[0]
@@ -267,5 +324,8 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
     else:
         vals = torch.arange(L, dtype=torch.int32, device=dev)
         out = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    scatter_segments(arena, leaf_seg, vals, nl.to(torch.int32), out)
+    nl32 = nl.to(torch.int32)
+    scatter_segments(arena, leaf_seg, vals, nl32, out)
+    if carry_dst is not None:
+        compact_carry(arena, leaf_seg, nl32, int(carry_dst))
     return tree, out, truncated

@@ -34,7 +34,7 @@ def _arena(bins, cap=None):
     if cap is not None:
         arena.cap = cap
         arena.bins = arena.bins[:, :cap].contiguous()
-        arena.gh = arena.gh[:, :cap].contiguous()
+        arena.payload = arena.payload[:, :cap].contiguous()
         arena.rid = arena.rid[:cap].contiguous()
     pk.init_pristine(arena, torch.from_numpy(np.ascontiguousarray(bins.T)))
     return arena

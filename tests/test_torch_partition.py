@@ -38,8 +38,8 @@ def _port_arena(bins, grad, hess, factor=8):
     n, F = bins.shape
     arena = pk.Arena(n, F, factor, "cpu")
     pk.init_pristine(arena, torch.from_numpy(np.ascontiguousarray(bins.T)))
-    arena.gh[0, :n] = torch.from_numpy(grad)
-    arena.gh[1, :n] = torch.from_numpy(hess)
+    arena.payload[0, :n] = torch.from_numpy(grad)
+    arena.payload[1, :n] = torch.from_numpy(hess)
     return arena
 
 
@@ -56,8 +56,8 @@ def _jax_planes(arena, F, start, cnt):
 
 def _port_planes(arena, start, cnt):
     return (arena.bins[:, start:start + cnt].numpy(),
-            arena.gh[0, start:start + cnt].numpy(),
-            arena.gh[1, start:start + cnt].numpy(),
+            arena.payload[0, start:start + cnt].numpy(),
+            arena.payload[1, start:start + cnt].numpy(),
             arena.rid[start:start + cnt].numpy().astype(np.int64))
 
 

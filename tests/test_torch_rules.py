@@ -6,7 +6,10 @@
   lightgbm_tpu (AST check);
 - entry points with no device and no CUDA raise, with no CPU fallback;
 - every configuration this slice does not run raises NotImplementedError
-  naming the ROADMAP.md item that brings it.
+  naming the ROADMAP.md item that brings it, and quantized training, which
+  it does run, engages;
+- `Dataset.set_weight` moves training between the carried and pristine
+  arenas as weights demand.
 """
 import ast
 import os
@@ -115,7 +118,7 @@ UNSUPPORTED = {
     "bagging": ({"bagging_fraction": 0.5, "bagging_freq": 1}, {}),
     "goss": ({"boosting": "goss"}, {}),
     "multiclass": ({"objective": "multiclass", "num_class": 3}, {}),
-    "quantized": ({"tpu_quantized_grad": True}, {}),
+    "dart": ({"boosting": "dart"}, {}),
     "forced_splits": ({"forcedsplits_filename": "forced.json"}, {}),
     "histogram_pool": ({"histogram_pool_size": 64.0}, {}),
     # with one machine and one device the config turns a parallel learner
@@ -147,3 +150,44 @@ def test_unsupported_config_raises(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tlgb.train(params, tlgb.Dataset(X, y, device="cpu", **ds_kw),
                    num_boost_round=1, device="cpu")
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_quantized_training_engages(weighted):
+    """tpu_quantized_grad trains on int8 codes: on the carried arena without
+    weights, on the pristine one with them (the JAX rule)."""
+    X, y = _data()
+    w = np.random.RandomState(2).rand(len(y)) + 0.5 if weighted else None
+    bst = tlgb.train({"objective": "binary", "tpu_quantized_grad": True,
+                      "num_leaves": 7, "verbose": -1},
+                     tlgb.Dataset(X, y, weight=w, device="cpu"),
+                     num_boost_round=2, device="cpu")
+    g = bst._gbdt
+    assert g._quantized and g.arena.quantized
+    assert g.arena.payload.dtype == torch.int8
+    assert g._carried_active is not weighted
+    assert bst.num_trees() == 2
+    assert all(m.num_leaves > 1 for m in g.models)
+    p = bst.predict(X)
+    assert np.isfinite(p).all() and ((p > 0.5) == (y > 0)).mean() > 0.8
+
+
+def test_set_weight_switches_path():
+    """Dataset.set_weight on a constructed dataset keeps its bins and moves
+    training to the pristine arena; clearing the weights moves it back; the
+    weighted model equals one trained on a dataset built with the weights."""
+    X, y = _data()
+    w = np.random.RandomState(2).rand(len(y)) + 0.5
+    params = {"objective": "binary", "num_leaves": 7, "verbose": -1}
+    ds = tlgb.Dataset(X, y, device="cpu").construct()
+    binned = ds._binned
+    ds.set_weight(w)
+    weighted = tlgb.train(params, ds, num_boost_round=2, device="cpu")
+    assert ds._binned is binned
+    assert not weighted._gbdt._carried_active
+    fresh = tlgb.train(params, tlgb.Dataset(X, y, weight=w, device="cpu"),
+                       num_boost_round=2, device="cpu")
+    assert weighted.model_to_string() == fresh.model_to_string()
+    ds.set_weight(None)
+    plain = tlgb.train(params, ds, num_boost_round=2, device="cpu")
+    assert plain._gbdt._carried_active
