@@ -6,31 +6,38 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from csrc/ (one nvcc per source, in
    parallel) and prints the build time;
-3. kernel phase: each kernel of the two training paths runs on the card at
+3. kernel phase: each kernel of the training paths runs on the card at
    the main paths' shapes against its plain PyTorch version on the same
    inputs, with the tolerance stated per kernel, and is timed with CUDA
    events beside the plain version and, where one PyTorch call computes the
    same function, that call.  f32 arenas: K1 split_scan, K2
-   segment_histogram, K3 partition_segment, K4 scatter_segments, K6
-   compact_carry; quantized arenas (int8 codes made on the CPU): K2 in int8
-   mode, K5 fused_refresh_histogram, K3 moving the codes, K6 moving the
-   codes, each held exactly equal to its plain version;
+   segment_histogram, K3 partition_segment (decision mode, and pred mode
+   with the bag's fused histogram at the bagged root), K4
+   scatter_segments, K6 compact_carry; quantized arenas (int8 codes made on
+   the CPU): K2 in int8 mode, K5 fused_refresh_histogram, K3 in both modes
+   moving the codes, K6 moving the codes, each held exactly equal to its
+   plain version;
 4. parity phase: a 20k-row, 3-round, 31-leaf run on the card against the
    same run on the CPU (plain versions), with f32 and with quantized
-   gradients, unweighted (the carried arena) and weighted (the pristine
-   one);
+   gradients, unweighted (the carried arena), weighted (the pristine one),
+   bagged (0.8 of the rows each round) and with a validation set (the
+   eager path): equal bags, split features and leaves of every row in the
+   tree's bag;
 5. training phase: a Higgs-shaped binary GBDT (28 dense features,
    num_leaves=255, max_bin=255, min_data_in_leaf=20, learning_rate=0.1,
    10.5M rows by default) trains through lightgbm_tpu_torch.train on the
-   card four times: with f32 gradients and then with tpu_quantized_grad=True,
-   both on the carried arena, then both again with row weights, which keep
-   the tree rooted at the pristine block (the non-carried path); each run
-   predicts a 100k-row holdout; the launch counters, zeroed just before each
-   train call and read just after, show that every kernel of that path ran;
-   trees must reach more than one leaf, the holdout AUC must reach 0.75 and
-   each quantized run's must be within 0.02 of its f32 run's; after each
-   unweighted run, one more round runs under torch.profiler for the device
-   time by kernel;
+   card eight times, f32 and then with tpu_quantized_grad=True each: on the
+   carried arena; with row weights, which keep the tree rooted at the
+   pristine block; bagged (bagging_fraction=0.8, bagging_freq=1), whose
+   root is K3 in pred mode; and with the 100k-row holdout as a validation
+   set (metric auc, early stopping after 2 rounds without gain), whose last
+   evaluated AUC must equal the host prediction's; each run predicts the
+   holdout; the launch counters, zeroed just before each train call and
+   read just after, show that every kernel of that path ran and that no
+   kernel of another path did; trees must reach more than one leaf, the
+   holdout AUC must reach 0.75 and each quantized run's must be within
+   0.02 of its f32 run's; after each carried and each bagged run, one more
+   round runs under torch.profiler for the device time by kernel;
 6. prints one JSON line of training results and one of per-kernel results,
    then the device line {"ok": true, "device": {...}} as the last line.
 
@@ -67,23 +74,62 @@ PORT_KERNELS = ("split_scan_kernel", "select_best_kernel", "histogram_kernel",
                 "count_kernel", "scatter_kernel", "copy_back_kernel",
                 "scatter_segments_kernel", "carry_offsets_kernel",
                 "carry_copy_kernel")
-# the training paths: (quantized, weighted); weights keep the tree rooted
-# at the pristine block, without them the port runs the carried arena
-PATHS = {"f32": (False, False), "quantized": (True, False),
-         "weighted_f32": (False, True), "weighted_quantized": (True, True)}
-# the kernels each training path must launch (their launch-counter names)
-PATH_KERNELS = {
-    "f32": ("split_scan", "segment_histogram", "partition_segment",
-            "scatter_segments", "compact_carry"),
-    "quantized": ("split_scan", "segment_histogram_i8", "fused_root_histogram",
-                  "partition_segment_i8", "scatter_segments",
-                  "compact_carry_i8"),
-    "weighted_f32": ("split_scan", "segment_histogram", "partition_segment",
-                     "scatter_segments"),
-    "weighted_quantized": ("split_scan", "segment_histogram_i8",
-                           "fused_root_histogram", "partition_segment_i8",
-                           "scatter_segments"),
+# the training paths.  Carried: no weights, no bag, no validation set (the
+# JAX rule); weights keep the tree rooted at the pristine block; a bag or a
+# validation set runs the eager path (pristine root, per-row leaf ids), the
+# bag's root by K3 in pred mode with its fused histogram
+PATHS = {
+    "f32": dict(), "quantized": dict(quantized=True),
+    "weighted_f32": dict(weighted=True),
+    "weighted_quantized": dict(quantized=True, weighted=True),
+    "bagged_f32": dict(bagged=True),
+    "bagged_quantized": dict(quantized=True, bagged=True),
+    "valid_f32": dict(valid=True),
+    "valid_quantized": dict(quantized=True, valid=True),
 }
+PARITY_PATHS = ("f32", "quantized", "weighted_f32", "weighted_quantized",
+                "bagged_f32", "bagged_quantized", "valid_f32")
+# the repo's own bagging setting (tests/test_quantized.py:289)
+BAGGING = {"bagging_fraction": 0.8, "bagging_freq": 1}
+EARLY_STOPPING_ROUNDS = 2
+
+
+def flag(path: str, name: str) -> bool:
+    return bool(PATHS[path].get(name, False))
+
+
+def carried(path: str) -> bool:
+    return not any(flag(path, k) for k in ("weighted", "bagged", "valid"))
+
+
+def path_params(path: str, **extra) -> dict:
+    params = dict(QPARAMS if flag(path, "quantized") else PARAMS, **extra)
+    if flag(path, "bagged"):
+        params.update(BAGGING)
+    if flag(path, "valid"):
+        params["metric"] = "auc"
+    return params
+
+
+def path_kernels(path: str) -> tuple:
+    """(kernels the path must launch, kernels it must not): the launch
+    counter names."""
+    q = flag(path, "quantized")
+    sfx = "_i8" if q else ""
+    must = ["split_scan", "segment_histogram" + sfx, "partition_segment" + sfx,
+            "scatter_segments"]
+    never = []
+    if flag(path, "bagged"):
+        must.append("partition_segment_pred" + sfx)
+        never += ["fused_root_histogram", "compact_carry" + sfx]
+    else:
+        if q:
+            must.append("fused_root_histogram")
+        (must if carried(path) else never).append("compact_carry" + sfx)
+        never.append("partition_segment_pred" + sfx)
+    return tuple(must), tuple(never)
+
+
 SRC = "lightgbm_tpu_torch/csrc/%s.cu"
 REPLACES = {
     "split_scan": "lightgbm_tpu/ops/split_pallas.py:242",
@@ -332,6 +378,69 @@ def kernel_phase(ds, dev, results, quantized: bool):
               shape="CH=2 F=%d B=%d" % (G, B))
     del k2
 
+    # ---- K3 in pred mode with the fused histogram (the bagged root) -------
+    # an 0.8 bag from a fixed seed; in-bag rows to work0, the others past
+    # them, the bag's histogram in the same pass (hist_stream=0)
+    bag = torch.from_numpy(
+        (np.random.RandomState(13).rand(n) < 0.8).astype(np.uint8)).to(dev)
+    oob = work0 + n_al
+    sc_k = torch.tensor([0, n, work0, oob, 0, 0, 0, 0], dtype=torch.int32,
+                        device=dev)
+    sc_p = sc_k.clone()
+    got = pk.partition_segment_pred(ak, sc_k, bag, hist_stream=0, max_bin=B)
+    want = pk.partition_segment_pred_plain(ap, sc_p, bag, 0, B)
+    expect(torch.equal(sc_k, sc_p), "K3 pred: counts differ")
+    n_in = int(sc_k[pk.SC_CNT_A])
+    expect(n_in == int(bag.sum()), "K3 pred: %d rows in the bag, %d counted"
+           % (int(bag.sum()), n_in))
+    for s, c in ((work0, n_in), (oob, n - n_in)):
+        for pk_, pp_ in ((ak.bins, ap.bins), (ak.payload, ap.payload),
+                         (ak.rid[None], ap.rid[None])):
+            expect(torch.equal(pk_[:, s:s + c], pp_[:, s:s + c]),
+                   "K3 pred: planes differ")
+    if quantized:
+        expect(torch.equal(got, want), "K3 pred: int8 histograms differ")
+        err = 0.0
+    else:
+        expect(torch.equal(got[..., 2], want[..., 2]),
+               "K3 pred: histogram counts differ")
+        rows = ap.payload[:, work0:work0 + n_in].clone()
+        ap.payload[0, work0:work0 + n_in] = rows[0].abs()
+        scale = pk.segment_histogram_plain(
+            ap, torch.tensor([work0, n_in], dtype=torch.int32, device=dev), B)
+        ap.payload[:, work0:work0 + n_in] = rows
+        err_t = (got - want).abs()
+        err = float(err_t.max())
+        rel = float((err_t / scale.clamp_min(1e-30)).max())
+        expect(rel <= 1e-5, "K3 pred: histogram error %.3g of the |value| "
+               "sums exceeds rtol 1e-5" % rel)
+    # library yardsticks, one call each: the stable sort of the predicate
+    # (as K3's row has) and index_add_ of the bag's histogram
+    bag_key = 1 - bag
+    sort_ms = cuda_ms(lambda: torch.sort(bag_key, stable=True), 5)
+    k3p = dict(
+        ms=cuda_ms(lambda: pk.partition_segment_pred(ak, sc_k, bag, 0, B),
+                   10),
+        plain_ms=cuda_ms(lambda: pk.partition_segment_pred_plain(
+            ap, sc_p, bag, 0, B), 3),
+        library_ms=sort_ms, index_add_ms=index_add_ms(ak, work0, n_in),
+        bytes=pk.partition_pred_bytes(n, G, B, quantized),
+        ops=3 * G * n_in, rows=n)
+    print("K3 partition_segment_pred (%s payload, hist_stream=0): root %d "
+          "rows, %d in the bag, %.4f ms (plain %.4f, stable sort %.4f, "
+          "index_add_ %.4f); planes and counts exact, histogram %s"
+          % (mode, n, n_in, k3p["ms"], k3p["plain_ms"], sort_ms,
+             k3p["index_add_ms"], "exact" if quantized
+             else "max abs err %.3g" % err))
+    entry("partition_segment_pred" + sfx, "partition_segment", k3p, err,
+          "planes and counts exact; histogram " + (
+              "exact" if quantized else
+              "counts equal, g/h within 1e-5 of the bin's |value| sum"),
+          library="torch.sort(stable) of the predicate; index_add_ of the "
+                  "histogram timed apart (library_index_add_ms)",
+          library_index_add_ms=k3p["index_add_ms"], in_bag=n_in)
+    del bag, bag_key, got, want
+
     # ---- K3 -----------------------------------------------------------
     chan = 0
     goleft = (torch.arange(256, device=dev) <= 127).to(torch.uint8)
@@ -460,55 +569,94 @@ def kernel_phase(ds, dev, results, quantized: bool):
 
 
 def parity_phase(dev, path: str):
-    """A small run on the card against the same run on the CPU."""
+    """A small run on the card against the same run on the CPU, stepped
+    with update() so each tree's bag can be read."""
     import lightgbm_tpu_torch as lt
-    quantized, weighted = PATHS[path]
-    X, y, _, _ = higgs_like(20_000, seed=11)
-    w = row_weights(len(y)) if weighted else None
-    params = dict(QPARAMS if quantized else PARAMS, num_leaves=31)
+    quantized = flag(path, "quantized")
+    X, y, Xh, yh = higgs_like(20_000, seed=11)
+    w = row_weights(len(y)) if flag(path, "weighted") else None
+    params = path_params(path, num_leaves=31)
     out = {}
     for d in (dev, "cpu"):
-        bst = lt.train(params, lt.Dataset(X, y, weight=w, device=d),
-                       num_boost_round=3, device=d)
+        ds = lt.Dataset(X, y, weight=w, device=d)
+        bst = lt.Booster(params, ds, device=d)
+        if flag(path, "valid"):
+            bst.add_valid(lt.Dataset(Xh, yh, reference=ds, device=d),
+                          "holdout")
+        bags, evals = [], []
+        for _ in range(3):
+            bst.update()
+            mask = bst._gbdt._bag_mask
+            bags.append(None if mask is None else mask.copy())
+            evals.append(bst.eval_valid())
         g = bst._gbdt
         expect(g._quantized is quantized
-               and g._carried_active is not weighted,
+               and bool(g._carried_active) is carried(path),
                "parity %s: the %s run took another path" % (path, d))
-        out[str(d)] = bst
-    gb, cb = out[str(dev)]._gbdt.models, out["cpu"]._gbdt.models
-    expect(len(gb) == len(cb), "parity %s: tree counts differ" % path)
-    moved = []
-    for a, b in zip(gb, cb):
+        out[str(d)] = (bst, bags, evals)
+    (bk, bags_k, evals_k), (bc, bags_c, evals_c) = out[str(dev)], out["cpu"]
+    gb, cb = bk._gbdt.models, bc._gbdt.models
+    expect(len(gb) == len(cb) == 3, "parity %s: tree counts differ" % path)
+    moved, oob_moved = [], []
+    for t, (a, b) in enumerate(zip(gb, cb)):
+        bag = bags_k[t]
+        expect((bag is None) == (bags_c[t] is None)
+               and (bag is None or np.array_equal(bag, bags_c[t])),
+               "parity %s: the bags of tree %d differ" % (path, t))
         k = a.num_leaves - 1
         expect(a.num_leaves == b.num_leaves
                and np.array_equal(a.split_feature[:k], b.split_feature[:k]),
                "parity %s: card and CPU trees split on different features"
                % path)
-        expect(np.array_equal(a.predict_leaf_index(X),
-                              b.predict_leaf_index(X)),
-               "parity %s: training rows land in different leaves" % path)
-        expect(np.allclose(a.leaf_value[:k + 1], b.leaf_value[:k + 1],
-                           rtol=1e-4, atol=1e-6),
-               "parity %s: leaf values differ" % path)
-        # a threshold may move across bins that hold no row of the node:
-        # both thresholds then split the rows alike (checked above) and
-        # their f32 gains tie up to reassociation of the histograms
+        # a threshold may move across bins that hold no row of the node's
+        # bag: both thresholds then split its rows alike and their gains
+        # tie up to the reassociation of the f32 sums (K2's atomics, the
+        # root sum); rows out of the bag in those bins then take the other
+        # way, in that tree only
         moved.append(int((a.threshold_in_bin[:k]
                           != b.threshold_in_bin[:k]).sum()))
-    pg = out[str(dev)].predict(X, raw_score=True)
-    pc = out["cpu"].predict(X, raw_score=True)
+        differ = a.predict_leaf_index(X) != b.predict_leaf_index(X)
+        in_bag = np.ones(len(y), bool) if bag is None else bag == 0
+        expect(not differ[in_bag].any(),
+               "parity %s: rows of tree %d's bag land in different leaves"
+               % (path, t))
+        oob_moved.append(int(differ.sum()))
+        expect(not differ.any() or moved[-1] > 0,
+               "parity %s: out-of-bag rows of tree %d land in different "
+               "leaves with no threshold moved" % (path, t))
+        if not any(oob_moved[:-1]):
+            # before any out-of-bag row took another way, the scores and
+            # so the gradients of the next tree agree as without a bag
+            expect(np.allclose(a.leaf_value[:k + 1], b.leaf_value[:k + 1],
+                               rtol=1e-4, atol=1e-6),
+                   "parity %s: leaf values differ" % path)
+    pg = bk.predict(X, raw_score=True)
+    pc = bc.predict(X, raw_score=True)
     err = float(np.abs(pg - pc).max())
-    expect(np.all(np.isfinite(pg)) and err <= 1e-4,
+    expect(np.all(np.isfinite(pg)) and (err <= 1e-4 or any(oob_moved)),
            "parity %s: raw training predictions differ by %.3g" % (path, err))
-    print("parity (%s, %s arena): 20000 rows, 3 rounds, 31 leaves: card and "
-          "CPU trees split on the same features with every row in the same "
-          "leaf (thresholds moved across empty bins, per tree: %s); raw "
-          "training prediction max diff %.3g"
-          % (path, "pristine" if weighted else "carried", moved, err))
-    return dict(thresholds_moved=moved, max_raw_diff=err)
+    msg = ("parity (%s): 20000 rows, 3 rounds, 31 leaves: card and CPU trees "
+           "split on the same features with every %s in the same leaf "
+           "(thresholds moved across empty bins, per tree: %s); raw training "
+           "prediction max diff %.3g"
+           % (path, "row" if w is not None or not flag(path, "bagged")
+              else "row of the bag", moved, err))
+    if flag(path, "bagged"):
+        msg += ("; equal bags of %d rows each round; out-of-bag rows in "
+                "another leaf per tree: %s" % (int((bags_k[0] == 0).sum()),
+                                               oob_moved))
+    if flag(path, "valid"):
+        vk = [e[0][2] for e in evals_k]
+        vc = [e[0][2] for e in evals_c]
+        expect(np.all(np.isfinite(vk)), "parity %s: holdout AUC not finite"
+               % path)
+        msg += "; holdout AUC per round card %s, CPU %s" % (vk, vc)
+    print(msg)
+    return dict(thresholds_moved=moved, oob_rows_moved=oob_moved,
+                max_raw_diff=err)
 
 
-def training_phase(X, Xh, yh, ds_obj, rounds, dev, reduced, path):
+def training_phase(X, Xh, yh, ds_obj, valid_obj, rounds, dev, reduced, path):
     """A main path: lightgbm_tpu_torch.train on the card, then predict on
     the holdout.  The launch counters are zeroed just before train and read
     just after."""
@@ -517,24 +665,39 @@ def training_phase(X, Xh, yh, ds_obj, rounds, dev, reduced, path):
     from lightgbm_tpu_torch.metric import auc
     from lightgbm_tpu_torch.ops import _cuda
 
-    quantized, weighted = PATHS[path]
-    ds_obj.set_weight(row_weights(len(X)) if weighted else None)
+    quantized = flag(path, "quantized")
+    ds_obj.set_weight(row_weights(len(X)) if flag(path, "weighted")
+                      else None)
+    kw = {}
+    evals = {}
+    if flag(path, "valid"):
+        kw = dict(valid_sets=[valid_obj], valid_names=["holdout"],
+                  early_stopping_rounds=EARLY_STOPPING_ROUNDS,
+                  evals_result=evals, verbose_eval=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launch_counts()
     t0 = time.perf_counter()
-    booster = lt.train(QPARAMS if quantized else PARAMS, ds_obj,
-                       num_boost_round=rounds, device=dev)
+    booster = lt.train(path_params(path), ds_obj, num_boost_round=rounds,
+                       device=dev, **kw)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = dict(_cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     g = booster._gbdt
-    expect(g._quantized is quantized and g._carried_active is not weighted,
+    expect(g._quantized is quantized
+           and bool(g._carried_active) is carried(path),
            "%s training: quantized %s, carried %s" % (path, g._quantized,
                                                       g._carried_active))
-    for name in PATH_KERNELS[path]:
+    if flag(path, "bagged"):
+        expect(g._bag_count == int(BAGGING["bagging_fraction"] * len(X)),
+               "%s training: %s rows in the bag" % (path, g._bag_count))
+    must, never = path_kernels(path)
+    for name in must:
         expect(launches.get(name, 0) > 0, "kernel %s was not launched on the "
+               "%s training path" % (name, path))
+    for name in never:
+        expect(launches.get(name, 0) == 0, "kernel %s was launched on the "
                "%s training path" % (name, path))
     t = time.perf_counter()
     pred = booster.predict(Xh)
@@ -542,25 +705,40 @@ def training_phase(X, Xh, yh, ds_obj, rounds, dev, reduced, path):
     expect(pred.shape == (len(Xh),) and np.all(np.isfinite(pred)),
            "%s holdout predictions are not finite [n]" % path)
     leaves = [m.num_leaves for m in g.models]
-    expect(len(leaves) == rounds and min(leaves) > 1,
+    trained = len(leaves)
+    expect((trained == rounds or flag(path, "valid")) and min(leaves) > 1,
            "%s trees did not grow: leaves %s" % (path, leaves))
     holdout_auc = auc(yh, pred)
     expect(holdout_auc >= AUC_FLOOR, "%s holdout AUC %.4f < %.2f"
            % (path, holdout_auc, AUC_FLOOR))
-    round_ms = train_s * 1e3 / rounds
-    rate = len(X) * rounds / train_s
+    extra = ""
+    if flag(path, "valid"):
+        # the validation score, kept on the card by the binned walk, against
+        # the host walk of the same trees
+        last = evals["holdout"]["auc"][-1]
+        expect(len(evals["holdout"]["auc"]) == trained
+               and abs(last - holdout_auc) <= 1e-6,
+               "%s: last evals_result AUC %.8f, host predict AUC %.8f"
+               % (path, last, holdout_auc))
+        extra = ("; evals_result holdout AUC %s, best_iteration %d"
+                 % (evals["holdout"]["auc"], booster.best_iteration))
+    round_ms = train_s * 1e3 / trained
+    rate = len(X) * trained / train_s
+    arena = "carried" if carried(path) else (
+        "pristine, eager" if flag(path, "bagged") or flag(path, "valid")
+        else "pristine")
     print("training (%s, %s arena): %d rows%s x %d features, "
           "%d rounds, leaves %s; train %.3f s (%.1f ms a round, %.4g "
           "rows*rounds/s, set-up included); peak device memory %.3f GB; "
-          "holdout AUC %.4f on %d rows (predict %.3f s)"
-          % (path, "pristine" if weighted else "carried", len(X),
-             " (cut by --rows)" if reduced else "", X.shape[1],
-             rounds, leaves, train_s, round_ms, rate, peak / 1e9,
-             holdout_auc, len(Xh), predict_s))
+          "holdout AUC %.4f on %d rows (predict %.3f s)%s"
+          % (path, arena, len(X), " (cut by --rows)" if reduced else "",
+             X.shape[1], trained, leaves, train_s, round_ms, rate,
+             peak / 1e9, holdout_auc, len(Xh), predict_s, extra))
     return booster, launches, dict(
         train_s=train_s, round_ms=round_ms, rows_rounds_per_s=rate,
         peak_bytes=peak, holdout_auc=holdout_auc, leaves=leaves,
-        predict_s=predict_s, rows=len(X), launches=launches)
+        predict_s=predict_s, rows=len(X), launches=launches,
+        evals_result=evals or None, best_iteration=booster.best_iteration)
 
 
 def profile_round(booster, what: str) -> dict:
@@ -643,32 +821,39 @@ def main(argv=None) -> int:
     print("data: %d x %d generated and binned in %.1f s"
           % (X.shape[0], X.shape[1], time.perf_counter() - t))
 
+    valid_obj = lt.Dataset(Xh, yh, reference=ds_obj, device=dev).construct()
     results = {}
     for quantized in (False, True):
         kernel_phase(ds_obj._binned, dev, results, quantized)
-    parity = {path: parity_phase(dev, path) for path in PATHS}
+    parity = {path: parity_phase(dev, path) for path in PARITY_PATHS}
     train = {}
     launches = {}
     for path in PATHS:
         booster, launches[path], train[path] = training_phase(
-            X, Xh, yh, ds_obj, args.rounds, dev, args.rows != ROWS, path)
-        if not PATHS[path][1]:
+            X, Xh, yh, ds_obj, valid_obj, args.rounds, dev,
+            args.rows != ROWS, path)
+        if carried(path) or flag(path, "bagged"):
             train[path]["profile"] = profile_round(booster, path)
         del booster
         torch.cuda.empty_cache()
-    for f32, q in (("f32", "quantized"),
-                   ("weighted_f32", "weighted_quantized")):
+    for f32 in ("f32", "weighted_f32", "bagged_f32", "valid_f32"):
+        q = f32.replace("f32", "quantized")
         gap = abs(train[q]["holdout_auc"] - train[f32]["holdout_auc"])
         expect(gap <= AUC_GAP, "%s holdout AUC is %.4f from the %s run's "
                "(limit %.2f)" % (q, gap, f32, AUC_GAP))
-    # launches of each kernel in the run of the carried path it belongs to:
-    # the int8 modes and K5 in the quantized run, the f32 modes in the f32
-    # run; the kernels both paths run (K1, K4) report the quantized run;
-    # launches_by_path has every path's run, the weighted (pristine) ones
-    # included
+    # launches of each kernel in the run of the path it belongs to: K3's
+    # pred mode in the bagged runs, the int8 modes and K5 in the quantized
+    # carried run, the f32 modes in the f32 carried run; the kernels both
+    # carried paths run (K1, K4) report the quantized run; launches_by_path
+    # has every path's run
     for name, r in results.items():
-        path = ("f32" if name in ("segment_histogram", "partition_segment",
-                                  "compact_carry") else "quantized")
+        if name.startswith("partition_segment_pred"):
+            path = "bagged_quantized" if name.endswith("_i8") else "bagged_f32"
+        elif name in ("segment_histogram", "partition_segment",
+                      "compact_carry"):
+            path = "f32"
+        else:
+            path = "quantized"
         r["launches"] = int(launches[path].get(name, 0))
         r["launches_by_path"] = {p: int(launches[p].get(name, 0))
                                  for p in launches}

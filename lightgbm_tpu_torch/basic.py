@@ -1,12 +1,14 @@
 """Dataset and Booster: the port's public objects.
 
 Port of `Dataset` (:78) and `Booster` (:373) of lightgbm_tpu/basic.py for
-in-memory dense data.  Both take an explicit `device`: the CUDA card unless
-the caller passes device="cpu"; with no device and no CUDA they raise.
+in-memory dense data, with validation sets and their evaluation
+(`add_valid`, `eval_train`, `eval_valid`, :450-533).  Both take an explicit
+`device`: the CUDA card unless the caller passes device="cpu"; with no
+device and no CUDA they raise.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -14,6 +16,7 @@ from .config import Config
 from .device import resolve_device
 from .io.dataset import BinnedDataset
 from .io.metadata import Metadata
+from .metric import is_bigger_better, metrics_from_config
 from .models.gbdt import GBDT
 from .objective import create_objective
 
@@ -89,6 +92,9 @@ class Booster:
                  model_str: Optional[str] = None, device=None):
         self.device = resolve_device(device)
         self.params = dict(params) if params else {}
+        self.best_iteration = -1
+        self.best_score: Dict[str, Dict[str, float]] = {}
+        self._train_set = train_set
         if train_set is not None:
             if not isinstance(train_set, Dataset):
                 raise LightGBMError("Training data should be Dataset instance")
@@ -112,12 +118,43 @@ class Booster:
             raise LightGBMError("Booster needs at least one of train_set, "
                                 "model_file, model_str")
 
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        """Attach a validation set, evaluated with the config's metrics.  A
+        dataset not yet constructed and given no reference is binned with
+        the training set's mappers."""
+        if data._binned is None and data.reference is None:
+            data.reference = self._train_set
+        data.construct()
+        self._gbdt.add_valid(name, data._binned,
+                             metrics_from_config(self.config))
+        return self
+
     def update(self) -> bool:
         """One boosting iteration; True when training cannot continue."""
         return self._gbdt.train_one_iter()
 
+    @property
+    def current_iteration(self) -> int:
+        return self._gbdt.current_iteration
+
     def num_trees(self) -> int:
         return len(self._gbdt.models)
+
+    def eval_train(self) -> List[tuple]:
+        """(dataset name, metric name, value, bigger_is_better) of each
+        training metric."""
+        return self._eval("training", self._gbdt.eval_train())
+
+    def eval_valid(self) -> List[tuple]:
+        out = []
+        for name, res in self._gbdt.eval_valid().items():
+            out.extend(self._eval(name, res))
+        return out
+
+    @staticmethod
+    def _eval(name: str, results: Dict[str, List[float]]) -> List[tuple]:
+        return [(name, metric_name, v, is_bigger_better(metric_name))
+                for metric_name, vals in results.items() for v in vals]
 
     def predict(self, data, num_iteration: int = -1,
                 raw_score: bool = False) -> np.ndarray:

@@ -1,12 +1,22 @@
-// K3: stable two-way partition of one arena segment (decision mode), for
-// an arena of f32 g/h or of int8 codes.
+// K3: stable two-way partition of one arena segment, for an arena of f32
+// g/h or of int8 codes, in two modes:
+//   decision mode: rows whose bin on channel `chan` maps to goleft[bin] XOR
+//     xr == 1 form stream A (the larger child), the others stream B (the
+//     smaller child, written at the bump cursor dstB);
+//   pred mode: rows whose column holds pred[col] != 0 form stream A (the
+//     bagged root: in-bag rows), the others stream B (out-of-bag rows);
+//     columns at or past the predicate's length read as 0, as the JAX
+//     kernel reads its zero-padded [1, cap] predicate.  With a histogram
+//     output, pred mode also builds the [G, B, 3] (sum g, sum h, count)
+//     histogram of one stream (hist_stream 0: A, 1: B) in the same pass.
+// Both streams keep the parent's row order and every plane moves with its
+// row.
 //
 // Replaces: lightgbm_tpu/ops/partition_pallas.py _partition_kernel
-// (launched by partition_segment, pl.pallas_call at :528) in its decision
-// mode.  Rows of [start, start+cnt) whose bin on channel `chan` maps to
-// goleft[bin] XOR xr == 1 form stream A (the larger child), the others
-// stream B (the smaller child, written at the bump cursor dstB).  Both
-// streams keep the parent's row order and every plane moves with its row.
+// (launched by partition_segment, pl.pallas_call at :528): decision mode
+// (mode=1), pred mode (mode=0, :229, :270-283, :374-376) and the fused
+// hist_stream histogram (:248-259, :380-386, :505-525), which the grower
+// runs once per bagged tree on the root (grow_partition.py:269-285).
 //
 // The TPU kernel writes stream A in place because its grid runs in order
 // and writes provably lag reads; Hopper's blocks run in parallel, so that
@@ -20,16 +30,35 @@
 //   3. copy_back_kernel: copies the A rows from the scratch arena to dstA,
 //      which may be the parent's own start.
 // The segment and the decision are read from the device vector sc, so the
-// host launches a fixed grid and never learns a child's size.
+// host launches a fixed grid and never learns a child's size.  One body
+// serves both modes: the kernels are templated on the router (a go-left
+// mask over a channel, or the predicate) and on HIST.
+//
+// The histogram (HIST): scatter_kernel already reads every plane of every
+// row, so each block adds the chosen stream's rows into a [f_chunk, B, 3]
+// sub-histogram in dynamic shared memory with histogram.cuh's accumulator
+// (int32 atomics for codes: exact; f32 atomics for g/h: equal to the plain
+// version up to reassociation), then adds its non-zero entries into the
+// zeroed global [G, B, 3] output with global atomics.  f_chunk is the
+// number of features whose [B, 3] rows fit in HIST_MAX_SMEM (200 KB): at
+// B=255 that is 66 features, so the Higgs width (G=28, 85.7 KB) is one
+// chunk.  A wider G is not refused: after the moving pass, the block walks
+// its rows again once per further chunk of f_chunk features (the source
+// rows are still in place: stream A went to the scratch arena, stream B
+// past the segment), so each row's decision is re-read and its bins of
+// that chunk accumulated.
 //
 // What bounds it on an H100: bytes.  Each row (G bin bytes, 8 bytes of g/h
-// or 2 of codes, a 4-byte row id) is read once and written once:
-// 2*n*(G+12) or 2*n*(G+6) bytes, 0.25 or 0.21 ms for the 10.5M-row Higgs
-// root at 3.35 TB/s.  This version moves the
-// stream-A rows twice (through the scratch arena), reads the decision
-// channel twice, and writes single bytes per plane, so it is not at that
-// bound; a decoupled look-back scan with in-place A writes is later work.
-#include "common.cuh"
+// or 2 of codes, a 4-byte row id) is read once and written once, and pred
+// mode reads one predicate byte: 2*n*(G+12)+n or 2*n*(G+6)+n bytes, 0.25
+// or 0.22 ms for the 10.5M-row Higgs root at 3.35 TB/s.  This version
+// moves the stream-A rows twice (through the scratch arena), writes single
+// bytes per plane, and with HIST adds 3*G shared-memory atomics per
+// histogrammed row and a flush of each block's sub-histogram, so it is not
+// at that bound; pred mode runs 264 blocks (two a Hopper SM holds with an
+// 85.7 KB sub-histogram each), which bounds the flush to 264 times [G,B,3]
+// global atomics.
+#include "histogram.cuh"
 
 namespace {
 
@@ -46,10 +75,45 @@ __device__ __forceinline__ long long chunk_rows(long long cnt, int nblocks) {
   return (tiles + nblocks - 1) / nblocks * PART_THREADS;
 }
 
-__device__ __forceinline__ int goes_a(const uint8_t* chan, long long col,
-                                      const uint8_t* goleft, int xr) {
-  return (goleft[chan[col]] != 0) ^ xr;
-}
+// Decision mode: stream A is (goleft[bin of channel sc[CHAN]] != 0) XOR
+// sc[XR].  bind() reads the per-launch scalars once per block.
+struct DecisionRoute {
+  const uint8_t* bins;
+  long long cap;
+  const uint8_t* goleft;
+
+  struct Bound {
+    const uint8_t* chan;
+    const uint8_t* goleft;
+    int xr;
+    __device__ __forceinline__ int operator()(long long col) const {
+      return (goleft[chan[col]] != 0) ^ xr;
+    }
+  };
+  __device__ __forceinline__ Bound bind(const int* sc) const {
+    return Bound{bins + (long long)sc[SC_CHAN] * cap, goleft, sc[SC_XR]};
+  }
+};
+
+// Pred mode: stream A is pred[col] != 0 (0 past the predicate's length).
+struct PredRoute {
+  const uint8_t* pred;
+  long long len;
+
+  __device__ __forceinline__ PredRoute bind(const int*) const { return *this; }
+  __device__ __forceinline__ int operator()(long long col) const {
+    return col < len && pred[col] != 0;
+  }
+};
+
+// The histogram output of a HIST launch.
+template <typename P>
+struct HistSink {
+  typename HistAcc<P>::T* out;   // [G, B, 3], zeroed by the caller
+  int B;
+  int f_chunk;                   // features per shared-memory pass
+  int stream;                    // 0: stream A's rows, 1: stream B's
+};
 
 // Sum of v over the block; every thread gets the total.
 __device__ int block_sum(int v, int* red) {
@@ -63,40 +127,76 @@ __device__ int block_sum(int v, int* red) {
   return s;
 }
 
+// Add column col's g/h and count into the sub-histogram of features
+// [f0, f0 + nf).
+template <typename P, typename A>
+__device__ __forceinline__ void accumulate_row(const ArenaT<P>& a,
+                                               long long col, A* sh, int f0,
+                                               int nf, int B) {
+  const A g = A(a.gh[col]);
+  const A h = A(a.gh[a.cap + col]);
+  const uint8_t* bc = a.bins + (long long)f0 * a.cap + col;
+  for (int f = 0; f < nf; ++f) {
+    A* e = sh + (f * B + bc[(long long)f * a.cap]) * 3;
+    atomicAdd(e, g);
+    atomicAdd(e + 1, h);
+    atomicAdd(e + 2, A(1));
+  }
+}
+
+template <typename A>
+__device__ __forceinline__ void zero_hist(A* sh, int entries) {
+  for (int i = threadIdx.x; i < entries; i += blockDim.x) sh[i] = A(0);
+}
+
+template <typename A>
+__device__ __forceinline__ void flush_hist(const A* sh, A* out, int f0, int nf,
+                                           int B) {
+  A* o = out + (size_t)f0 * B * 3;
+  for (int i = threadIdx.x; i < nf * B * 3; i += blockDim.x) {
+    const A v = sh[i];
+    if (v != A(0)) atomicAdd(o + i, v);
+  }
+}
+
+template <typename Route>
 __global__ void __launch_bounds__(PART_THREADS)
-count_kernel(const uint8_t* __restrict__ bins, long long cap,
-             const int* __restrict__ sc,
-             const uint8_t* __restrict__ goleft, int* __restrict__ block_a) {
+count_kernel(const int* __restrict__ sc, Route route,
+             int* __restrict__ block_a) {
   __shared__ int red[PART_WARPS];
   const long long start = sc[SC_START];
   const long long cnt = sc[SC_CNT];
-  const int xr = sc[SC_XR];
-  const uint8_t* chan = bins + (long long)sc[SC_CHAN] * cap;
+  const auto goes_a = route.bind(sc);
   const long long chunk = chunk_rows(cnt, gridDim.x);
   const long long lo = blockIdx.x * chunk;
   const long long hi = min(lo + chunk, cnt);
   int local = 0;
   for (long long i = lo + threadIdx.x; i < hi; i += PART_THREADS)
-    local += goes_a(chan, start + i, goleft, xr);
+    local += goes_a(start + i);
   const int total = block_sum(local, red);
   if (threadIdx.x == 0) block_a[blockIdx.x] = total;
 }
 
-template <typename P>
+template <typename P, typename Route, bool HIST>
 __global__ void __launch_bounds__(PART_THREADS)
 scatter_kernel(ArenaT<P> a, ArenaT<P> scratch, int* __restrict__ sc,
-               const uint8_t* __restrict__ goleft,
-               const int* __restrict__ block_a, int G) {
+               Route route, const int* __restrict__ block_a, int G,
+               HistSink<P> hs) {
+  using A = typename HistAcc<P>::T;
   __shared__ int red[PART_WARPS];
   __shared__ int warp_off[PART_WARPS + 1];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  A* sh = reinterpret_cast<A*>(smem_raw);   // HIST: [f_chunk, B, 3]
   const long long start = sc[SC_START];
   const long long cnt = sc[SC_CNT];
   const long long dst_b = sc[SC_DST_B];
-  const int xr = sc[SC_XR];
-  const uint8_t* chan = a.bins + (long long)sc[SC_CHAN] * a.cap;
+  const auto goes_a = route.bind(sc);
   const long long chunk = chunk_rows(cnt, gridDim.x);
   const long long lo = blockIdx.x * chunk;
   const long long hi = min(lo + chunk, cnt);
+  const int hist_a = HIST ? (hs.stream == 0) : 0;   // histogram stream A?
+  const int nf0 = HIST ? min(hs.f_chunk, G) : 0;
+  if (HIST) zero_hist(sh, nf0 * hs.B * 3);
 
   int before = 0, all = 0;
   for (int j = threadIdx.x; j < (int)gridDim.x; j += PART_THREADS) {
@@ -104,7 +204,7 @@ scatter_kernel(ArenaT<P> a, ArenaT<P> scratch, int* __restrict__ sc,
     all += v;
     if (j < (int)blockIdx.x) before += v;
   }
-  before = block_sum(before, red);
+  before = block_sum(before, red);   // its __syncthreads order the zeroing
   all = block_sum(all, red);
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     sc[SC_CNT_A] = all;
@@ -118,7 +218,7 @@ scatter_kernel(ArenaT<P> a, ArenaT<P> scratch, int* __restrict__ sc,
   for (long long base = lo; base < hi; base += PART_THREADS) {
     const long long i = base + threadIdx.x;
     const bool valid = i < hi;
-    const int is_a = valid ? goes_a(chan, start + i, goleft, xr) : 0;
+    const int is_a = valid ? goes_a(start + i) : 0;
     const unsigned m = __ballot_sync(0xffffffffu, is_a);
     const int pre = __popc(m & ((1u << lane) - 1u));
     if (lane == 0) red[warp] = __popc(m);
@@ -138,12 +238,30 @@ scatter_kernel(ArenaT<P> a, ArenaT<P> scratch, int* __restrict__ sc,
         move_row(a, start + i, scratch, run_a + a_before, G);
       else
         move_row(a, start + i, a, dst_b + run_b + (threadIdx.x - a_before), G);
+      if (HIST && is_a == hist_a) accumulate_row(a, start + i, sh, 0, nf0, hs.B);
     }
     const int tile_a = warp_off[PART_WARPS];
     const long long tile_n = min((long long)PART_THREADS, hi - base);
     run_a += tile_a;
     run_b += tile_n - tile_a;
     __syncthreads();
+  }
+
+  if (HIST) {
+    flush_hist(sh, hs.out, 0, nf0, hs.B);
+    // features past the first chunk: one more walk of the block's rows per
+    // chunk, from the source columns, which this kernel never overwrites
+    for (int f0 = nf0; f0 < G; f0 += hs.f_chunk) {
+      const int nf = min(hs.f_chunk, G - f0);
+      __syncthreads();
+      zero_hist(sh, nf * hs.B * 3);
+      __syncthreads();
+      for (long long i = lo + threadIdx.x; i < hi; i += PART_THREADS)
+        if (goes_a(start + i) == hist_a)
+          accumulate_row(a, start + i, sh, f0, nf, hs.B);
+      __syncthreads();
+      flush_hist(sh, hs.out, f0, nf, hs.B);
+    }
   }
 }
 
@@ -158,23 +276,64 @@ copy_back_kernel(ArenaT<P> scratch, ArenaT<P> a, const int* __restrict__ sc, int
     move_row(scratch, i, a, dst_a + i, G);
 }
 
-template <typename P>
-int launch(uint8_t* bins, P* gh, int* rid, long long cap, uint8_t* sbins,
-           P* sgh, int* srid, long long scap, int* sc, const uint8_t* goleft,
-           int* block_a, int nblocks, int G, cudaStream_t stream) {
+template <typename P, typename Route, bool HIST>
+int launch(const ArenaT<P>& a, const ArenaT<P>& s, int* sc, Route route,
+           int* block_a, int nblocks, int G, HistSink<P> hs,
+           cudaStream_t stream) {
+  using A = typename HistAcc<P>::T;
   if (G < 1 || nblocks < 1) return (int)cudaErrorInvalidValue;
-  const ArenaT<P> a{bins, gh, rid, cap};
-  const ArenaT<P> s{sbins, sgh, srid, scap};
-  count_kernel<<<nblocks, PART_THREADS, 0, stream>>>(bins, cap, sc, goleft,
-                                                     block_a);
-  cudaError_t err = cudaGetLastError();
+  int smem = 0;
+  cudaError_t err;
+  if constexpr (HIST) {
+    if (hs.out == nullptr || hs.B < 1 || hs.B > 256 || (hs.stream & ~1))
+      return (int)cudaErrorInvalidValue;
+    hs.f_chunk = HIST_MAX_SMEM / (hs.B * 3 * (int)sizeof(A));
+    if (hs.f_chunk > G) hs.f_chunk = G;
+    smem = hs.f_chunk * hs.B * 3 * (int)sizeof(A);
+    err = cudaFuncSetAttribute(scatter_kernel<P, Route, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  count_kernel<Route><<<nblocks, PART_THREADS, 0, stream>>>(sc, route, block_a);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  scatter_kernel<P><<<nblocks, PART_THREADS, 0, stream>>>(a, s, sc, goleft,
-                                                          block_a, G);
+  scatter_kernel<P, Route, HIST><<<nblocks, PART_THREADS, smem, stream>>>(
+      a, s, sc, route, block_a, G, hs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   copy_back_kernel<P><<<nblocks, PART_THREADS, 0, stream>>>(s, a, sc, G);
   return (int)cudaGetLastError();
+}
+
+template <typename P>
+int launch_decision(uint8_t* bins, P* gh, int* rid, long long cap,
+                    uint8_t* sbins, P* sgh, int* srid, long long scap, int* sc,
+                    const uint8_t* goleft, int* block_a, int nblocks, int G,
+                    cudaStream_t stream) {
+  const ArenaT<P> a{bins, gh, rid, cap};
+  const ArenaT<P> s{sbins, sgh, srid, scap};
+  return launch<P, DecisionRoute, false>(a, s, sc,
+                                         DecisionRoute{bins, cap, goleft},
+                                         block_a, nblocks, G, HistSink<P>{},
+                                         stream);
+}
+
+template <typename P>
+int launch_pred(uint8_t* bins, P* gh, int* rid, long long cap, uint8_t* sbins,
+                P* sgh, int* srid, long long scap, int* sc,
+                const uint8_t* pred, long long pred_len, int* block_a,
+                int nblocks, int G, typename HistAcc<P>::T* hist, int B,
+                int hist_stream, cudaStream_t stream) {
+  const ArenaT<P> a{bins, gh, rid, cap};
+  const ArenaT<P> s{sbins, sgh, srid, scap};
+  const PredRoute route{pred, pred_len};
+  if (hist == nullptr)
+    return launch<P, PredRoute, false>(a, s, sc, route, block_a, nblocks, G,
+                                       HistSink<P>{}, stream);
+  return launch<P, PredRoute, true>(a, s, sc, route, block_a, nblocks, G,
+                                    HistSink<P>{hist, B, 0, hist_stream},
+                                    stream);
 }
 
 }  // namespace
@@ -184,8 +343,8 @@ LGBT_API int lgbt_partition_segment(uint8_t* bins, float* gh, int* rid,
                                     int* srid, long long scap, int* sc,
                                     const uint8_t* goleft, int* block_a,
                                     int nblocks, int G, cudaStream_t stream) {
-  return launch<float>(bins, gh, rid, cap, sbins, sgh, srid, scap, sc, goleft,
-                       block_a, nblocks, G, stream);
+  return launch_decision<float>(bins, gh, rid, cap, sbins, sgh, srid, scap, sc,
+                                goleft, block_a, nblocks, G, stream);
 }
 
 LGBT_API int lgbt_partition_segment_i8(uint8_t* bins, int8_t* codes, int* rid,
@@ -195,6 +354,37 @@ LGBT_API int lgbt_partition_segment_i8(uint8_t* bins, int8_t* codes, int* rid,
                                        const uint8_t* goleft, int* block_a,
                                        int nblocks, int G,
                                        cudaStream_t stream) {
-  return launch<int8_t>(bins, codes, rid, cap, sbins, scodes, srid, scap, sc,
-                        goleft, block_a, nblocks, G, stream);
+  return launch_decision<int8_t>(bins, codes, rid, cap, sbins, scodes, srid,
+                                 scap, sc, goleft, block_a, nblocks, G,
+                                 stream);
+}
+
+// Pred mode; hist == nullptr: no histogram, else the [G, B, 3] f32
+// histogram of stream hist_stream (0: A, 1: B) is added into hist.
+LGBT_API int lgbt_partition_segment_pred(uint8_t* bins, float* gh, int* rid,
+                                         long long cap, uint8_t* sbins,
+                                         float* sgh, int* srid, long long scap,
+                                         int* sc, const uint8_t* pred,
+                                         long long pred_len, int* block_a,
+                                         int nblocks, int G, float* hist,
+                                         int B, int hist_stream,
+                                         cudaStream_t stream) {
+  return launch_pred<float>(bins, gh, rid, cap, sbins, sgh, srid, scap, sc,
+                            pred, pred_len, block_a, nblocks, G, hist, B,
+                            hist_stream, stream);
+}
+
+// The same for an arena of int8 codes; the histogram is int32 code sums.
+LGBT_API int lgbt_partition_segment_pred_i8(uint8_t* bins, int8_t* codes,
+                                            int* rid, long long cap,
+                                            uint8_t* sbins, int8_t* scodes,
+                                            int* srid, long long scap, int* sc,
+                                            const uint8_t* pred,
+                                            long long pred_len, int* block_a,
+                                            int nblocks, int G, int* hist,
+                                            int B, int hist_stream,
+                                            cudaStream_t stream) {
+  return launch_pred<int8_t>(bins, codes, rid, cap, sbins, scodes, srid, scap,
+                             sc, pred, pred_len, block_a, nblocks, G, hist, B,
+                             hist_stream, stream);
 }

@@ -1,51 +1,88 @@
 """GBDT boosting driver of the port's main path.
 
 Port of the k=1 subset of lightgbm_tpu/models/gbdt.py `_train_one_iter_impl`
-(:496-687) in the shape of its fused fast paths: gradients on the device,
-optionally quantized to int8 codes (`tpu_quantized_grad`), one tree grown by
-the partition engine with every row in the bag, the score updated from the
-grower's per-row leaf values (emit="score"), shrinkage and
-boost-from-average, and ONE packed host fetch per tree.  The model text is
-the reference v2 format, so models load in both packages.
+(:496-687): gradients on the device, optionally quantized to int8 codes
+(`tpu_quantized_grad`), one tree grown by the partition engine, shrinkage
+and boost-from-average, and ONE packed host fetch per tree.  The model text
+is the reference v2 format, so models load in both packages.
 
-Two paths, chosen by the JAX rule (`_carried_ok`, gbdt.py:847-869, with the
-objective's `carry_fields` gate):
+Which path an iteration runs follows the JAX rule (:518-550):
 
-- carried (`_run_fused_iter_carried`, :904-1016): the tree roots at one of
-  two arena slots holding every row in the order the previous tree left
-  them, and K6 compacts the finished tree into the other slot.  The JAX
-  arena also carries the score and label planes, because a TPU cannot
-  cheaply scatter by row id (:838-845); here the score stays in row order
-  and K4 updates it, and each tree's gradients, computed in row order, are
-  gathered into the slot's order by its row ids before they are quantized.
-  The codes, histograms and carried row order equal JAX's;
-- non-carried (`_build_fused_iter`, :719-836): the tree roots at the
-  pristine block, for weighted objectives and the other configurations
-  `_carried_ok` refuses.
+- with no bagging, no validation set and no training metric, the fused
+  paths (:533), where every row is in the bag and the grower writes each
+  row's leaf value (emit="score"):
+  - carried (`_run_fused_iter_carried`, :904-1016), where `_carried_ok`
+    (:847-869, with the objective's `carry_fields` gate) allows it: the
+    tree roots at one of two arena slots holding every row in the order
+    the previous tree left them, and K6 compacts the finished tree into
+    the other slot.  The JAX arena also carries the score and label planes,
+    because a TPU cannot cheaply scatter by row id (:838-845); here the
+    score stays in row order and K4 updates it, and each tree's gradients,
+    computed in row order, are gathered into the slot's order by its row
+    ids before they are quantized.  The codes, histograms and carried row
+    order equal JAX's;
+  - non-carried (`_build_fused_iter`, :719-836): the tree roots at the
+    pristine block, for weighted objectives and the other configurations
+    `_carried_ok` refuses;
+- otherwise the eager path (:593-687): the bag is drawn (`_bagging`,
+  :419-433), the tree grows at the pristine root (bagged: K3 in pred mode
+  compacts the bag) with emit="leaf_ids", quantized under the iteration's
+  key unfolded (:1385-1387), and the training score adds each row's leaf
+  value, the out-of-bag rows' by a binned tree walk; validation scores
+  follow by the same walk, and metrics are evaluated on the host.
+
+The carried arena is entered at the first iteration that may run it and
+left for good at the first that may not (:542-550); the score is kept in
+row order throughout, so leaving needs no materialization, and the eager
+tree's work region may overwrite the carry slots.
 
 Configurations this slice does not run raise NotImplementedError naming the
 ROADMAP.md item that will bring them; none is served by a substitute.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..config import Config
 from ..io.dataset import BinnedDataset
+from ..metric import Metric
 from ..objective import ObjectiveFunction, create_objective
-from ..ops.grow import pack_tree_arrays, unpack_tree_vectors
+from ..ops.grow import (TreeArrays, pack_tree_arrays, predict_leaf_inner,
+                        unpack_tree_vectors)
 from ..ops import quantize as qz
 from ..ops import threefry
 from ..ops.grow_partition import grow_tree_partition
 from ..ops.partition_kernel import TILE, Arena, init_pristine, pristine_work0
 from ..ops.split import SplitParams
 from ..utils import log
-from .tree import Tree
+from .tree import K_CATEGORICAL_MASK, K_DEFAULT_LEFT_MASK, Tree
 
 K_EPSILON = 1e-15
+
+
+class _DatasetState:
+    """A validation set's device state (ScoreUpdater, score_updater.hpp;
+    lightgbm_tpu/models/gbdt.py:52-104): its bins for the tree walk and its
+    raw score in row order."""
+
+    def __init__(self, ds: BinnedDataset, device):
+        self.bins = ds.device_bins(device)
+        self.num_bins = torch.as_tensor(ds.feature_num_bins(), device=device)
+        self.default_bins = torch.as_tensor(
+            np.array([m.default_bin for m in ds.bin_mappers], np.int32),
+            device=device)
+        self.score = torch.zeros(ds.num_data, dtype=torch.float32,
+                                 device=device)
+        if ds.metadata.init_score is not None:
+            self.score += torch.as_tensor(
+                np.asarray(ds.metadata.init_score, np.float32).reshape(-1),
+                device=device)
+
+    def add_constant(self, val: float) -> None:
+        self.score += val
 
 
 def check_supported(cfg: Config) -> None:
@@ -63,8 +100,6 @@ def check_supported(cfg: Config) -> None:
         no("GOSS", "queue 1, item 11: boosting modes")
     if cfg.boosting != "gbdt":
         no("boosting=%s" % cfg.boosting, "queue 1, item 11: boosting modes")
-    if cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0:
-        no("bagging", "queue 1, item 11: bagging")
     if cfg.num_class > 1:
         no("multiclass", "queue 1, item 11: objectives")
     if cfg.forcedsplits_filename:
@@ -99,9 +134,20 @@ class GBDT:
         self.feature_names: List[str] = []
         self.feature_infos: List[str] = []
         self._feat_rng = np.random.RandomState(config.feature_fraction_seed)
+        # bagging (gbdt.py:159, :419-433): one RandomState per booster; the
+        # bag as the JAX mask (int32 [n]: 0 in the bag, -1 out), its
+        # predicate on the device (uint8 [n]) and its row count
+        self._bag_rng = np.random.RandomState(config.bagging_seed)
+        self._bag_mask: Optional[np.ndarray] = None
+        self._bag_pred: Optional[torch.Tensor] = None
+        self._bag_count: Optional[int] = None
+        self.train_metrics: List[Metric] = []
+        self.valid_states: List[Tuple[str, _DatasetState, List[Metric]]] = []
         self._truncation_warned = False
         self._quantized = False
-        self._carried_active = False
+        # None until the first iteration that may run the carried arena
+        # decides (gbdt.py:548-551); False for good once it is left
+        self._carried_active: Optional[bool] = None
         if train_set is not None:
             self._setup_train(train_set)
 
@@ -168,9 +214,6 @@ class GBDT:
                            dev, quantized=self._quantized)
         init_pristine(self.arena, ds.device_bins(dev).t())
         self.max_leaves = L
-        self._carried_active = self._carried_ok()
-        if self._carried_active:
-            self._init_carried()
 
     def _carried_ok(self) -> bool:
         """gbdt.py:847-869: the objective's carry gate, and a bump region
@@ -212,10 +255,38 @@ class GBDT:
         if self.config.boost_from_average:
             init_score = self.objective.boost_from_score(0)
             if abs(init_score) > K_EPSILON:
-                self.score += init_score
+                self._add_constant(init_score)
                 log.info("Start training from score %f", init_score)
                 return init_score
         return 0.0
+
+    def _add_constant(self, val: float) -> None:
+        """Add val to the training score and every validation score."""
+        self.score += val
+        for _, vs, _m in self.valid_states:
+            vs.add_constant(val)
+
+    def _bagging(self, it: int) -> Optional[torch.Tensor]:
+        """gbdt.py:419-433: every bagging_freq iterations a new bag of
+        int(bagging_fraction * n) rows drawn without replacement by the
+        booster's one RandomState; between draws the bag persists.  Returns
+        the in-bag predicate (uint8 [n] on the device), or None without
+        bagging."""
+        cfg = self.config
+        n = self.num_data
+        if cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0 \
+                and it % cfg.bagging_freq == 0:
+            bag_cnt = int(cfg.bagging_fraction * n)
+            idx = self._bag_rng.choice(n, bag_cnt, replace=False)
+            mask = np.full(n, -1, np.int32)
+            mask[idx] = 0
+            self._bag_mask = mask
+            self._bag_pred = torch.as_tensor((mask == 0).astype(np.uint8),
+                                             device=self.device)
+            self._bag_count = bag_cnt
+        elif cfg.bagging_freq <= 0 or cfg.bagging_fraction >= 1.0:
+            self._bag_mask = self._bag_pred = self._bag_count = None
+        return self._bag_pred
 
     def train_one_iter(self) -> bool:
         """One boosting round; True when training cannot continue (no leaf
@@ -227,12 +298,41 @@ class GBDT:
             if not self.models:
                 output = self.objective.boost_from_score(0)
                 new_tree.as_constant(output)
-                self.score += output
+                self._add_constant(output)
             self.models.append(new_tree)
             self.iter += 1
             return False
+        # gbdt.py:518-533: the fused paths need every row in the bag and no
+        # host tree within the iteration (no validation set or metric)
+        deferred_ok = not self.valid_states and not self.train_metrics
+        fused_ok = deferred_ok and (cfg.bagging_freq <= 0
+                                    or cfg.bagging_fraction >= 1.0)
+        if self._carried_active and not fused_ok:
+            # left for good (gbdt.py:542-545): the score is in row order,
+            # and this tree's work region may overwrite the carry slots
+            self._carried_active = False
+        if fused_ok and self._carried_active is None:
+            self._carried_active = self._carried_ok()
+            if self._carried_active:
+                self._init_carried()
         grad, hess = self.objective.get_gradients(self.score)
         grad, hess = grad.to(torch.float32), hess.to(torch.float32)
+        if fused_ok:
+            return self._fused_iter(grad, hess, init_score)
+        return self._eager_iter(grad, hess, init_score, deferred_ok)
+
+    def _grow(self, grad, hess, emit: str, **kw):
+        cfg = self.config
+        return grow_tree_partition(
+            self.arena, grad, hess,
+            self._feature_sample(), self.num_bins, self.default_bins,
+            self.missing_types, self.split_params, self.monotone,
+            self.penalty, max_leaves=self.max_leaves,
+            max_depth=cfg.max_depth, max_bin=self.max_bin, emit=emit, **kw)
+
+    def _fused_iter(self, grad, hess, init_score: float) -> bool:
+        """The fused paths' iteration (gbdt.py:719-1016): every row in the
+        bag, the score updated from the grower's per-row leaf values."""
         kw = {}
         if self._carried_active:
             p = self._carry_parity
@@ -253,20 +353,67 @@ class GBDT:
             grad, hess, g_scale, h_scale = qz.quantize_gradients(grad, hess,
                                                                  key)
             kw["quant_scales"] = (g_scale, h_scale)
-        arrays, delta, truncated = grow_tree_partition(
-            self.arena, grad, hess,
-            self._feature_sample(), self.num_bins, self.default_bins,
-            self.missing_types, self.split_params, self.monotone,
-            self.penalty, max_leaves=self.max_leaves,
-            max_depth=cfg.max_depth, max_bin=self.max_bin, emit="score",
-            **kw)
+        arrays, delta, truncated = self._grow(grad, hess, "score", **kw)
         if self._carried_active:
             self._carry_parity = 1 - p
         self.score += delta * torch.tensor(self.shrinkage_rate,
                                            dtype=torch.float32)
+        host_arrays = self._fetch_tree(arrays, truncated)
+        if int(host_arrays.num_leaves) <= 1:
+            return self._degenerate(init_score)
+        new_tree = Tree.from_arrays(host_arrays, self.train_set)
+        new_tree.shrink(self.shrinkage_rate)
+        return self._append(new_tree, init_score)
+
+    def _eager_iter(self, grad, hess, init_score: float,
+                    deferred_ok: bool) -> bool:
+        """The eager path's iteration (gbdt.py:593-687, growing through
+        `_grow_one_tree`, :1372-1417): the bag, the pristine root, per-row
+        leaf ids (-1 out of the bag), and the score updates."""
+        in_bag = self._bagging(self.iter)
+        kw = {}
+        if self._quantized:
+            # the iteration's key unfolded, noise and scales over all n rows
+            # in row order, out-of-bag rows included (gbdt.py:1383-1388)
+            grad, hess, g_scale, h_scale = qz.quantize_gradients(
+                grad, hess, qz.quantize_key(self._quant_seed, self.iter))
+            kw["quant_scales"] = (g_scale, h_scale)
+        arrays, leaf_ids, truncated = self._grow(grad, hess, "leaf_ids",
+                                                 in_bag=in_bag, **kw)
+        host_arrays = self._fetch_tree(arrays, truncated)
+        nl = int(host_arrays.num_leaves)
+        if nl <= 1:
+            return self._degenerate(init_score)
+        new_tree = Tree.from_arrays(host_arrays, self.train_set)
+        if deferred_ok:
+            # gbdt.py:1103 (deferred): the device tree's f32 leaf values
+            # times the f32 shrinkage
+            lv = arrays.leaf_value * torch.tensor(self.shrinkage_rate,
+                                                  dtype=torch.float32)
+        new_tree.shrink(self.shrinkage_rate)
+        if not deferred_ok:
+            # gbdt.py:1623: the host tree's f64-shrunk values, cast to f32
+            lv = torch.as_tensor(new_tree.leaf_value[:nl].astype(np.float32),
+                                 device=self.device)
+        if in_bag is not None:
+            # out-of-bag rows by the binned walk (gbdt.py:1104-1109)
+            walked = predict_leaf_inner(
+                self.train_set.device_bins(self.device), arrays,
+                self.num_bins, self.default_bins,
+                depth=int(host_arrays.leaf_depth[:nl].max()))
+            leaf_ids = torch.where(leaf_ids >= 0, leaf_ids, walked)
+        self.score += lv[leaf_ids.clamp(0, nl - 1).long()]
+        for _, vs, _m in self.valid_states:
+            self._add_tree_score(vs, new_tree)
+        return self._append(new_tree, init_score)
+
+    def _fetch_tree(self, arrays: TreeArrays,
+                    truncated: torch.Tensor) -> TreeArrays:
+        """The one host fetch of a tree (ints and f32 are exact in f64),
+        with the arena-truncation flag riding it; warns once on
+        truncation."""
         ivec, fvec = pack_tree_arrays(arrays)
         ivec = torch.cat([ivec, truncated.to(torch.int32).view(1)])
-        # the one host fetch of the tree (ints and f32 are exact in f64)
         host = torch.cat([ivec.double(), fvec.double()]).cpu().numpy()
         ivec_h, fvec_h = host[:ivec.shape[0]], host[ivec.shape[0]:]
         host_arrays = unpack_tree_vectors(ivec_h, fvec_h.astype(np.float32),
@@ -276,23 +423,74 @@ class GBDT:
             log.warning("Tree growth truncated at %d leaves by partition-"
                         "arena overflow; raise tpu_arena_factor",
                         int(host_arrays.num_leaves))
-        new_tree = Tree(1)
-        if int(host_arrays.num_leaves) > 1:
-            new_tree = Tree.from_arrays(host_arrays, self.train_set)
-            new_tree.shrink(self.shrinkage_rate)
-            if abs(init_score) > K_EPSILON:
-                new_tree.add_bias(init_score)
-            self.models.append(new_tree)
-            self.iter += 1
-            return False
+        return host_arrays
+
+    def _append(self, tree: Tree, init_score: float) -> bool:
+        if abs(init_score) > K_EPSILON:
+            tree.add_bias(init_score)
+        self.models.append(tree)
+        self.iter += 1
+        return False
+
+    def _degenerate(self, init_score: float) -> bool:
         if not self.models:
             # a degenerate first iteration keeps the prior as a constant
+            new_tree = Tree(1)
             new_tree.as_constant(init_score)
-            self.score += init_score
+            self._add_constant(init_score)
             self.models.append(new_tree)
         log.warning("Stopped training because there are no more leaves that "
                     "meet the split requirements")
         return True
+
+    # ------------------------------------------------------------------ #
+    # validation sets and metrics (gbdt.py:398-414, :1649-1667, :2233-2243)
+    # ------------------------------------------------------------------ #
+    def add_valid(self, name: str, valid_set: BinnedDataset,
+                  metrics: Sequence[Metric]) -> None:
+        """Attach a validation set binned with the training set's mappers;
+        the model so far is replayed onto its score."""
+        state = _DatasetState(valid_set, self.device)
+        for m in metrics:
+            m.init(valid_set.metadata, valid_set.num_data)
+        for tree in self.models:
+            self._add_tree_score(state, tree)
+        self.valid_states.append((name, state, list(metrics)))
+
+    def _add_tree_score(self, state: _DatasetState, tree: Tree) -> None:
+        """Add a host tree's output to a dataset's score by the binned walk
+        on the device."""
+        if tree.num_leaves <= 1:
+            state.add_constant(float(tree.leaf_value[0]))
+            return
+        arrays, depth = _tree_to_device(tree, self.device)
+        leaf = predict_leaf_inner(state.bins, arrays, state.num_bins,
+                                  state.default_bins, depth=depth)
+        lv = torch.as_tensor(
+            tree.leaf_value[:tree.num_leaves].astype(np.float32),
+            device=self.device)
+        state.score += lv[leaf.long()]
+
+    def eval_train(self) -> Dict[str, List[float]]:
+        return self._eval_state(self.score, self.train_metrics)
+
+    def eval_valid(self) -> Dict[str, Dict[str, List[float]]]:
+        return {name: self._eval_state(vs.score, metrics)
+                for name, vs, metrics in self.valid_states}
+
+    def _eval_state(self, score: torch.Tensor,
+                    metrics: Sequence[Metric]) -> Dict[str, List[float]]:
+        out = {}
+        if not metrics:
+            return out
+        flat = score.cpu().numpy().astype(np.float64)
+        for m in metrics:
+            out[m.name] = m.eval(flat, self.objective)
+        return out
+
+    @property
+    def current_iteration(self) -> int:
+        return len(self.models)
 
     # ------------------------------------------------------------------ #
     def predict_raw(self, X: np.ndarray, num_iteration: int = -1
@@ -407,3 +605,42 @@ def _feature_infos(ds: BinnedDataset) -> List[str]:
 def _repr_g(v: float) -> str:
     return np.format_float_positional(v, precision=17, trim="-",
                                       fractional=False)
+
+
+def _tree_to_device(tree: Tree, device) -> Tuple[TreeArrays, int]:
+    """A host tree's node arrays on the device for the binned walk
+    (gbdt.py:2246-2310), and its depth: the walk's level count."""
+    nl = tree.num_leaves
+    n = nl - 1
+    dt = tree.decision_type[:n].astype(np.int32)
+    if (dt & K_CATEGORICAL_MASK).any():
+        raise NotImplementedError("categorical splits are not ported yet "
+                                  "(ROADMAP.md queue 1, item 11)")
+
+    def t(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype), device=device)
+
+    zn = np.zeros(n)
+    zl = np.zeros(nl)
+    arrays = TreeArrays(
+        split_feature=t(tree.split_feature_inner[:n], np.int32),
+        threshold_bin=t(tree.threshold_in_bin[:n], np.int32),
+        default_left=t((dt & K_DEFAULT_LEFT_MASK) > 0, bool),
+        missing_type=t((dt >> 2) & 3, np.int32),
+        left_child=t(tree.left_child[:n], np.int32),
+        right_child=t(tree.right_child[:n], np.int32),
+        split_gain=t(zn, np.float32), internal_value=t(zn, np.float32),
+        internal_count=t(zn, np.int32),
+        leaf_value=t(tree.leaf_value[:nl], np.float32),
+        leaf_count=t(zl, np.int32), leaf_parent=t(zl, np.int32),
+        leaf_depth=t(zl, np.int32), num_leaves=t(nl, np.int32),
+        is_cat=t(zn, bool), cat_mask=t(np.zeros((n, 0)), bool))
+    depth, stack = 0, [(0, 0)]
+    while stack:
+        node, d = stack.pop()
+        if node < 0:
+            depth = max(depth, d)
+            continue
+        stack += [(int(tree.left_child[node]), d + 1),
+                  (int(tree.right_child[node]), d + 1)]
+    return arrays, depth

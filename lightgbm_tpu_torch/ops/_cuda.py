@@ -50,7 +50,12 @@ _ENTRY_POINTS = {
         "lgbt_partition_segment": [_P, _P, _P, _LL, _P, _P, _P, _LL, _P, _P,
                                    _P, _I, _I, _P],
         "lgbt_partition_segment_i8": [_P, _P, _P, _LL, _P, _P, _P, _LL, _P,
-                                      _P, _P, _I, _I, _P]},
+                                      _P, _P, _I, _I, _P],
+        "lgbt_partition_segment_pred": [_P, _P, _P, _LL, _P, _P, _P, _LL, _P,
+                                        _P, _LL, _P, _I, _I, _P, _I, _I, _P],
+        "lgbt_partition_segment_pred_i8": [_P, _P, _P, _LL, _P, _P, _P, _LL,
+                                           _P, _P, _LL, _P, _I, _I, _P, _I,
+                                           _I, _P]},
     "scatter_segments": {
         "lgbt_scatter_segments_f32": [_P, _P, _P, _P, _P, _I, _I, _P],
         "lgbt_scatter_segments_i32": [_P, _P, _P, _P, _P, _I, _I, _P]},

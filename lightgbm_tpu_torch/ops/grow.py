@@ -1,8 +1,9 @@
-"""Tree arrays shared by the grower and the model.
+"""Tree arrays shared by the grower and the model, and the binned tree walk.
 
-Port of the `TreeArrays` record, the `MISSING_*` constants and
-`pack_tree_arrays` / `unpack_tree_vectors` of lightgbm_tpu/ops/grow.py
-(:34-36, :109-133, :690-746).
+Port of the `TreeArrays` record, the `MISSING_*` constants,
+`pack_tree_arrays` / `unpack_tree_vectors` and `predict_leaf_inner` of
+lightgbm_tpu/ops/grow.py (:34-36, :109-133, :690-746, :856-901).  The walk
+is plain tensor code, as it is plain `jnp` in JAX: no kernel.
 """
 from __future__ import annotations
 
@@ -77,6 +78,51 @@ def pack_tree_arrays(t: TreeArrays):
         else:
             ints.append(x.reshape(-1).to(torch.int32))
     return torch.cat(ints), torch.cat(floats)
+
+
+def predict_leaf_inner(bins: torch.Tensor, tree: TreeArrays,
+                       num_bins: torch.Tensor, default_bins: torch.Tensor,
+                       depth: int) -> torch.Tensor:
+    """Leaf index (int32 [n]) per row by walking the tree over the inner
+    bins [n, F] (Tree::GetLeafAt + DecisionInner, tree.h:233-248, 289-296),
+    as lightgbm_tpu/ops/grow.py:856-901 does.
+
+    Vectorized node walk: every row holds a current node (>= 0 internal,
+    negative = ~leaf), routed by threshold and missing type (zero: the
+    feature's default bin; NaN: its last bin) as the grower decides.  The
+    JAX loop tests `any(node >= 0)` each level; here that test would be a
+    host sync per level, so the caller passes the tree's depth (its largest
+    leaf depth, which the one fetch per tree brings) and the walk runs
+    exactly that many levels with no sync.  Categorical nodes and EFB
+    bundles are not ported."""
+    if tree.cat_mask.shape[1] > 0:
+        raise NotImplementedError(
+            "categorical splits are not ported yet (ROADMAP.md queue 1, "
+            "item 11)")
+    n = bins.shape[0]
+    dev = bins.device
+    # a single-leaf tree starts every row at ~0, leaf 0
+    start = torch.where(torch.as_tensor(tree.num_leaves, device=dev) > 1,
+                        0, ~0).to(torch.int64)
+    node = start.expand(n).clone()
+    feat_all = tree.split_feature.long()
+    thr = tree.threshold_bin.long()
+    mt_all = tree.missing_type.long()
+    left, right = tree.left_child.long(), tree.right_child.long()
+    db_all = default_bins.long()
+    mb_all = num_bins.long() - 1
+    for _ in range(depth):
+        nd = node.clamp_min(0)
+        feat = feat_all[nd]
+        col = bins.gather(1, feat[:, None])[:, 0].long()
+        mt = mt_all[nd]
+        is_missing = (((mt == MISSING_ZERO) & (col == db_all[feat]))
+                      | ((mt == MISSING_NAN) & (col == mb_all[feat])))
+        go_left = torch.where(is_missing, tree.default_left[nd],
+                              col <= thr[nd])
+        nxt = torch.where(go_left, left[nd], right[nd])
+        node = torch.where(node >= 0, nxt, node)
+    return (~node).to(torch.int32)
 
 
 def unpack_tree_vectors(ivec, fvec, max_leaves: int,

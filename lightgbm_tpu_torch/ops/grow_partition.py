@@ -1,13 +1,19 @@
 """Partition-engine leaf-wise tree growth (serial learner, numerical data).
 
 Port of `grow_tree_partition_impl` (lightgbm_tpu/ops/grow_partition.py:91)
-in the forms the GBDT driver's fused paths run it: serial, numerical
-features, every row in the bag (`full_bag`), a dense per-leaf histogram
-cache, `emit="score"|"leaf_ids"`, f32 or quantized gradients, and the
-pristine or the carried root.  Rows live grouped by leaf in the arena
-(ops/partition_kernel.py), so each split costs O(parent) to partition and
-O(smaller child) to histogram; the sibling's histogram comes by subtraction
-from the parent's.
+in the forms models/gbdt.py runs it: serial, numerical features, every
+row in the bag (`full_bag`) or a bag of rows (`in_bag`), a dense per-leaf
+histogram cache, `emit="score"|"leaf_ids"`, f32 or quantized gradients,
+and the pristine or the carried root.  Rows live grouped by leaf in the
+arena (ops/partition_kernel.py), so each split costs O(parent) to
+partition and O(smaller child) to histogram; the sibling's histogram comes
+by subtraction from the parent's.
+
+Bagged mode (`in_bag`, grow_partition.py:269-285): the gradients are
+written in row order to the pristine block, and one K3 pass in pred mode
+compacts the in-bag rows to `work0`, dumps the out-of-bag rows past them
+and builds the in-bag root histogram (hist_stream=0); the bump region
+starts past the dump, and the root count is the kernel's device count.
 
 Segments come from a bump allocator in ALLOC=256-column units: the larger
 child is rewritten in place over its parent (stream A; the pristine root's
@@ -47,8 +53,8 @@ from .grow import TreeArrays
 from .partition_kernel import (ALLOC, SC_CNT_A, SC_CNT_B, SC_DST_B, SC_LEN,
                                TILE, Arena, compact_carry,
                                fused_refresh_histogram, partition_segment,
-                               pristine_work0, scatter_segments,
-                               segment_histogram)
+                               partition_segment_pred, pristine_work0,
+                               scatter_segments, segment_histogram)
 from .quantize import dequantize_hist
 from .split import SplitParams
 from .split_kernel import (_OF, _OG, _OLC, _OLG, _OLH, _OLO, _ODL, _ORC, _ORG,
@@ -86,7 +92,8 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
                                                      torch.Tensor]] = None,
                         carried_root: Optional[int] = None,
                         carried_bump0: int = 0,
-                        carry_dst: Optional[int] = None):
+                        carry_dst: Optional[int] = None,
+                        in_bag: Optional[torch.Tensor] = None):
     """Grow one leaf-wise tree on the arena's rows.
 
     grad and hess [n] are f32 for an f32 arena; for a quantized arena they
@@ -94,10 +101,15 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
     in the order of the root segment: row order for the pristine root,
     the block's order for a carried root at column `carried_root`.
 
+    in_bag (uint8 [n], 1 for the rows in the bag) grows the tree on the
+    bagged rows only: the root pass (K3 in pred mode) compacts them to
+    `work0`, dumps the others past them, and builds the root histogram in
+    the same pass; the root count stays on the device.
+
     Returns (TreeArrays on the arena's device, out [n], truncated): out is
     each row's unshrunk leaf value (emit="score") or leaf id
-    (emit="leaf_ids") in row order; truncated is a 0-d bool tensor, True
-    when the arena ran out of room."""
+    (emit="leaf_ids", -1 for rows out of the bag) in row order; truncated
+    is a 0-d bool tensor, True when the arena ran out of room."""
     dev = arena.device
     n, G = arena.num_data, arena.num_groups
     F = num_bins.shape[0]
@@ -116,7 +128,16 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
     f32, i64 = torch.float32, torch.long
     work0 = pristine_work0(n)
     cap = arena.cap
-    if carried_root is None:
+    if in_bag is not None:
+        if carried_root is not None:
+            raise ValueError("a carried root holds every row: no in_bag")
+        # grow_partition.py:269-285: in-bag rows to the work region (the
+        # first split then rewrites them in place), the out-of-bag dump
+        # past them, the bump region past both
+        root_s0 = work0
+        oob_dst = work0 + _align(n, TILE)
+        cursor0 = oob_dst + _align(n, TILE)
+    elif carried_root is None:
         root_s0 = 0
         cursor0 = work0 + _align(n, TILE)
     else:
@@ -140,17 +161,32 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
 
     # ---- root ---------------------------------------------------------------
     # per-tree assembly: only the root's payload planes change; quantized,
-    # K5 writes the codes while it builds the root histogram
-    sc0 = torch.tensor([root_s0, n] + [0] * (SC_LEN - 2), dtype=torch.int32,
-                       device=dev)
-    if arena.quantized:
-        root_hist = dequantize_hist(
-            fused_refresh_histogram(arena, torch.stack([grad, hess]),
-                                    sc0[0:2], B), g_scale, h_scale)
+    # K5 writes the codes while it builds the root histogram; bagged, the
+    # payload goes to the pristine block in row order and K3 in pred mode
+    # moves the rows and histograms the bag in one pass
+    if in_bag is not None:
+        arena.payload[0, :n] = grad
+        arena.payload[1, :n] = hess
+        sc0 = torch.tensor([0, n, root_s0, oob_dst] + [0] * (SC_LEN - 4),
+                           dtype=torch.int32, device=dev)
+        root_hist = partition_segment_pred(arena, sc0, in_bag, hist_stream=0,
+                                           max_bin=B)
+        if arena.quantized:
+            root_hist = dequantize_hist(root_hist, g_scale, h_scale)
+        root_cnt = sc0[SC_CNT_A:SC_CNT_A + 1]
     else:
-        arena.payload[0, root_s0:root_s0 + n] = grad
-        arena.payload[1, root_s0:root_s0 + n] = hess
-        root_hist = seg_hist(sc0[0:2])
+        root_cnt = torch.full((1,), n, dtype=torch.int32, device=dev)
+        sc0 = torch.tensor([root_s0, n] + [0] * (SC_LEN - 2),
+                           dtype=torch.int32, device=dev)
+        if arena.quantized:
+            root_hist = dequantize_hist(
+                fused_refresh_histogram(arena, torch.stack([grad, hess]),
+                                        sc0[0:2], B), g_scale, h_scale)
+        else:
+            arena.payload[0, root_s0:root_s0 + n] = grad
+            arena.payload[1, root_s0:root_s0 + n] = hess
+            root_hist = seg_hist(sc0[0:2])
+    root_cnt_f = root_cnt.to(f32)
     root_g = root_hist[0, :, 0].sum()
     root_h = root_hist[0, :, 1].sum()
     fvec1 = build_feature_statics(num_bins, default_bins, missing_types,
@@ -160,7 +196,7 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
     pvec = params_vector(params, dev)
     root_row = split_scan(root_hist.unsqueeze(0), fvec1,
                           child_vector(root_g.view(1), root_h.view(1),
-                                       torch.full((1,), float(n), device=dev)),
+                                       root_cnt_f),
                           pvec)[1][0]
 
     split_cache = no_split_row(dev).repeat(L, 1)
@@ -169,10 +205,10 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
     leaf_mat[:, _LP] = -1.0
     leaf_mat[:, _LMIN] = -torch.inf
     leaf_mat[:, _LMAX] = torch.inf
-    leaf_mat[0, _LC] = float(n)
+    leaf_mat[0, _LC] = root_cnt_f[0]
     leaf_seg = torch.zeros((L, 2), dtype=torch.int32, device=dev)
     leaf_seg[0, 0] = root_s0
-    leaf_seg[0, 1] = n
+    leaf_seg[0, 1] = root_cnt[0]
     node_mat = torch.zeros((N, 10), dtype=f32, device=dev)
     hist_cache = torch.zeros((L,) + tuple(root_hist.shape), dtype=f32,
                              device=dev)

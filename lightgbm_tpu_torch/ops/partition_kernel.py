@@ -22,7 +22,10 @@ tensors:
   sums in quantized mode;
 - K3 `partition_segment`: the stable two-way split of a segment by a
   go-left mask over one channel's bins (`_partition_kernel`, decision
-  mode), moving whichever payload the arena holds;
+  mode), moving whichever payload the arena holds; and
+  `partition_segment_pred`, the same split by a per-column predicate (its
+  pred mode, the bagged root), optionally building one stream's histogram
+  in the same pass (its hist_stream mode);
 - K4 `scatter_segments`: per-row values from the live segments
   (`_compact_rows_kernel` together with its consumer's sort by row id);
 - K5 `fused_refresh_histogram`: writes a segment's code planes and returns
@@ -39,6 +42,8 @@ the bump allocator runs out of room on the same trees.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import _cuda
@@ -52,6 +57,7 @@ SC_START, SC_CNT, SC_DST_A, SC_DST_B, SC_CNT_B, SC_CNT_A, SC_CHAN, SC_XR = \
 SC_LEN = 8
 
 PARTITION_BLOCKS = 1024   # fixed grids: the host never learns a segment size
+PRED_BLOCKS = 264         # pred mode: two blocks an SM with a histogram each
 HIST_BLOCKS = 264
 SCATTER_BLOCKS = 64
 
@@ -137,28 +143,34 @@ def code_histogram_plain(bins: torch.Tensor, codes: torch.Tensor,
     return out.to(torch.int32)
 
 
-def segment_histogram_plain(arena: Arena, seg: torch.Tensor,
-                            max_bin: int) -> torch.Tensor:
-    """Quantized arena: the exact int32 code sums.  f32 arena: the
-    histogram accumulated in f64 and rounded once to f32, since a sum of
-    tens of thousands of rows in one f32 accumulator would itself be off
-    by more than the kernel's tolerance."""
-    start, cnt = (int(v) for v in seg.tolist())
-    bins = arena.bins[:, start:start + cnt]
+def _columns_histogram_plain(arena: Arena, cols, max_bin: int
+                             ) -> torch.Tensor:
+    """Quantized arena: the exact int32 code sums of the arena columns
+    `cols` (a slice or an index tensor).  f32 arena: the histogram
+    accumulated in f64 and rounded once to f32, since a sum of tens of
+    thousands of rows in one f32 accumulator would itself be off by more
+    than the kernels' tolerance."""
+    bins = arena.bins[:, cols]
+    payload = arena.payload[:, cols]
     if arena.quantized:
-        return code_histogram_plain(bins, arena.payload[:, start:start + cnt],
-                                    max_bin)
-    G = arena.num_groups
+        return code_histogram_plain(bins, payload, max_bin)
+    G, cnt = bins.shape
     dev = arena.bins.device
     flat = (torch.arange(G, device=dev)[:, None] * max_bin
             + bins.long()).reshape(-1)
-    gh = arena.payload[:, start:start + cnt].double()
+    gh = payload.double()
     g = gh[0].expand(G, cnt).reshape(-1)
     h = gh[1].expand(G, cnt).reshape(-1)
     vals = torch.stack([g, h, torch.ones_like(g)], dim=1)
     out = torch.zeros((G * max_bin, 3), dtype=torch.float64, device=dev)
     out.index_add_(0, flat, vals)
     return out.reshape(G, max_bin, 3).to(torch.float32)
+
+
+def segment_histogram_plain(arena: Arena, seg: torch.Tensor,
+                            max_bin: int) -> torch.Tensor:
+    start, cnt = (int(v) for v in seg.tolist())
+    return _columns_histogram_plain(arena, slice(start, start + cnt), max_bin)
 
 
 def segment_histogram(arena: Arena, seg: torch.Tensor,
@@ -237,12 +249,13 @@ def fused_refresh_bytes(cnt: int, G: int, max_bin: int) -> int:
 # --------------------------------------------------------------------------- #
 # K3: partition
 # --------------------------------------------------------------------------- #
-def partition_segment_plain(arena: Arena, sc: torch.Tensor,
-                            goleft: torch.Tensor) -> None:
-    start, cnt, dst_a, dst_b, _, _, chan, xr = (int(v) for v in sc.tolist())
+def _move_streams_plain(arena: Arena, sc: torch.Tensor,
+                        is_a: torch.Tensor) -> None:
+    """Move the segment's rows with is_a (bool [cnt]) to stream A at
+    sc[DST_A] and the others to stream B at sc[DST_B], both in segment
+    order; write the counts to sc."""
+    start, cnt, dst_a, dst_b = (int(v) for v in sc[:SC_DST_B + 1].tolist())
     cols = torch.arange(start, start + cnt, device=arena.bins.device)
-    go = goleft[arena.bins[chan, start:start + cnt].long()] != 0
-    is_a = go ^ bool(xr)
     ca, cb = cols[is_a], cols[~is_a]
     na, nb = int(ca.numel()), int(cb.numel())
     for plane in (arena.bins, arena.payload):
@@ -254,6 +267,13 @@ def partition_segment_plain(arena: Arena, sc: torch.Tensor,
     arena.rid[dst_b:dst_b + nb] = b_rid
     sc[SC_CNT_B] = nb
     sc[SC_CNT_A] = na
+
+
+def partition_segment_plain(arena: Arena, sc: torch.Tensor,
+                            goleft: torch.Tensor) -> None:
+    start, cnt, _, _, _, _, chan, xr = (int(v) for v in sc.tolist())
+    go = goleft[arena.bins[chan, start:start + cnt].long()] != 0
+    _move_streams_plain(arena, sc, go ^ bool(xr))
 
 
 def partition_segment(arena: Arena, sc: torch.Tensor,
@@ -285,6 +305,82 @@ def partition_bytes(cnt: int, G: int, quantized: bool = False) -> int:
     """Bytes K3 must move: each row's planes (G bins, the payload, a 4-byte
     row id) read once and written once."""
     return 2 * cnt * (G + (6 if quantized else 12))
+
+
+def _pred_rows(pred: torch.Tensor, start: int, cnt: int) -> torch.Tensor:
+    """pred[col] != 0 for the segment's columns; 0 past pred's length."""
+    out = torch.zeros(cnt, dtype=torch.bool, device=pred.device)
+    inside = max(0, min(cnt, pred.shape[0] - start))
+    out[:inside] = pred[start:start + inside] != 0
+    return out
+
+
+def partition_segment_pred_plain(arena: Arena, sc: torch.Tensor,
+                                 pred: torch.Tensor,
+                                 hist_stream: Optional[int] = None,
+                                 max_bin: int = 0) -> Optional[torch.Tensor]:
+    start, cnt = (int(v) for v in sc[:SC_CNT + 1].tolist())
+    is_a = _pred_rows(pred, start, cnt)
+    hist = None
+    if hist_stream is not None:
+        cols = torch.arange(start, start + cnt, device=arena.bins.device)
+        cols = cols[is_a if hist_stream == 0 else ~is_a]
+        hist = _columns_histogram_plain(arena, cols, max_bin)
+    _move_streams_plain(arena, sc, is_a)
+    return hist
+
+
+def partition_segment_pred(arena: Arena, sc: torch.Tensor, pred: torch.Tensor,
+                           hist_stream: Optional[int] = None,
+                           max_bin: int = 0) -> Optional[torch.Tensor]:
+    """Stable split of [sc[START], +sc[CNT]) by a per-column predicate:
+    rows whose column col holds pred[col] != 0 go to stream A at sc[DST_A],
+    the others to stream B at sc[DST_B] (which must not overlap the
+    segment); columns at or past pred's length read as 0.  pred is uint8
+    [m], indexed by arena column as the JAX kernel indexes its [1, cap]
+    predicate.  Writes the counts to sc[CNT_A] and sc[CNT_B].
+
+    With hist_stream (0: stream A, 1: stream B) it also returns that
+    stream's [G, max_bin, 3] histogram, built in the same pass: f32 sums
+    for an f32 arena, exact int32 code sums for a quantized one."""
+    dev = arena.device
+    _cuda.require(sc, "sc", torch.int32, dev, (SC_LEN,))
+    _cuda.require(pred, "pred", torch.uint8, dev)
+    if pred.dim() != 1:
+        raise ValueError("pred: shape %s, expected (m,)"
+                         % (tuple(pred.shape),))
+    if hist_stream not in (None, 0, 1):
+        raise ValueError("hist_stream must be None, 0 or 1, got %r"
+                         % (hist_stream,))
+    if hist_stream is not None:
+        _check_max_bin(max_bin)
+    if not _cuda.plain_or_cuda(dev):
+        return partition_segment_pred_plain(arena, sc, pred, hist_stream,
+                                            max_bin)
+    hist = None
+    if hist_stream is not None:
+        hist = torch.zeros(
+            (arena.num_groups, max_bin, 3), device=dev,
+            dtype=torch.int32 if arena.quantized else torch.float32)
+    name = ("partition_segment_pred_i8" if arena.quantized
+            else "partition_segment_pred")
+    rc = _cuda.fn("lgbt_" + name)(
+        arena.bins.data_ptr(), arena.payload.data_ptr(), arena.rid.data_ptr(),
+        arena.cap, arena.s_bins.data_ptr(), arena.s_payload.data_ptr(),
+        arena.s_rid.data_ptr(), arena.scap, sc.data_ptr(), pred.data_ptr(),
+        pred.shape[0], arena.block_counts.data_ptr(), PRED_BLOCKS,
+        arena.num_groups, None if hist is None else hist.data_ptr(), max_bin,
+        0 if hist_stream is None else hist_stream, _cuda.stream())
+    _cuda.check(rc, name)
+    return hist
+
+
+def partition_pred_bytes(cnt: int, G: int, max_bin: int,
+                         quantized: bool = False) -> int:
+    """Bytes K3 in pred mode with a histogram must move: each row's planes
+    read once and written once, its predicate byte read once, and the
+    [G, max_bin, 3] histogram written once."""
+    return partition_bytes(cnt, G, quantized) + cnt + G * max_bin * 3 * 4
 
 
 # --------------------------------------------------------------------------- #

@@ -15,10 +15,16 @@ Tolerances, per kernel:
   |values| (shared-memory atomics add in a varying order; the plain version
   sums in f64);
 - K3 partition_segment and K4 scatter_segments: exact;
+- K3 in pred mode with the hist_stream histogram (the bagged root): counts
+  and planes exact; the histogram exact for codes, for f32 as K2's; at
+  G=28 and at G=80, whose [G, 255, 3] histogram exceeds one block's shared
+  memory (the kernel then walks its rows once more per feature chunk);
+- the binned tree walk: equal leaves on the card and the CPU;
 - K2 in int8 mode, K5 fused_refresh_histogram, K6 compact_carry and K3 with
   the code payload: exact (integer atomics are order-independent);
 - a grown tree on dyadic gradients (every sum exact in f32): the same
-  splits and leaf ids, leaf values rtol 1e-6;
+  splits and leaf ids, leaf values rtol 1e-6; the same for a bagged tree,
+  f32 and quantized, with -1 at the out-of-bag rows;
 - a quantized tree on a carried root, compacted by K6: the same splits,
   thresholds, leaf ids and carried row order, leaf values rtol 1e-6;
 - quantization: the same f32 gradients give equal codes and scales on the
@@ -33,6 +39,7 @@ import torch
 
 from lightgbm_tpu_torch.ops import partition_kernel as pk
 from lightgbm_tpu_torch.ops import split_kernel as sk
+from lightgbm_tpu_torch.ops.grow import predict_leaf_inner
 from lightgbm_tpu_torch.ops import quantize as qz
 from lightgbm_tpu_torch.ops.grow_partition import grow_tree_partition
 from lightgbm_tpu_torch.ops.split import SplitParams
@@ -423,3 +430,113 @@ def test_quantized_codes_card_vs_cpu(dev):
                            int((hess_k != hess_c).sum()), codes_differ,
                            bool(gsk.cpu() == gsc and hsk.cpu() == hsc),
                            sums["cpu"], sums[dev]))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("G", [28, 80])
+def test_partition_pred_hist_matches_plain(quantized, G, dev):
+    """The bagged root pass at 0.8 of the rows; G=80 at B=255 needs two
+    shared-memory chunks of features (66 + 14)."""
+    n = 300_000 if G == 28 else 100_000
+    if quantized:
+        (ak, ap), _ = _code_arenas(dev, n=n, F=G)
+    else:
+        ak, ap = _arenas(dev, n=n, F=G)
+    rng = np.random.RandomState(12)
+    pred = torch.from_numpy((rng.rand(n) < 0.8).astype(np.uint8)).to(dev)
+    work0 = pk.pristine_work0(n)
+    n_al = -(-n // pk.TILE) * pk.TILE
+    sc = torch.tensor([0, n, work0, work0 + n_al, 0, 0, 0, 0],
+                      dtype=torch.int32, device=dev)
+    sc_p = sc.clone()
+    got = pk.partition_segment_pred(ak, sc, pred, hist_stream=0, max_bin=255)
+    torch.cuda.synchronize()
+    want = pk.partition_segment_pred_plain(ap, sc_p, pred, 0, 255)
+    assert torch.equal(sc, sc_p)
+    assert int(sc[pk.SC_CNT_A]) == int(pred.sum())
+    assert torch.equal(ak.rid, ap.rid)
+    assert torch.equal(ak.bins, ap.bins)
+    assert torch.equal(ak.payload, ap.payload)
+    if quantized:
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+    else:
+        assert torch.equal(got[..., 2], want[..., 2])
+        rows = ap.payload[:, work0:work0 + int(sc[pk.SC_CNT_A])].clone()
+        ap.payload[0, work0:work0 + rows.shape[1]] = rows[0].abs()
+        seg = sc[[pk.SC_DST_A, pk.SC_CNT_A]].contiguous()
+        scale = pk.segment_histogram_plain(ap, seg, 255)
+        assert bool(((got - want).abs() <= 1e-5 * scale).all())
+
+
+def test_predict_leaf_inner_card_vs_cpu(dev):
+    """A 63-leaf tree grown on the CPU, walked over the same bins with every
+    missing type on the card and on the CPU."""
+    rng = np.random.RandomState(14)
+    n, F, B = 200_000, 8, 64
+    bins = torch.from_numpy(rng.randint(0, B, (F, n)).astype(np.uint8))
+    grad = torch.from_numpy(rng.randn(n).astype(np.float32))
+    hess = torch.from_numpy((rng.rand(n) + 0.1).astype(np.float32))
+    arena = pk.Arena(n, F, 4, "cpu")
+    pk.init_pristine(arena, bins)
+    nb = torch.full((F,), B, dtype=torch.int32)
+    db = torch.from_numpy(rng.randint(0, B, F).astype(np.int32))
+    mt = torch.arange(F, dtype=torch.int32) % 3
+    tree, _, _ = grow_tree_partition(
+        arena, grad, hess, torch.ones(F, dtype=torch.bool), nb, db, mt,
+        SplitParams(min_data_in_leaf=20), max_leaves=63, max_bin=B)
+    depth = int(tree.leaf_depth.max())
+    bins_rows = bins.t().contiguous()
+    want = predict_leaf_inner(bins_rows, tree, nb, db, depth=depth)
+    on_card = type(tree)(*(t.to(dev) for t in tree))
+    for d in (depth, depth + 3):
+        got = predict_leaf_inner(bins_rows.to(dev), on_card, nb.to(dev),
+                                 db.to(dev), depth=d)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_bagged_tree_matches_cpu(quantized, dev):
+    """One 63-leaf tree on a bag of 0.8 of the rows, its root by K3 in pred
+    mode with the hist_stream histogram, on the card against the CPU.
+    Gradients and hessians are multiples of 1/128 up to 127/128, so every
+    f32 sum is exact whatever its order, and quantized the scales are
+    exactly 1/128 and every dequantized sum exact too (the root's sum over
+    bins is an f32 sum in each library's order)."""
+    rng = np.random.RandomState(15)
+    n, F, B = 60_000, 8, 64
+    bins = torch.from_numpy(rng.randint(0, B, (F, n)).astype(np.uint8))
+    g = rng.randint(-127, 128, n)
+    h = rng.randint(1, 128, n)
+    g[0], h[0] = 127, 127
+    grad = torch.from_numpy((g / 128).astype(np.float32))
+    hess = torch.from_numpy((h / 128).astype(np.float32))
+    kw = {}
+    if quantized:
+        grad, hess, gs, hs = qz.quantize_gradients(grad, hess,
+                                                   qz.quantize_key(3, 2))
+    in_bag = torch.from_numpy((rng.rand(n) < 0.8).astype(np.uint8))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        arena = pk.Arena(n, F, 6, d, quantized=quantized)
+        pk.init_pristine(arena, bins.to(d))
+        if quantized:
+            kw = dict(quant_scales=(gs.to(d), hs.to(d)))
+        nb = torch.full((F,), B, dtype=torch.int32, device=d)
+        z = torch.zeros(F, dtype=torch.int32, device=d)
+        tree, ids, trunc = grow_tree_partition(
+            arena, grad.to(d), hess.to(d),
+            torch.ones(F, dtype=torch.bool, device=d), nb, z, z,
+            SplitParams(min_data_in_leaf=20), max_leaves=63, max_bin=B,
+            emit="leaf_ids", in_bag=in_bag.to(d), **kw)
+        out[d.type] = (tree, ids.cpu(), bool(trunc))
+    (tk, ik, fk), (tp, ip, fp) = out["cuda"], out["cpu"]
+    assert not fk and not fp
+    assert int(tk.num_leaves) == int(tp.num_leaves) == 63
+    assert int(tk.leaf_count.sum()) == int(in_bag.sum())
+    assert torch.equal(tk.split_feature.cpu(), tp.split_feature)
+    assert torch.equal(tk.threshold_bin.cpu(), tp.threshold_bin)
+    assert torch.equal(tk.leaf_count.cpu(), tp.leaf_count)
+    assert torch.equal(ik, ip)
+    assert torch.equal(ik < 0, in_bag == 0)
+    torch.testing.assert_close(tk.leaf_value.cpu(), tp.leaf_value, rtol=1e-6,
+                               atol=0.0)

@@ -6,10 +6,11 @@
   lightgbm_tpu (AST check);
 - entry points with no device and no CUDA raise, with no CPU fallback;
 - every configuration this slice does not run raises NotImplementedError
-  naming the ROADMAP.md item that brings it, and quantized training, which
-  it does run, engages;
+  naming the ROADMAP.md item that brings it, and quantized training and
+  bagging, which it does run, engage;
 - `Dataset.set_weight` moves training between the carried and pristine
-  arenas as weights demand.
+  arenas as weights demand, and a validation set keeps it off the carried
+  arena.
 """
 import ast
 import os
@@ -112,11 +113,23 @@ def test_kernel_wrappers_refuse_other_devices():
         _cuda.plain_or_cuda(torch.device("meta"))
 
 
+def _schedule(env):
+    """A per-round schedule callback, as reset_parameter makes one."""
+
+
+_schedule.before_iteration = True
+
+# name -> (params, Dataset keywords, train keywords)
 UNSUPPORTED = {
     "label_engine": ({"tpu_tree_engine": "label"}, {}),
     "categorical": ({}, {"categorical_feature": [0]}),
-    "bagging": ({"bagging_fraction": 0.5, "bagging_freq": 1}, {}),
     "goss": ({"boosting": "goss"}, {}),
+    "rf": ({"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
+           {}),
+    "learning_rates": ({}, {}, {"learning_rates": [0.1]}),
+    "reset_parameter_callback": ({}, {}, {"callbacks": [_schedule]}),
+    "fobj": ({}, {}, {"fobj": lambda preds, data: (preds, preds)}),
+    "init_model": ({}, {}, {"init_model": "model.txt"}),
     "multiclass": ({"objective": "multiclass", "num_class": 3}, {}),
     "dart": ({"boosting": "dart"}, {}),
     "forced_splits": ({"forcedsplits_filename": "forced.json"}, {}),
@@ -141,7 +154,7 @@ def _sparse_data(seed=1, n=600, F=6):
 
 @pytest.mark.parametrize("name", sorted(UNSUPPORTED))
 def test_unsupported_config_raises(name):
-    params, ds_kw = UNSUPPORTED[name]
+    params, ds_kw, train_kw = (UNSUPPORTED[name] + ({},))[:3]
     ds_kw = dict(ds_kw)
     X, y = _sparse_data() if ds_kw.pop("sparse", False) else _data()
     if params.get("objective") == "multiclass":
@@ -149,7 +162,29 @@ def test_unsupported_config_raises(name):
     params = dict({"objective": "binary", "verbose": -1}, **params)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tlgb.train(params, tlgb.Dataset(X, y, device="cpu", **ds_kw),
-                   num_boost_round=1, device="cpu")
+                   num_boost_round=1, device="cpu", **train_kw)
+
+
+def test_cv_and_schedules_are_refused():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tlgb.cv({"objective": "binary"}, None)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tlgb.callback.reset_parameter(learning_rate=[0.1])
+
+
+def test_bagging_engages():
+    """bagging_fraction with bagging_freq trains each tree on a bag of
+    int(fraction * n) rows, on the eager path, off the carried arena."""
+    X, y = _data()
+    bst = tlgb.train({"objective": "binary", "num_leaves": 7, "verbose": -1,
+                      "bagging_fraction": 0.5, "bagging_freq": 1},
+                     tlgb.Dataset(X, y, device="cpu"), num_boost_round=2,
+                     device="cpu")
+    g = bst._gbdt
+    assert not g._carried_active
+    assert g._bag_count == int(0.5 * len(y)) == int((g._bag_mask == 0).sum())
+    assert [m.leaf_count[:m.num_leaves].sum() for m in g.models] == \
+        [g._bag_count] * 2
 
 
 @pytest.mark.parametrize("weighted", [False, True])
@@ -191,3 +226,22 @@ def test_set_weight_switches_path():
     ds.set_weight(None)
     plain = tlgb.train(params, ds, num_boost_round=2, device="cpu")
     assert plain._gbdt._carried_active
+
+
+def test_validation_set_keeps_training_off_carried_arena():
+    """The same unweighted params run the carried arena alone and the
+    pristine root (the eager path) with a validation set attached."""
+    X, y = _data()
+    params = {"objective": "binary", "num_leaves": 7, "verbose": -1}
+    plain = tlgb.train(params, tlgb.Dataset(X, y, device="cpu"),
+                       num_boost_round=2, device="cpu")
+    assert plain._gbdt._carried_active
+    ds = tlgb.Dataset(X, y, device="cpu")
+    ev = {}
+    valid = tlgb.train(params, ds, num_boost_round=2,
+                       valid_sets=[tlgb.Dataset(X[:200], y[:200],
+                                                reference=ds, device="cpu")],
+                       evals_result=ev, verbose_eval=False, device="cpu")
+    assert not valid._gbdt._carried_active
+    assert len(ev["valid_0"]["binary_logloss"]) == 2
+    assert valid.model_to_string() == plain.model_to_string()
