@@ -16,28 +16,35 @@
    scatter_segments, K6 compact_carry; quantized arenas (int8 codes made on
    the CPU): K2 in int8 mode, K5 fused_refresh_histogram, K3 in both modes
    moving the codes, K6 moving the codes, each held exactly equal to its
-   plain version;
+   plain version; K7 leaf_histogram over the dataset's row-major bins, f32
+   and int8, at the root (every row in leaf 0) and on a leaf of about 40k
+   rows scattered over the rows; K8 partition_ablate, K3's stage ablation,
+   at the dataset's row count on an f32 and an int8 arena, its full stage
+   held exactly equal to K3's plain version;
 4. parity phase: a 20k-row, 3-round, 31-leaf run on the card against the
    same run on the CPU (plain versions), with f32 and with quantized
    gradients, unweighted (the carried arena), weighted (the pristine one),
    bagged (0.8 of the rows each round) and with a validation set (the
-   eager path): equal bags, split features and leaves of every row in the
-   tree's bag;
+   eager path), and on the label engine, unbagged and bagged: equal bags,
+   split features and leaves of every row in the tree's bag;
 5. training phase: a Higgs-shaped binary GBDT (28 dense features,
    num_leaves=255, max_bin=255, min_data_in_leaf=20, learning_rate=0.1,
    10.5M rows by default) trains through lightgbm_tpu_torch.train on the
-   card eight times, f32 and then with tpu_quantized_grad=True each: on the
+   card ten times: f32 and then with tpu_quantized_grad=True each, on the
    carried arena; with row weights, which keep the tree rooted at the
    pristine block; bagged (bagging_fraction=0.8, bagging_freq=1), whose
    root is K3 in pred mode; and with the 100k-row holdout as a validation
    set (metric auc, early stopping after 2 rounds without gain), whose last
-   evaluated AUC must equal the host prediction's; each run predicts the
+   evaluated AUC must equal the host prediction's; and f32 on the label
+   engine (tpu_tree_engine=label, tpu_histogram_impl=pallas), unbagged and
+   bagged, whose every tree must reach 255 leaves; each run predicts the
    holdout; the launch counters, zeroed just before each train call and
    read just after, show that every kernel of that path ran and that no
    kernel of another path did; trees must reach more than one leaf, the
-   holdout AUC must reach 0.75 and each quantized run's must be within
-   0.02 of its f32 run's; after each carried and each bagged run, one more
-   round runs under torch.profiler for the device time by kernel;
+   holdout AUC must reach 0.75, each quantized run's must be within 0.02
+   of its f32 run's and each label run's within 0.02 of the valid-set f32
+   run's; after each carried, bagged and label run, one more round runs
+   under torch.profiler for the device time by kernel;
 6. prints one JSON line of training results and one of per-kernel results,
    then the device line {"ok": true, "device": {...}} as the last line.
 
@@ -73,11 +80,12 @@ F32_OPS_PER_S = 67e12
 PORT_KERNELS = ("split_scan_kernel", "select_best_kernel", "histogram_kernel",
                 "count_kernel", "scatter_kernel", "copy_back_kernel",
                 "scatter_segments_kernel", "carry_offsets_kernel",
-                "carry_copy_kernel")
+                "carry_copy_kernel", "leaf_histogram_kernel")
 # the training paths.  Carried: no weights, no bag, no validation set (the
 # JAX rule); weights keep the tree rooted at the pristine block; a bag or a
 # validation set runs the eager path (pristine root, per-row leaf ids), the
-# bag's root by K3 in pred mode with its fused histogram
+# bag's root by K3 in pred mode with its fused histogram; the label engine
+# grows every tree over the bag mask with K7 and K1 alone
 PATHS = {
     "f32": dict(), "quantized": dict(quantized=True),
     "weighted_f32": dict(weighted=True),
@@ -86,9 +94,28 @@ PATHS = {
     "bagged_quantized": dict(quantized=True, bagged=True),
     "valid_f32": dict(valid=True),
     "valid_quantized": dict(quantized=True, valid=True),
+    "label_f32": dict(label=True),
+    "label_bagged_f32": dict(label=True, bagged=True),
 }
 PARITY_PATHS = ("f32", "quantized", "weighted_f32", "weighted_quantized",
-                "bagged_f32", "bagged_quantized", "valid_f32")
+                "bagged_f32", "bagged_quantized", "valid_f32", "label_f32",
+                "label_bagged_f32")
+# the kernels of the partition engine (K2-K6), none of which the label
+# engine may launch
+PARTITION_KERNELS = ("segment_histogram", "segment_histogram_i8",
+                     "partition_segment", "partition_segment_i8",
+                     "partition_segment_pred", "partition_segment_pred_i8",
+                     "scatter_segments", "fused_root_histogram",
+                     "compact_carry", "compact_carry_i8")
+# kernels of the line with no training path, and why
+NO_PATH = {
+    "leaf_histogram_i8": "the JAX package has no training path for "
+                         "leaf_histogram_quantized: its label engine clears "
+                         "tpu_quantized_grad (lightgbm_tpu/models/gbdt.py:"
+                         "1340-1345)",
+    "partition_ablate": "K8 is a measurement tool (tools/kernel_ablate.py), "
+                        "on no training path",
+}
 # the repo's own bagging setting (tests/test_quantized.py:289)
 BAGGING = {"bagging_fraction": 0.8, "bagging_freq": 1}
 EARLY_STOPPING_ROUNDS = 2
@@ -99,7 +126,8 @@ def flag(path: str, name: str) -> bool:
 
 
 def carried(path: str) -> bool:
-    return not any(flag(path, k) for k in ("weighted", "bagged", "valid"))
+    return not any(flag(path, k)
+                   for k in ("weighted", "bagged", "valid", "label"))
 
 
 def path_params(path: str, **extra) -> dict:
@@ -108,12 +136,16 @@ def path_params(path: str, **extra) -> dict:
         params.update(BAGGING)
     if flag(path, "valid"):
         params["metric"] = "auc"
+    if flag(path, "label"):
+        params.update(tpu_tree_engine="label", tpu_histogram_impl="pallas")
     return params
 
 
 def path_kernels(path: str) -> tuple:
     """(kernels the path must launch, kernels it must not): the launch
     counter names."""
+    if flag(path, "label"):
+        return ("leaf_histogram", "split_scan"), PARTITION_KERNELS
     q = flag(path, "quantized")
     sfx = "_i8" if q else ""
     must = ["split_scan", "segment_histogram" + sfx, "partition_segment" + sfx,
@@ -138,6 +170,9 @@ REPLACES = {
     "scatter_segments": "lightgbm_tpu/ops/partition_pallas.py:820",
     "fused_root_histogram": "lightgbm_tpu/ops/partition_pallas.py:1168",
     "compact_carry": "lightgbm_tpu/ops/partition_pallas.py:691",
+    "leaf_histogram": "lightgbm_tpu/ops/histogram_pallas.py:156",
+    "leaf_histogram_i8": "lightgbm_tpu/ops/histogram_pallas.py:211",
+    "partition_ablate": "tools/kernel_ablate.py:199",
 }
 
 
@@ -568,6 +603,139 @@ def kernel_phase(ds, dev, results, quantized: bool):
     torch.cuda.empty_cache()
 
 
+def leaf_kernel_phase(ds, dev, results):
+    """K7 over the dataset's row-major device bins, f32 and int8, against
+    its plain versions: the root (every row in leaf 0) and a leaf of about
+    CHILD_ROWS rows spread over all rows, as a 255-leaf tree's leaves lie
+    in the label engine's leaf ids."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram_kernel as hk
+
+    n, F = ds.num_data, ds.num_features
+    B = int(ds.feature_num_bins().max())
+    bins = ds.device_bins(dev)
+    rng = np.random.RandomState(17)
+    g = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
+    h = torch.from_numpy((rng.rand(n) * 0.25 + 0.01).astype(np.float32)
+                         ).to(dev)
+    gq = torch.from_numpy(rng.randint(-127, 128, n).astype(np.int8)).to(dev)
+    hq = torch.from_numpy(rng.randint(0, 128, n).astype(np.int8)).to(dev)
+    leaves = rng.randint(0, LEAVES, n)
+    child = int(np.argmin(np.abs(np.bincount(leaves) - CHILD_ROWS)))
+    ids = {"root": np.zeros(n, np.int64), "child": leaves}
+    for quantized in (False, True):
+        name = "leaf_histogram_i8" if quantized else "leaf_histogram"
+        fn = hk.leaf_histogram_quantized if quantized else hk.leaf_histogram
+        plain = (hk.leaf_histogram_quantized_plain if quantized
+                 else hk.leaf_histogram_plain)
+        pg, ph = (gq, hq) if quantized else (g, h)
+        r = {}
+        for what, lid in ids.items():
+            leaf_ids = torch.from_numpy(lid.astype(
+                np.uint8 if quantized else np.int32)).to(dev)
+            leaf = torch.tensor([0 if what == "root" else child],
+                                dtype=torch.int32, device=dev)
+            got = fn(bins, pg, ph, leaf_ids, leaf, B)
+            want = plain(bins, pg, ph, leaf_ids, leaf, B)
+            m = int((lid == int(leaf[0])).sum())
+            expect(int(want[0, :, 2].sum()) == m, "K7 %s: counts %d of %d"
+                   % (what, int(want[0, :, 2].sum()), m))
+            if quantized:
+                expect(torch.equal(got, want), "K7 int8 %s: histograms "
+                       "differ" % what)
+                err = 0.0
+            else:
+                expect(torch.equal(got[..., 2], want[..., 2]),
+                       "K7 %s: counts differ" % what)
+                scale = plain(bins, pg.abs(), ph, leaf_ids, leaf, B)
+                err_t = (got - want).abs()
+                err = float(err_t.max())
+                rel = float((err_t / scale.clamp_min(1e-30)).max())
+                expect(rel <= 1e-5, "K7 %s: error %.3g of the |value| sums "
+                       "exceeds rtol 1e-5" % (what, rel))
+            # the library yardstick: one index_add_ of the leaf's (feature,
+            # row) pairs into the [F*B, 3] histogram
+            rows = (leaf_ids.to(torch.int32) == leaf).nonzero()[:, 0]
+            flat = (torch.arange(F, device=dev)[None, :] * B
+                    + bins.index_select(0, rows).long()).reshape(-1)
+            vdt = torch.int32 if quantized else torch.float32
+            vals = torch.stack([pg[rows].to(vdt), ph[rows].to(vdt),
+                                torch.ones(m, dtype=vdt, device=dev)], dim=1
+                               ).repeat_interleave(F, dim=0)
+            hist0 = torch.zeros((F * B, 3), dtype=vdt, device=dev)
+            r[what] = dict(
+                max_abs_err=err, rows=m,
+                ms=cuda_ms(lambda: fn(bins, pg, ph, leaf_ids, leaf, B), 20),
+                plain_ms=cuda_ms(lambda: plain(bins, pg, ph, leaf_ids, leaf,
+                                               B), 3),
+                library_ms=cuda_ms(lambda: hist0.index_add_(0, flat, vals),
+                                   5),
+                bytes=hk.leaf_histogram_bytes(n, m, F, B, quantized),
+                ops=3 * F * m)
+            del flat, vals, rows
+        print("K7 %s: root %d rows %.4f ms (plain %.4f, index_add_ %.4f); "
+              "child leaf of %d rows %.4f ms (plain %.4f, index_add_ %.4f); "
+              "%s" % (name, n, r["root"]["ms"], r["root"]["plain_ms"],
+                      r["root"]["library_ms"], r["child"]["rows"],
+                      r["child"]["ms"], r["child"]["plain_ms"],
+                      r["child"]["library_ms"], "exact" if quantized else
+                      "max abs err %.3g" % max(r["root"]["max_abs_err"],
+                                               r["child"]["max_abs_err"])))
+        b_ms, b_by = bound(r["root"]["bytes"], r["root"]["ops"])
+        results[name] = dict(
+            name=name, route="cuda", source=SRC % "leaf_histogram",
+            replaces=REPLACES[name], mode="int8" if quantized else "f32",
+            launches=0,
+            max_abs_err=max(r["root"]["max_abs_err"],
+                            r["child"]["max_abs_err"]),
+            tolerance="exact" if quantized else
+            "counts equal; g/h within 1e-5 of the bin's |value| sum",
+            ms=r["root"]["ms"], plain_ms=r["root"]["plain_ms"],
+            bound_ms=b_ms, bound_by=b_by, library_ms=r["root"]["library_ms"],
+            library="index_add_ of the leaf's (feature, row) pairs",
+            rows=n, child=dict(
+                {k: r["child"][k] for k in ("ms", "plain_ms", "library_ms",
+                                            "rows")},
+                bound_ms=bound(r["child"]["bytes"], r["child"]["ops"])[0]))
+    del g, h, gq, hq
+    torch.cuda.empty_cache()
+
+
+def ablate_phase(n: int, dev, results):
+    """K8: K3's stages timed at n rows on an f32 and an int8 arena
+    (lightgbm_tpu_torch.tools.kernel_ablate), the full stage held exactly
+    equal to K3's plain version inside run()."""
+    import torch
+    from lightgbm_tpu_torch.tools import kernel_ablate
+
+    r = kernel_ablate.run(n, device=dev)
+    for arena, a in r.items():
+        prev = 0.0
+        steps = []
+        for stage, ms in a["ms"].items():
+            steps.append("%s %.4f (+%.4f)" % (stage, ms, ms - prev))
+            prev = ms
+        print("K8 partition_ablate (%s arena, %d rows, F=%d): ms a pass by "
+              "cumulative stage: %s; K3 plain %.4f, stable sort %.4f; full "
+              "stage exact" % (arena, n, kernel_ablate.FEATURES,
+                               ", ".join(steps), a["plain_ms"],
+                               a["library_ms"]))
+    f = r["f32"]
+    b_ms, b_by = bound(f["bytes"], 0)
+    results["partition_ablate"] = dict(
+        name="partition_ablate", route="cuda", source=SRC % "partition_ablate",
+        replaces=REPLACES["partition_ablate"], mode="f32", launches=0,
+        max_abs_err=0.0, tolerance="full stage exact (K3's plain version)",
+        ms=f["ms"]["full"], plain_ms=f["plain_ms"], bound_ms=b_ms,
+        bound_by=b_by, library_ms=f["library_ms"],
+        library="torch.sort(stable) of the side key, as K3's",
+        rows=n, stages_ms={k: v["ms"] for k, v in r.items()},
+        int8=dict(ms=r["int8"]["ms"]["full"], plain_ms=r["int8"]["plain_ms"],
+                  library_ms=r["int8"]["library_ms"],
+                  bound_ms=bound(r["int8"]["bytes"], 0)[0]))
+    torch.cuda.empty_cache()
+
+
 def parity_phase(dev, path: str):
     """A small run on the card against the same run on the CPU, stepped
     with update() so each tree's bag can be read."""
@@ -708,6 +876,11 @@ def training_phase(X, Xh, yh, ds_obj, valid_obj, rounds, dev, reduced, path):
     trained = len(leaves)
     expect((trained == rounds or flag(path, "valid")) and min(leaves) > 1,
            "%s trees did not grow: leaves %s" % (path, leaves))
+    if flag(path, "label"):
+        # the label engine has no arena to run out of
+        expect(not g._use_partition_engine and g.arena is None
+               and min(leaves) == LEAVES,
+               "%s: the label engine grew leaves %s" % (path, leaves))
     holdout_auc = auc(yh, pred)
     expect(holdout_auc >= AUC_FLOOR, "%s holdout AUC %.4f < %.2f"
            % (path, holdout_auc, AUC_FLOOR))
@@ -724,10 +897,11 @@ def training_phase(X, Xh, yh, ds_obj, valid_obj, rounds, dev, reduced, path):
                  % (evals["holdout"]["auc"], booster.best_iteration))
     round_ms = train_s * 1e3 / trained
     rate = len(X) * trained / train_s
-    arena = "carried" if carried(path) else (
-        "pristine, eager" if flag(path, "bagged") or flag(path, "valid")
-        else "pristine")
-    print("training (%s, %s arena): %d rows%s x %d features, "
+    arena = "carried arena" if carried(path) else (
+        "label engine, eager" if flag(path, "label") else
+        "pristine arena, eager" if flag(path, "bagged") or flag(path, "valid")
+        else "pristine arena")
+    print("training (%s, %s): %d rows%s x %d features, "
           "%d rounds, leaves %s; train %.3f s (%.1f ms a round, %.4g "
           "rows*rounds/s, set-up included); peak device memory %.3f GB; "
           "holdout AUC %.4f on %d rows (predict %.3f s)%s"
@@ -825,6 +999,8 @@ def main(argv=None) -> int:
     results = {}
     for quantized in (False, True):
         kernel_phase(ds_obj._binned, dev, results, quantized)
+    leaf_kernel_phase(ds_obj._binned, dev, results)
+    ablate_phase(len(X), dev, results)
     parity = {path: parity_phase(dev, path) for path in PARITY_PATHS}
     train = {}
     launches = {}
@@ -832,7 +1008,7 @@ def main(argv=None) -> int:
         booster, launches[path], train[path] = training_phase(
             X, Xh, yh, ds_obj, valid_obj, args.rounds, dev,
             args.rows != ROWS, path)
-        if carried(path) or flag(path, "bagged"):
+        if carried(path) or flag(path, "bagged") or flag(path, "label"):
             train[path]["profile"] = profile_round(booster, path)
         del booster
         torch.cuda.empty_cache()
@@ -841,13 +1017,30 @@ def main(argv=None) -> int:
         gap = abs(train[q]["holdout_auc"] - train[f32]["holdout_auc"])
         expect(gap <= AUC_GAP, "%s holdout AUC is %.4f from the %s run's "
                "(limit %.2f)" % (q, gap, f32, AUC_GAP))
+    # the label engine grows the same 255-leaf f32 trees as the partition
+    # engine at the pristine root (the valid-set run's)
+    for path in ("label_f32", "label_bagged_f32"):
+        gap = abs(train[path]["holdout_auc"] - train["valid_f32"]["holdout_auc"])
+        expect(gap <= AUC_GAP, "%s holdout AUC is %.4f from the valid_f32 "
+               "run's (limit %.2f)" % (path, gap, AUC_GAP))
     # launches of each kernel in the run of the path it belongs to: K3's
     # pred mode in the bagged runs, the int8 modes and K5 in the quantized
-    # carried run, the f32 modes in the f32 carried run; the kernels both
-    # carried paths run (K1, K4) report the quantized run; launches_by_path
-    # has every path's run
+    # carried run, the f32 modes in the f32 carried run, K7 in the label
+    # run; the kernels both carried paths run (K1, K4) report the quantized
+    # run; launches_by_path has every path's run.  The kernels of NO_PATH
+    # are on no training path and report 0
     for name, r in results.items():
-        if name.startswith("partition_segment_pred"):
+        r["launches_by_path"] = {p: int(launches[p].get(name, 0))
+                                 for p in launches}
+        if name in NO_PATH:
+            r["launches"] = 0
+            r["no_path"] = NO_PATH[name]
+            expect(not any(r["launches_by_path"].values()),
+                   "kernel %s was launched on a training path" % name)
+            continue
+        if name == "leaf_histogram":
+            path = "label_f32"
+        elif name.startswith("partition_segment_pred"):
             path = "bagged_quantized" if name.endswith("_i8") else "bagged_f32"
         elif name in ("segment_histogram", "partition_segment",
                       "compact_carry"):
@@ -855,8 +1048,6 @@ def main(argv=None) -> int:
         else:
             path = "quantized"
         r["launches"] = int(launches[path].get(name, 0))
-        r["launches_by_path"] = {p: int(launches[p].get(name, 0))
-                                 for p in launches}
         expect(r["launches"] > 0, "kernel %s was not launched on the %s "
                "training path" % (name, path))
     print(json.dumps({"card": card, "training": train, "parity": parity}))

@@ -23,6 +23,8 @@ LGBT_API int lgbt_fused_root_histogram(const uint8_t* bins, int8_t* arena_codes,
                                        const int* seg, int* out, int G, int B,
                                        long long cap, int grid_x,
                                        cudaStream_t stream) {
-  return launch_histogram<int8_t, true>(bins, codes, ncodes, arena_codes, seg,
-                                        out, G, B, cap, grid_x, stream);
+  const SegmentRows<int8_t, true> rows{bins, codes, ncodes, arena_codes, seg,
+                                       cap};
+  return launch_histogram(histogram_kernel<SegmentRows<int8_t, true>>, rows,
+                          out, G, B, grid_x, stream);
 }

@@ -23,14 +23,16 @@ LGBT_API int lgbt_segment_histogram(const uint8_t* bins, const float* gh,
                                     const int* seg, float* out, int G, int B,
                                     long long cap, int grid_x,
                                     cudaStream_t stream) {
-  return launch_histogram<float, false>(bins, gh, cap, nullptr, seg, out, G, B,
-                                        cap, grid_x, stream);
+  const SegmentRows<float, false> rows{bins, gh, cap, nullptr, seg, cap};
+  return launch_histogram(histogram_kernel<SegmentRows<float, false>>, rows,
+                          out, G, B, grid_x, stream);
 }
 
 LGBT_API int lgbt_segment_histogram_i8(const uint8_t* bins, const int8_t* codes,
                                        const int* seg, int* out, int G, int B,
                                        long long cap, int grid_x,
                                        cudaStream_t stream) {
-  return launch_histogram<int8_t, false>(bins, codes, cap, nullptr, seg, out, G,
-                                         B, cap, grid_x, stream);
+  const SegmentRows<int8_t, false> rows{bins, codes, cap, nullptr, seg, cap};
+  return launch_histogram(histogram_kernel<SegmentRows<int8_t, false>>, rows,
+                          out, G, B, grid_x, stream);
 }

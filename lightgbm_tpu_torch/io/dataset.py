@@ -157,8 +157,9 @@ class BinnedDataset:
         max_nb = max((m.num_bin for m in self.bin_mappers), default=2)
         if max_nb > 256:
             raise NotImplementedError(
-                "features with more than 256 bins need the label engine "
-                "(ROADMAP.md queue 1, item 11)")
+                "features with more than 256 bins need uint16 bins, which "
+                "are not ported yet (ROADMAP.md queue 1, item 11: uint16 "
+                "bins and max_bin > 256)")
         bins = np.empty((X.shape[0], self.num_features), dtype=np.uint8)
         for inner, raw in enumerate(self.real_feature_index):
             bins[:, inner] = self.bin_mappers[inner].values_to_bins(

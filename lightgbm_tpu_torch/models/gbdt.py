@@ -2,15 +2,23 @@
 
 Port of the k=1 subset of lightgbm_tpu/models/gbdt.py `_train_one_iter_impl`
 (:496-687): gradients on the device, optionally quantized to int8 codes
-(`tpu_quantized_grad`), one tree grown by the partition engine, shrinkage
-and boost-from-average, and ONE packed host fetch per tree.  The model text
-is the reference v2 format, so models load in both packages.
+(`tpu_quantized_grad`), one tree grown by the partition or the label
+engine, shrinkage and boost-from-average, and ONE packed host fetch per
+tree.  The model text is the reference v2 format, so models load in both
+packages.
+
+The tree engine is chosen once, as `_setup_tree_engine` (:1209-1345) does
+for the serial learner: the partition engine (ops/grow_partition.py) where
+it applies and its arena fits the device, the label engine
+(ops/grow.grow_tree_label) otherwise or when `tpu_tree_engine=label` asks
+for it.  The label engine trains unquantized, as in JAX, and runs every
+iteration on the eager path below.
 
 Which path an iteration runs follows the JAX rule (:518-550):
 
-- with no bagging, no validation set and no training metric, the fused
-  paths (:533), where every row is in the bag and the grower writes each
-  row's leaf value (emit="score"):
+- on the partition engine with no bagging, no validation set and no
+  training metric, the fused paths (:533), where every row is in the bag
+  and the grower writes each row's leaf value (emit="score"):
   - carried (`_run_fused_iter_carried`, :904-1016), where `_carried_ok`
     (:847-869, with the objective's `carry_fields` gate) allows it: the
     tree roots at one of two arena slots holding every row in the order
@@ -25,11 +33,12 @@ Which path an iteration runs follows the JAX rule (:518-550):
     pristine block, for weighted objectives and the other configurations
     `_carried_ok` refuses;
 - otherwise the eager path (:593-687): the bag is drawn (`_bagging`,
-  :419-433), the tree grows at the pristine root (bagged: K3 in pred mode
-  compacts the bag) with emit="leaf_ids", quantized under the iteration's
-  key unfolded (:1385-1387), and the training score adds each row's leaf
-  value, the out-of-bag rows' by a binned tree walk; validation scores
-  follow by the same walk, and metrics are evaluated on the host.
+  :419-433), the tree grows with per-row leaf ids (the partition engine at
+  the pristine root, bagged by K3 in pred mode, quantized under the
+  iteration's key unfolded, :1385-1387; or the label engine over the bag
+  mask), and the training score adds each row's leaf value, the
+  out-of-bag rows' by a binned tree walk; validation scores follow by the
+  same walk, and metrics are evaluated on the host.
 
 The carried arena is entered at the first iteration that may run it and
 left for good at the first that may not (:542-550); the score is kept in
@@ -50,12 +59,13 @@ from ..config import Config
 from ..io.dataset import BinnedDataset
 from ..metric import Metric
 from ..objective import ObjectiveFunction, create_objective
-from ..ops.grow import (TreeArrays, pack_tree_arrays, predict_leaf_inner,
-                        unpack_tree_vectors)
+from ..ops.grow import (TreeArrays, grow_tree_label, pack_tree_arrays,
+                        predict_leaf_inner, unpack_tree_vectors)
 from ..ops import quantize as qz
 from ..ops import threefry
 from ..ops.grow_partition import grow_tree_partition
-from ..ops.partition_kernel import TILE, Arena, init_pristine, pristine_work0
+from ..ops.partition_kernel import (TILE, Arena, arena_bytes, init_pristine,
+                                    pristine_work0)
 from ..ops.split import SplitParams
 from ..utils import log
 from .tree import K_CATEGORICAL_MASK, K_DEFAULT_LEFT_MASK, Tree
@@ -92,10 +102,9 @@ def check_supported(cfg: Config) -> None:
         raise NotImplementedError("%s is not ported yet (ROADMAP.md %s)"
                                   % (what, item))
 
-    if cfg.tpu_tree_engine == "label":
-        no("tpu_tree_engine=label", "queue 1, item 11: the label engine")
     if cfg.tpu_double_precision:
-        no("tpu_double_precision", "queue 1, item 11: the label engine")
+        no("tpu_double_precision", "queue 1, item 11: f64 on the label "
+           "engine")
     if cfg.boosting == "goss":
         no("GOSS", "queue 1, item 11: boosting modes")
     if cfg.boosting != "gbdt":
@@ -145,6 +154,8 @@ class GBDT:
         self.valid_states: List[Tuple[str, _DatasetState, List[Metric]]] = []
         self._truncation_warned = False
         self._quantized = False
+        self._use_partition_engine = False
+        self.arena: Optional[Arena] = None
         # None until the first iteration that may run the carried arena
         # decides (gbdt.py:548-551); False for good once it is left
         self._carried_active: Optional[bool] = None
@@ -196,8 +207,14 @@ class GBDT:
             self.score += torch.as_tensor(
                 np.asarray(ds.metadata.init_score, np.float32).reshape(-1),
                 device=dev)
-        self._quantized = bool(cfg.tpu_quantized_grad)
+        self.max_leaves = L
+        self._setup_tree_engine()
+        self._quantized = bool(cfg.tpu_quantized_grad
+                               and self._use_partition_engine)
         self._quant_seed = int(cfg.tpu_quantized_seed or cfg.seed)
+        if cfg.tpu_quantized_grad and not self._quantized:
+            log.warning("tpu_quantized_grad requires the partition engine; "
+                        "training unquantized on the label engine")
         if self._quantized and not qz.overflow_safe(
                 n, bits=cfg.tpu_quantized_bits):
             # gbdt.py:1346-1357: the JAX package sums codes in f32, which
@@ -208,12 +225,33 @@ class GBDT:
                 "the port's int32 histograms stay exact, the JAX package's "
                 "may round if one bin captures more than that", n,
                 qz.exact_rows(cfg.tpu_quantized_bits))
-        # pristine layout (gbdt.py:1281-1282): factor >= 4 covers the
-        # pristine block, the redirected root copy and the bump region
-        self.arena = Arena(n, ds.num_features, max(cfg.tpu_arena_factor, 4),
-                           dev, quantized=self._quantized)
-        init_pristine(self.arena, ds.device_bins(dev).t())
-        self.max_leaves = L
+        if self._use_partition_engine:
+            # pristine layout (gbdt.py:1281-1282): factor >= 4 covers the
+            # pristine block, the redirected root copy and the bump region
+            self.arena = Arena(n, ds.num_features, self._arena_factor(), dev,
+                               quantized=self._quantized)
+            init_pristine(self.arena, ds.device_bins(dev).t())
+
+    def _arena_factor(self) -> int:
+        return max(self.config.tpu_arena_factor, 4)
+
+    def _setup_tree_engine(self) -> None:
+        """gbdt.py:1209-1345, the serial learner: the partition engine
+        needs max_bin <= 256, a feature and fewer than 2^24 rows (f32 is
+        the port's only precision); `partition` on an input it cannot take
+        warns and takes the label engine; `auto` takes the partition engine
+        where it applies and its arena fits the device's memory budget (the
+        JAX package's TPU branch, with the card in the TPU's place and the
+        VMEM terms, which exist only on a TPU, dropped)."""
+        cfg = self.config
+        base_ok = (self.max_bin <= 256 and self.train_set.num_features > 0
+                   and self.num_data < (1 << 24))
+        need = arena_bytes(self.num_data, self.train_set.num_features,
+                           self._arena_factor(), self.max_leaves,
+                           self.max_bin, bool(cfg.tpu_quantized_grad))
+        eng = choose_tree_engine(cfg.tpu_tree_engine, base_ok, need,
+                                 device_memory_budget(self.device))
+        self._use_partition_engine = eng == "partition"
 
     def _carried_ok(self) -> bool:
         """gbdt.py:847-869: the objective's carry gate, and a bump region
@@ -305,8 +343,9 @@ class GBDT:
         # gbdt.py:518-533: the fused paths need every row in the bag and no
         # host tree within the iteration (no validation set or metric)
         deferred_ok = not self.valid_states and not self.train_metrics
-        fused_ok = deferred_ok and (cfg.bagging_freq <= 0
-                                    or cfg.bagging_fraction >= 1.0)
+        fused_ok = (deferred_ok and self._use_partition_engine
+                    and (cfg.bagging_freq <= 0
+                         or cfg.bagging_fraction >= 1.0))
         if self._carried_active and not fused_ok:
             # left for good (gbdt.py:542-545): the score is in row order,
             # and this tree's work region may overwrite the carry slots
@@ -321,8 +360,26 @@ class GBDT:
             return self._fused_iter(grad, hess, init_score)
         return self._eager_iter(grad, hess, init_score, deferred_ok)
 
-    def _grow(self, grad, hess, emit: str, **kw):
+    def _grow(self, grad, hess, emit: str, in_bag=None, **kw):
+        """One tree by the booster's engine: (TreeArrays, per-row output,
+        truncation flag).  The label engine emits leaf ids over the bag
+        mask (0 in the bag, -1 out) and never truncates."""
         cfg = self.config
+        if not self._use_partition_engine:
+            n = self.num_data
+            row_init = (torch.zeros(n, dtype=torch.int32, device=self.device)
+                        if in_bag is None else in_bag.to(torch.int32) - 1)
+            tree, leaf_ids = grow_tree_label(
+                self.train_set.device_bins(self.device), grad, hess,
+                row_init, self._feature_sample(), self.num_bins,
+                self.default_bins, self.missing_types, self.split_params,
+                self.monotone, self.penalty, max_leaves=self.max_leaves,
+                max_depth=cfg.max_depth, max_bin=self.max_bin,
+                hist_impl=cfg.tpu_histogram_impl)
+            return tree, leaf_ids, torch.zeros((), dtype=torch.bool,
+                                               device=self.device)
+        if in_bag is not None:
+            kw["in_bag"] = in_bag
         return grow_tree_partition(
             self.arena, grad, hess,
             self._feature_sample(), self.num_bins, self.default_bins,
@@ -587,6 +644,35 @@ class GBDT:
                 body = body[:body.index("end of trees")]
             self.models.append(Tree.from_string(body))
         self.iter = len(self.models)
+
+
+def choose_tree_engine(requested: str, base_ok: bool, arena_bytes: int,
+                       budget: int) -> str:
+    """The serial learner's engine (gbdt.py:1262-1332): "partition" or
+    "label".  base_ok: the partition engine applies to the input;
+    arena_bytes: what it would hold on the device; budget: the device's
+    memory budget."""
+    if requested not in ("auto", "label", "partition"):
+        raise ValueError("tpu_tree_engine must be auto, label or partition, "
+                         "got %r" % requested)
+    if requested == "partition" and not base_ok:
+        log.warning("tpu_tree_engine=partition not applicable here (needs "
+                    "serial learner, f32, max_bin<=256); using label engine")
+        return "label"
+    if requested == "auto":
+        return ("partition" if base_ok and arena_bytes < budget
+                else "label")
+    return requested
+
+
+def device_memory_budget(device) -> int:
+    """gbdt.py:2212-2222: 60% of the device's memory; 8 GB where the
+    device reports none (the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return int(torch.cuda.get_device_properties(device).total_memory
+                   * 0.6)
+    return 8 << 30
 
 
 def _feature_infos(ds: BinnedDataset) -> List[str]:

@@ -1,16 +1,31 @@
-"""Tree arrays shared by the grower and the model, and the binned tree walk.
+"""The label engine, the tree tables both growers keep, and the tree walk.
 
-Port of the `TreeArrays` record, the `MISSING_*` constants,
-`pack_tree_arrays` / `unpack_tree_vectors` and `predict_leaf_inner` of
-lightgbm_tpu/ops/grow.py (:34-36, :109-133, :690-746, :856-901).  The walk
-is plain tensor code, as it is plain `jnp` in JAX: no kernel.
+Port of lightgbm_tpu/ops/grow.py: the `TreeArrays` record, the `MISSING_*`
+constants, `pack_tree_arrays` / `unpack_tree_vectors`,
+`predict_leaf_inner` (:34-36, :109-133, :690-746, :856-901) and the serial,
+numerical branch of `grow_tree_impl` (:178-687) as `grow_tree_label`, the
+label engine: rows keep a leaf id, a split relabels the rows of its leaf,
+the smaller child is histogrammed by a masked pass over every row (K7,
+ops/histogram.py) and its sibling by subtraction.  The tree tables and the
+per-split bookkeeping (Tree::Split, the monotone bounds, the depth limit)
+are shared with the partition engine (ops/grow_partition.py), as JAX
+shares them between its two engines.  The walk is plain tensor code, as it
+is plain `jnp` in JAX: no kernel.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from . import histogram as hist_ops
+from .split import (SplitParams, best_split_per_feature,
+                    select_best_feature)
+from .split_kernel import (_OF, _OG, _OLC, _OLG, _OLH, _OLO, _ODL, _ORC, _ORG,
+                           _ORH, _ORO, _OT, NEG, NEG_GATE,
+                           build_feature_statics, child_vector, no_split_row,
+                           params_vector, split_scan)
 
 MISSING_NONE = 0
 MISSING_ZERO = 1
@@ -139,3 +154,301 @@ def unpack_tree_vectors(ivec, fvec, max_leaves: int,
                          .astype(dtype))
             ioff += size
     return TreeArrays(**out)
+
+
+# --------------------------------------------------------------------------- #
+# The growers' device tables (both engines)
+# --------------------------------------------------------------------------- #
+# leaf table lanes
+_LV, _LC, _LP, _LD, _LMIN, _LMAX = range(6)
+# node table lanes
+(_NF, _NT, _NDL, _NMT, _NLEFT, _NRIGHT, _NGAIN, _NVAL, _NCNT,
+ _NCAT) = range(10)
+
+
+def put(table: torch.Tensor, idx: torch.Tensor, new: torch.Tensor,
+        keep: torch.Tensor) -> None:
+    """table[idx] = new unless keep (a 0-d bool on the device)."""
+    old = table.index_select(0, idx)
+    table.index_copy_(0, idx, torch.where(keep, old, new.unsqueeze(0)))
+
+
+def new_tables(max_leaves: int, device):
+    """The f32 leaf table [L, 6] (value, count, parent, depth, output
+    bounds) and node table [L-1, 10] of an empty tree."""
+    f32 = torch.float32
+    leaf_mat = torch.zeros((max_leaves, 6), dtype=f32, device=device)
+    leaf_mat[:, _LP] = -1.0
+    leaf_mat[:, _LMIN] = -torch.inf
+    leaf_mat[:, _LMAX] = torch.inf
+    node_mat = torch.zeros((max(max_leaves - 1, 1), 10), dtype=f32,
+                           device=device)
+    return leaf_mat, node_mat
+
+
+def record_split(node_mat, leaf_mat, bi, nl, row, feat, mtype, keep, mono):
+    """Tree::Split (tree.h:393-423) of leaf bi into bi and the new leaf nl
+    by the split row `row` (lanes _OG.._ORO): the parent's child pointer,
+    one node row and two leaf rows, each write masked back when keep; and
+    the children's output bounds by monotone mid-constraint propagation
+    (serial_tree_learner.cpp:837-846).  Returns (parent depth, min_l,
+    max_l, min_r, max_r)."""
+    f32 = torch.float32
+    lo, ro = row[_OLO], row[_ORO]
+    lc_f, rc_f = row[_OLC], row[_ORC]
+    lrow = leaf_mat.index_select(0, bi)[0]
+    parent_of = lrow[_LP].long()
+    depth = lrow[_LD]
+    min_p, max_p = lrow[_LMIN], lrow[_LMAX]
+    min_l = min_r = min_p
+    max_l = max_r = max_p
+    if mono is not None:
+        mono_t = mono.index_select(0, feat)[0]
+        mid = (lo + ro) / 2
+        max_l = torch.where(mono_t > 0, mid, max_p)
+        min_r = torch.where(mono_t > 0, mid, min_p)
+        min_l = torch.where(mono_t < 0, mid, min_p)
+        max_r = torch.where(mono_t < 0, mid, max_p)
+
+    node = nl - 1
+    node_f = node[0].to(f32)
+    safe_p = parent_of.clamp_min(0).view(1)
+    prow = node_mat.index_select(0, safe_p)[0]
+    was_left = prow[_NLEFT] == -(bi[0] + 1).to(f32)
+    has_p = parent_of >= 0
+    prow_new = torch.cat([
+        prow[:_NLEFT],
+        torch.where(has_p & was_left, node_f, prow[_NLEFT]).view(1),
+        torch.where(has_p & ~was_left, node_f, prow[_NRIGHT]).view(1),
+        prow[_NRIGHT + 1:]])
+    put(node_mat, safe_p, prow_new, keep)
+    nrow = torch.stack([
+        feat[0].to(f32), row[_OT].long().to(f32),
+        (row[_ODL] > 0.5).to(f32), mtype.to(f32),
+        -(bi[0] + 1).to(f32), -(nl[0] + 1).to(f32), row[_OG], lrow[_LV],
+        lc_f + rc_f, torch.zeros((), dtype=f32, device=row.device)])
+    put(node_mat, node, nrow, keep)
+    put(leaf_mat, bi, torch.stack([lo, lc_f, node_f, depth + 1, min_l,
+                                   max_l]), keep)
+    put(leaf_mat, nl, torch.stack([ro, rc_f, node_f, depth + 1, min_r,
+                                   max_r]), keep)
+    return depth, min_l, max_l, min_r, max_r
+
+
+def mask_depth(rows: torch.Tensor, depth: torch.Tensor,
+               max_depth: int) -> torch.Tensor:
+    """The children's split rows (children at depth+1) with no split past
+    max_depth (grow.py:460-463)."""
+    if max_depth <= 0:
+        return rows
+    depth_ok = (depth + 1) < max_depth
+    lane = torch.arange(rows.shape[1], device=rows.device)
+    rows = torch.where((lane == _OG) & ~depth_ok, NEG, rows)
+    return torch.where((lane == _OF) & ~depth_ok, -1.0, rows)
+
+
+def tree_from_tables(node_mat: torch.Tensor, leaf_mat: torch.Tensor,
+                     nl: torch.Tensor) -> TreeArrays:
+    """The device TreeArrays of the tables after the last split."""
+    nm, lm = node_mat, leaf_mat
+    return TreeArrays(
+        split_feature=nm[:, _NF].to(torch.int32),
+        threshold_bin=nm[:, _NT].to(torch.int32),
+        default_left=nm[:, _NDL] > 0.5,
+        missing_type=nm[:, _NMT].to(torch.int32),
+        left_child=nm[:, _NLEFT].to(torch.int32),
+        right_child=nm[:, _NRIGHT].to(torch.int32),
+        split_gain=nm[:, _NGAIN].contiguous(),
+        internal_value=nm[:, _NVAL].contiguous(),
+        internal_count=nm[:, _NCNT].to(torch.int32),
+        leaf_value=lm[:, _LV].contiguous(),
+        leaf_count=lm[:, _LC].to(torch.int32),
+        leaf_parent=lm[:, _LP].to(torch.int32),
+        leaf_depth=lm[:, _LD].to(torch.int32),
+        num_leaves=nl[0].to(torch.int32),
+        is_cat=nm[:, _NCAT] > 0.5,
+        cat_mask=torch.zeros((nm.shape[0], 0), dtype=torch.bool,
+                             device=nm.device))
+
+
+# --------------------------------------------------------------------------- #
+# The label engine
+# --------------------------------------------------------------------------- #
+NO_LEAF = -2          # a leaf id no row holds: K7 then reads only the ids
+# K1's counts ride f32 prefix sums, exact below this many rows
+# (grow.py:343-347); from it on the scan keeps integer count cumsums
+KERNEL_SCAN_ROWS = 1 << 24
+
+
+def _split_row(res, f32=torch.float32):
+    """A SplitResult of select_best_feature as a split-cache row (gain NEG
+    and feature -1 when it has no split) and its int64 (left, right)
+    counts."""
+    has = res.feature >= 0
+    row = torch.stack([
+        torch.where(has, res.gain, NEG).to(f32), res.feature.to(f32),
+        res.threshold.to(f32), res.default_left.to(f32),
+        res.left_sum_gradient, res.left_sum_hessian, res.left_count.to(f32),
+        res.left_output, res.right_sum_gradient, res.right_sum_hessian,
+        res.right_count.to(f32), res.right_output]).to(f32)
+    return row, torch.stack([res.left_count, res.right_count]).long()
+
+
+def grow_tree_label(bins: torch.Tensor, grad: torch.Tensor,
+                    hess: torch.Tensor, row_leaf_init: torch.Tensor,
+                    feature_mask: torch.Tensor, num_bins: torch.Tensor,
+                    default_bins: torch.Tensor, missing_types: torch.Tensor,
+                    params: SplitParams,
+                    monotone: Optional[torch.Tensor] = None,
+                    penalty: Optional[torch.Tensor] = None, *,
+                    max_leaves: int, max_depth: int = -1, max_bin: int,
+                    hist_impl: str = "auto"):
+    """Grow one leaf-wise tree with the label engine; returns (TreeArrays
+    on the bins' device, leaf_ids int32 [n]).
+
+    bins [n, F] uint8 row-major; grad, hess f32 [n]; row_leaf_init int32
+    [n]: 0 for the rows in the bag, -1 for the others (which keep -1).
+
+    The root histogram covers the rows with row_leaf_init == 0; each split
+    relabels the rows of its leaf with ~go_left to the new leaf, histograms
+    the smaller child with K7 and takes the sibling by subtraction.  The
+    split scan follows grow.py:346-392: K1 (both children in one CH=2
+    launch) below KERNEL_SCAN_ROWS = 2^24 rows, where its f32 prefix counts
+    are exact; otherwise the XLA route's scan (ops/split.py) with integer
+    count cumsums.
+
+    As in grow_partition, the JAX while_loop is a Python loop of exactly
+    max_leaves-1 steps whose state lives on the device: the best leaf is a
+    device argmax over the split cache, the smaller child is picked on the
+    device, and once no leaf has a split the `done` flag masks every later
+    step back (K7 then histograms a leaf no row holds).  Leaf and node
+    counts are kept as int64, exact past 2^24 rows."""
+    n, F = bins.shape
+    dev = bins.device
+    if num_bins.shape[0] != F:
+        raise NotImplementedError(
+            "EFB-bundled datasets are not ported yet (ROADMAP.md queue 1, "
+            "item 11)")
+    L, B = max_leaves, max_bin
+    f32, i64, i32 = torch.float32, torch.long, torch.int32
+    scan_kernel = n < KERNEL_SCAN_ROWS
+    leaf_ids = row_leaf_init.to(device=dev, dtype=i32).contiguous()
+    in_bag = leaf_ids == 0
+
+    root_hist = hist_ops.leaf_histogram(
+        bins, grad, hess, leaf_ids,
+        torch.zeros(1, dtype=i32, device=dev), B, hist_impl)
+    # grow.py:471-474: the root sums from the payload, the count an integer
+    root_g = (grad * in_bag).sum()
+    root_h = (hess * in_bag).sum()
+    root_c = in_bag.sum()
+
+    pvec = params_vector(params, dev)
+    fvec1 = build_feature_statics(num_bins, default_bins, missing_types,
+                                  monotone=monotone, penalty=penalty,
+                                  feature_mask=feature_mask, children=1)
+    fvec2 = fvec1.repeat(2, 1)
+
+    def scan(hists, sums, counts, minc, maxc):
+        """Split rows [CH, ROW_W] and int64 counts [CH, 2] of CH children:
+        hists [CH, F, B, 3], sums [CH] pairs (g, h), counts [CH] int64."""
+        if scan_kernel:
+            svec = child_vector(sums[:, 0], sums[:, 1], counts.to(f32),
+                                minc, maxc)
+            rows = split_scan(hists, fvec2 if len(hists) == 2 else fvec1,
+                              svec, pvec)[1]
+            return rows, rows[:, [_OLC, _ORC]].long()
+        out = []
+        for c in range(hists.shape[0]):
+            mn = mx = None
+            if monotone is not None:
+                mn, mx = minc[c].expand(F), maxc[c].expand(F)
+            pf = best_split_per_feature(
+                hists[c], sums[c, 0], sums[c, 1], counts[c], num_bins,
+                default_bins, missing_types, params, monotone=monotone,
+                penalty=penalty, min_constraints=mn, max_constraints=mx,
+                feature_mask=feature_mask)
+            out.append(_split_row(select_best_feature(pf)))
+        return (torch.stack([r for r, _ in out]),
+                torch.stack([c for _, c in out]))
+
+    inf = torch.full((1,), torch.inf, dtype=f32, device=dev)
+    root_row, root_cnt = scan(root_hist.unsqueeze(0),
+                              torch.stack([root_g, root_h]).view(1, 2),
+                              root_c.view(1), -inf, inf)
+    split_cache = no_split_row(dev).repeat(L, 1)
+    split_cache[0] = root_row[0]
+    split_cnt = torch.zeros((L, 2), dtype=i64, device=dev)
+    split_cnt[0] = root_cnt[0]
+    leaf_mat, node_mat = new_tables(L, dev)
+    leaf_mat[0, _LC] = root_c.to(f32)
+    leaf_cnt = torch.zeros(L, dtype=i64, device=dev)
+    leaf_cnt[0] = root_c
+    node_cnt = torch.zeros(node_mat.shape[0], dtype=i64, device=dev)
+    hist_cache = torch.zeros((L,) + tuple(root_hist.shape), dtype=f32,
+                             device=dev)
+    hist_cache[0] = root_hist
+
+    nl = torch.ones(1, dtype=i64, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    no_leaf = torch.full((1,), NO_LEAF, dtype=i32, device=dev)
+    bv = torch.arange(256, dtype=i64, device=dev)
+    fstat = torch.stack([missing_types, default_bins, num_bins - 1],
+                        dim=1).to(device=dev, dtype=i64)
+    mono = None if monotone is None else monotone.to(device=dev, dtype=i64)
+
+    for _ in range(L - 1):
+        bi = torch.argmax(split_cache[:, _OG]).view(1)
+        row = split_cache.index_select(0, bi)[0]
+        lc, rc = split_cnt.index_select(0, bi)[0]
+        feat = row[_OF].long().clamp_min(0).view(1)
+        done = done | (row[_OG] <= NEG_GATE)
+        bi32, nl32 = bi.to(i32), nl.to(i32)
+
+        # relabel (DataPartition::Split, data_partition.hpp:108): the rows
+        # of leaf bi whose bin goes right move to the new leaf; the go-left
+        # rule over the 256 bin values (NumericalDecision, tree.h:429-465)
+        fs = fstat.index_select(0, feat)[0]
+        is_missing = (((fs[0] == 1) & (bv == fs[1]))
+                      | ((fs[0] == 2) & (bv == fs[2])))
+        go_right = ~torch.where(is_missing, row[_ODL] > 0.5,
+                                bv <= row[_OT].long())
+        col = bins.index_select(1, feat).view(-1)
+        moves = (go_right.index_select(0, col.to(i32))
+                 & (leaf_ids == torch.where(done, no_leaf, bi32)))
+        leaf_ids = torch.where(moves, nl32, leaf_ids)
+
+        # the smaller child by K7, its sibling by subtraction
+        left_smaller = lc <= rc
+        small = torch.where(done, no_leaf,
+                            torch.where(left_smaller, bi32, nl32))
+        small_hist = hist_ops.leaf_histogram(bins, grad, hess, leaf_ids,
+                                             small, B, hist_impl)
+        large_hist = hist_ops.subtract(hist_cache.index_select(0, bi)[0],
+                                       small_hist)
+        left_hist = torch.where(left_smaller, small_hist, large_hist)
+        right_hist = torch.where(left_smaller, large_hist, small_hist)
+        put(hist_cache, bi, left_hist, done)
+        put(hist_cache, nl, right_hist, done)
+        put(leaf_cnt, bi, lc, done)
+        put(leaf_cnt, nl, rc, done)
+        put(node_cnt, nl - 1, lc + rc, done)
+
+        depth, min_l, max_l, min_r, max_r = record_split(
+            node_mat, leaf_mat, bi, nl, row, feat, fs[0], done, mono)
+
+        sums = torch.stack([row[[_OLG, _OLH]], row[[_ORG, _ORH]]])
+        rows2, cnts2 = scan(torch.stack([left_hist, right_hist]), sums,
+                            torch.stack([lc, rc]),
+                            torch.stack([min_l, min_r]),
+                            torch.stack([max_l, max_r]))
+        rows2 = mask_depth(rows2, depth, max_depth)
+        put(split_cache, bi, rows2[0], done)
+        put(split_cache, nl, rows2[1], done)
+        put(split_cnt, bi, cnts2[0], done)
+        put(split_cnt, nl, cnts2[1], done)
+        nl = torch.where(done, nl, nl + 1)
+
+    tree = tree_from_tables(node_mat, leaf_mat, nl)._replace(
+        leaf_count=leaf_cnt.to(i32), internal_count=node_cnt.to(i32))
+    return tree, leaf_ids

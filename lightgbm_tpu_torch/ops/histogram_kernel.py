@@ -1,0 +1,140 @@
+"""K7: the label engine's per-leaf histogram over row-major bins.
+
+Port of lightgbm_tpu/ops/histogram_pallas.py: `leaf_histogram` (its
+`_hist_kernel`) and `leaf_histogram_quantized` (`_hist_kernel_q`).  Each
+wrapper launches the CUDA kernel of `csrc/leaf_histogram.cu` for CUDA
+tensors and runs the plain PyTorch version beside it for CPU tensors.
+
+The Pallas kernels factor each bin over a radix pair and contract one-hot
+planes on the MXU, because a TPU has no fast scatter; the radix layout and
+its epilogue are not ported, only the function: the [F, max_bin, 3]
+(sum g, sum h, count) of the rows whose leaf id equals `leaf`.
+
+- f32 mode: bins uint8 [n, F] (the dataset's device bins), grad and hess
+  f32 [n], leaf ids int32 [n] (-1: out of the bag); f32 sums;
+- int8 mode: int8 g and h codes, uint8 leaf ids (255 is never a leaf);
+  exact int32 code sums, as K2's int8 mode returns them (the JAX kernel
+  returns the same integers in f32).
+
+`leaf` is an int32 device scalar (shape () or (1,)) that the kernel reads,
+so a grower's best leaf never visits the host; an int is accepted too.
+"""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+from . import _cuda
+
+# two blocks an SM with an 85.7 KB sub-histogram; fewer blocks are slower,
+# since the pass waits on the leaf-id stream (PERF.md's K7 grid sweep)
+LEAF_HIST_BLOCKS = 264
+
+
+def _leaf_tensor(leaf: Union[int, torch.Tensor], dev) -> torch.Tensor:
+    if not isinstance(leaf, torch.Tensor):
+        return torch.tensor([int(leaf)], dtype=torch.int32, device=dev)
+    if leaf.numel() != 1:
+        raise ValueError("leaf: %d elements, expected one" % leaf.numel())
+    leaf = leaf.reshape(1)
+    _cuda.require(leaf, "leaf", torch.int32, dev)
+    return leaf
+
+
+def _check(bins, g, h, leaf_ids, max_bin, payload_dtype, id_dtype):
+    if not 1 <= max_bin <= 256:
+        raise ValueError("max_bin must be in [1, 256], got %d" % max_bin)
+    if bins.dim() != 2:
+        raise ValueError("bins: shape %s, expected (n, F)"
+                         % (tuple(bins.shape),))
+    n = bins.shape[0]
+    dev = bins.device
+    _cuda.require(bins, "bins", torch.uint8, dev)
+    for t, name in ((g, "grad"), (h, "hess")):
+        _cuda.require(t, name, payload_dtype, dev, (n,))
+    _cuda.require(leaf_ids, "leaf_ids", id_dtype, dev, (n,))
+
+
+def _rows_histogram_plain(bins, g, h, rows, max_bin, acc_dtype):
+    """[F, max_bin, 3] sums over the given rows, one index_add_ per
+    feature, accumulated in acc_dtype."""
+    n, F = bins.shape
+    b = bins.index_select(0, rows).long()
+    vals = torch.stack([g.index_select(0, rows).to(acc_dtype),
+                        h.index_select(0, rows).to(acc_dtype),
+                        torch.ones(rows.shape[0], dtype=acc_dtype,
+                                   device=bins.device)], dim=1)
+    out = torch.zeros((F, max_bin, 3), dtype=acc_dtype, device=bins.device)
+    for f in range(F):
+        out[f].index_add_(0, b[:, f], vals)
+    return out
+
+
+def _launch(name, bins, g, h, leaf_ids, leaf, max_bin, out_dtype):
+    """K7's CUDA kernel `name` into a zeroed [F, max_bin, 3] output."""
+    n, F = bins.shape
+    out = torch.zeros((F, max_bin, 3), dtype=out_dtype, device=bins.device)
+    rc = _cuda.fn("lgbt_" + name)(
+        bins.data_ptr(), g.data_ptr(), h.data_ptr(), leaf_ids.data_ptr(),
+        leaf.data_ptr(), n, out.data_ptr(), F, max_bin, LEAF_HIST_BLOCKS,
+        _cuda.stream())
+    _cuda.check(rc, name)
+    return out
+
+
+def leaf_histogram_plain(bins, grad, hess, leaf_ids, leaf,
+                         max_bin: int) -> torch.Tensor:
+    """The f32 histogram accumulated in f64 and rounded once to f32, so the
+    plain version is not itself off by the f32 rounding of a long sum."""
+    rows = (leaf_ids == _leaf_tensor(leaf, bins.device)).nonzero()[:, 0]
+    return _rows_histogram_plain(bins, grad, hess, rows, max_bin,
+                                 torch.float64).to(torch.float32)
+
+
+def leaf_histogram(bins: torch.Tensor, grad: torch.Tensor,
+                   hess: torch.Tensor, leaf_ids: torch.Tensor, leaf,
+                   max_bin: int) -> torch.Tensor:
+    """[F, max_bin, 3] f32 (sum grad, sum hess, count) of the rows with
+    leaf_ids == leaf."""
+    _check(bins, grad, hess, leaf_ids, max_bin, torch.float32, torch.int32)
+    dev = bins.device
+    leaf = _leaf_tensor(leaf, dev)
+    if not _cuda.plain_or_cuda(dev):
+        return leaf_histogram_plain(bins, grad, hess, leaf_ids, leaf, max_bin)
+    return _launch("leaf_histogram", bins, grad, hess, leaf_ids, leaf,
+                   max_bin, torch.float32)
+
+
+def leaf_histogram_quantized_plain(bins, g_code, h_code, leaf_ids, leaf,
+                                   max_bin: int) -> torch.Tensor:
+    """Exact int64 sums, returned as int32."""
+    rows = (leaf_ids.to(torch.int32)
+            == _leaf_tensor(leaf, bins.device)).nonzero()[:, 0]
+    return _rows_histogram_plain(bins, g_code, h_code, rows, max_bin,
+                                 torch.int64).to(torch.int32)
+
+
+def leaf_histogram_quantized(bins: torch.Tensor, g_code: torch.Tensor,
+                             h_code: torch.Tensor, leaf_ids: torch.Tensor,
+                             leaf, max_bin: int) -> torch.Tensor:
+    """[F, max_bin, 3] int32 (sum g_code, sum h_code, count) of the rows
+    with leaf_ids == leaf; leaf_ids uint8, leaf < 255."""
+    _check(bins, g_code, h_code, leaf_ids, max_bin, torch.int8, torch.uint8)
+    dev = bins.device
+    leaf = _leaf_tensor(leaf, dev)
+    if not _cuda.plain_or_cuda(dev):
+        return leaf_histogram_quantized_plain(bins, g_code, h_code, leaf_ids,
+                                              leaf, max_bin)
+    return _launch("leaf_histogram_i8", bins, g_code, h_code, leaf_ids, leaf,
+                   max_bin, torch.int32)
+
+
+def leaf_histogram_bytes(n: int, m: int, F: int, max_bin: int,
+                         quantized: bool = False) -> int:
+    """Bytes K7 must move: all n leaf ids (4 bytes, or 1 in int8 mode), the
+    F bins and the payload (8 bytes of g/h, or 2 of codes) of the leaf's m
+    rows, and the [F, max_bin, 3] histogram written once."""
+    if quantized:
+        return n + m * (F + 2) + 12 * F * max_bin
+    return 4 * n + m * (F + 8) + 12 * F * max_bin

@@ -70,6 +70,20 @@ def arena_geometry(num_data: int, num_features: int, factor: int = 3) -> tuple:
     return max(num_features, 1), cap
 
 
+def arena_bytes(num_data: int, num_groups: int, factor: int,
+                max_leaves: int, max_bin: int, quantized: bool = False) -> int:
+    """Device bytes the partition engine holds for a dataset: the arena's
+    planes and K3's scratch planes (`Arena`), the dataset's [n, G] bins and
+    the dense per-leaf histogram cache: the port's counterpart of the three
+    terms of lightgbm_tpu/models/gbdt.py:1304-1306."""
+    G, cap = arena_geometry(num_data, num_groups, factor)
+    row = G + 2 * (1 if quantized else 4) + 4       # bins, payload, row id
+    scratch = max(num_data, 1) * row
+    hist_cache = max_leaves * G * max(max_bin, 2) * 3 * 4
+    return cap * row + scratch + num_data * G + 4 * PARTITION_BLOCKS \
+        + hist_cache
+
+
 def pristine_work0(num_data: int) -> int:
     """First work-region column of the pristine layout: the pristine row
     block [0, align(n)) plus one guard tile."""
@@ -381,6 +395,100 @@ def partition_pred_bytes(cnt: int, G: int, max_bin: int,
     read once and written once, its predicate byte read once, and the
     [G, max_bin, 3] histogram written once."""
     return partition_bytes(cnt, G, quantized) + cnt + G * max_bin * 3 * 4
+
+
+# --------------------------------------------------------------------------- #
+# K8: the stage ablation of K3
+# --------------------------------------------------------------------------- #
+# the cumulative stages of csrc/partition_ablate.cu, in order
+ABLATE_STAGES = ("read", "decide", "scan", "scatter", "full")
+
+
+def _plane_sums(arena: Arena, cols: torch.Tensor) -> torch.Tensor:
+    """Each column's planes summed as unsigned 32-bit words (int64 here):
+    its G bins, the bits of its two payload values and its row id."""
+    s = arena.bins[:, cols].long().sum(0)
+    p = arena.payload[:, cols]
+    words = (p.view(torch.int32).long() & 0xFFFFFFFF if p.dtype == torch.float32
+             else p.view(torch.uint8).long())
+    return s + words.sum(0) + (arena.rid[cols].long() & 0xFFFFFFFF)
+
+
+def partition_ablate_plain(arena: Arena, sc: torch.Tensor,
+                           goleft: torch.Tensor, stage: str) -> None:
+    """What each stage leaves.  read, decide and scan: block b's checksum
+    (mod 2^32) at s_rid[b], over the rows of its chunk (whole 256-row
+    tiles, the segment spread over PARTITION_BLOCKS blocks): the plane
+    sums, plus each row's decision (decide), plus each row's destination
+    (scan: its rank among the stream-A rows, or dst_b plus its rank among
+    the stream-B rows); scan also writes the counts to sc.  scatter: stream
+    A to the scratch arena's first columns, stream B to dst_b, the counts
+    to sc.  full: K3."""
+    if stage == "full":
+        partition_segment_plain(arena, sc, goleft)
+        return
+    start, cnt, _, dst_b, _, _, chan, xr = (int(v) for v in sc.tolist())
+    dev = arena.device
+    cols = torch.arange(start, start + cnt, device=dev)
+    is_a = (goleft[arena.bins[chan, cols].long()] != 0) ^ bool(xr)
+    if stage == "scatter":
+        ca, cb = cols[is_a], cols[~is_a]
+        na, nb = int(ca.numel()), int(cb.numel())
+        for src, dst in ((arena.bins, arena.s_bins),
+                         (arena.payload, arena.s_payload)):
+            b_rows = src[:, cb]
+            dst[:, :na] = src[:, ca]
+            src[:, dst_b:dst_b + nb] = b_rows
+        b_rid = arena.rid[cb]
+        arena.s_rid[:na] = arena.rid[ca]
+        arena.rid[dst_b:dst_b + nb] = b_rid
+        sc[SC_CNT_B], sc[SC_CNT_A] = nb, na
+        return
+    words = _plane_sums(arena, cols)
+    if stage in ("decide", "scan"):
+        words = words + is_a.long()
+    if stage == "scan":
+        a_rank = torch.cumsum(is_a.long(), 0) - is_a.long()
+        b_rank = torch.arange(cnt, device=dev) - a_rank
+        words = words + torch.where(is_a, a_rank, dst_b + b_rank)
+        na = int(is_a.sum())
+        sc[SC_CNT_B], sc[SC_CNT_A] = cnt - na, na
+    tiles = -(-cnt // 256)
+    chunk = -(-tiles // PARTITION_BLOCKS) * 256
+    block = torch.arange(cnt, device=dev) // max(chunk, 1)
+    sums = torch.zeros(PARTITION_BLOCKS, dtype=torch.long, device=dev)
+    sums.index_add_(0, block, words)
+    used = min(PARTITION_BLOCKS, arena.scap)
+    sums = (sums[:used] & 0xFFFFFFFF)
+    arena.s_rid[:used] = torch.where(sums >= 1 << 31, sums - (1 << 32),
+                                     sums).to(torch.int32)
+
+
+def partition_ablate(arena: Arena, sc: torch.Tensor, goleft: torch.Tensor,
+                     stage: str) -> None:
+    """K8: K3 in decision mode stripped to `stage` (ABLATE_STAGES), as
+    tools/kernel_ablate.py strips the TPU kernel; csrc/partition_ablate.cu
+    on a CUDA arena, partition_ablate_plain on a CPU one.  Only the full
+    stage partitions; the earlier ones leave the checksums that keep their
+    loads live (partition_ablate_plain says which)."""
+    dev = arena.device
+    _cuda.require(sc, "sc", torch.int32, dev, (SC_LEN,))
+    _cuda.require(goleft, "goleft", torch.uint8, dev, (256,))
+    if stage not in ABLATE_STAGES:
+        raise ValueError("stage must be one of %s, got %r"
+                         % (", ".join(ABLATE_STAGES), stage))
+    if not _cuda.plain_or_cuda(dev):
+        partition_ablate_plain(arena, sc, goleft, stage)
+        return
+    name = "partition_ablate_i8" if arena.quantized else "partition_ablate"
+    rc = _cuda.fn("lgbt_" + name)(
+        ABLATE_STAGES.index(stage), arena.bins.data_ptr(),
+        arena.payload.data_ptr(), arena.rid.data_ptr(), arena.cap,
+        arena.s_bins.data_ptr(), arena.s_payload.data_ptr(),
+        arena.s_rid.data_ptr(), arena.scap, sc.data_ptr(), goleft.data_ptr(),
+        arena.block_counts.data_ptr(), PARTITION_BLOCKS, arena.num_groups,
+        _cuda.stream())
+    _cuda.check(rc, "partition_ablate")
 
 
 # --------------------------------------------------------------------------- #

@@ -116,7 +116,7 @@ def split_gains(lg, lh, rg, rh, l1, l2, max_delta_step, min_constraint,
 
 
 def best_split_per_feature(hist: torch.Tensor, sum_gradient, sum_hessian,
-                           num_data: int, num_bins: torch.Tensor,
+                           num_data, num_bins: torch.Tensor,
                            default_bins: torch.Tensor,
                            missing_types: torch.Tensor, params: SplitParams,
                            monotone: Optional[torch.Tensor] = None,
@@ -128,8 +128,10 @@ def best_split_per_feature(hist: torch.Tensor, sum_gradient, sum_hessian,
                            ) -> PerFeatureSplit:
     """Best numerical split of every feature of one leaf (fields [F]).
 
-    hist: [F, B, 3] (grad, hess, count); num_bins/default_bins/
-    missing_types: [F] integer statics; feature_mask: [F] bool."""
+    hist: [F, B, 3] (grad, hess, count); num_data: the leaf's row count,
+    an int or an integer 0-d tensor (read on the device, no host sync);
+    num_bins/default_bins/missing_types: [F] integer statics; feature_mask:
+    [F] bool."""
     F, B, _ = hist.shape
     dev, dtype = hist.device, hist.dtype
     l1, l2 = params.lambda_l1, params.lambda_l2
@@ -138,7 +140,7 @@ def best_split_per_feature(hist: torch.Tensor, sum_gradient, sum_hessian,
     # FindBestThreshold adds 2*eps to the parent hessian (hpp:79)
     sum_hessian = torch.as_tensor(sum_hessian, dtype=dtype,
                                   device=dev) + 2 * K_EPSILON
-    num_data = int(num_data)
+    num_data = torch.as_tensor(num_data, device=dev).long()
     nb = num_bins.to(dev).long()[:, None]
     db = default_bins.to(dev).long()[:, None]
     mt = missing_types.to(dev).long()[:, None]

@@ -31,7 +31,16 @@ Tolerances, per kernel:
   card and the CPU; from each device's own binary-logloss gradients the
   gradients agree to 1e-6, at most one code in a thousand differs, and one
   integer histogram dequantized and summed over a feature's bins agrees to
-  1e-5 of its |value| sum (`-s` prints what was found).
+  1e-5 of its |value| sum (`-s` prints what was found);
+- K7 leaf_histogram over row-major bins, at the root and on a masked
+  child, G=28 and G=80 (two feature chunks at B=255), max_bin 16 and 255:
+  f32 as K2's tolerance, int8 exact;
+- a 63-leaf label-engine tree (K7 and K1) on dyadic gradients over a bag:
+  the same splits, default directions, counts and leaf ids as on the CPU,
+  leaf values rtol 1e-6;
+- K8 partition_ablate: every stage equal to its plain version (the
+  read, decide and scan stages' checksums, the scatter stage's streams,
+  the full stage's planes).
 """
 import numpy as np
 import pytest
@@ -540,3 +549,119 @@ def test_bagged_tree_matches_cpu(quantized, dev):
     assert torch.equal(ik < 0, in_bag == 0)
     torch.testing.assert_close(tk.leaf_value.cpu(), tp.leaf_value, rtol=1e-6,
                                atol=0.0)
+
+
+# --------------------------------------------------------------------------- #
+# K7 leaf_histogram, the label engine, K8 partition_ablate
+# --------------------------------------------------------------------------- #
+def _leaf_inputs(dev, n, G, B, seed, quantized):
+    rng = np.random.RandomState(seed)
+    bins = torch.from_numpy(rng.randint(0, B, (n, G)).astype(np.uint8))
+    if quantized:
+        g = torch.from_numpy(rng.randint(-127, 128, n).astype(np.int8))
+        h = torch.from_numpy(rng.randint(0, 128, n).astype(np.int8))
+        ids = torch.from_numpy(rng.randint(0, 8, n).astype(np.uint8))
+    else:
+        g = torch.from_numpy(rng.randn(n).astype(np.float32))
+        h = torch.from_numpy((rng.rand(n) * 0.25 + 0.01).astype(np.float32))
+        ids = torch.from_numpy(rng.randint(-1, 7, n).astype(np.int32))
+    return [t.to(dev) for t in (bins, g, h, ids)]
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("B", [16, 255])
+@pytest.mark.parametrize("G", [28, 80])
+def test_leaf_histogram_matches_plain(G, B, quantized, dev):
+    """K7 at the root (every row in leaf 0) and on a masked child (one
+    leaf of eight); G=80 at B=255 needs two feature chunks (66 + 14)."""
+    from lightgbm_tpu_torch.ops import histogram_kernel as hk
+    n = 300_000 if G == 28 else 100_000
+    bins, g, h, ids = _leaf_inputs(dev, n, G, B, G + B, quantized)
+    fn = hk.leaf_histogram_quantized if quantized else hk.leaf_histogram
+    plain = (hk.leaf_histogram_quantized_plain if quantized
+             else hk.leaf_histogram_plain)
+    for leaf_ids, leaf in ((torch.zeros_like(ids), 0), (ids, 5)):
+        leaf_t = torch.tensor([leaf], dtype=torch.int32, device=dev)
+        got = fn(bins, g, h, leaf_ids, leaf_t, B)
+        torch.cuda.synchronize()
+        want = plain(bins, g, h, leaf_ids, leaf_t, B)
+        assert int(want[0, :, 2].sum()) == int((leaf_ids.int() == leaf).sum())
+        if quantized:
+            assert got.dtype == torch.int32 and torch.equal(got, want)
+            continue
+        assert torch.equal(got[..., 2], want[..., 2])
+        scale = plain(bins, g.abs(), h, leaf_ids, leaf_t, B)
+        assert bool(((got - want).abs() <= 1e-5 * scale).all())
+
+
+def test_label_tree_matches_cpu(dev):
+    """One 63-leaf label-engine tree on the card (K7 and K1) against the
+    same tree on the CPU, over a bag of 0.8 of the rows.  Gradients and
+    hessians are multiples of 1/8 whose sums stay below 2^21, so every
+    histogram sum is exact in f32 whatever the order of the atomics."""
+    from lightgbm_tpu_torch.ops import _cuda
+    from lightgbm_tpu_torch.ops.grow import grow_tree_label
+    rng = np.random.RandomState(16)
+    n, F, B = 80_000, 8, 64
+    bins = torch.from_numpy(rng.randint(0, B, (n, F)).astype(np.uint8))
+    grad = torch.from_numpy((rng.randint(-8, 9, n) / 8).astype(np.float32))
+    hess = torch.from_numpy((rng.randint(1, 9, n) / 8).astype(np.float32))
+    row0 = torch.from_numpy(np.where(rng.rand(n) < 0.8, 0, -1)
+                            .astype(np.int32))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        _cuda.reset_launch_counts()
+        nb = torch.full((F,), B, dtype=torch.int32, device=d)
+        mt = torch.arange(F, dtype=torch.int32, device=d) % 3
+        tree, ids = grow_tree_label(
+            bins.to(d), grad.to(d), hess.to(d), row0.to(d),
+            torch.ones(F, dtype=torch.bool, device=d), nb,
+            torch.full((F,), 3, dtype=torch.int32, device=d), mt,
+            SplitParams(min_data_in_leaf=20), max_leaves=63, max_bin=B,
+            hist_impl="pallas")
+        out[d.type] = (tree, ids.cpu(), dict(_cuda.LAUNCHES))
+    (tk, ik, lk), (tp, ip, lp) = out["cuda"], out["cpu"]
+    assert lk["leaf_histogram"] == 63 and lk["split_scan"] == 63 and not lp
+    assert int(tk.num_leaves) == int(tp.num_leaves) == 63
+    assert torch.equal(tk.split_feature.cpu(), tp.split_feature)
+    assert torch.equal(tk.threshold_bin.cpu(), tp.threshold_bin)
+    assert torch.equal(tk.default_left.cpu(), tp.default_left)
+    assert torch.equal(tk.leaf_count.cpu(), tp.leaf_count)
+    assert torch.equal(ik, ip)
+    assert torch.equal(ik < 0, row0 < 0)
+    torch.testing.assert_close(tk.leaf_value.cpu(), tp.leaf_value, rtol=1e-6,
+                               atol=0.0)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_partition_ablate_matches_plain(quantized, dev):
+    """Every K8 stage against its plain version: the checksums of the
+    read, decide and scan stages, the scan stage's counts, the scatter
+    stage's streams, and the full stage (K3)."""
+    n = 300_000
+    if quantized:
+        (ak, ap), _ = _code_arenas(dev, n=n)
+    else:
+        ak, ap = _arenas(dev, n=n)
+    goleft = (torch.arange(256, device=dev) < 127).to(torch.uint8)
+    dst_b = pk.pristine_work0(n)
+    for stage in pk.ABLATE_STAGES:
+        sc = torch.tensor([0, n, 0, dst_b, 0, 0, 2, 0], dtype=torch.int32,
+                          device=dev)
+        sc_p = sc.clone()
+        pk.partition_ablate(ak, sc, goleft, stage)
+        torch.cuda.synchronize()
+        pk.partition_ablate_plain(ap, sc_p, goleft, stage)
+        assert torch.equal(sc, sc_p), stage
+        if stage in ("read", "decide", "scan"):
+            assert torch.equal(ak.s_rid[:pk.PARTITION_BLOCKS],
+                               ap.s_rid[:pk.PARTITION_BLOCKS]), stage
+            continue
+        n_a = int(sc[pk.SC_CNT_A])
+        if stage == "scatter":
+            assert torch.equal(ak.s_bins[:, :n_a], ap.s_bins[:, :n_a])
+            assert torch.equal(ak.s_payload[:, :n_a], ap.s_payload[:, :n_a])
+            assert torch.equal(ak.s_rid[:n_a], ap.s_rid[:n_a])
+        assert torch.equal(ak.bins, ap.bins), stage
+        assert torch.equal(ak.payload, ap.payload), stage
+        assert torch.equal(ak.rid, ap.rid), stage

@@ -6,8 +6,8 @@
   lightgbm_tpu (AST check);
 - entry points with no device and no CUDA raise, with no CPU fallback;
 - every configuration this slice does not run raises NotImplementedError
-  naming the ROADMAP.md item that brings it, and quantized training and
-  bagging, which it does run, engage;
+  naming the ROADMAP.md item that brings it, and quantized training,
+  bagging and the label engine, which it does run, engage;
 - `Dataset.set_weight` moves training between the carried and pristine
   arenas as weights demand, and a validation set keeps it off the carried
   arena.
@@ -121,7 +121,9 @@ _schedule.before_iteration = True
 
 # name -> (params, Dataset keywords, train keywords)
 UNSUPPORTED = {
-    "label_engine": ({"tpu_tree_engine": "label"}, {}),
+    "double_precision": ({"tpu_double_precision": True}, {}),
+    # 600 distinct values a feature and min_data_in_bin=1: 511 bins
+    "wide_bins": ({"max_bin": 511, "min_data_in_bin": 1}, {}),
     "categorical": ({}, {"categorical_feature": [0]}),
     "goss": ({"boosting": "goss"}, {}),
     "rf": ({"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
@@ -152,6 +154,10 @@ def _sparse_data(seed=1, n=600, F=6):
     return X, y
 
 
+ROADMAP_ITEMS = {"double_precision": "f64 on the label engine",
+                 "wide_bins": "uint16 bins and max_bin > 256"}
+
+
 @pytest.mark.parametrize("name", sorted(UNSUPPORTED))
 def test_unsupported_config_raises(name):
     params, ds_kw, train_kw = (UNSUPPORTED[name] + ({},))[:3]
@@ -160,9 +166,27 @@ def test_unsupported_config_raises(name):
     if params.get("objective") == "multiclass":
         y = np.arange(len(y)) % 3
     params = dict({"objective": "binary", "verbose": -1}, **params)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
         tlgb.train(params, tlgb.Dataset(X, y, device="cpu", **ds_kw),
                    num_boost_round=1, device="cpu", **train_kw)
+    assert ROADMAP_ITEMS.get(name, "") in str(err.value)
+
+
+def test_label_engine_engages():
+    """tpu_tree_engine=label trains on the label engine: no arena, never
+    the carried path, and tpu_quantized_grad cleared (the JAX rule)."""
+    X, y = _data()
+    bst = tlgb.train({"objective": "binary", "num_leaves": 7, "verbose": -1,
+                      "tpu_tree_engine": "label",
+                      "tpu_quantized_grad": True},
+                     tlgb.Dataset(X, y, device="cpu"), num_boost_round=2,
+                     device="cpu")
+    g = bst._gbdt
+    assert not g._use_partition_engine
+    assert g.arena is None and not g._quantized and not g._carried_active
+    assert bst.num_trees() == 2 and all(m.num_leaves > 1 for m in g.models)
+    p = bst.predict(X)
+    assert np.isfinite(p).all() and ((p > 0.5) == (y > 0)).mean() > 0.8
 
 
 def test_cv_and_schedules_are_refused():
