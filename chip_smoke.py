@@ -11,16 +11,18 @@
    inputs, with the tolerance stated per kernel, and is timed with CUDA
    events beside the plain version and, where one PyTorch call computes the
    same function, that call.  f32 arenas: K1 split_scan, K2
-   segment_histogram, K3 partition_segment (decision mode, and pred mode
-   with the bag's fused histogram at the bagged root), K4
+   segment_histogram, K3 partition_segment (decision mode at the root and
+   in place on a 40k-row child, and pred mode with the bag's fused
+   histogram at the bagged root and in place on a 40k-row child), K4
    scatter_segments, K6 compact_carry; quantized arenas (int8 codes made on
    the CPU): K2 in int8 mode, K5 fused_refresh_histogram, K3 in both modes
    moving the codes, K6 moving the codes, each held exactly equal to its
    plain version; K7 leaf_histogram over the dataset's row-major bins, f32
    and int8, at the root (every row in leaf 0) and on a leaf of about 40k
-   rows scattered over the rows; K8 partition_ablate, K3's stage ablation,
-   at the dataset's row count on an f32 and an int8 arena, its full stage
-   held exactly equal to K3's plain version;
+   rows scattered over the rows, with one row-list workspace as the grower
+   holds it; K8 partition_ablate, K3's stage ablation, at the dataset's row
+   count on an f32 and an int8 arena, its full stage held exactly equal to
+   K3's plain version;
 4. parity phase: a 20k-row, 3-round, 31-leaf run on the card against the
    same run on the CPU (plain versions), with f32 and with quantized
    gradients, unweighted (the carried arena), weighted (the pristine one),
@@ -43,8 +45,9 @@
    kernel of another path did; trees must reach more than one leaf, the
    holdout AUC must reach 0.75, each quantized run's must be within 0.02
    of its f32 run's and each label run's within 0.02 of the valid-set f32
-   run's; after each carried, bagged and label run, one more round runs
-   under torch.profiler for the device time by kernel;
+   run's, and each run's within 0.002 of the last accepted run of this
+   script (AUC_BEFORE); after each carried, bagged and label run, one more
+   round runs under torch.profiler for the device time by kernel;
 6. prints one JSON line of training results and one of per-kernel results,
    then the device line {"ok": true, "device": {...}} as the last line.
 
@@ -70,6 +73,16 @@ PARAMS = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
 QPARAMS = dict(PARAMS, tpu_quantized_grad=True)
 AUC_FLOOR = 0.75
 AUC_GAP = 0.02
+# each run's holdout AUC in an earlier accepted run of this script (NVIDIA
+# H100 80GB HBM3, 700 W; PERF.md section 5 keeps the runs): a kernel
+# rewrite that keeps the partitions and histograms moves none by more
+# than AUC_DRIFT
+AUC_BEFORE = {"f32": 0.8534, "quantized": 0.8533, "weighted_f32": 0.8559,
+              "weighted_quantized": 0.8563, "bagged_f32": 0.8558,
+              "bagged_quantized": 0.8556, "valid_f32": 0.8559,
+              "valid_quantized": 0.8558, "label_f32": 0.8559,
+              "label_bagged_f32": 0.8557}
+AUC_DRIFT = 0.002
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and f32 rate outside the
 # tensor cores (the integer adds of the histogram kernels are counted at the
 # same rate); bounds below are stated against these, beside the card's power
@@ -78,9 +91,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # the __global__ functions of lightgbm_tpu_torch/csrc/*.cu
 PORT_KERNELS = ("split_scan_kernel", "select_best_kernel", "histogram_kernel",
-                "count_kernel", "scatter_kernel", "copy_back_kernel",
-                "scatter_segments_kernel", "carry_offsets_kernel",
-                "carry_copy_kernel", "leaf_histogram_kernel")
+                "partition_kernel", "scatter_segments_kernel",
+                "carry_offsets_kernel", "carry_copy_kernel",
+                "leaf_select_kernel", "leaf_accumulate_kernel")
 # the training paths.  Carried: no weights, no bag, no validation set (the
 # JAX rule); weights keep the tree rooted at the pristine block; a bag or a
 # validation set runs the eager path (pristine root, per-row leaf ids), the
@@ -467,14 +480,65 @@ def kernel_phase(ds, dev, results, quantized: bool):
           % (mode, n, n_in, k3p["ms"], k3p["plain_ms"], sort_ms,
              k3p["index_add_ms"], "exact" if quantized
              else "max abs err %.3g" % err))
+    # the same pass in place on a ~40k-row child of the bag (its first
+    # columns at work0): stream A over the segment itself, by a predicate
+    # over those columns
+    c_rows = min(CHILD_ROWS, n_in)
+    dst_c = oob + n_al
+    bag_c = torch.zeros(work0 + c_rows, dtype=torch.uint8, device=dev)
+    bag_c[work0:] = torch.from_numpy((np.random.RandomState(14).rand(c_rows)
+                                      < 0.8).astype(np.uint8)).to(dev)
+    sc_k = torch.tensor([work0, c_rows, work0, dst_c, 0, 0, 0, 0],
+                        dtype=torch.int32, device=dev)
+    sc_p = sc_k.clone()
+    got = pk.partition_segment_pred(ak, sc_k, bag_c, hist_stream=0, max_bin=B)
+    want = pk.partition_segment_pred_plain(ap, sc_p, bag_c, 0, B)
+    expect(torch.equal(sc_k, sc_p), "K3 pred child: counts differ")
+    c_in = int(sc_k[pk.SC_CNT_A])
+    for s, c in ((work0, c_in), (dst_c, c_rows - c_in)):
+        for pk_, pp_ in ((ak.bins, ap.bins), (ak.payload, ap.payload),
+                         (ak.rid[None], ap.rid[None])):
+            expect(torch.equal(pk_[:, s:s + c], pp_[:, s:s + c]),
+                   "K3 pred child: planes differ")
+    if quantized:
+        expect(torch.equal(got, want), "K3 pred child: int8 histograms "
+               "differ")
+    else:
+        expect(torch.equal(got[..., 2], want[..., 2]),
+               "K3 pred child: histogram counts differ")
+        rows = ap.payload[:, work0:work0 + c_in].clone()
+        ap.payload[0, work0:work0 + c_in] = rows[0].abs()
+        scale = pk.segment_histogram_plain(
+            ap, torch.tensor([work0, c_in], dtype=torch.int32, device=dev), B)
+        ap.payload[:, work0:work0 + c_in] = rows
+        err_c = float((got - want).abs().max())
+        rel = float(((got - want).abs() / scale.clamp_min(1e-30)).max())
+        expect(rel <= 1e-5, "K3 pred child: histogram error %.3g of the "
+               "|value| sums exceeds rtol 1e-5" % rel)
+        err = max(err, err_c)
+    # the child's pass keeps its segment in place, so it repeats on the
+    # same rows
+    bag_key_c = 1 - bag_c[work0:]
+    k3pc = dict(
+        ms=cuda_ms(lambda: pk.partition_segment_pred(ak, sc_k, bag_c, 0, B),
+                   20),
+        plain_ms=cuda_ms(lambda: pk.partition_segment_pred_plain(
+            ap, sc_p, bag_c, 0, B), 5),
+        library_ms=cuda_ms(lambda: torch.sort(bag_key_c, stable=True), 5),
+        bytes=pk.partition_pred_bytes(c_rows, G, B, quantized),
+        ops=3 * G * c_in, rows=c_rows)
+    print("K3 partition_segment_pred (%s payload, hist_stream=0), in place "
+          "on a child of %d rows: %.4f ms (plain %.4f, stable sort %.4f)"
+          % (mode, c_rows, k3pc["ms"], k3pc["plain_ms"], k3pc["library_ms"]))
     entry("partition_segment_pred" + sfx, "partition_segment", k3p, err,
           "planes and counts exact; histogram " + (
               "exact" if quantized else
               "counts equal, g/h within 1e-5 of the bin's |value| sum"),
           library="torch.sort(stable) of the predicate; index_add_ of the "
                   "histogram timed apart (library_index_add_ms)",
-          library_index_add_ms=k3p["index_add_ms"], in_bag=n_in)
-    del bag, bag_key, got, want
+          library_index_add_ms=k3p["index_add_ms"], in_bag=n_in,
+          child=child(k3pc))
+    del bag, bag_c, bag_key, bag_key_c, got, want
 
     # ---- K3 -----------------------------------------------------------
     chan = 0
@@ -623,6 +687,7 @@ def leaf_kernel_phase(ds, dev, results):
     leaves = rng.randint(0, LEAVES, n)
     child = int(np.argmin(np.abs(np.bincount(leaves) - CHILD_ROWS)))
     ids = {"root": np.zeros(n, np.int64), "child": leaves}
+    work = hk.row_list(n, dev)      # the row list, as a grower holds it
     for quantized in (False, True):
         name = "leaf_histogram_i8" if quantized else "leaf_histogram"
         fn = hk.leaf_histogram_quantized if quantized else hk.leaf_histogram
@@ -635,7 +700,7 @@ def leaf_kernel_phase(ds, dev, results):
                 np.uint8 if quantized else np.int32)).to(dev)
             leaf = torch.tensor([0 if what == "root" else child],
                                 dtype=torch.int32, device=dev)
-            got = fn(bins, pg, ph, leaf_ids, leaf, B)
+            got = fn(bins, pg, ph, leaf_ids, leaf, B, work)
             want = plain(bins, pg, ph, leaf_ids, leaf, B)
             m = int((lid == int(leaf[0])).sum())
             expect(int(want[0, :, 2].sum()) == m, "K7 %s: counts %d of %d"
@@ -665,7 +730,8 @@ def leaf_kernel_phase(ds, dev, results):
             hist0 = torch.zeros((F * B, 3), dtype=vdt, device=dev)
             r[what] = dict(
                 max_abs_err=err, rows=m,
-                ms=cuda_ms(lambda: fn(bins, pg, ph, leaf_ids, leaf, B), 20),
+                ms=cuda_ms(lambda: fn(bins, pg, ph, leaf_ids, leaf, B, work),
+                           20),
                 plain_ms=cuda_ms(lambda: plain(bins, pg, ph, leaf_ids, leaf,
                                                B), 3),
                 library_ms=cuda_ms(lambda: hist0.index_add_(0, flat, vals),
@@ -697,7 +763,7 @@ def leaf_kernel_phase(ds, dev, results):
                 {k: r["child"][k] for k in ("ms", "plain_ms", "library_ms",
                                             "rows")},
                 bound_ms=bound(r["child"]["bytes"], r["child"]["ops"])[0]))
-    del g, h, gq, hq
+    del g, h, gq, hq, work
     torch.cuda.empty_cache()
 
 
@@ -1017,6 +1083,12 @@ def main(argv=None) -> int:
         gap = abs(train[q]["holdout_auc"] - train[f32]["holdout_auc"])
         expect(gap <= AUC_GAP, "%s holdout AUC is %.4f from the %s run's "
                "(limit %.2f)" % (q, gap, f32, AUC_GAP))
+    for path in PATHS:
+        drift = abs(train[path]["holdout_auc"] - AUC_BEFORE[path])
+        expect(drift <= AUC_DRIFT, "%s holdout AUC %.4f is %.4f from the "
+               "last accepted run's %.4f (limit %.3f)"
+               % (path, train[path]["holdout_auc"], drift, AUC_BEFORE[path],
+                  AUC_DRIFT))
     # the label engine grows the same 255-leaf f32 trees as the partition
     # engine at the pristine root (the valid-set run's)
     for path in ("label_f32", "label_bagged_f32"):

@@ -120,10 +120,9 @@ class Booster:
 
     def add_valid(self, data: Dataset, name: str) -> "Booster":
         """Attach a validation set, evaluated with the config's metrics.  A
-        dataset not yet constructed and given no reference is binned with
-        the training set's mappers."""
-        if data._binned is None and data.reference is None:
-            data.reference = self._train_set
+        dataset given no reference is binned on its own, as the JAX package
+        bins it (lightgbm_tpu/basic.py add_valid); pass
+        `reference=train_set` to bin it with the training set's mappers."""
         data.construct()
         self._gbdt.add_valid(name, data._binned,
                              metrics_from_config(self.config))

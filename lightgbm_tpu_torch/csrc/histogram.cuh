@@ -1,6 +1,7 @@
-// The shared body of the (sum g, sum h, count) histogram kernels: K2
-// (segment_histogram.cu), K5 (fused_root_histogram.cu) and K7
-// (leaf_histogram.cu), accumulated per block in shared memory.
+// The shared body of the (sum g, sum h, count) histogram kernels K2
+// (segment_histogram.cu) and K5 (fused_root_histogram.cu), accumulated per
+// block in shared memory.  K7 (leaf_histogram.cu) and K3's pred mode
+// (partition.cuh) take only HistAcc and the shared-memory budget from here.
 //
 // A fixed grid-stride grid walks the rows of a "row source" (the segment's
 // start and count, or the leaf to histogram, live on the device, so the
@@ -19,9 +20,7 @@
 //                               feature f0, or false when row i does not
 //                               belong to the histogram;
 //   bin(bc, f):                 the bin of feature f0 + f from that pointer.
-// SegmentRows below reads arena columns (bins as [G, cap] planes); K7's
-// LeafRows (leaf_histogram.cu) reads the rows of one leaf of a row-major
-// [n, F] bin matrix.
+// SegmentRows below reads arena columns (bins as [G, cap] planes).
 //
 // The row sources read their inputs through the read-only path (__ldg):
 // their pointers are struct members, which carry no __restrict__.

@@ -5,25 +5,26 @@
 // pl.pallas_call at :199), which compiles the TPU partition kernel stripped
 // to a cumulative stage and times each, so that a redesign can see what
 // each stage costs.  Here the stages are template instances of K3's own
-// scatter_kernel (partition.cuh), cumulative:
-//   0 read:    scatter_kernel<STAGE_READ> reads every plane of each row of
-//              its chunk and leaves a checksum (no count pass);
-//   1 decide:  + the router: count_kernel, and scatter_kernel<STAGE_DECIDE>
-//              adds each row's decision to the checksum;
-//   2 scan:    + scatter_kernel<STAGE_SCAN>: the block-offset scan over the
-//              block counts and the ballot block scan per 256-row tile,
-//              each row's destination summed into the checksum;
-//   3 scatter: + the stores of stream A to the scratch arena and of stream
-//              B to dstB: count_kernel and K3's own scatter_kernel;
-//   4 full:    + copy_back_kernel: K3 itself (partition.cuh's launch).
+// partition_kernel (partition.cuh), each one launch on K3's persistent
+// grid with K3's ticket, cumulative:
+//   0 read:     each tile's planes staged in shared memory (16-byte
+//               cp.async copies), their words summed;
+//   1 decide:   + each row's decision and the block scan of the flags;
+//   2 lookback: + the status words and the decoupled look-back, the
+//               staged flags and the wait for those the A run covers,
+//               each row's destination column summed; the counts written
+//               to sc;
+//   3 stage:    + the output permutation in shared memory and the gather
+//               of every output word from the staged tile, summed;
+//   4 full:     + the coalesced stores: K3 itself.
+// Stages 0-3 move no row and leave one checksum a tile in chk (uint32
+// [tiles]), what ops/partition_kernel.partition_ablate_plain computes.
 // The TPU stages `pbuild` and `matmul` exist because a TPU has no scatter
-// (they build and apply one-hot permutation matrices); on Hopper their work
-// is the scatter stage.  The checksums land in the scratch row-id plane,
-// which stages 0-2 never write otherwise.
+// (they build and apply one-hot permutation matrices); on Hopper their
+// work is the stage and store stages.
 //
-// K3's production instances (partition_segment.cu) take the default stage
-// and compile to the kernels they were before this file existed; the stage
-// instances exist only in this library.
+// K3's production instances (partition_segment.cu) take the default stage;
+// the stage instances exist only in this library.
 //
 // What bounds it: as K3, bytes: each row's planes read once and written
 // once, 2n(G + 12) bytes f32, 2n(G + 6) int8.
@@ -32,46 +33,37 @@
 namespace {
 
 template <typename P, int STAGE>
-int launch_stage(const ArenaT<P>& a, const ArenaT<P>& s, int* sc,
-                 const DecisionRoute& route, int* block_a, int nblocks, int G,
-                 cudaStream_t stream) {
-  if (STAGE != STAGE_READ) {
-    count_kernel<DecisionRoute><<<nblocks, PART_THREADS, 0, stream>>>(
-        sc, route, block_a);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  scatter_kernel<P, DecisionRoute, false, STAGE>
-      <<<nblocks, PART_THREADS, 0, stream>>>(a, s, sc, route, block_a, G,
-                                             HistSink<P>{});
-  return (int)cudaGetLastError();
+int launch_stage(const ArenaT<P>& a, int* sc, const uint8_t* goleft,
+                 unsigned* state, long long state_len, long long max_rows,
+                 int G, unsigned* chk, cudaStream_t stream) {
+  if (STAGE < STAGE_STORE && chk == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_partition<P, DecisionRoute, false, PART_THREADS, STAGE>(
+      a, sc, DecisionRoute{goleft}, state, state_len, max_rows, G,
+      HistSink<P>{}, chk, stream);
 }
 
 template <typename P>
 int launch_ablate(int stage, uint8_t* bins, P* gh, int* rid, long long cap,
-                  uint8_t* sbins, P* sgh, int* srid, long long scap, int* sc,
-                  const uint8_t* goleft, int* block_a, int nblocks, int G,
-                  cudaStream_t stream) {
-  if (G < 1 || nblocks < 1) return (int)cudaErrorInvalidValue;
+                  int* sc, const uint8_t* goleft, unsigned* state,
+                  long long state_len, long long max_rows, int G,
+                  unsigned* chk, cudaStream_t stream) {
   const ArenaT<P> a{bins, gh, rid, cap};
-  const ArenaT<P> s{sbins, sgh, srid, scap};
-  const DecisionRoute route{bins, cap, goleft};
   switch (stage) {
     case 0:
-      return launch_stage<P, STAGE_READ>(a, s, sc, route, block_a, nblocks, G,
-                                         stream);
+      return launch_stage<P, STAGE_READ>(a, sc, goleft, state, state_len,
+                                         max_rows, G, chk, stream);
     case 1:
-      return launch_stage<P, STAGE_DECIDE>(a, s, sc, route, block_a, nblocks,
-                                           G, stream);
+      return launch_stage<P, STAGE_DECIDE>(a, sc, goleft, state, state_len,
+                                           max_rows, G, chk, stream);
     case 2:
-      return launch_stage<P, STAGE_SCAN>(a, s, sc, route, block_a, nblocks, G,
-                                         stream);
+      return launch_stage<P, STAGE_LOOKBACK>(a, sc, goleft, state, state_len,
+                                             max_rows, G, chk, stream);
     case 3:
-      return launch_stage<P, STAGE_MOVE>(a, s, sc, route, block_a, nblocks, G,
-                                         stream);
+      return launch_stage<P, STAGE_GATHER>(a, sc, goleft, state, state_len,
+                                           max_rows, G, chk, stream);
     case 4:
-      return launch<P, DecisionRoute, false>(a, s, sc, route, block_a, nblocks,
-                                             G, HistSink<P>{}, stream);
+      return launch_stage<P, STAGE_STORE>(a, sc, goleft, state, state_len,
+                                          max_rows, G, chk, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -80,22 +72,20 @@ int launch_ablate(int stage, uint8_t* bins, P* gh, int* rid, long long cap,
 }  // namespace
 
 LGBT_API int lgbt_partition_ablate(int stage, uint8_t* bins, float* gh,
-                                   int* rid, long long cap, uint8_t* sbins,
-                                   float* sgh, int* srid, long long scap,
-                                   int* sc, const uint8_t* goleft,
-                                   int* block_a, int nblocks, int G,
-                                   cudaStream_t stream) {
-  return launch_ablate<float>(stage, bins, gh, rid, cap, sbins, sgh, srid,
-                              scap, sc, goleft, block_a, nblocks, G, stream);
+                                   int* rid, long long cap, int* sc,
+                                   const uint8_t* goleft, unsigned* state,
+                                   long long state_len, long long max_rows,
+                                   int G, unsigned* chk, cudaStream_t stream) {
+  return launch_ablate<float>(stage, bins, gh, rid, cap, sc, goleft, state,
+                              state_len, max_rows, G, chk, stream);
 }
 
 LGBT_API int lgbt_partition_ablate_i8(int stage, uint8_t* bins, int8_t* codes,
-                                      int* rid, long long cap, uint8_t* sbins,
-                                      int8_t* scodes, int* srid, long long scap,
-                                      int* sc, const uint8_t* goleft,
-                                      int* block_a, int nblocks, int G,
+                                      int* rid, long long cap, int* sc,
+                                      const uint8_t* goleft, unsigned* state,
+                                      long long state_len, long long max_rows,
+                                      int G, unsigned* chk,
                                       cudaStream_t stream) {
-  return launch_ablate<int8_t>(stage, bins, codes, rid, cap, sbins, scodes,
-                               srid, scap, sc, goleft, block_a, nblocks, G,
-                               stream);
+  return launch_ablate<int8_t>(stage, bins, codes, rid, cap, sc, goleft,
+                               state, state_len, max_rows, G, chk, stream);
 }

@@ -47,24 +47,24 @@ _ENTRY_POINTS = {
         "lgbt_fused_root_histogram": [_P, _P, _P, _LL, _P, _P, _I, _I, _LL,
                                       _I, _P]},
     "partition_segment": {
-        "lgbt_partition_segment": [_P, _P, _P, _LL, _P, _P, _P, _LL, _P, _P,
-                                   _P, _I, _I, _P],
-        "lgbt_partition_segment_i8": [_P, _P, _P, _LL, _P, _P, _P, _LL, _P,
-                                      _P, _P, _I, _I, _P],
-        "lgbt_partition_segment_pred": [_P, _P, _P, _LL, _P, _P, _P, _LL, _P,
-                                        _P, _LL, _P, _I, _I, _P, _I, _I, _P],
-        "lgbt_partition_segment_pred_i8": [_P, _P, _P, _LL, _P, _P, _P, _LL,
-                                           _P, _P, _LL, _P, _I, _I, _P, _I,
-                                           _I, _P]},
+        "lgbt_partition_segment": [_P, _P, _P, _LL, _P, _P, _P, _LL, _LL, _I,
+                                   _P],
+        "lgbt_partition_segment_i8": [_P, _P, _P, _LL, _P, _P, _P, _LL, _LL,
+                                      _I, _P],
+        "lgbt_partition_segment_pred": [_P, _P, _P, _LL, _P, _P, _LL, _P, _LL,
+                                        _LL, _I, _P, _I, _I, _P],
+        "lgbt_partition_segment_pred_i8": [_P, _P, _P, _LL, _P, _P, _LL, _P,
+                                           _LL, _LL, _I, _P, _I, _I, _P]},
     "partition_ablate": {
-        "lgbt_partition_ablate": [_I, _P, _P, _P, _LL, _P, _P, _P, _LL, _P,
-                                  _P, _P, _I, _I, _P],
+        "lgbt_partition_ablate": [_I, _P, _P, _P, _LL, _P, _P, _P, _LL, _LL,
+                                  _I, _P, _P],
         "lgbt_partition_ablate_i8": [_I, _P, _P, _P, _LL, _P, _P, _P, _LL,
-                                     _P, _P, _P, _I, _I, _P]},
+                                     _LL, _I, _P, _P]},
     "leaf_histogram": {
-        "lgbt_leaf_histogram": [_P, _P, _P, _P, _P, _LL, _P, _I, _I, _I, _P],
-        "lgbt_leaf_histogram_i8": [_P, _P, _P, _P, _P, _LL, _P, _I, _I, _I,
-                                   _P]},
+        "lgbt_leaf_histogram": [_P, _P, _P, _P, _P, _LL, _P, _I, _I, _P, _P,
+                                _I, _I, _P],
+        "lgbt_leaf_histogram_i8": [_P, _P, _P, _P, _P, _LL, _P, _I, _I, _P,
+                                   _P, _I, _I, _P]},
     "scatter_segments": {
         "lgbt_scatter_segments_f32": [_P, _P, _P, _P, _P, _I, _I, _P],
         "lgbt_scatter_segments_i32": [_P, _P, _P, _P, _P, _I, _I, _P]},

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from . import histogram as hist_ops
+from . import histogram_kernel
 from .split import (SplitParams, best_split_per_feature,
                     select_best_feature)
 from .split_kernel import (_OF, _OG, _OLC, _OLG, _OLH, _OLO, _ODL, _ORC, _ORG,
@@ -335,9 +336,12 @@ def grow_tree_label(bins: torch.Tensor, grad: torch.Tensor,
     leaf_ids = row_leaf_init.to(device=dev, dtype=i32).contiguous()
     in_bag = leaf_ids == 0
 
+    # K7's row list, one per tree (the plain version on the CPU needs none)
+    rows = (histogram_kernel.row_list(n, dev) if dev.type == "cuda"
+            else None)
     root_hist = hist_ops.leaf_histogram(
         bins, grad, hess, leaf_ids,
-        torch.zeros(1, dtype=i32, device=dev), B, hist_impl)
+        torch.zeros(1, dtype=i32, device=dev), B, hist_impl, rows)
     # grow.py:471-474: the root sums from the payload, the count an integer
     root_g = (grad * in_bag).sum()
     root_h = (hess * in_bag).sum()
@@ -423,7 +427,7 @@ def grow_tree_label(bins: torch.Tensor, grad: torch.Tensor,
         small = torch.where(done, no_leaf,
                             torch.where(left_smaller, bi32, nl32))
         small_hist = hist_ops.leaf_histogram(bins, grad, hess, leaf_ids,
-                                             small, B, hist_impl)
+                                             small, B, hist_impl, rows)
         large_hist = hist_ops.subtract(hist_cache.index_select(0, bi)[0],
                                        small_hist)
         left_hist = torch.where(left_smaller, small_hist, large_hist)

@@ -12,6 +12,8 @@ there is no fallback.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import histogram_kernel
@@ -21,13 +23,15 @@ IMPLS = ("auto", "scatter", "onehot", "compact", "pallas")
 
 def leaf_histogram(bins: torch.Tensor, grad: torch.Tensor,
                    hess: torch.Tensor, leaf_ids: torch.Tensor, leaf,
-                   max_bin: int, impl: str = "auto") -> torch.Tensor:
+                   max_bin: int, impl: str = "auto",
+                   rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[F, max_bin, 3] f32 (sum grad, sum hess, count) of the rows of bins
-    [n, F] uint8 whose leaf id equals `leaf` (an int32 device scalar)."""
+    [n, F] uint8 whose leaf id equals `leaf` (an int32 device scalar);
+    rows: K7's row-list workspace (histogram_kernel.row_list)."""
     if impl not in IMPLS:
         raise ValueError("unknown histogram impl: %s" % impl)
     return histogram_kernel.leaf_histogram(bins, grad, hess, leaf_ids, leaf,
-                                           max_bin)
+                                           max_bin, rows)
 
 
 def subtract(parent_hist: torch.Tensor,

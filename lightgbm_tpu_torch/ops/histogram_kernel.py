@@ -18,18 +18,39 @@ its epilogue are not ported, only the function: the [F, max_bin, 3]
 
 `leaf` is an int32 device scalar (shape () or (1,)) that the kernel reads,
 so a grower's best leaf never visits the host; an int is accepted too.
+
+The kernel first selects the leaf's rows into a row list on the device,
+then histograms only those.  `rows` is that list's workspace, int32
+[n + 1] (`row_list`): a grower allocates it once per tree and passes it
+to every call; without it the wrapper allocates one per call.  The plain
+versions need no workspace.
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
 from . import _cuda
 
-# two blocks an SM with an 85.7 KB sub-histogram; fewer blocks are slower,
-# since the pass waits on the leaf-id stream (PERF.md's K7 grid sweep)
+# the accumulate pass: at most two blocks an SM with an 85.7 KB
+# sub-histogram, each taking LEAF_ROWS_PER_BLOCK listed rows at a time, so
+# that a small leaf wakes only the blocks it fills
 LEAF_HIST_BLOCKS = 264
+LEAF_ROWS_PER_BLOCK = 512
+
+
+def row_list(n: int, device) -> torch.Tensor:
+    """K7's workspace for n rows: int32 [n + 1], the row list and its
+    count (the last word), both written on the device."""
+    return torch.empty(n + 1, dtype=torch.int32, device=device)
+
+
+def _check_rows(rows, n, dev):
+    if rows is None:
+        return row_list(n, dev)
+    _cuda.require(rows, "rows", torch.int32, dev, (n + 1,))
+    return rows
 
 
 def _leaf_tensor(leaf: Union[int, torch.Tensor], dev) -> torch.Tensor:
@@ -71,13 +92,15 @@ def _rows_histogram_plain(bins, g, h, rows, max_bin, acc_dtype):
     return out
 
 
-def _launch(name, bins, g, h, leaf_ids, leaf, max_bin, out_dtype):
-    """K7's CUDA kernel `name` into a zeroed [F, max_bin, 3] output."""
+def _launch(name, bins, g, h, leaf_ids, leaf, max_bin, out_dtype, rows):
+    """K7's CUDA kernels `name` into a zeroed [F, max_bin, 3] output."""
     n, F = bins.shape
+    rows = _check_rows(rows, n, bins.device)
     out = torch.zeros((F, max_bin, 3), dtype=out_dtype, device=bins.device)
     rc = _cuda.fn("lgbt_" + name)(
         bins.data_ptr(), g.data_ptr(), h.data_ptr(), leaf_ids.data_ptr(),
-        leaf.data_ptr(), n, out.data_ptr(), F, max_bin, LEAF_HIST_BLOCKS,
+        leaf.data_ptr(), n, out.data_ptr(), F, max_bin, rows.data_ptr(),
+        rows[n:].data_ptr(), LEAF_HIST_BLOCKS, LEAF_ROWS_PER_BLOCK,
         _cuda.stream())
     _cuda.check(rc, name)
     return out
@@ -94,16 +117,17 @@ def leaf_histogram_plain(bins, grad, hess, leaf_ids, leaf,
 
 def leaf_histogram(bins: torch.Tensor, grad: torch.Tensor,
                    hess: torch.Tensor, leaf_ids: torch.Tensor, leaf,
-                   max_bin: int) -> torch.Tensor:
+                   max_bin: int, rows: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """[F, max_bin, 3] f32 (sum grad, sum hess, count) of the rows with
-    leaf_ids == leaf."""
+    leaf_ids == leaf; rows: the kernel's workspace (`row_list`)."""
     _check(bins, grad, hess, leaf_ids, max_bin, torch.float32, torch.int32)
     dev = bins.device
     leaf = _leaf_tensor(leaf, dev)
     if not _cuda.plain_or_cuda(dev):
         return leaf_histogram_plain(bins, grad, hess, leaf_ids, leaf, max_bin)
     return _launch("leaf_histogram", bins, grad, hess, leaf_ids, leaf,
-                   max_bin, torch.float32)
+                   max_bin, torch.float32, rows)
 
 
 def leaf_histogram_quantized_plain(bins, g_code, h_code, leaf_ids, leaf,
@@ -117,7 +141,9 @@ def leaf_histogram_quantized_plain(bins, g_code, h_code, leaf_ids, leaf,
 
 def leaf_histogram_quantized(bins: torch.Tensor, g_code: torch.Tensor,
                              h_code: torch.Tensor, leaf_ids: torch.Tensor,
-                             leaf, max_bin: int) -> torch.Tensor:
+                             leaf, max_bin: int,
+                             rows: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
     """[F, max_bin, 3] int32 (sum g_code, sum h_code, count) of the rows
     with leaf_ids == leaf; leaf_ids uint8, leaf < 255."""
     _check(bins, g_code, h_code, leaf_ids, max_bin, torch.int8, torch.uint8)
@@ -127,7 +153,7 @@ def leaf_histogram_quantized(bins: torch.Tensor, g_code: torch.Tensor,
         return leaf_histogram_quantized_plain(bins, g_code, h_code, leaf_ids,
                                               leaf, max_bin)
     return _launch("leaf_histogram_i8", bins, g_code, h_code, leaf_ids, leaf,
-                   max_bin, torch.int32)
+                   max_bin, torch.int32, rows)
 
 
 def leaf_histogram_bytes(n: int, m: int, F: int, max_bin: int,

@@ -56,10 +56,38 @@ SC_START, SC_CNT, SC_DST_A, SC_DST_B, SC_CNT_B, SC_CNT_A, SC_CHAN, SC_XR = \
     range(8)
 SC_LEN = 8
 
-PARTITION_BLOCKS = 1024   # fixed grids: the host never learns a segment size
-PRED_BLOCKS = 264         # pred mode: two blocks an SM with a histogram each
-HIST_BLOCKS = 264
+HIST_BLOCKS = 264         # fixed grids: the host never learns a segment size
 SCATTER_BLOCKS = 64
+
+# K3's tiles (csrc/partition.cuh): rows a tile, and the bytes of a block's
+# staged tiles below which two blocks fit an SM
+PART_TILE, PART_TILE_SMALL = 1024, 512
+PART_TWO_BLOCKS = 113 * 1024
+
+
+def _staged_bytes(num_groups: int, T: int, quantized: bool) -> int:
+    """Shared-memory bytes of one staged K3 tile: G bin planes, the payload
+    and row-id planes with 16 bytes of slack each, a uint16 permutation."""
+    p = 1 if quantized else 4
+    return num_groups * (T + 16) + 2 * (T * p + 16) + (T * 4 + 16) + 2 * T
+
+
+def partition_tile(num_groups: int, quantized: bool = False,
+                   hist: bool = False) -> int:
+    """Rows a K3 tile (csrc/partition.cuh `part_shape`): 1024 while a ring of
+    two staged 1024-row tiles leaves two blocks an SM, else 512; 512 in
+    pred mode with the histogram."""
+    if hist:
+        return PART_TILE_SMALL
+    two = 2 * _staged_bytes(num_groups, PART_TILE, quantized)
+    return PART_TILE if two <= PART_TWO_BLOCKS else PART_TILE_SMALL
+
+
+def tile_state_words(num_data: int) -> int:
+    """int32 words of K3's launch state: the ticket, and a status word and
+    a staged flag per tile of the longest segment (num_data rows) at the
+    smallest tile."""
+    return 1 + 2 * -(-max(num_data, 1) // PART_TILE_SMALL)
 
 
 def arena_geometry(num_data: int, num_features: int, factor: int = 3) -> tuple:
@@ -73,14 +101,13 @@ def arena_geometry(num_data: int, num_features: int, factor: int = 3) -> tuple:
 def arena_bytes(num_data: int, num_groups: int, factor: int,
                 max_leaves: int, max_bin: int, quantized: bool = False) -> int:
     """Device bytes the partition engine holds for a dataset: the arena's
-    planes and K3's scratch planes (`Arena`), the dataset's [n, G] bins and
-    the dense per-leaf histogram cache: the port's counterpart of the three
-    terms of lightgbm_tpu/models/gbdt.py:1304-1306."""
+    planes and K3's tile status words (`Arena`), the dataset's [n, G] bins
+    and the dense per-leaf histogram cache: the port's counterpart of the
+    three terms of lightgbm_tpu/models/gbdt.py:1304-1306."""
     G, cap = arena_geometry(num_data, num_groups, factor)
     row = G + 2 * (1 if quantized else 4) + 4       # bins, payload, row id
-    scratch = max(num_data, 1) * row
     hist_cache = max_leaves * G * max(max_bin, 2) * 3 * 4
-    return cap * row + scratch + num_data * G + 4 * PARTITION_BLOCKS \
+    return cap * row + num_data * G + 4 * tile_state_words(num_data) \
         + hist_cache
 
 
@@ -91,7 +118,7 @@ def pristine_work0(num_data: int) -> int:
 
 
 class Arena:
-    """The arena planes, the K3 scratch planes and the K3 block counts.
+    """The arena planes and K3's ticket and tile status words.
 
     The pristine block [0, n) holds the rows in row order and is never
     overwritten by a partition: the root's first split writes its larger
@@ -110,14 +137,10 @@ class Arena:
         self.payload = torch.zeros((2, cap), dtype=pdt, device=device)
         self.rid = torch.zeros(cap, dtype=torch.int32, device=device)
         self.device = self.bins.device
-        # K3 writes stream A here before copying it to dstA
-        scap = max(num_data, 1)
-        self.scap = scap
-        self.s_bins = torch.empty((G, scap), dtype=torch.uint8, device=device)
-        self.s_payload = torch.empty((2, scap), dtype=pdt, device=device)
-        self.s_rid = torch.empty(scap, dtype=torch.int32, device=device)
-        self.block_counts = torch.zeros(PARTITION_BLOCKS, dtype=torch.int32,
-                                        device=device)
+        # K3's ticket and decoupled look-back status words, reset on the
+        # stream by every launch
+        self.tile_state = torch.zeros(tile_state_words(num_data),
+                                      dtype=torch.int32, device=device)
 
     @property
     def quantized(self) -> bool:
@@ -294,10 +317,12 @@ def partition_segment(arena: Arena, sc: torch.Tensor,
                       goleft: torch.Tensor) -> None:
     """Stable split of [sc[START], +sc[CNT]) in place on the arena: rows with
     (goleft[bins[sc[CHAN], col]] != 0) XOR sc[XR] go to stream A at
-    sc[DST_A] (which may equal the start), the others to stream B at
-    sc[DST_B] (which must not overlap the segment).  Every plane moves with
-    its row, the payload whatever its type.  Writes the counts to sc[CNT_A]
-    and sc[CNT_B]."""
+    sc[DST_A], the others to stream B at sc[DST_B].  DST_A is the start
+    itself, a column before it, or a range disjoint from the segment;
+    stream B must not overlap the segment (the kernel writes stream A over
+    the segment's own columns, csrc/partition_segment.cu).  Every plane
+    moves with its row, the payload whatever its type.  Writes the counts
+    to sc[CNT_A] and sc[CNT_B]; the segment holds at most num_data rows."""
     dev = arena.device
     _cuda.require(sc, "sc", torch.int32, dev, (SC_LEN,))
     _cuda.require(goleft, "goleft", torch.uint8, dev, (256,))
@@ -307,12 +332,19 @@ def partition_segment(arena: Arena, sc: torch.Tensor,
     name = ("partition_segment_i8" if arena.quantized
             else "partition_segment")
     rc = _cuda.fn("lgbt_" + name)(
-        arena.bins.data_ptr(), arena.payload.data_ptr(), arena.rid.data_ptr(),
-        arena.cap, arena.s_bins.data_ptr(), arena.s_payload.data_ptr(),
-        arena.s_rid.data_ptr(), arena.scap, sc.data_ptr(), goleft.data_ptr(),
-        arena.block_counts.data_ptr(), PARTITION_BLOCKS, arena.num_groups,
-        _cuda.stream())
+        *_arena_args(arena), sc.data_ptr(), goleft.data_ptr(),
+        *_state_args(arena), arena.num_groups, _cuda.stream())
     _cuda.check(rc, name)
+
+
+def _arena_args(arena: Arena) -> tuple:
+    return (arena.bins.data_ptr(), arena.payload.data_ptr(),
+            arena.rid.data_ptr(), arena.cap)
+
+
+def _state_args(arena: Arena) -> tuple:
+    return (arena.tile_state.data_ptr(), arena.tile_state.numel(),
+            arena.num_data)
 
 
 def partition_bytes(cnt: int, G: int, quantized: bool = False) -> int:
@@ -349,8 +381,8 @@ def partition_segment_pred(arena: Arena, sc: torch.Tensor, pred: torch.Tensor,
                            max_bin: int = 0) -> Optional[torch.Tensor]:
     """Stable split of [sc[START], +sc[CNT]) by a per-column predicate:
     rows whose column col holds pred[col] != 0 go to stream A at sc[DST_A],
-    the others to stream B at sc[DST_B] (which must not overlap the
-    segment); columns at or past pred's length read as 0.  pred is uint8
+    the others to stream B at sc[DST_B] (the same rules as
+    partition_segment); columns at or past pred's length read as 0.  pred is uint8
     [m], indexed by arena column as the JAX kernel indexes its [1, cap]
     predicate.  Writes the counts to sc[CNT_A] and sc[CNT_B].
 
@@ -379,11 +411,9 @@ def partition_segment_pred(arena: Arena, sc: torch.Tensor, pred: torch.Tensor,
     name = ("partition_segment_pred_i8" if arena.quantized
             else "partition_segment_pred")
     rc = _cuda.fn("lgbt_" + name)(
-        arena.bins.data_ptr(), arena.payload.data_ptr(), arena.rid.data_ptr(),
-        arena.cap, arena.s_bins.data_ptr(), arena.s_payload.data_ptr(),
-        arena.s_rid.data_ptr(), arena.scap, sc.data_ptr(), pred.data_ptr(),
-        pred.shape[0], arena.block_counts.data_ptr(), PRED_BLOCKS,
-        arena.num_groups, None if hist is None else hist.data_ptr(), max_bin,
+        *_arena_args(arena), sc.data_ptr(), pred.data_ptr(), pred.shape[0],
+        *_state_args(arena), arena.num_groups,
+        None if hist is None else hist.data_ptr(), max_bin,
         0 if hist_stream is None else hist_stream, _cuda.stream())
     _cuda.check(rc, name)
     return hist
@@ -401,7 +431,7 @@ def partition_pred_bytes(cnt: int, G: int, max_bin: int,
 # K8: the stage ablation of K3
 # --------------------------------------------------------------------------- #
 # the cumulative stages of csrc/partition_ablate.cu, in order
-ABLATE_STAGES = ("read", "decide", "scan", "scatter", "full")
+ABLATE_STAGES = ("read", "decide", "lookback", "stage", "full")
 
 
 def _plane_sums(arena: Arena, cols: torch.Tensor) -> torch.Tensor:
@@ -414,63 +444,57 @@ def _plane_sums(arena: Arena, cols: torch.Tensor) -> torch.Tensor:
     return s + words.sum(0) + (arena.rid[cols].long() & 0xFFFFFFFF)
 
 
+def _ablate_tiles(arena: Arena) -> int:
+    return -(-max(arena.num_data, 1)
+             // partition_tile(arena.num_groups, arena.quantized))
+
+
 def partition_ablate_plain(arena: Arena, sc: torch.Tensor,
-                           goleft: torch.Tensor, stage: str) -> None:
-    """What each stage leaves.  read, decide and scan: block b's checksum
-    (mod 2^32) at s_rid[b], over the rows of its chunk (whole 256-row
-    tiles, the segment spread over PARTITION_BLOCKS blocks): the plane
-    sums, plus each row's decision (decide), plus each row's destination
-    (scan: its rank among the stream-A rows, or dst_b plus its rank among
-    the stream-B rows); scan also writes the counts to sc.  scatter: stream
-    A to the scratch arena's first columns, stream B to dst_b, the counts
-    to sc.  full: K3."""
+                           goleft: torch.Tensor,
+                           stage: str) -> Optional[torch.Tensor]:
+    """What each stage leaves.  read, decide, lookback and stage: one
+    checksum (mod 2^32, as int32) per tile of the segment (partition_tile
+    rows; zeros past its last tile), over the rows of the tile: the plane
+    sums; plus each row's decision (decide); plus each row's destination
+    column, dst_a plus its rank among the stream-A rows or dst_b plus its
+    rank among the stream-B rows (lookback); plus the plane sums once more,
+    gathered in output order (stage).  lookback and stage also write the
+    counts to sc.  full: K3, and None."""
     if stage == "full":
         partition_segment_plain(arena, sc, goleft)
-        return
-    start, cnt, _, dst_b, _, _, chan, xr = (int(v) for v in sc.tolist())
+        return None
+    start, cnt, dst_a, dst_b, _, _, chan, xr = (int(v) for v in sc.tolist())
     dev = arena.device
     cols = torch.arange(start, start + cnt, device=dev)
-    is_a = (goleft[arena.bins[chan, cols].long()] != 0) ^ bool(xr)
-    if stage == "scatter":
-        ca, cb = cols[is_a], cols[~is_a]
-        na, nb = int(ca.numel()), int(cb.numel())
-        for src, dst in ((arena.bins, arena.s_bins),
-                         (arena.payload, arena.s_payload)):
-            b_rows = src[:, cb]
-            dst[:, :na] = src[:, ca]
-            src[:, dst_b:dst_b + nb] = b_rows
-        b_rid = arena.rid[cb]
-        arena.s_rid[:na] = arena.rid[ca]
-        arena.rid[dst_b:dst_b + nb] = b_rid
-        sc[SC_CNT_B], sc[SC_CNT_A] = nb, na
-        return
     words = _plane_sums(arena, cols)
-    if stage in ("decide", "scan"):
-        words = words + is_a.long()
-    if stage == "scan":
+    total = words.clone()
+    is_a = (goleft[arena.bins[chan, cols].long()] != 0) ^ bool(xr)
+    if stage != "read":
+        total += is_a.long()
+    if stage in ("lookback", "stage"):
         a_rank = torch.cumsum(is_a.long(), 0) - is_a.long()
         b_rank = torch.arange(cnt, device=dev) - a_rank
-        words = words + torch.where(is_a, a_rank, dst_b + b_rank)
+        total += torch.where(is_a, dst_a + a_rank, dst_b + b_rank)
         na = int(is_a.sum())
         sc[SC_CNT_B], sc[SC_CNT_A] = cnt - na, na
-    tiles = -(-cnt // 256)
-    chunk = -(-tiles // PARTITION_BLOCKS) * 256
-    block = torch.arange(cnt, device=dev) // max(chunk, 1)
-    sums = torch.zeros(PARTITION_BLOCKS, dtype=torch.long, device=dev)
-    sums.index_add_(0, block, words)
-    used = min(PARTITION_BLOCKS, arena.scap)
-    sums = (sums[:used] & 0xFFFFFFFF)
-    arena.s_rid[:used] = torch.where(sums >= 1 << 31, sums - (1 << 32),
-                                     sums).to(torch.int32)
+    if stage == "stage":
+        total += words
+    T = partition_tile(arena.num_groups, arena.quantized)
+    sums = torch.zeros(_ablate_tiles(arena), dtype=torch.long, device=dev)
+    sums.index_add_(0, torch.arange(cnt, device=dev) // T, total)
+    sums &= 0xFFFFFFFF
+    return torch.where(sums >= 1 << 31, sums - (1 << 32),
+                       sums).to(torch.int32)
 
 
 def partition_ablate(arena: Arena, sc: torch.Tensor, goleft: torch.Tensor,
-                     stage: str) -> None:
+                     stage: str) -> Optional[torch.Tensor]:
     """K8: K3 in decision mode stripped to `stage` (ABLATE_STAGES), as
     tools/kernel_ablate.py strips the TPU kernel; csrc/partition_ablate.cu
     on a CUDA arena, partition_ablate_plain on a CPU one.  Only the full
-    stage partitions; the earlier ones leave the checksums that keep their
-    loads live (partition_ablate_plain says which)."""
+    stage partitions (and returns None); the earlier ones return the
+    per-tile checksums that keep their loads live (partition_ablate_plain
+    says which)."""
     dev = arena.device
     _cuda.require(sc, "sc", torch.int32, dev, (SC_LEN,))
     _cuda.require(goleft, "goleft", torch.uint8, dev, (256,))
@@ -478,17 +502,16 @@ def partition_ablate(arena: Arena, sc: torch.Tensor, goleft: torch.Tensor,
         raise ValueError("stage must be one of %s, got %r"
                          % (", ".join(ABLATE_STAGES), stage))
     if not _cuda.plain_or_cuda(dev):
-        partition_ablate_plain(arena, sc, goleft, stage)
-        return
+        return partition_ablate_plain(arena, sc, goleft, stage)
+    chk = (None if stage == "full" else
+           torch.zeros(_ablate_tiles(arena), dtype=torch.int32, device=dev))
     name = "partition_ablate_i8" if arena.quantized else "partition_ablate"
     rc = _cuda.fn("lgbt_" + name)(
-        ABLATE_STAGES.index(stage), arena.bins.data_ptr(),
-        arena.payload.data_ptr(), arena.rid.data_ptr(), arena.cap,
-        arena.s_bins.data_ptr(), arena.s_payload.data_ptr(),
-        arena.s_rid.data_ptr(), arena.scap, sc.data_ptr(), goleft.data_ptr(),
-        arena.block_counts.data_ptr(), PARTITION_BLOCKS, arena.num_groups,
-        _cuda.stream())
+        ABLATE_STAGES.index(stage), *_arena_args(arena), sc.data_ptr(),
+        goleft.data_ptr(), *_state_args(arena), arena.num_groups,
+        None if chk is None else chk.data_ptr(), _cuda.stream())
     _cuda.check(rc, "partition_ablate")
+    return chk
 
 
 # --------------------------------------------------------------------------- #

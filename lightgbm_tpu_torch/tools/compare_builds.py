@@ -5,19 +5,28 @@
 OTHER_CSRC is the `lightgbm_tpu_torch/csrc` directory of another checkout
 (a parent commit unpacked with `git archive`, say).  In one process:
 
-1. K3 (`partition_segment.cu`) of both trees compiled with `ptxas -v` to
-   cubins: each kernel's resource line and whether its SASS
-   (`cuobjdump -sass`, kernel names demangled and K8's stage template
-   argument dropped) is identical;
-2. K2 f32, K2 int8 and K5 of both trees at the root of a random
-   10.5M-row, 28-feature arena (or rows_millions), timed in the order
-   other, this, this, other (CUDA events over 20 launches each);
-3. this tree's K7 at the same rows, f32 and int8, at the root and on one
-   leaf of 255 spread over the rows, at 132, 264 (the wrapper's grid) and
-   528 blocks.
+1. K3 (`partition_segment.cu`), K7 (`leaf_histogram.cu`), K2
+   (`segment_histogram.cu`) and K5 (`fused_root_histogram.cu`) of both
+   trees compiled with `ptxas -v` to cubins: each kernel's resource line
+   and whether its SASS (`cuobjdump -sass`, kernel names demangled and
+   K8's stage template argument dropped) is identical in the two trees;
+2. the four K3 instances (decision and pred mode with the bag's
+   histogram, f32 and int8 payload) of both trees on a random 10.5M-row,
+   28-feature arena (or rows_millions): at the root, off the pristine
+   block, and on a 40k-row child, in place; each first held equal between
+   the two trees (planes, counts, histograms up to f32 reassociation),
+   then timed in the order other, this, this, other (CUDA events over
+   10 or 20 launches);
+3. K7 of both trees, f32 and int8, at the root (every row in leaf 0) and
+   on one leaf of 255 spread over the rows, held equal and timed in the
+   same order, and this tree's kernels timed apart by torch.profiler;
+4. K2 f32, K2 int8 and K5 of both trees at the root, timed in that order.
 
-Needs nvcc and a CUDA device; builds into lightgbm_tpu_torch/_build/compare
-and prints one line per kernel.
+The other tree's K3 and K7 may take the C interface of the first versions
+(a scratch arena and block counts for K3, no row list for K7); the tool
+reads which from the other tree's sources.  Needs nvcc and a CUDA device;
+builds into lightgbm_tpu_torch/_build/compare and prints one line per
+kernel and case.
 """
 from __future__ import annotations
 
@@ -31,11 +40,32 @@ import numpy as np
 import torch
 
 from ..ops import _cuda
+from ..ops import histogram_kernel as hk
 from ..ops import partition_kernel as pk
 from . import cuda_ms
 
-G, B, LEAVES = 28, 255, 255
-K3_STAGE_ARG = re.compile(r", \(int\)3>")
+G, B, LEAVES, CHILD = 28, 255, 255, 40_000
+K3_STAGE_ARG = re.compile(r", \(int\)\d>")
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the C interface of the first K3 and K7 (scratch arena, block counts; no
+# row list)
+OLD_ENTRY_POINTS = {
+    "partition_segment": {
+        "lgbt_partition_segment": [_P, _P, _P, _LL, _P, _P, _P, _LL, _P, _P,
+                                   _P, _I, _I, _P],
+        "lgbt_partition_segment_i8": [_P, _P, _P, _LL, _P, _P, _P, _LL, _P,
+                                      _P, _P, _I, _I, _P],
+        "lgbt_partition_segment_pred": [_P, _P, _P, _LL, _P, _P, _P, _LL, _P,
+                                        _P, _LL, _P, _I, _I, _P, _I, _I, _P],
+        "lgbt_partition_segment_pred_i8": [_P, _P, _P, _LL, _P, _P, _P, _LL,
+                                           _P, _P, _LL, _P, _I, _I, _P, _I,
+                                           _I, _P]},
+    "leaf_histogram": {
+        "lgbt_leaf_histogram": [_P, _P, _P, _P, _P, _LL, _P, _I, _I, _I, _P],
+        "lgbt_leaf_histogram_i8": [_P, _P, _P, _P, _P, _LL, _P, _I, _I, _I,
+                                   _P]},
+}
+OLD_PART_BLOCKS, OLD_PRED_BLOCKS, OLD_LEAF_BLOCKS = 1024, 264, 264
 
 
 def _tool(name: str) -> str:
@@ -62,19 +92,21 @@ def _nvcc(src_dir: str, stem: str, out: str, cubin: bool) -> str:
     return r.stdout + r.stderr
 
 
-def k3_sass(other: str, out_dir: str) -> None:
-    """Resource line and SASS identity of every K3 kernel."""
+def sass_report(other: str, stem: str, out_dir: str) -> None:
+    """Resource line of every kernel of csrc/<stem>.cu in both trees and
+    whether its SASS is identical."""
     res = {}
     for tag, src in (("other", other), ("this", str(_cuda.CSRC))):
-        cubin = os.path.join(out_dir, "k3_%s.cubin" % tag)
-        text = _nvcc(src, "partition_segment", cubin, cubin=True)
+        cubin = os.path.join(out_dir, "%s_%s.cubin" % (stem, tag))
+        text = _nvcc(src, stem, cubin, cubin=True)
         lines, cur = {}, None
         for line in text.splitlines():
             m = re.search(r"Compiling entry function '([^']+)'", line)
             if m:
                 cur = m.group(1)
-            elif "Used" in line and cur:
-                lines[cur] = line.split(":", 1)[-1].strip()
+            elif ("Used" in line or "spill" in line) and cur:
+                lines[cur] = "; ".join(filter(None, (
+                    lines.get(cur), line.split(":", 1)[-1].strip())))
         names = list(lines)
         res_lines = {K3_STAGE_ARG.sub(">", d): lines[n]
                      for n, d in zip(names, _demangle(names))}
@@ -91,34 +123,248 @@ def k3_sass(other: str, out_dir: str) -> None:
         res[tag] = (res_lines, bodies)
     (ol, ob), (tl, tb) = res["other"], res["this"]
     for k in sorted(set(ol) | set(tl)):
-        print("K3 %s: other %s; this %s; SASS %s" % (
-            k.split("(")[0], ol.get(k), tl.get(k),
-            "identical" if ob.get(k) == tb.get(k) else "DIFFERS"))
+        print("%s %s: other %s; this %s; SASS %s" % (
+            stem, k.split("(")[0], ol.get(k), tl.get(k),
+            "identical" if ob.get(k) == tb.get(k) else "differs"))
+
+
+def _is_old(src_dir: str, stem: str) -> bool:
+    with open(os.path.join(src_dir, stem + ".cu")) as f:
+        text = f.read()
+    return ("long long scap" in text if stem == "partition_segment"
+            else "int* rows" not in text)
 
 
 def _load(src_dir: str, stem: str, out_dir: str, tag: str):
+    """The C entry points of csrc/<stem>.cu of one tree, and whether they
+    take the first versions' interface."""
     out = os.path.join(out_dir, "%s_%s.so" % (stem, tag))
-    text = _nvcc(src_dir, stem, out, cubin=False)
-    print("%s %s: %s" % (tag, stem, "; ".join(
-        l.split(":", 1)[-1].strip() for l in text.splitlines()
-        if "Used" in l or "spill stores" in l)))
+    _nvcc(src_dir, stem, out, cubin=False)
+    old = stem in OLD_ENTRY_POINTS and _is_old(src_dir, stem)
     lib = ctypes.CDLL(out)
     fns = {}
-    for name, argtypes in _cuda._ENTRY_POINTS[stem].items():
+    for name, argtypes in (OLD_ENTRY_POINTS if old
+                           else _cuda._ENTRY_POINTS)[stem].items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         fns[name] = fn
-    return fns
+    return fns, old
+
+
+def _check(rc, what):
+    if rc:
+        raise RuntimeError("%s failed to launch: cudaError %d" % (what, rc))
+
+
+class _K3:
+    """One tree's K3 entry points over an arena, in its own interface."""
+
+    def __init__(self, fns, old, arena):
+        self.fns, self.old, self.a = fns, old, arena
+        if old:
+            n, pdt = arena.num_data, arena.payload.dtype
+            dev = arena.device
+            self.s_bins = torch.empty((G, n), dtype=torch.uint8, device=dev)
+            self.s_pay = torch.empty((2, n), dtype=pdt, device=dev)
+            self.s_rid = torch.empty(n, dtype=torch.int32, device=dev)
+            self.blocks = torch.zeros(OLD_PART_BLOCKS, dtype=torch.int32,
+                                      device=dev)
+
+    def _head(self):
+        a = self.a
+        head = [a.bins.data_ptr(), a.payload.data_ptr(), a.rid.data_ptr(),
+                a.cap]
+        if self.old:
+            head += [self.s_bins.data_ptr(), self.s_pay.data_ptr(),
+                     self.s_rid.data_ptr(), a.num_data]
+        return head
+
+    def _state(self, blocks):
+        a = self.a
+        if self.old:
+            return [self.blocks.data_ptr(), blocks]
+        return [a.tile_state.data_ptr(), a.tile_state.numel(), a.num_data]
+
+    def decision(self, sc, goleft):
+        sfx = "_i8" if self.a.quantized else ""
+        _check(self.fns["lgbt_partition_segment" + sfx](
+            *self._head(), sc.data_ptr(), goleft.data_ptr(),
+            *self._state(OLD_PART_BLOCKS), G, _cuda.stream()), "K3")
+
+    def pred(self, sc, pred, hist):
+        sfx = "_i8" if self.a.quantized else ""
+        hist.zero_()
+        _check(self.fns["lgbt_partition_segment_pred" + sfx](
+            *self._head(), sc.data_ptr(), pred.data_ptr(), pred.shape[0],
+            *self._state(OLD_PRED_BLOCKS), G, hist.data_ptr(), B, 0,
+            _cuda.stream()), "K3 pred")
+
+
+def _same_hist(x, y, quantized):
+    if quantized:
+        return torch.equal(x, y)
+    scale = x.abs().max().clamp_min(1.0)
+    return (torch.equal(x[..., 2], y[..., 2])
+            and float((x - y).abs().max() / scale) <= 1e-5)
+
+
+def partitions(other: str, n: int, out_dir: str) -> None:
+    """The four K3 instances of both trees, root and child."""
+    dev = torch.device("cuda")
+    impl = {tag: _load(src, "partition_segment", out_dir, tag)
+            for tag, src in (("other", other), ("this", str(_cuda.CSRC)))}
+    rng = np.random.RandomState(0)
+    bins = torch.from_numpy(rng.randint(0, B, (G, n)).astype(np.uint8)
+                            ).to(dev)
+    work0 = pk.pristine_work0(n)
+    n_al = -(-n // pk.TILE) * pk.TILE
+    goleft = (torch.arange(256, device=dev) <= 127).to(torch.uint8)
+    bag = torch.from_numpy((rng.rand(n) < 0.8).astype(np.uint8)).to(dev)
+    bag_c = torch.zeros(work0 + CHILD, dtype=torch.uint8, device=dev)
+    bag_c[work0:] = torch.from_numpy(
+        (rng.rand(CHILD) < 0.8).astype(np.uint8)).to(dev)
+    for quantized in (False, True):
+        arenas = {}
+        for tag in ("other", "this"):
+            a = pk.Arena(n, G, 4, dev, quantized=quantized)
+            pk.init_pristine(a, bins)
+            if quantized:
+                a.payload[:, :n] = torch.from_numpy(np.random.RandomState(
+                    1).randint(-127, 128, (2, n)).astype(np.int8)).to(dev)
+            else:
+                a.payload[:, :n] = torch.from_numpy(np.random.RandomState(
+                    1).randn(2, n).astype(np.float32)).to(dev)
+            arenas[tag] = _K3(*impl[tag], a)
+        hdt = torch.int32 if quantized else torch.float32
+        hists = {t: torch.zeros((G, B, 3), dtype=hdt, device=dev)
+                 for t in arenas}
+        mode = "int8" if quantized else "f32"
+        cases = (
+            ("decision root", lambda k, sc: k.decision(sc, goleft),
+             [0, n, work0, work0 + n_al, 0, 0, 0, 1], 10),
+            ("decision child", lambda k, sc: k.decision(sc, goleft),
+             [work0, CHILD, work0, work0 + 2 * n_al, 0, 0, 3, 0], 20),
+            ("pred root", lambda k, sc: k.pred(sc, bag, hists[k.tag]),
+             [0, n, work0, work0 + n_al, 0, 0, 0, 0], 10),
+            ("pred child", lambda k, sc: k.pred(sc, bag_c, hists[k.tag]),
+             [work0, CHILD, work0, work0 + 2 * n_al, 0, 0, 0, 0], 20))
+        for tag, k in arenas.items():
+            k.tag = tag
+        for what, run, sc_list, reps in cases:
+            scs = {}
+            for tag, k in arenas.items():
+                scs[tag] = torch.tensor(sc_list, dtype=torch.int32,
+                                        device=dev)
+                run(k, scs[tag])
+            torch.cuda.synchronize()
+            same = torch.equal(scs["other"], scs["this"])
+            n_a = int(scs["this"][pk.SC_CNT_A])
+            for s0, c in ((sc_list[2], n_a),
+                          (sc_list[3], sc_list[1] - n_a)):
+                for x, y in ((arenas["other"].a.bins, arenas["this"].a.bins),
+                             (arenas["other"].a.payload,
+                              arenas["this"].a.payload),
+                             (arenas["other"].a.rid[None],
+                              arenas["this"].a.rid[None])):
+                    same = same and torch.equal(x[:, s0:s0 + c],
+                                                y[:, s0:s0 + c])
+            if what.startswith("pred"):
+                same = same and _same_hist(hists["other"], hists["this"],
+                                           quantized)
+            ms = ["%s %.4f" % (tag, cuda_ms(
+                lambda: run(arenas[tag], scs[tag]), reps))
+                  for tag in ("other", "this", "this", "other")]
+            print("K3 %s %s, %d rows: %s ms; the two trees %s" % (
+                what, mode, sc_list[1], ", ".join(ms),
+                "agree" if same else "DIFFER"))
+        del arenas
+        torch.cuda.empty_cache()
+
+
+def _kernel_ms(fn, reps: int) -> str:
+    """Device ms a call of fn, by kernel of the port (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for ev in prof.events():
+        m = re.search(r"::(\w+_kernel)", ev.name)
+        if ev.device_type == torch.autograd.DeviceType.CUDA and m:
+            by[m.group(1)] = (by.get(m.group(1), 0.0)
+                              + ev.time_range.elapsed_us() / 1e3 / reps)
+    return ", ".join("%s %.4f" % kv for kv in sorted(by.items())) or "none"
+
+
+def leaf_histograms(other: str, n: int, out_dir: str) -> None:
+    """K7 of both trees, f32 and int8, root and leaf."""
+    dev = torch.device("cuda")
+    impl = {tag: _load(src, "leaf_histogram", out_dir, tag)
+            for tag, src in (("other", other), ("this", str(_cuda.CSRC)))}
+    rng = np.random.RandomState(2)
+    bins = torch.from_numpy(rng.randint(0, B, (n, G)).astype(np.uint8)
+                            ).to(dev)
+    g = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
+    h = torch.from_numpy(rng.rand(n).astype(np.float32)).to(dev)
+    gq = torch.from_numpy(rng.randint(-127, 128, n).astype(np.int8)).to(dev)
+    hq = torch.from_numpy(rng.randint(0, 128, n).astype(np.int8)).to(dev)
+    leaves = torch.from_numpy(rng.randint(0, LEAVES, n).astype(np.int32)
+                              ).to(dev)
+    child = 7
+    m = int((leaves == child).sum())
+    rows = hk.row_list(n, dev)
+    s = _cuda.stream()
+
+    def call(tag, quantized, ids, lf, out):
+        fns, old = impl[tag]
+        name = "lgbt_leaf_histogram" + ("_i8" if quantized else "")
+        pg, ph = (gq, hq) if quantized else (g, h)
+        args = [bins.data_ptr(), pg.data_ptr(), ph.data_ptr(), ids.data_ptr(),
+                lf.data_ptr(), n, out.data_ptr(), G, B]
+        if old:
+            args += [OLD_LEAF_BLOCKS]
+        else:
+            args += [rows.data_ptr(), rows[n:].data_ptr(),
+                     hk.LEAF_HIST_BLOCKS, hk.LEAF_ROWS_PER_BLOCK]
+
+        def run():
+            out.zero_()
+            _check(fns[name](*args, s), "K7")
+        return run
+
+    for quantized in (False, True):
+        for what, ids, leaf in (("root", torch.zeros_like(leaves), 0),
+                                ("leaf of %d rows" % m, leaves, child)):
+            ids = ids.to(torch.uint8) if quantized else ids
+            lf = torch.tensor([leaf], dtype=torch.int32, device=dev)
+            odt = torch.int32 if quantized else torch.float32
+            outs = {t: torch.zeros((G, B, 3), dtype=odt, device=dev)
+                    for t in impl}
+            runs = {t: call(t, quantized, ids, lf, outs[t]) for t in impl}
+            for r in runs.values():
+                r()
+            torch.cuda.synchronize()
+            same = _same_hist(outs["other"], outs["this"], quantized)
+            ms = ["%s %.4f" % (t, cuda_ms(runs[t], 20))
+                  for t in ("other", "this", "this", "other")]
+            print("K7 %s %s, %d rows: %s ms; the two trees %s; this tree's "
+                  "kernels by the profiler, ms: %s" % (
+                      "int8" if quantized else "f32", what, n, ", ".join(ms),
+                      "agree" if same else "DIFFER",
+                      _kernel_ms(runs["this"], 10)))
 
 
 def histograms(other: str, n: int, out_dir: str) -> None:
-    """K2 and K5 of both trees, alternating; this tree's K7 by grid."""
+    """K2 and K5 of both trees at the root, alternating."""
     dev = torch.device("cuda")
     libs = {tag: {} for tag in ("other", "this")}
     for stem in ("segment_histogram", "fused_root_histogram"):
         for tag, src in (("other", other), ("this", str(_cuda.CSRC))):
-            libs[tag].update(_load(src, stem, out_dir, tag))
+            libs[tag].update(_load(src, stem, out_dir, tag)[0])
     rng = np.random.RandomState(0)
     bins = torch.from_numpy(rng.randint(0, B, (G, n)).astype(np.uint8)
                             ).to(dev)
@@ -154,31 +400,6 @@ def histograms(other: str, n: int, out_dir: str) -> None:
         print("%s root, %d rows, ms: %s" % (name, n, ", ".join(
             "%s %.4f" % (t, cuda_ms(make(t), 20))
             for t in ("other", "this", "this", "other"))))
-    del af, aq
-    rows = bins.t().contiguous()
-    g = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
-    h = torch.from_numpy(rng.rand(n).astype(np.float32)).to(dev)
-    leaves = torch.from_numpy(rng.randint(0, LEAVES, n).astype(np.int32)
-                              ).to(dev)
-    child = 7
-    m = int((leaves == child).sum())
-    f32 = _cuda.fn("lgbt_leaf_histogram")
-    i8 = _cuda.fn("lgbt_leaf_histogram_i8")
-    for grid in (132, 264, 528):
-        parts = []
-        for what, ids, leaf in (("root", torch.zeros_like(leaves), 0),
-                                ("leaf of %d rows" % m, leaves, child)):
-            lf = torch.tensor([leaf], dtype=torch.int32, device=dev)
-            ids8 = ids.to(torch.uint8)
-            parts.append("%s f32 %.4f int8 %.4f" % (what, cuda_ms(
-                lambda: f32(rows.data_ptr(), g.data_ptr(), h.data_ptr(),
-                            ids.data_ptr(), lf.data_ptr(), n, out_f.data_ptr(),
-                            G, B, grid, s), 20), cuda_ms(
-                lambda: i8(rows.data_ptr(), codes[0].data_ptr(),
-                           codes[1].data_ptr(), ids8.data_ptr(),
-                           lf.data_ptr(), n, out_i.data_ptr(), G, B, grid,
-                           s), 20)))
-        print("K7 at %d blocks, ms: %s" % (grid, "; ".join(parts)))
 
 
 def main(argv=None) -> int:
@@ -191,7 +412,13 @@ def main(argv=None) -> int:
     _cuda.build()
     out_dir = str(_cuda.BUILD_DIR / "compare")
     os.makedirs(out_dir, exist_ok=True)
-    k3_sass(argv[0], out_dir)
+    for stem in ("partition_segment", "leaf_histogram", "segment_histogram",
+                 "fused_root_histogram"):
+        sass_report(argv[0], stem, out_dir)
+    partitions(argv[0], n, out_dir)
+    torch.cuda.empty_cache()
+    leaf_histograms(argv[0], n, out_dir)
+    torch.cuda.empty_cache()
     histograms(argv[0], n, out_dir)
     return 0
 

@@ -9,19 +9,21 @@ and the int8 arena it times K3 in decision mode compiled to each
 cumulative stage of csrc/partition_ablate.cu (ops/partition_kernel.py
 `ABLATE_STAGES`):
 
-- read:    every plane of every row read, summed into a checksum;
-- decide:  + the router (the count pass, and each row's decision);
-- scan:    + the block-offset scan and the ballot block scan per tile;
-- scatter: + the stores of stream A to the scratch arena and of stream B
-  to dst_b;
-- full:    + the copy-back of stream A: K3 itself.
+- read:     each tile's planes staged in shared memory, summed into a
+  checksum a tile;
+- decide:   + each row's decision and the block scan of the flags;
+- lookback: + the status words and the decoupled look-back (each row's
+  destination column summed);
+- stage:    + the output permutation in shared memory and the gather of
+  every output word from the staged tile;
+- full:     + the coalesced stores of both streams: K3 itself.
 
 The TPU tool's stages `pbuild` and `matmul` build and apply one-hot
 permutation matrices, which a TPU needs because it has no scatter; on
-Hopper their work is the scatter stage.  Before it times, the full stage is
-held exactly equal to K3's plain version on a copy of the arena.  Prints
-the mean ms a pass of each stage (CUDA events around the passes) and its
-increment over the stage before; needs a CUDA device.
+Hopper their work is the stage and store stages.  Before it times, the
+full stage is held exactly equal to K3's plain version on a copy of the
+arena.  Prints the mean ms a pass of each stage (CUDA events around the
+passes) and its increment over the stage before; needs a CUDA device.
 """
 from __future__ import annotations
 

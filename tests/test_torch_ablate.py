@@ -2,11 +2,12 @@
 on the CPU through its plain version:
 
 - the full stage is K3: the same planes and counts as K3's plain version;
-- the scatter stage leaves stream B where K3 puts it and stream A in the
-  scratch arena's first columns, in K3's order;
-- the checksums of the read, decide and scan stages add up, over the
-  blocks, to what their definitions give in closed form: every plane word
-  summed once; plus one per stream-A row; plus each row's destination;
+  the stages before it move no row and leave the arena as it was;
+- the per-tile checksums of the read, decide, lookback and stage stages
+  add up, over the tiles, to what their definitions give in closed form:
+  every plane word summed once; plus one per stream-A row; plus each row's
+  destination column; plus every plane word once more; and each tile's
+  checksum is the same sum over its own rows;
 - an unknown stage is refused.
 
 The CUDA stages are held to these plain versions on the card
@@ -43,61 +44,68 @@ GOLEFT = (torch.arange(256) < B // 2).to(torch.uint8)
 DST_B = pk.pristine_work0(N)
 
 
-def _plane_total(a):
-    words = [a.bins[:, :N].numpy().astype(np.int64).sum()]
-    p = a.payload[:, :N].numpy()
-    words.append((p.view(np.uint32) if p.dtype == np.float32
-                  else p.view(np.uint8)).astype(np.int64).sum())
-    words.append(a.rid[:N].numpy().astype(np.int64).sum())
-    return sum(words)
+def _words(a, lo=0, hi=N):
+    w = a.bins[:, lo:hi].numpy().astype(np.int64).sum(0)
+    p = a.payload[:, lo:hi].numpy()
+    w = w + (p.view(np.uint32) if p.dtype == np.float32
+             else p.view(np.uint8)).astype(np.int64).sum(0)
+    return w + a.rid[lo:hi].numpy().astype(np.int64)
 
 
 def _checksum(a, stage):
     sc = _sc(DST_B)
-    pk.partition_ablate(a, sc, GOLEFT, stage)
-    return int(a.s_rid[:pk.PARTITION_BLOCKS].numpy().astype(np.int64)
-               .sum()) % (1 << 32), sc
+    chk = pk.partition_ablate(a, sc, GOLEFT, stage)
+    return chk.numpy().astype(np.int64), sc
 
 
 @pytest.mark.parametrize("quantized", [False, True])
 def test_full_and_scatter_stages_are_k3(quantized):
+    """The full stage is K3; no stage before it (the scatter stage of the
+    first K8 is now split into lookback, stage and the stores) moves a
+    row."""
     want = _arena(quantized)
     sc_w = _sc(DST_B)
     pk.partition_segment_plain(want, sc_w, GOLEFT)
-    n_a = int(sc_w[pk.SC_CNT_A])
     full = _arena(quantized)
     sc = _sc(DST_B)
-    pk.partition_ablate(full, sc, GOLEFT, "full")
+    assert pk.partition_ablate(full, sc, GOLEFT, "full") is None
     assert torch.equal(sc, sc_w)
     for x, y in ((full.bins, want.bins), (full.payload, want.payload),
                  (full.rid, want.rid)):
         assert torch.equal(x, y)
-    part = _arena(quantized)
-    sc = _sc(DST_B)
-    pk.partition_ablate(part, sc, GOLEFT, "scatter")
-    assert torch.equal(sc, sc_w)
-    for x, y, s in ((part.bins, want.bins, part.s_bins),
-                    (part.payload, want.payload, part.s_payload),
-                    (part.rid[None], want.rid[None], part.s_rid[None])):
-        assert torch.equal(x[:, DST_B:DST_B + N - n_a],
-                           y[:, DST_B:DST_B + N - n_a])
-        assert torch.equal(s[:, :n_a], y[:, :n_a])
+    for stage in pk.ABLATE_STAGES[:-1]:
+        part, same = _arena(quantized), _arena(quantized)
+        pk.partition_ablate(part, _sc(DST_B), GOLEFT, stage)
+        for x, y in ((part.bins, same.bins), (part.payload, same.payload),
+                     (part.rid, same.rid)):
+            assert torch.equal(x, y), stage
 
 
 @pytest.mark.parametrize("quantized", [False, True])
 def test_checksum_stages_add_up(quantized):
     a = _arena(quantized)
-    total = _plane_total(a) % (1 << 32)
+    T = pk.partition_tile(G, quantized)
+    words = _words(a)
+    total = int(words.sum()) % (1 << 32)
     read, sc = _checksum(a, "read")
-    assert read == total
+    assert len(read) == -(-N // T)
+    assert int(read.sum()) % (1 << 32) == total
+    for t in range(len(read)):
+        assert (read[t] - int(words[t * T:(t + 1) * T].sum())) % (1 << 32) \
+            == 0
     assert int(sc[pk.SC_CNT_A]) == 0          # read writes no count
     is_a = (GOLEFT[a.bins[1, :N].long()] != 0).numpy()
     n_a, n_b = int(is_a.sum()), N - int(is_a.sum())
-    decide, _ = _checksum(a, "decide")
-    assert decide == (total + n_a) % (1 << 32)
-    scan, sc = _checksum(a, "scan")
+    decide, sc = _checksum(a, "decide")
+    assert int(decide.sum()) % (1 << 32) == (total + n_a) % (1 << 32)
+    assert int(sc[pk.SC_CNT_A]) == 0          # nor does decide
     dests = n_a * (n_a - 1) // 2 + n_b * DST_B + n_b * (n_b - 1) // 2
-    assert scan == (total + n_a + dests) % (1 << 32)
+    look, sc = _checksum(a, "lookback")
+    assert int(look.sum()) % (1 << 32) == (total + n_a + dests) % (1 << 32)
+    assert (int(sc[pk.SC_CNT_A]), int(sc[pk.SC_CNT_B])) == (n_a, n_b)
+    staged, sc = _checksum(a, "stage")
+    assert int(staged.sum()) % (1 << 32) \
+        == (2 * total + n_a + dests) % (1 << 32)
     assert (int(sc[pk.SC_CNT_A]), int(sc[pk.SC_CNT_B])) == (n_a, n_b)
 
 
@@ -105,4 +113,4 @@ def test_unknown_stage_is_refused():
     a = _arena(False)
     with pytest.raises(ValueError, match="stage"):
         pk.partition_ablate(a, _sc(DST_B), GOLEFT, "matmul")
-    assert pk.ABLATE_STAGES == ("read", "decide", "scan", "scatter", "full")
+    assert pk.ABLATE_STAGES == ("read", "decide", "lookback", "stage", "full")

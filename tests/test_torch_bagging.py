@@ -22,6 +22,8 @@ CPU (its Pallas kernels in interpret mode, `tpu_tree_engine="partition"`).
   bagged binary tree; ROADMAP.md queue 3).  The bagged inputs here (seed
   2) hold no such tie; quantized histograms are exact integers and never
   tie differently;
+- a validation set given no reference is binned on its own mappers in
+  both packages: equal bins and equal metrics;
 - the lifecycle: a validation set added after two carried rounds moves
   both packages off the carried arena for good, and the later trees and
   validation metrics stay equal;
@@ -429,6 +431,41 @@ def test_add_valid_mid_training_leaves_carried_arena():
     jb.predict(X[:1])
     _assert_models_match(jb._gbdt.models, tb._gbdt.models, X)
     _assert_scores_match(tb._gbdt, jb._gbdt)
+
+
+def test_valid_set_without_reference_is_binned_as_jax():
+    """A validation Dataset given no reference: both packages bin it on its
+    own mappers (the JAX package's add_valid sets no reference), so its bin
+    matrix is equal bit for bit, and so are three rounds of its metrics.
+    Its own mappers cut other bins than the training set's, so its rows land
+    in other leaves than under `reference=`; the two packages still agree."""
+    X, y = _data("binary", seed=8)
+    rng = np.random.RandomState(21)
+    Xv = X[np.sort(rng.choice(len(X), 300, replace=False))] * 1.5
+    yv = (rng.rand(300) < 0.5).astype(np.float64)
+    params = dict(VALID_PARAMS, metric="binary_logloss")
+    out = {}
+    for lib, kw, extra in ((jlgb, {}, {"tpu_tree_engine": "partition"}),
+                           (tlgb, {"device": "cpu"}, {})):
+        ds = lib.Dataset(X, y, **kw)
+        dv = lib.Dataset(Xv, yv, **kw)
+        ev = {}
+        bst = lib.train(dict(params, **extra), ds, num_boost_round=ROUNDS,
+                        valid_sets=[dv], valid_names=["holdout"],
+                        evals_result=ev, verbose_eval=False,
+                        **({"device": "cpu"} if kw else {}))
+        assert dv.reference is None
+        out[lib.__name__] = (bst, dv, ev)
+    (jb, jv, jev), (tb, tv, tev) = out["lightgbm_tpu"], out["lightgbm_tpu_torch"]
+    np.testing.assert_array_equal(tv._binned.bins, np.asarray(jv._binned.bins))
+    ref = tlgb.Dataset(Xv, yv, reference=tlgb.Dataset(X, y, device="cpu"),
+                       device="cpu").construct()
+    assert not np.array_equal(ref._binned.bins, tv._binned.bins)
+    loss = tev["holdout"]["binary_logloss"]
+    assert len(loss) == ROUNDS
+    np.testing.assert_allclose(loss, jev["holdout"]["binary_logloss"], rtol=0,
+                               atol=1e-6)
+    _assert_models_match(jb._gbdt.models, tb._gbdt.models, X)
 
 
 # --------------------------------------------------------------------------- #

@@ -39,8 +39,14 @@ Tolerances, per kernel:
   the same splits, default directions, counts and leaf ids as on the CPU,
   leaf values rtol 1e-6;
 - K8 partition_ablate: every stage equal to its plain version (the
-  read, decide and scan stages' checksums, the scatter stage's streams,
-  the full stage's planes).
+  per-tile checksums of the read, decide, lookback and stage stages, the
+  full stage's planes);
+- the races of the single-pass K3 (tiles by ticket, decoupled look-back,
+  stream A in place) and of K7's row list: in place, out of place and
+  overlapping from before, at segment counts 0, 1, T-1, T, T+1 and several
+  tiles, pred mode at G=80 in place, K7 on empty, `done` and full leaves,
+  each 50 times in a row, exact (histograms as above); K3's 512-row tile
+  shapes (G=120 and G=300) 10 times.
 """
 import numpy as np
 import pytest
@@ -635,9 +641,9 @@ def test_label_tree_matches_cpu(dev):
 
 @pytest.mark.parametrize("quantized", [False, True])
 def test_partition_ablate_matches_plain(quantized, dev):
-    """Every K8 stage against its plain version: the checksums of the
-    read, decide and scan stages, the scan stage's counts, the scatter
-    stage's streams, and the full stage (K3)."""
+    """Every K8 stage against its plain version: the per-tile checksums of
+    the read, decide, lookback and stage stages, the counts of the last
+    two, and the full stage (K3); no stage before it moves a row."""
     n = 300_000
     if quantized:
         (ak, ap), _ = _code_arenas(dev, n=n)
@@ -649,19 +655,184 @@ def test_partition_ablate_matches_plain(quantized, dev):
         sc = torch.tensor([0, n, 0, dst_b, 0, 0, 2, 0], dtype=torch.int32,
                           device=dev)
         sc_p = sc.clone()
-        pk.partition_ablate(ak, sc, goleft, stage)
+        got = pk.partition_ablate(ak, sc, goleft, stage)
         torch.cuda.synchronize()
-        pk.partition_ablate_plain(ap, sc_p, goleft, stage)
+        want = pk.partition_ablate_plain(ap, sc_p, goleft, stage)
         assert torch.equal(sc, sc_p), stage
-        if stage in ("read", "decide", "scan"):
-            assert torch.equal(ak.s_rid[:pk.PARTITION_BLOCKS],
-                               ap.s_rid[:pk.PARTITION_BLOCKS]), stage
-            continue
-        n_a = int(sc[pk.SC_CNT_A])
-        if stage == "scatter":
-            assert torch.equal(ak.s_bins[:, :n_a], ap.s_bins[:, :n_a])
-            assert torch.equal(ak.s_payload[:, :n_a], ap.s_payload[:, :n_a])
-            assert torch.equal(ak.s_rid[:n_a], ap.s_rid[:n_a])
+        if stage != "full":
+            assert torch.equal(got, want), stage
         assert torch.equal(ak.bins, ap.bins), stage
         assert torch.equal(ak.payload, ap.payload), stage
         assert torch.equal(ak.rid, ap.rid), stage
+
+
+# --------------------------------------------------------------------------- #
+# races of the single-pass K3 (ticket order, decoupled look-back, stream A
+# in place) and of K7's row list: each case repeated, since a look-back race
+# shows up intermittently
+# --------------------------------------------------------------------------- #
+REPEATS = 50
+
+
+def _snapshot(a):
+    return [t.clone() for t in (a.bins, a.payload, a.rid)]
+
+
+def _restore(a, snap):
+    for t, v in zip((a.bins, a.payload, a.rid), snap):
+        t.copy_(v)
+
+
+def _assert_arenas_equal(ak, ap, what):
+    assert torch.equal(ak.rid, ap.rid), what
+    assert torch.equal(ak.bins, ap.bins), what
+    assert torch.equal(ak.payload, ap.payload), what
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("where", ["in_place", "out_of_place",
+                                   "overlap_before"])
+def test_partition_segment_repeated_matches_plain(where, quantized, dev):
+    """K3 in decision mode at segment counts 0, 1, T-1, T, T+1 and several
+    tiles, at an unaligned nonzero start, with stream A over the segment
+    (dst_a == start), disjoint past it, or overlapping it from before
+    (dst_a < start); every count 50 times from the same arena, each equal
+    to the plain version."""
+    n = 40_000
+    if quantized:
+        (ak, ap), _ = _code_arenas(dev, n=n)
+    else:
+        ak, ap = _arenas(dev, n=n)
+    T = pk.partition_tile(ak.num_groups, quantized)
+    goleft = (torch.arange(256, device=dev) < 110).to(torch.uint8)
+    snap = _snapshot(ak)
+    start = 4096 + 37
+    for cnt in (0, 1, T - 1, T, T + 1, 7 * T + 123):
+        dst_a = {"in_place": start, "out_of_place": start + cnt + 3,
+                 "overlap_before": start - 701}[where]
+        dst_b = start + 2 * cnt + 4099
+        sc0 = torch.tensor([start, cnt, dst_a, dst_b, 0, 0, 9, 1],
+                           dtype=torch.int32, device=dev)
+        _restore(ap, snap)
+        sc_p = sc0.clone()
+        pk.partition_segment_plain(ap, sc_p, goleft)
+        for rep in range(REPEATS):
+            _restore(ak, snap)
+            sc = sc0.clone()
+            pk.partition_segment(ak, sc, goleft)
+            torch.cuda.synchronize()
+            assert torch.equal(sc, sc_p), (cnt, rep)
+            _assert_arenas_equal(ak, ap, (cnt, rep))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("G", [120, 300])
+def test_partition_segment_wide_matches_plain(G, quantized, dev):
+    """K3's other tile shapes: at G=120 a ring of two 512-row tiles, at
+    G=300 one 512-row tile a block (no ring); in place and out of place,
+    several tiles at an unaligned start, each 10 times."""
+    n = 20_000
+    assert pk.partition_tile(G, quantized) == pk.PART_TILE_SMALL
+    if quantized:
+        (ak, ap), _ = _code_arenas(dev, n=n, F=G)
+    else:
+        ak, ap = _arenas(dev, n=n, F=G)
+    goleft = (torch.arange(256, device=dev) < 130).to(torch.uint8)
+    snap = _snapshot(ak)
+    start, cnt = 1000 + 9, 9 * pk.PART_TILE_SMALL + 77
+    for dst_a in (start, start + cnt + 1):
+        sc0 = torch.tensor([start, cnt, dst_a, 2 * start + 2 * cnt + 64, 0, 0,
+                            G - 1, 0], dtype=torch.int32, device=dev)
+        _restore(ap, snap)
+        sc_p = sc0.clone()
+        pk.partition_segment_plain(ap, sc_p, goleft)
+        for rep in range(10):
+            _restore(ak, snap)
+            sc = sc0.clone()
+            pk.partition_segment(ak, sc, goleft)
+            torch.cuda.synchronize()
+            assert torch.equal(sc, sc_p), (dst_a, rep)
+            _assert_arenas_equal(ak, ap, (dst_a, rep))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("G", [28, 80])
+def test_partition_pred_hist_in_place_matches_plain(quantized, G, dev):
+    """K3's pred mode with the bag's histogram, stream A over the segment
+    itself, 50 times: at G=80 the features past the shared-memory chunk
+    are summed from the staged tile, which the in-place stores overwrite
+    in the arena."""
+    n = 60_000
+    if quantized:
+        (ak, ap), _ = _code_arenas(dev, n=n, F=G)
+    else:
+        ak, ap = _arenas(dev, n=n, F=G)
+    rng = np.random.RandomState(13)
+    start = 1000 + 5
+    cnt = n - start
+    pred = torch.from_numpy((rng.rand(n) < 0.8).astype(np.uint8)).to(dev)
+    dst_b = pk.pristine_work0(n) + 3
+    sc0 = torch.tensor([start, cnt, start, dst_b, 0, 0, 0, 0],
+                       dtype=torch.int32, device=dev)
+    snap = _snapshot(ak)
+    _restore(ap, snap)
+    sc_p = sc0.clone()
+    want = pk.partition_segment_pred_plain(ap, sc_p, pred, 0, 255)
+    n_a = int(sc_p[pk.SC_CNT_A])
+    if not quantized:
+        rows = ap.payload[:, start:start + n_a].clone()
+        ap.payload[0, start:start + n_a] = rows[0].abs()
+        scale = pk.segment_histogram_plain(
+            ap, torch.tensor([start, n_a], dtype=torch.int32, device=dev), 255)
+        ap.payload[:, start:start + n_a] = rows
+    for rep in range(REPEATS):
+        _restore(ak, snap)
+        sc = sc0.clone()
+        got = pk.partition_segment_pred(ak, sc, pred, hist_stream=0,
+                                        max_bin=255)
+        torch.cuda.synchronize()
+        assert torch.equal(sc, sc_p), rep
+        _assert_arenas_equal(ak, ap, rep)
+        if quantized:
+            assert torch.equal(got, want), rep
+        else:
+            assert torch.equal(got[..., 2], want[..., 2]), rep
+            assert bool(((got - want).abs() <= 1e-5 * scale).all()), rep
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("B", [16, 255])
+@pytest.mark.parametrize("F", [3, 11, 28])
+def test_leaf_histogram_row_list_cases(F, B, quantized, dev):
+    """K7's select and accumulate passes: an empty leaf, leaf -2 (the
+    grower's `done` leaf), every row in the leaf and a leaf of some rows,
+    with F=3 and F=11 (byte loads) and F=28 (4-byte loads), the ids at an
+    unaligned address and n not a multiple of 16, one row-list workspace
+    reused by every call, each 50 times."""
+    from lightgbm_tpu_torch.ops import histogram_kernel as hk
+    n = 100_003
+    bins, g, h, ids = _leaf_inputs(dev, n + 1, F, B, F * B, quantized)
+    bins, g, h = bins[1:], g[1:], h[1:]
+    ids = ids[1:]                        # 4 or 1 bytes past an alignment
+    fn = hk.leaf_histogram_quantized if quantized else hk.leaf_histogram
+    plain = (hk.leaf_histogram_quantized_plain if quantized
+             else hk.leaf_histogram_plain)
+    rows = hk.row_list(n, dev)
+    cases = ((ids, 9), (ids, -2), (torch.zeros_like(ids), 0), (ids, 5))
+    for leaf_ids, leaf in cases:
+        leaf_t = torch.tensor([leaf], dtype=torch.int32, device=dev)
+        want = plain(bins, g, h, leaf_ids, leaf_t, B)
+        m = int((leaf_ids.int() == leaf).sum())
+        assert int(want[0, :, 2].sum()) == m
+        scale = None if quantized else plain(bins, g.abs(), h, leaf_ids,
+                                             leaf_t, B)
+        for rep in range(REPEATS):
+            got = fn(bins, g, h, leaf_ids, leaf_t, B, rows)
+            torch.cuda.synchronize()
+            assert int(rows[n]) == m, (leaf, rep)
+            if quantized or m == 0:
+                assert torch.equal(got, want.to(got.dtype)), (leaf, rep)
+                continue
+            assert torch.equal(got[..., 2], want[..., 2]), (leaf, rep)
+            assert bool(((got - want).abs() <= 1e-5 * scale).all()), \
+                (leaf, rep)
