@@ -10,7 +10,8 @@
    the main paths' shapes against its plain PyTorch version on the same
    inputs, with the tolerance stated per kernel, and is timed with CUDA
    events beside the plain version and, where one PyTorch call computes the
-   same function, that call.  f32 arenas: K1 split_scan, K2
+   same function, that call; K1 and K2 also kernel-only (torch.profiler,
+   without the wrapper's host work).  f32 arenas: K1 split_scan, K2
    segment_histogram, K3 partition_segment (decision mode at the root and
    in place on a 40k-row child, and pred mode with the bag's fused
    histogram at the bagged root and in place on a 40k-row child), K4
@@ -89,11 +90,27 @@ AUC_DRIFT = 0.002
 # limit
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# the __global__ functions of lightgbm_tpu_torch/csrc/*.cu
-PORT_KERNELS = ("split_scan_kernel", "select_best_kernel", "histogram_kernel",
-                "partition_kernel", "scatter_segments_kernel",
-                "carry_offsets_kernel", "carry_copy_kernel",
-                "leaf_select_kernel", "leaf_accumulate_kernel")
+# the __global__ functions of lightgbm_tpu_torch/csrc/*.cu by the kernel
+# table's label, as the profiler names them; with the first versions' names
+# (K1's second select kernel; K2 and K5 sharing histogram_kernel), so that
+# an older checkout's rounds read alike
+KERNEL_NAMES = (
+    ("K1", ("split_scan_kernel", "select_best_kernel")),
+    ("K2", ("seg_hist_kernel", "SegmentRows<float, false>",
+            "SegmentRows<signed char, false>")),
+    ("K5", ("SegmentRows<signed char>", "SegmentRows<signed char, true>")),
+    ("K3", ("partition_kernel",)),
+    ("K4", ("scatter_segments_kernel",)),
+    ("K6", ("carry_offsets_kernel", "carry_copy_kernel")),
+    ("K7", ("leaf_select_kernel", "leaf_accumulate_kernel")))
+
+
+def kernel_label(name: str):
+    """The kernel table's label of a device kernel name, or None."""
+    for label, parts in KERNEL_NAMES:
+        if any(p in name for p in parts):
+            return label
+    return None
 # the training paths.  Carried: no weights, no bag, no validation set (the
 # JAX rule); weights keep the tree rooted at the pristine block; a bag or a
 # validation set runs the eager path (pristine root, per-row leaf ids), the
@@ -229,6 +246,24 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return a.elapsed_time(b) / reps
 
 
+def kernel_only_ms(fn, reps: int) -> float:
+    """Device ms a call of fn spends in the port's kernels (torch.profiler
+    over reps calls after a warm-up): the time without the wrapper's host
+    work and without the memsets of its allocations."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA
+             and kernel_label(ev.name) is not None)
+    return us / 1e3 / reps
+
+
 def bound(nbytes: float, ops: float) -> tuple:
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
     operations over the f32 rate."""
@@ -293,10 +328,12 @@ def kernel_phase(ds, dev, results, quantized: bool):
             max_abs_err=err, tolerance=tol, ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=b_ms, bound_by=b_by, library_ms=r.get("library_ms"),
             rows=r.get("rows"), **extra)
+        if "kernel_ms" in r:
+            results[name]["kernel_ms"] = r["kernel_ms"]
 
     def child(r):
         return dict({k: r[k] for k in ("ms", "plain_ms", "library_ms",
-                                       "rows")},
+                                       "rows", "kernel_ms") if k in r},
                     bound_ms=bound(r["bytes"], r.get("ops", 0))[0])
 
     def index_add_ms(a, s, c):
@@ -366,15 +403,19 @@ def kernel_phase(ds, dev, results, quantized: bool):
         k2[name] = dict(
             max_abs_err=err, rel_err=rel,
             ms=cuda_ms(lambda: pk.segment_histogram(ak, seg, B), 20),
+            kernel_ms=kernel_only_ms(lambda: pk.segment_histogram(ak, seg, B),
+                                     20),
             plain_ms=cuda_ms(lambda: pk.segment_histogram_plain(ak, seg, B),
                              5),
             library_ms=index_add_ms(ak, s, c),
             bytes=pk.segment_histogram_bytes(c, G, B, quantized),
             ops=3 * G * c, rows=c, hist=got)
-    print("K2 segment_histogram (%s): root %d rows %.4f ms (plain %.4f, "
-          "index_add_ %.4f); child %d rows %.4f ms; rel err %.3g"
-          % (mode, n, k2["root"]["ms"], k2["root"]["plain_ms"],
-             k2["root"]["library_ms"], segs["child"][1], k2["child"]["ms"],
+    print("K2 segment_histogram (%s): root %d rows %.4f ms, kernel-only "
+          "%.4f (plain %.4f, index_add_ %.4f); child %d rows %.4f ms, "
+          "kernel-only %.4f; rel err %.3g"
+          % (mode, n, k2["root"]["ms"], k2["root"]["kernel_ms"],
+             k2["root"]["plain_ms"], k2["root"]["library_ms"],
+             segs["child"][1], k2["child"]["ms"], k2["child"]["kernel_ms"],
              max(k2["root"]["rel_err"], k2["child"]["rel_err"])))
     entry("segment_histogram" + sfx, "segment_histogram", k2["root"],
           max(k2["root"]["max_abs_err"], k2["child"]["max_abs_err"]),
@@ -415,12 +456,15 @@ def kernel_phase(ds, dev, results, quantized: bool):
         k1_bytes, k1_ops = sk.scan_bytes_and_ops(2, G, B)
         k1 = dict(ms=cuda_ms(lambda: sk.split_scan(hist2, fvec, svec, pvec),
                              50),
+                  kernel_ms=kernel_only_ms(
+                      lambda: sk.split_scan(hist2, fvec, svec, pvec), 50),
                   plain_ms=cuda_ms(lambda: sk.split_scan_plain(
                       hist2, fvec, svec, pvec), 5),
                   bytes=k1_bytes, ops=k1_ops, library_ms=None)
-        print("K1 split_scan: CH=2 F=%d B=%d %.4f ms (plain %.4f); gain rel "
-              "err %.3g, %d valid features" % (G, B, k1["ms"], k1["plain_ms"],
-                                              gain_rel, int(valid.sum())))
+        print("K1 split_scan: CH=2 F=%d B=%d %.4f ms, kernel-only %.4f "
+              "(plain %.4f); gain rel err %.3g, %d valid features"
+              % (G, B, k1["ms"], k1["kernel_ms"], k1["plain_ms"], gain_rel,
+                 int(valid.sum())))
         entry("split_scan", "split_scan", k1, k1_err,
               "feature, threshold, default_left equal; gain rtol 1e-5",
               shape="CH=2 F=%d B=%d" % (G, B))
@@ -1004,8 +1048,14 @@ def profile_round(booster, what: str) -> dict:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     # the twelve longest, and every kernel of the port's own sources
     top = [kv for i, kv in enumerate(ranked)
-           if i < 12 or any("namespace)::%s%s" % (k, c) in kv[0]
-                            for k in PORT_KERNELS for c in "(<")]
+           if i < 12 or kernel_label(kv[0]) is not None]
+    by_kernel = {}
+    for name, (ms, cnt) in by_name.items():
+        label = kernel_label(name)
+        if label is not None:
+            k = by_kernel.setdefault(label, dict(ms=0.0, launches=0))
+            k["ms"] += ms
+            k["launches"] += cnt
     if not by_name:
         print("profile (%s): the profiler saw no device events; device time "
               "not measured" % what)
@@ -1016,9 +1066,13 @@ def profile_round(booster, what: str) -> dict:
              sum(c for _, c in by_name.values())))
     for name, (ms, cnt) in top:
         print("  %9.3f ms %6d x  %s" % (ms, cnt, name[:90]))
+    print("  port kernels, device ms (launches): %s" % ", ".join(
+        "%s %.3f (%d)" % (k, v["ms"], v["launches"])
+        for k, v in sorted(by_kernel.items())))
     return dict(wall_ms=wall_ms, device_ms=busy_ms,
                 idle_share=1 - busy_ms / wall_ms,
                 device_launches=sum(c for _, c in by_name.values()),
+                by_kernel=by_kernel,
                 top=[dict(name=n[:90], ms=ms, count=c) for n, (ms, c) in top])
 
 

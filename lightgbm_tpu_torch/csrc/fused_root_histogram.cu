@@ -12,7 +12,7 @@
 // Higgs root, 0.10 ms at 3.35 TB/s), against 3*G shared-memory integer
 // atomics a row, which are what this first version waits on.
 //
-// Design: K2's int8 loop (histogram.cuh) reading the codes from the
+// Design: histogram.cuh's int8 loop, reading the codes from the
 // [2, ncodes] input in segment order instead of the arena, and storing each
 // to its arena column.  int32 accumulation: the result equals the plain
 // version exactly.
@@ -23,8 +23,7 @@ LGBT_API int lgbt_fused_root_histogram(const uint8_t* bins, int8_t* arena_codes,
                                        const int* seg, int* out, int G, int B,
                                        long long cap, int grid_x,
                                        cudaStream_t stream) {
-  const SegmentRows<int8_t, true> rows{bins, codes, ncodes, arena_codes, seg,
-                                       cap};
-  return launch_histogram(histogram_kernel<SegmentRows<int8_t, true>>, rows,
+  const SegmentRows<int8_t> rows{bins, codes, ncodes, arena_codes, seg, cap};
+  return launch_histogram(histogram_kernel<SegmentRows<int8_t>>, rows,
                           out, G, B, grid_x, stream);
 }

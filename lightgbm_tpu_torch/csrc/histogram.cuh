@@ -1,7 +1,8 @@
-// The shared body of the (sum g, sum h, count) histogram kernels K2
-// (segment_histogram.cu) and K5 (fused_root_histogram.cu), accumulated per
-// block in shared memory.  K7 (leaf_histogram.cu) and K3's pred mode
-// (partition.cuh) take only HistAcc and the shared-memory budget from here.
+// The body of the (sum g, sum h, count) histogram kernel K5
+// (fused_root_histogram.cu), accumulated per block in shared memory.  K2
+// (segment_histogram.cu), K7 (leaf_histogram.cu) and K3's pred mode
+// (partition.cuh) take only HistAcc and the shared-memory budget from here;
+// K5 is to move onto K2's body (ROADMAP queue 2).
 //
 // A fixed grid-stride grid walks the rows of a "row source" (the segment's
 // start and count, or the leaf to histogram, live on the device, so the
@@ -20,7 +21,8 @@
 //                               feature f0, or false when row i does not
 //                               belong to the histogram;
 //   bin(bc, f):                 the bin of feature f0 + f from that pointer.
-// SegmentRows below reads arena columns (bins as [G, cap] planes).
+// SegmentRows below reads K5's codes in segment order and arena columns
+// (bins as [G, cap] planes).
 //
 // The row sources read their inputs through the read-only path (__ldg):
 // their pointers are struct members, which carry no __restrict__.
@@ -42,18 +44,18 @@ template <typename P> struct HistAcc;
 template <> struct HistAcc<float> { using T = float; };
 template <> struct HistAcc<int8_t> { using T = int; };
 
-// K2 and K5: columns [seg[0], seg[0] + seg[1]) of an arena whose bins are
-// [G, cap] planes and whose payload is [2, ld].  FUSED (K5) reads the
-// payload in segment order from a [2, ld] input and stores each value to
-// its arena column on the way; the blocks of every feature chunk store the
-// same value, so no branch on the chunk is needed.
-template <typename P, bool FUSED>
+// K5: columns [seg[0], seg[0] + seg[1]) of an arena whose bins are
+// [G, cap] planes.  It reads the payload in segment order from a [2, ld]
+// input and stores each value to its arena column on the way; the blocks
+// of every feature chunk store the same value, so no branch on the chunk
+// is needed.
+template <typename P>
 struct SegmentRows {
   using Acc = typename HistAcc<P>::T;
   const uint8_t* bins;   // [G, cap]
-  const P* payload;      // [2, ld]
+  const P* payload;      // [2, ld], segment order
   long long ld;
-  P* arena_payload;      // FUSED: [2, cap]
+  P* arena_payload;      // [2, cap]
   const int* seg;        // start, cnt
   long long cap;
 
@@ -68,13 +70,10 @@ struct SegmentRows {
     __device__ __forceinline__ bool load(long long i, int f0, Acc& g, Acc& h,
                                          const uint8_t*& bc) const {
       const long long col = start + i;
-      const long long src = FUSED ? i : col;
-      const P pg = __ldg(payload + src);
-      const P ph = __ldg(payload + ld + src);
-      if (FUSED) {
-        arena_payload[col] = pg;
-        arena_payload[cap + col] = ph;
-      }
+      const P pg = __ldg(payload + i);
+      const P ph = __ldg(payload + ld + i);
+      arena_payload[col] = pg;
+      arena_payload[cap + col] = ph;
       g = Acc(pg);
       h = Acc(ph);
       bc = bins + (long long)f0 * cap + col;

@@ -39,7 +39,7 @@ _LL = ctypes.c_longlong
 # source stem -> {C entry point: argtypes}
 _ENTRY_POINTS = {
     "split_scan": {
-        "lgbt_split_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
+        "lgbt_split_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
     "segment_histogram": {
         "lgbt_segment_histogram": [_P, _P, _P, _P, _I, _I, _LL, _I, _P],
         "lgbt_segment_histogram_i8": [_P, _P, _P, _P, _I, _I, _LL, _I, _P]},
@@ -156,8 +156,19 @@ def fn(name: str):
     return _FUNCS[name]
 
 
-def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def stream(device: Optional[torch.device] = None) -> int:
+    """The current CUDA stream of device (the current device by default),
+    as the raw handle the entry points take."""
+    index = torch.cuda.current_device() if device is None or \
+        device.index is None else device.index
+    return _raw_stream(index)
+
+
+def _raw_stream(index: int) -> int:
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(index).cuda_stream
+    return raw(index)
 
 
 def check(rc: int, kernel: str) -> None:

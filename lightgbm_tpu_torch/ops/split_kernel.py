@@ -40,7 +40,7 @@ _L1, _L2, _MDS, _MINCNT, _MINH, _MINGAIN, _CEGBS = range(7)
 (_OG, _OF, _OT, _ODL, _OLG, _OLH, _OLC, _OLO,
  _ORG, _ORH, _ORC, _ORO) = range(12)
 ROW_W = 12
-MAX_BINS = 256      # one thread per bin in the CUDA kernel
+MAX_BINS = 1024     # one thread a bin in the CUDA kernel, 32 warps a block
 
 
 def build_feature_statics(num_bins, default_bins, missing_types,
@@ -215,16 +215,33 @@ def select_rows_plain(rows: torch.Tensor, CH: int, F: int) -> torch.Tensor:
                        picked - K_EPSILON, picked)
 
 
+# the select's tickets, one int32 a child, per (device, stream): zeroed
+# once, and left zero by every launch (csrc/split_scan.cu), so launches on
+# one stream may follow each other and launches on two streams never share
+# a ticket
+_TICKETS = {}
+
+
+def _tickets(dev: torch.device, stream: int, CH: int) -> torch.Tensor:
+    key = (dev, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < CH:
+        t = torch.zeros(max(CH, 8), dtype=torch.int32, device=dev)
+        _TICKETS[key] = t
+    return t
+
+
 def split_scan(hist: torch.Tensor, fvec: torch.Tensor, svec: torch.Tensor,
                pvec: torch.Tensor):
     """K1 on hist's device: the CUDA kernel for a CUDA tensor, the plain
     version for a CPU tensor.  Returns (rows [CH*F, ROW_W], best
-    [CH, ROW_W])."""
+    [CH, ROW_W]).  The kernel runs on the device's current stream, with
+    that stream's tickets."""
     CH, F, B, three = hist.shape
     dev = hist.device
     if three != 3 or not 1 <= B <= MAX_BINS:
-        raise ValueError("hist must be [CH, F, B<=256, 3], got %s"
-                         % (tuple(hist.shape),))
+        raise ValueError("hist must be [CH, F, B<=%d, 3], got %s"
+                         % (MAX_BINS, tuple(hist.shape)))
     f32 = torch.float32
     _cuda.require(hist, "hist", f32, dev)
     _cuda.require(fvec, "fvec", f32, dev, (CH * F, 8))
@@ -232,13 +249,16 @@ def split_scan(hist: torch.Tensor, fvec: torch.Tensor, svec: torch.Tensor,
     _cuda.require(pvec, "pvec", f32, dev, (8,))
     if not _cuda.plain_or_cuda(dev):
         return split_scan_plain(hist, fvec, svec, pvec)
-    rows = torch.empty((CH * F, ROW_W), dtype=f32, device=dev)
-    best = torch.empty((CH, ROW_W), dtype=f32, device=dev)
+    # one allocation for both outputs
+    out = torch.empty((CH * F + CH, ROW_W), dtype=f32, device=dev)
+    ptr = out.data_ptr()
+    stream = _cuda.stream(dev)
     rc = _cuda.fn("lgbt_split_scan")(
         hist.data_ptr(), fvec.data_ptr(), svec.data_ptr(), pvec.data_ptr(),
-        rows.data_ptr(), best.data_ptr(), CH, F, B, _cuda.stream())
+        ptr, ptr + CH * F * ROW_W * 4, _tickets(dev, stream, CH).data_ptr(),
+        CH, F, B, stream)
     _cuda.check(rc, "split_scan")
-    return rows, best
+    return out[:CH * F], out[CH * F:]
 
 
 def best_splits(hist, sum_g, sum_h, num_data, fvec, params: SplitParams,

@@ -6,10 +6,11 @@ OTHER_CSRC is the `lightgbm_tpu_torch/csrc` directory of another checkout
 (a parent commit unpacked with `git archive`, say).  In one process:
 
 1. K3 (`partition_segment.cu`), K7 (`leaf_histogram.cu`), K2
-   (`segment_histogram.cu`) and K5 (`fused_root_histogram.cu`) of both
-   trees compiled with `ptxas -v` to cubins: each kernel's resource line
-   and whether its SASS (`cuobjdump -sass`, kernel names demangled and
-   K8's stage template argument dropped) is identical in the two trees;
+   (`segment_histogram.cu`), K5 (`fused_root_histogram.cu`) and K1
+   (`split_scan.cu`) of both trees compiled with `ptxas -v` to cubins: each
+   kernel's resource line and whether its SASS (`cuobjdump -sass`, kernel
+   names demangled and K8's stage template argument dropped) is identical
+   in the two trees;
 2. the four K3 instances (decision and pred mode with the bag's
    histogram, f32 and int8 payload) of both trees on a random 10.5M-row,
    28-feature arena (or rows_millions): at the root, off the pristine
@@ -20,11 +21,21 @@ OTHER_CSRC is the `lightgbm_tpu_torch/csrc` directory of another checkout
 3. K7 of both trees, f32 and int8, at the root (every row in leaf 0) and
    on one leaf of 255 spread over the rows, held equal and timed in the
    same order, and this tree's kernels timed apart by torch.profiler;
-4. K2 f32, K2 int8 and K5 of both trees at the root, timed in that order.
+4. K2 f32 and int8 of both trees at the root and on a 40k-row and a
+   500k-row child (near the largest that K2's int8 mode packs), on
+   uniform bins and on skewed ones (two features in three with 2-3 bins
+   and 96% of the rows in one), held equal and timed in the same order,
+   each tree's kernel-only time (torch.profiler) beside; K5 at the root;
+5. K1 of both trees through their C entry points, one child and two
+   (F=28, B=255), held equal (feature, threshold, default_left, gains
+   within 1e-5) and timed likewise, kernel-only beside; then this tree's
+   wrapper against the first version's wrapper work around the other
+   tree's entry point.
 
-The other tree's K3 and K7 may take the C interface of the first versions
-(a scratch arena and block counts for K3, no row list for K7); the tool
-reads which from the other tree's sources.  Needs nvcc and a CUDA device;
+The other tree's K3, K7 and K1 may take the C interface of the first
+versions (a scratch arena and block counts for K3, no row list for K7, no
+ticket for K1); the tool reads which from the other tree's sources.
+Needs nvcc and a CUDA device;
 builds into lightgbm_tpu_torch/_build/compare and prints one line per
 kernel and case.
 """
@@ -42,13 +53,18 @@ import torch
 from ..ops import _cuda
 from ..ops import histogram_kernel as hk
 from ..ops import partition_kernel as pk
+from ..ops import split_kernel as sk
+from ..ops.split import SplitParams
 from . import cuda_ms
 
 G, B, LEAVES, CHILD = 28, 255, 255, 40_000
+MID_CHILD = 500_000     # K2's int8 mode packs its words up to 540,672 rows
 K3_STAGE_ARG = re.compile(r", \(int\)\d>")
+# K5's row source took a FUSED flag while it also served the first K2
+K5_FUSED_ARG = re.compile(r"(SegmentRows<[^,<>]+), (?:true|\(bool\)1)>")
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the C interface of the first K3 and K7 (scratch arena, block counts; no
-# row list)
+# row list) and of the first K1 (two launches, no ticket)
 OLD_ENTRY_POINTS = {
     "partition_segment": {
         "lgbt_partition_segment": [_P, _P, _P, _LL, _P, _P, _P, _LL, _P, _P,
@@ -64,6 +80,8 @@ OLD_ENTRY_POINTS = {
         "lgbt_leaf_histogram": [_P, _P, _P, _P, _P, _LL, _P, _I, _I, _I, _P],
         "lgbt_leaf_histogram_i8": [_P, _P, _P, _P, _P, _LL, _P, _I, _I, _I,
                                    _P]},
+    "split_scan": {
+        "lgbt_split_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
 }
 OLD_PART_BLOCKS, OLD_PRED_BLOCKS, OLD_LEAF_BLOCKS = 1024, 264, 264
 
@@ -77,6 +95,12 @@ def _demangle(names):
     r = subprocess.run([_tool("cu++filt")], input="\n".join(names),
                        text=True, capture_output=True)
     return r.stdout.strip().split("\n") if r.returncode == 0 else list(names)
+
+
+def _name(demangled: str) -> str:
+    """A kernel's name with the template arguments that only name a build
+    variant dropped (K8's stage, the first K5's FUSED flag)."""
+    return K5_FUSED_ARG.sub(r"\1>", K3_STAGE_ARG.sub(">", demangled))
 
 
 def _nvcc(src_dir: str, stem: str, out: str, cubin: bool) -> str:
@@ -108,7 +132,7 @@ def sass_report(other: str, stem: str, out_dir: str) -> None:
                 lines[cur] = "; ".join(filter(None, (
                     lines.get(cur), line.split(":", 1)[-1].strip())))
         names = list(lines)
-        res_lines = {K3_STAGE_ARG.sub(">", d): lines[n]
+        res_lines = {_name(d): lines[n]
                      for n, d in zip(names, _demangle(names))}
         sass = subprocess.run([_tool("cuobjdump"), "-sass", cubin],
                               capture_output=True, text=True, check=True)
@@ -116,7 +140,7 @@ def sass_report(other: str, stem: str, out_dir: str) -> None:
         for line in sass.stdout.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
-                cur = K3_STAGE_ARG.sub(">", _demangle([m.group(1)])[0])
+                cur = _name(_demangle([m.group(1)])[0])
                 bodies[cur] = []
             elif cur is not None:
                 bodies[cur].append(re.sub(r"_Z\w+", "SYM", line.strip()))
@@ -131,8 +155,11 @@ def sass_report(other: str, stem: str, out_dir: str) -> None:
 def _is_old(src_dir: str, stem: str) -> bool:
     with open(os.path.join(src_dir, stem + ".cu")) as f:
         text = f.read()
-    return ("long long scap" in text if stem == "partition_segment"
-            else "int* rows" not in text)
+    if stem == "partition_segment":
+        return "long long scap" in text
+    if stem == "split_scan":
+        return "int* ticket" not in text
+    return "int* rows" not in text
 
 
 def _load(src_dir: str, stem: str, out_dir: str, tag: str):
@@ -358,48 +385,174 @@ def leaf_histograms(other: str, n: int, out_dir: str) -> None:
                       _kernel_ms(runs["this"], 10)))
 
 
+def _skewed_bins(rng, n):
+    """[G, n] bins where two features in three have 2-3 bins with 96% of
+    the rows in one (the real Higgs's b-tag columns); the rest uniform."""
+    bins = rng.randint(0, B, (G, n)).astype(np.uint8)
+    for f in range(G):
+        if f % 3 != 2:
+            rare = rng.rand(n) >= 0.96
+            bins[f] = np.where(rare, rng.randint(1, 2 + f % 2, n), 0)
+    return bins
+
+
+def _both_ms(runs, reps):
+    """CUDA-event ms of each tree's call in the order other, this, this,
+    other, then each tree's kernel-only ms (torch.profiler)."""
+    ev = ", ".join("%s %.4f" % (t, cuda_ms(runs[t], reps))
+                   for t in ("other", "this", "this", "other"))
+    ko = "; ".join("%s %s" % (t, _kernel_ms(runs[t], reps))
+                   for t in ("other", "this"))
+    return "%s ms; kernel-only, ms: %s" % (ev, ko)
+
+
 def histograms(other: str, n: int, out_dir: str) -> None:
-    """K2 and K5 of both trees at the root, alternating."""
+    """K2 f32 and int8 of both trees at the root and on a 40k child, on
+    uniform and on skewed bins, and K5 at the root: held equal between the
+    trees, then timed."""
     dev = torch.device("cuda")
     libs = {tag: {} for tag in ("other", "this")}
     for stem in ("segment_histogram", "fused_root_histogram"):
         for tag, src in (("other", other), ("this", str(_cuda.CSRC))):
             libs[tag].update(_load(src, stem, out_dir, tag)[0])
-    rng = np.random.RandomState(0)
-    bins = torch.from_numpy(rng.randint(0, B, (G, n)).astype(np.uint8)
-                            ).to(dev)
-    af = pk.Arena(n, G, 4, dev)
-    aq = pk.Arena(n, G, 4, dev, quantized=True)
-    for a in (af, aq):
-        pk.init_pristine(a, bins)
-    af.payload[:, :n] = torch.from_numpy(
-        rng.randn(2, n).astype(np.float32)).to(dev)
-    codes = torch.from_numpy(rng.randint(-127, 128, (2, n)).astype(np.int8)
-                             ).to(dev)
-    aq.payload[:, :n] = codes
-    seg = torch.tensor([0, n], dtype=torch.int32, device=dev)
     s = _cuda.stream()
-    out_f = torch.zeros((G, B, 3), device=dev)
-    out_i = torch.zeros((G, B, 3), dtype=torch.int32, device=dev)
+    for skewed in (False, True):
+        rng = np.random.RandomState(0)
+        bins = torch.from_numpy(_skewed_bins(rng, n) if skewed else
+                                rng.randint(0, B, (G, n)).astype(np.uint8)
+                                ).to(dev)
+        af = pk.Arena(n, G, 4, dev)
+        aq = pk.Arena(n, G, 4, dev, quantized=True)
+        for a in (af, aq):
+            pk.init_pristine(a, bins)
+        del bins
+        af.payload[:, :n] = torch.from_numpy(
+            rng.randn(2, n).astype(np.float32)).to(dev)
+        codes = torch.from_numpy(rng.randint(-127, 128, (2, n)).astype(
+            np.int8)).to(dev)
+        aq.payload[:, :n] = codes
+        kind = "skewed" if skewed else "uniform"
+        for what, start, cnt in (("root", 0, n), ("child", 12_345, CHILD),
+                                 ("child", 7_000, MID_CHILD)):
+            seg = torch.tensor([start, cnt], dtype=torch.int32, device=dev)
+            for mode, a, name in (
+                    ("f32", af, "lgbt_segment_histogram"),
+                    ("int8", aq, "lgbt_segment_histogram_i8")):
+                q = mode == "int8"
+                outs = {t: torch.zeros((G, B, 3), device=dev, dtype=(
+                    torch.int32 if q else torch.float32)) for t in libs}
 
-    def k2(tag, a, name, out):
-        return lambda: libs[tag][name](
-            a.bins.data_ptr(), a.payload.data_ptr(), seg.data_ptr(),
-            out.data_ptr(), G, B, a.cap, pk.HIST_BLOCKS, s)
+                def call(t, a=a, name=name, outs=outs, seg=seg):
+                    return lambda: _check(libs[t][name](
+                        a.bins.data_ptr(), a.payload.data_ptr(),
+                        seg.data_ptr(), outs[t].data_ptr(), G, B, a.cap,
+                        pk.HIST_BLOCKS, s), "K2")
+                runs = {t: call(t) for t in libs}
+                for r in runs.values():
+                    r()
+                torch.cuda.synchronize()
+                same = _same_hist(outs["other"], outs["this"], q)
+                print("K2 %s %s %s, %d rows: %s; the two trees %s" % (
+                    mode, kind, what, cnt, _both_ms(
+                        runs, 20 if what == "root" else 200),
+                    "agree" if same else "DIFFER"))
+        if not skewed:
+            seg = torch.tensor([0, n], dtype=torch.int32, device=dev)
+            out_i = torch.zeros((G, B, 3), dtype=torch.int32, device=dev)
+            runs = {t: (lambda t=t: _check(
+                libs[t]["lgbt_fused_root_histogram"](
+                    aq.bins.data_ptr(), aq.payload.data_ptr(),
+                    codes.data_ptr(), n, seg.data_ptr(), out_i.data_ptr(), G,
+                    B, aq.cap, pk.HIST_BLOCKS, s), "K5"))
+                for t in libs}
+            print("K5 root, %d rows: %s" % (n, _both_ms(runs, 20)))
+        del af, aq, codes
+        torch.cuda.empty_cache()
 
-    def k5(tag):
-        return lambda: libs[tag]["lgbt_fused_root_histogram"](
-            aq.bins.data_ptr(), aq.payload.data_ptr(), codes.data_ptr(), n,
-            seg.data_ptr(), out_i.data_ptr(), G, B, aq.cap, pk.HIST_BLOCKS, s)
 
-    cases = (("K2 f32", lambda t: k2(t, af, "lgbt_segment_histogram", out_f)),
-             ("K2 int8", lambda t: k2(t, aq, "lgbt_segment_histogram_i8",
-                                      out_i)),
-             ("K5", k5))
-    for name, make in cases:
-        print("%s root, %d rows, ms: %s" % (name, n, ", ".join(
-            "%s %.4f" % (t, cuda_ms(make(t), 20))
-            for t in ("other", "this", "this", "other"))))
+def _scan_inputs(dev, CH, seed):
+    """Histograms of CH children over G features and B bins (the Higgs
+    shape), their statics and the default split parameters."""
+    rng = np.random.default_rng(seed)
+    cnt = rng.multinomial(40_000, np.ones(G * B) / (G * B), size=CH
+                          ).reshape(CH, G, B)
+    g = rng.standard_normal((CH, G, B)) * np.sqrt(cnt + 1e-3)
+    h = rng.random((CH, G, B)) * cnt * 0.25 + cnt * 1e-3
+    hist = torch.from_numpy(np.stack([g, h, cnt], -1).astype(np.float32)
+                            ).to(dev)
+    nb = torch.full((G,), B, dtype=torch.int32, device=dev)
+    z = torch.zeros(G, dtype=torch.int32, device=dev)
+    fvec = sk.build_feature_statics(nb, z, z, children=CH)
+    svec = sk.child_vector(hist[:, 0, :, 0].sum(1), hist[:, 0, :, 1].sum(1),
+                           hist[:, 0, :, 2].sum(1))
+    pvec = sk.params_vector(SplitParams(min_data_in_leaf=20), dev)
+    return hist, fvec, svec, pvec
+
+
+def scans(other: str, out_dir: str) -> None:
+    """K1 of both trees through their C entry points (the other tree's may
+    be the first version's two launches with no ticket), CH = 1 and 2, held
+    equal, then timed; and the wrappers: this tree's split_scan against the
+    first version's wrapper work (four checks, two allocations, the stream
+    object) around the other tree's entry point."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    impl = {tag: _load(src, "split_scan", out_dir, tag)
+            for tag, src in (("other", other), ("this", str(_cuda.CSRC)))}
+    ticket = torch.zeros(8, dtype=torch.int32, device=dev)
+    lanes = [sk._OF, sk._OT, sk._ODL]
+    for CH in (1, 2):
+        hist, fvec, svec, pvec = _scan_inputs(dev, CH, CH)
+        outs = {t: (torch.empty((CH * G, sk.ROW_W), device=dev),
+                    torch.empty((CH, sk.ROW_W), device=dev)) for t in impl}
+
+        def call(t):
+            fns, old = impl[t]
+            rows, best = outs[t]
+            args = [hist.data_ptr(), fvec.data_ptr(), svec.data_ptr(),
+                    pvec.data_ptr(), rows.data_ptr(), best.data_ptr()]
+            if not old:
+                args.append(ticket.data_ptr())
+            args += [CH, G, B, _cuda.stream()]
+            return lambda: _check(fns["lgbt_split_scan"](*args), "K1")
+        runs = {t: call(t) for t in impl}
+        for r in runs.values():
+            r()
+        torch.cuda.synchronize()
+        (ro, bo), (rt, bt) = outs["other"], outs["this"]
+        same = (torch.equal(ro[:, lanes], rt[:, lanes])
+                and torch.equal(bo[:, lanes], bt[:, lanes])
+                and float((ro[:, sk._OG] - rt[:, sk._OG]).abs().max()
+                          / ro[:, sk._OG].abs().max()) <= 1e-5)
+        print("K1 CH=%d F=%d B=%d, entry points: %s; the two trees %s" % (
+            CH, G, B, _both_ms(runs, 200), "agree" if same else "DIFFER"))
+
+        def parent_wrapper(fns=impl["other"][0]):
+            CH_, F, B_, three = hist.shape
+            if three != 3 or not 1 <= B_ <= 256:
+                raise ValueError("hist shape")
+            f32 = torch.float32
+            _cuda.require(hist, "hist", f32, dev)
+            _cuda.require(fvec, "fvec", f32, dev, (CH_ * F, 8))
+            _cuda.require(svec, "svec", f32, dev, (CH_, 8))
+            _cuda.require(pvec, "pvec", f32, dev, (8,))
+            _cuda.plain_or_cuda(dev)
+            rows = torch.empty((CH_ * F, sk.ROW_W), dtype=f32, device=dev)
+            best = torch.empty((CH_, sk.ROW_W), dtype=f32, device=dev)
+            args = [hist.data_ptr(), fvec.data_ptr(), svec.data_ptr(),
+                    pvec.data_ptr(), rows.data_ptr(), best.data_ptr()]
+            if not impl["other"][1]:
+                args.append(ticket.data_ptr())
+            _check(fns["lgbt_split_scan"](
+                *args, CH_, F, B_, torch.cuda.current_stream().cuda_stream),
+                "K1")
+            return rows, best
+        wraps = {"other": parent_wrapper,
+                 "this": lambda: sk.split_scan(hist, fvec, svec, pvec)}
+        print("K1 CH=%d wrappers (the other tree's wrapper work around its "
+              "entry point; this tree's split_scan), ms: %s" % (
+                  CH, ", ".join("%s %.4f" % (t, cuda_ms(wraps[t], 1000))
+                                for t in ("other", "this", "this",
+                                          "other"))))
 
 
 def main(argv=None) -> int:
@@ -413,13 +566,15 @@ def main(argv=None) -> int:
     out_dir = str(_cuda.BUILD_DIR / "compare")
     os.makedirs(out_dir, exist_ok=True)
     for stem in ("partition_segment", "leaf_histogram", "segment_histogram",
-                 "fused_root_histogram"):
+                 "fused_root_histogram", "split_scan"):
         sass_report(argv[0], stem, out_dir)
     partitions(argv[0], n, out_dir)
     torch.cuda.empty_cache()
     leaf_histograms(argv[0], n, out_dir)
     torch.cuda.empty_cache()
     histograms(argv[0], n, out_dir)
+    torch.cuda.empty_cache()
+    scans(argv[0], out_dir)
     return 0
 
 

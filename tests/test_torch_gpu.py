@@ -46,12 +46,22 @@ Tolerances, per kernel:
   overlapping from before, at segment counts 0, 1, T-1, T, T+1 and several
   tiles, pred mode at G=80 in place, K7 on empty, `done` and full leaves,
   each 50 times in a row, exact (histograms as above); K3's 512-row tile
-  shapes (G=120 and G=300) 10 times.
+  shapes (G=120 and G=300) 10 times;
+- K2's block schedule: the root, a 40k child at an unaligned start, cnt 0
+  and 1, a few rows across a chunk boundary, on uniform and on skewed bins
+  (2-3 bins, 96% of the rows in one), each 50 times, and G = 3, 33 and 80
+  (feature passes and chunks): tolerances as above; int8 at 2^20 rows (a
+  row a thread) and one row more (the slabs), exact;
+- K1 at B = 2 to 1024, one and two children, 50 launches back to back on
+  different inputs (the fused select's tickets), and 50 launches on each
+  of two streams at once: feature, threshold and default_left equal,
+  gains and the selected rows rtol 1e-5.
 """
 import numpy as np
 import pytest
 import torch
 
+from lightgbm_tpu_torch.ops import _cuda
 from lightgbm_tpu_torch.ops import partition_kernel as pk
 from lightgbm_tpu_torch.ops import split_kernel as sk
 from lightgbm_tpu_torch.ops.grow import predict_leaf_inner
@@ -836,3 +846,167 @@ def test_leaf_histogram_row_list_cases(F, B, quantized, dev):
             assert torch.equal(got[..., 2], want[..., 2]), (leaf, rep)
             assert bool(((got - want).abs() <= 1e-5 * scale).all()), \
                 (leaf, rep)
+
+
+def _segment_arena(dev, n, F, quantized, skewed, seed=21):
+    """One arena over n rows: uniform bins over 255, or skewed features of
+    2-3 bins with at least 95% of the rows in one bin (every third feature
+    uniform); f32 g/h or int8 codes."""
+    rng = np.random.RandomState(seed)
+    bins = rng.randint(0, 255, (F, n)).astype(np.uint8)
+    if skewed:
+        for f in range(F):
+            if f % 3 == 2:
+                continue
+            nb = 2 + f % 2
+            rare = rng.rand(n) >= 0.96
+            bins[f] = np.where(rare, rng.randint(1, nb, n), 0)
+    a = pk.Arena(n, F, 4, dev, quantized=quantized)
+    pk.init_pristine(a, torch.from_numpy(bins).to(dev))
+    if quantized:
+        a.payload[:, :n] = torch.from_numpy(np.stack([
+            rng.randint(-127, 128, n), rng.randint(0, 128, n)]
+        ).astype(np.int8)).to(dev)
+    else:
+        a.payload[0, :n] = torch.from_numpy(rng.randn(n).astype(np.float32)
+                                            ).to(dev)
+        a.payload[1, :n] = torch.from_numpy(
+            (rng.rand(n) * 0.25 + 0.01).astype(np.float32)).to(dev)
+    return a
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("skewed", [False, True])
+def test_segment_histogram_repeated_matches_plain(skewed, quantized, dev):
+    """K2's block schedule: the root, a 40k child at an unaligned start,
+    cnt 0, cnt 1, a few rows across a chunk boundary, on uniform and on
+    skewed bins, each 50 times; int8 exact, f32 counts exact and g/h within
+    1e-5 of the bin's |value| sum."""
+    n = 1_000_003
+    a = _segment_arena(dev, n, 28, quantized, skewed)
+    for start, cnt in ((0, n), (12_345, 40_000), (5, 0), (777, 1),
+                       (31, 40), (n - 70, 70)):
+        seg = torch.tensor([start, cnt], dtype=torch.int32, device=dev)
+        want = pk.segment_histogram_plain(a, seg, 255)
+        assert int(want[0, :, 2].sum()) == cnt
+        scale = None
+        if not quantized:
+            p = a.payload[0].clone()
+            a.payload[0].abs_()
+            scale = pk.segment_histogram_plain(a, seg, 255)
+            a.payload[0] = p
+        for rep in range(REPEATS):
+            got = pk.segment_histogram(a, seg, 255)
+            torch.cuda.synchronize()
+            if quantized:
+                assert torch.equal(got, want), (start, cnt, rep)
+                continue
+            assert torch.equal(got[..., 2], want[..., 2]), (start, cnt, rep)
+            assert bool(((got - want).abs() <= 1e-5 * scale).all()), \
+                (start, cnt, rep)
+
+
+@pytest.mark.parametrize("G", [3, 33, 80])
+def test_segment_histogram_feature_passes(G, dev):
+    """G below one warp, past one warp (a second pass over the chunk) and
+    past the shared-memory budget (two feature chunks), f32 and int8."""
+    for quantized in (False, True):
+        a = _segment_arena(dev, 100_000, G, quantized, False, seed=G)
+        seg = torch.tensor([333, 60_001], dtype=torch.int32, device=dev)
+        got = pk.segment_histogram(a, seg, 255)
+        torch.cuda.synchronize()
+        want = pk.segment_histogram_plain(a, seg, 255)
+        assert torch.equal(got[..., 2], want[..., 2].to(got.dtype))
+        if quantized:
+            assert torch.equal(got, want)
+        else:
+            a.payload[0].abs_()
+            scale = pk.segment_histogram_plain(a, seg, 255)
+            assert bool(((got - want).abs() <= 1e-5 * scale).all())
+
+
+@pytest.mark.parametrize("skewed", [False, True])
+def test_segment_histogram_int8_small_rows_threshold(skewed, dev):
+    """K2's int8 mode takes a row a thread up to 2^20 rows and the slabs
+    above: both sides of the threshold, at an unaligned start, on uniform
+    and on skewed bins, exact, 10 times each."""
+    n = (1 << 20) + 1_000
+    a = _segment_arena(dev, n, 28, True, skewed, seed=9)
+    for cnt in (1 << 20, (1 << 20) + 1):
+        seg = torch.tensor([n - cnt - 3, cnt], dtype=torch.int32, device=dev)
+        want = pk.segment_histogram_plain(a, seg, 255)
+        assert int(want[0, :, 2].sum()) == cnt
+        for rep in range(10):
+            got = pk.segment_histogram(a, seg, 255)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (cnt, rep)
+
+
+def _scan_inputs(dev, CH, F, B, seed):
+    rng = np.random.default_rng(seed)
+    hist = torch.from_numpy(np.stack([
+        _rand_hist(rng, F, B, 40 * B) for _ in range(CH)])).to(dev)
+    nb = torch.from_numpy(rng.integers(min(3, B), B + 1, F)).to(dev)
+    db = torch.from_numpy(rng.integers(0, min(3, B), F)).to(dev)
+    mt = torch.from_numpy(rng.integers(0, 3, F)).to(dev)
+    fvec = sk.build_feature_statics(nb, db, mt, children=CH)
+    svec = sk.child_vector(hist[:, 0, :, 0].sum(1), hist[:, 0, :, 1].sum(1),
+                           hist[:, 0, :, 2].sum(1))
+    pvec = sk.params_vector(SplitParams(min_data_in_leaf=20), dev)
+    return hist, fvec, svec, pvec
+
+
+@pytest.mark.parametrize("CH", [1, 2])
+@pytest.mark.parametrize("B", [2, 63, 255, 256, 300, 1024])
+def test_split_scan_bins_and_tickets(B, CH, dev):
+    """K1 at B up to 1024, one child and two: 50 launches back to back on
+    inputs that differ (the select's tickets must be back at zero after
+    each launch), each against split_scan_plain: feature, threshold and
+    default_left equal, gains within 1e-5."""
+    F = 28
+    inputs = [_scan_inputs(dev, CH, F, B, 100 * B + 10 * CH + k)
+              for k in range(REPEATS)]
+    outs = [sk.split_scan(*x) for x in inputs]
+    torch.cuda.synchronize()
+    lanes = [sk._OF, sk._OT, sk._ODL]
+    for rep, (x, (rows_k, best_k)) in enumerate(zip(inputs, outs)):
+        rows_p, best_p = sk.split_scan_plain(*x)
+        valid = rows_p[:, sk._OG] > sk.NEG_GATE
+        assert torch.equal(rows_k[:, sk._OG] > sk.NEG_GATE, valid), rep
+        assert torch.equal(rows_k[valid][:, lanes], rows_p[valid][:, lanes])
+        assert torch.equal(best_k[:, lanes], best_p[:, lanes]), rep
+        torch.testing.assert_close(rows_k[valid][:, sk._OG],
+                                   rows_p[valid][:, sk._OG], rtol=1e-5,
+                                   atol=1e-5)
+        torch.testing.assert_close(best_k, best_p, rtol=1e-5, atol=1e-5)
+    assert int(sk._tickets(dev, _cuda.stream(dev), CH).abs().sum()) == 0
+
+
+def test_split_scan_two_streams(dev):
+    """K1 launched 50 times on each of two streams, alternating, with no
+    synchronisation between them: each stream selects with its own tickets,
+    so every launch agrees with split_scan_plain as in one stream."""
+    F, B, CH = 28, 255, 2
+    inputs = [[_scan_inputs(dev, CH, F, B, 7_000 + 100 * s + k)
+               for k in range(REPEATS)] for s in range(2)]
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(dev))
+    outs = [[], []]
+    for k in range(REPEATS):
+        for s, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[s].append(sk.split_scan(*inputs[s][k]))
+    torch.cuda.synchronize()
+    lanes = [sk._OF, sk._OT, sk._ODL]
+    for s, st in enumerate(streams):
+        for k, (x, (rows_k, best_k)) in enumerate(zip(inputs[s], outs[s])):
+            rows_p, best_p = sk.split_scan_plain(*x)
+            valid = rows_p[:, sk._OG] > sk.NEG_GATE
+            assert torch.equal(rows_k[valid][:, lanes],
+                               rows_p[valid][:, lanes]), (s, k)
+            assert torch.equal(best_k[:, lanes], best_p[:, lanes]), (s, k)
+            torch.testing.assert_close(best_k, best_p, rtol=1e-5, atol=1e-5)
+        with torch.cuda.stream(st):
+            tickets = sk._tickets(dev, _cuda.stream(dev), CH)
+        assert int(tickets.abs().sum()) == 0

@@ -264,3 +264,114 @@ def test_split_scan_checks_inputs():
     with pytest.raises(ValueError):
         sk.split_scan(hist.to("meta"), fvec.to("meta"), svec.to("meta"),
                       pvec.to("meta"))
+
+
+def _kernel_prefix(x):
+    """The order of csrc/split_scan.cu's prefix sums, in numpy f32: blocks
+    of 32*ceil(B/32) lanes; the steps sh < 32 by shuffles, each lane
+    carrying its bin (hi) and the bin 32 below it (lo, 0 in the first
+    warp), hi taking x[t - sh] from the previous warp's lo where t - sh
+    falls there; the steps sh >= 32 over the whole block (shared
+    memory)."""
+    f32 = np.float32
+    B = len(x)
+    W = -(-B // 32)
+    hi = np.zeros(W * 32, f32)
+    hi[:B] = x
+    hi = hi.reshape(W, 32)
+    lo = np.zeros_like(hi)
+    lo[1:] = hi[:-1]
+    lane = np.arange(32)
+    sh = 1
+    while sh < 32 and sh < B:
+        own = lane >= sh
+        src = (lane - sh) & 31
+        up_hi = np.roll(hi, sh, axis=1)          # __shfl_up_sync
+        up_lo = np.roll(lo, sh, axis=1)
+        hi = hi + np.where(own, up_hi, lo[:, src])
+        lo = lo + np.where(own, up_lo, f32(0))
+        sh *= 2
+    flat = hi.reshape(-1)
+    while sh < B:
+        add = np.zeros_like(flat)
+        add[sh:] = flat[:-sh]
+        flat = flat + add
+        sh *= 2
+    return flat[:B]
+
+
+@pytest.mark.parametrize("B", [1, 2, 31, 32, 33, 63, 255, 256, 300, 1024])
+def test_kernel_prefix_order_matches_plain(B):
+    """The kernel's shuffle-plus-shared Hillis-Steele order gives the very
+    f32 prefix sums of split_scan_plain's (and the Pallas kernel's)."""
+    rng = np.random.default_rng(B)
+    rows = [rng.standard_normal(B) * 10.0 ** rng.integers(-3, 4, B),
+            rng.random(B) * 1e3, rng.integers(0, 5000, B).astype(float)]
+    x = np.stack(rows).astype(np.float32)
+    x[:, rng.random(B) < 0.2] = 0.0              # bins the scan masks out
+    want = sk._prefix_lanes(torch.from_numpy(x)).numpy()
+    for k in range(3):
+        got = _kernel_prefix(x[k])
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want[k].view(np.int32))
+
+
+def test_a_warp_local_prefix_is_caught():
+    """The model has teeth: warp-local shuffles (no lo carry) round
+    otherwise than the block-wide order."""
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal(256) * 10.0 ** rng.integers(-3, 4, 256)
+         ).astype(np.float32)
+    want = sk._prefix_lanes(torch.from_numpy(x)).numpy()
+    f32 = np.float32
+    hi = x.reshape(8, 32).copy()
+    lane = np.arange(32)
+    sh = 1
+    while sh < 32:
+        hi = hi + np.where(lane >= sh, np.roll(hi, sh, axis=1), f32(0))
+        sh *= 2
+    flat = hi.reshape(-1)
+    while sh < 256:
+        add = np.zeros_like(flat)
+        add[sh:] = flat[:-sh]
+        flat = flat + add
+        sh *= 2
+    assert not np.array_equal(flat.view(np.int32), want.view(np.int32))
+
+
+def test_plain_scan_matches_pallas_300_bins():
+    """K1's bin cap is 1024: the plain version against the Pallas kernel
+    at B = 300, past the first version's 256."""
+    rng = np.random.default_rng(300)
+    F, B = 6, 300
+    c = dict(hist=np.stack([_rand_hist(rng, F, B, 20_000),
+                            _rand_hist(rng, F, B, 20_000)]),
+             nb=np.array([300, 299, 257, 150, 3, 300]),
+             db=rng.integers(0, 3, F), mt=rng.integers(0, 3, F),
+             params=dict(min_data_in_leaf=20))
+    _assert_pf_equal(_port_pf(c), _jax_pallas_pf(c), rtol=1e-5)
+    sg, sh, nd = _sums(c["hist"])
+    got = sk.best_split_rows(
+        torch.from_numpy(c["hist"]), torch.from_numpy(sg),
+        torch.from_numpy(sh), torch.from_numpy(nd), _port_fvec(c, 2),
+        tsplit.SplitParams(**c["params"])).numpy()
+    want = np.asarray(sp_pl.best_split_rows_pallas(
+        jnp.asarray(c["hist"]), jnp.asarray(sg), jnp.asarray(sh),
+        jnp.asarray(nd), _jax_fvec(c, 2), jsplit.SplitParams(**c["params"]),
+        interpret=True))[:, :sk.ROW_W]
+    np.testing.assert_array_equal(got[:, [sk._OF, sk._OT, sk._ODL]],
+                                  want[:, [sk._OF, sk._OT, sk._ODL]])
+    assert np.all(got[:, sk._OF] >= 0)
+
+
+def test_split_scan_bin_cap():
+    c = _case("degenerate")
+    fvec = _port_fvec(c, 1)
+    svec = sk.child_vector(torch.zeros(1), torch.ones(1), torch.ones(1))
+    pvec = sk.params_vector(tsplit.SplitParams(), "cpu")
+    hist = torch.zeros((1, 4, sk.MAX_BINS + 1, 3))
+    with pytest.raises(ValueError):
+        sk.split_scan(hist, fvec, svec, pvec)
+    rows, best = sk.split_scan(torch.zeros((1, 4, sk.MAX_BINS, 3)), fvec,
+                               svec, pvec)
+    assert rows.shape == (4, sk.ROW_W) and int(best[0, sk._OF]) == -1
