@@ -10,12 +10,14 @@
    the main paths' shapes against its plain PyTorch version on the same
    inputs, with the tolerance stated per kernel, and is timed with CUDA
    events beside the plain version and, where one PyTorch call computes the
-   same function, that call; K1 and K2 also kernel-only (torch.profiler,
-   without the wrapper's host work).  f32 arenas: K1 split_scan, K2
-   segment_histogram, K3 partition_segment (decision mode at the root and
-   in place on a 40k-row child, and pred mode with the bag's fused
-   histogram at the bagged root and in place on a 40k-row child), K4
-   scatter_segments, K6 compact_carry; quantized arenas (int8 codes made on
+   same function, that call; K1, K2, K5 and K6 also kernel-only
+   (torch.profiler, without the wrapper's host work).  f32 arenas: K1
+   split_scan, K2 segment_histogram, K3 partition_segment (decision mode
+   at the root and in place on a 40k-row child, and pred mode with the
+   bag's fused histogram at the bagged root and in place on a 40k-row
+   child), K4 scatter_segments, K6 compact_carry (255 even leaves in a
+   shuffled order, and a skewed tree: one leaf of half the rows, the rest
+   down to 20 rows); quantized arenas (int8 codes made on
    the CPU): K2 in int8 mode, K5 fused_refresh_histogram, K3 in both modes
    moving the codes, K6 moving the codes, each held exactly equal to its
    plain version; K7 leaf_histogram over the dataset's row-major bins, f32
@@ -92,16 +94,18 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # the __global__ functions of lightgbm_tpu_torch/csrc/*.cu by the kernel
 # table's label, as the profiler names them; with the first versions' names
-# (K1's second select kernel; K2 and K5 sharing histogram_kernel), so that
-# an older checkout's rounds read alike
+# (K1's second select kernel; K2 and K5 sharing histogram_kernel; K6's two
+# launches), so that an older checkout's rounds read alike
 KERNEL_NAMES = (
     ("K1", ("split_scan_kernel", "select_best_kernel")),
     ("K2", ("seg_hist_kernel", "SegmentRows<float, false>",
             "SegmentRows<signed char, false>")),
-    ("K5", ("SegmentRows<signed char>", "SegmentRows<signed char, true>")),
+    ("K5", ("fused_root_kernel", "SegmentRows<signed char>",
+            "SegmentRows<signed char, true>")),
     ("K3", ("partition_kernel",)),
     ("K4", ("scatter_segments_kernel",)),
-    ("K6", ("carry_offsets_kernel", "carry_copy_kernel")),
+    ("K6", ("compact_carry_kernel", "carry_offsets_kernel",
+            "carry_copy_kernel")),
     ("K7", ("leaf_select_kernel", "leaf_accumulate_kernel")))
 
 
@@ -365,13 +369,16 @@ def kernel_phase(ds, dev, results, quantized: bool):
         k5 = dict(
             ms=cuda_ms(lambda: pk.fused_refresh_histogram(ak, fresh, seg, B),
                        20),
+            kernel_ms=kernel_only_ms(
+                lambda: pk.fused_refresh_histogram(ak, fresh, seg, B), 20),
             plain_ms=cuda_ms(lambda: pk.fused_refresh_histogram_plain(
                 ap, fresh, seg, B), 3),
             library_ms=index_add_ms(ak, 0, n),
             bytes=pk.fused_refresh_bytes(n, G, B), ops=3 * G * n, rows=n)
-        print("K5 fused_refresh_histogram: root %d rows %.4f ms (plain %.4f, "
-              "index_add_ %.4f); exact" % (n, k5["ms"], k5["plain_ms"],
-                                           k5["library_ms"]))
+        print("K5 fused_refresh_histogram: root %d rows %.4f ms, kernel-only "
+              "%.4f (plain %.4f, index_add_ %.4f); exact"
+              % (n, k5["ms"], k5["kernel_ms"], k5["plain_ms"],
+                 k5["library_ms"]))
         entry("fused_root_histogram", "fused_root_histogram", k5, 0.0,
               "exact")
 
@@ -681,32 +688,68 @@ def kernel_phase(ds, dev, results, quantized: bool):
         del rid_all, val_all, out_k, out_p
 
     # ---- K6 -----------------------------------------------------------
-    # the leaves in a shuffled order, so leaf-index order is not column
-    # order; compacted past both output regions
+    # two layouts of the root split's output regions, compacted past both
+    # regions: the 255 even leaves in a shuffled order, so leaf-index order
+    # is not column order; and a skewed tree's leaves (one of half the
+    # rows, the rest geometric down to 20 rows, cut where they cross from
+    # one region to the other), as a real tree's sizes spread
     order = np.random.RandomState(5).permutation(LEAVES)
-    seg6 = seg[torch.as_tensor(order, device=dev)].contiguous()
+    rest = np.maximum(20, (n / 4 * 0.96 ** np.arange(LEAVES - 1)).astype(int))
+    rest = np.maximum(20, rest * (n - n // 2) // max(int(rest.sum()), 1))
+    sizes = np.concatenate([[n // 2], rest])
+    sizes[0] += n - int(sizes.sum())
+    cuts = np.concatenate([[0], np.cumsum(sizes)])
+    skewed, v0 = [], 0
+    for s, c in root_regions:
+        for a, b in zip(cuts[:-1], cuts[1:]):
+            lo, hi = max(int(a), v0), min(int(b), v0 + c)
+            if lo < hi:
+                skewed.append((s + lo - v0, hi - lo))
+        v0 += c
+    layouts = {
+        "even": [pieces[i] for i in order],
+        "skewed": [skewed[i] for i in np.random.RandomState(6).permutation(
+            len(skewed))]}
     dst0 = cursor + n_al + pk.TILE
-    used_k = pk.compact_carry(ak, seg6, nl, dst0)
-    used_p = pk.compact_carry_plain(ap, seg6, nl, dst0)
-    expect(int(used_k[0]) == int(used_p[0]) == n, "K6: rows written differ")
-    for pk_, pp_ in ((ak.bins, ap.bins), (ak.payload, ap.payload),
-                     (ak.rid[None], ap.rid[None])):
-        expect(torch.equal(pk_[:, dst0:dst0 + n], pp_[:, dst0:dst0 + n]),
-               "K6: compacted planes differ")
-    cols = torch.cat([torch.arange(s, s + c, device=dev)
-                      for s, c in (pieces[i] for i in order)])
-    k6 = dict(
-        ms=cuda_ms(lambda: pk.compact_carry(ak, seg6, nl, dst0), 20),
-        plain_ms=cuda_ms(lambda: pk.compact_carry_plain(ap, seg6, nl, dst0),
-                         3),
-        library_ms=cuda_ms(lambda: torch.index_select(ak.bins, 1, cols), 5),
-        bytes=pk.compact_carry_bytes(n, G, LEAVES, quantized), rows=n)
-    print("K6 compact_carry (%s payload): %d rows %d leaves %.4f ms (plain "
-          "%.4f, index_select of the bins %.4f); exact"
-          % (mode, n, LEAVES, k6["ms"], k6["plain_ms"], k6["library_ms"]))
-    entry("compact_carry" + sfx, "compact_carry", k6, 0.0, "exact",
+    k6 = {}
+    for what, lay in layouts.items():
+        seg6 = torch.tensor(lay, dtype=torch.int32, device=dev)
+        nl6 = torch.tensor([len(lay)], dtype=torch.int32, device=dev)
+        used_k = pk.compact_carry(ak, seg6, nl6, dst0)
+        used_p = pk.compact_carry_plain(ap, seg6, nl6, dst0)
+        expect(int(used_k[0]) == int(used_p[0]) == n,
+               "K6 %s: rows written differ" % what)
+        for pk_, pp_ in ((ak.bins, ap.bins), (ak.payload, ap.payload),
+                         (ak.rid[None], ap.rid[None])):
+            expect(torch.equal(pk_[:, dst0:dst0 + n], pp_[:, dst0:dst0 + n]),
+                   "K6 %s: compacted planes differ" % what)
+        cols = torch.cat([torch.arange(s, s + c, device=dev)
+                          for s, c in lay])
+        k6[what] = dict(
+            ms=cuda_ms(lambda: pk.compact_carry(ak, seg6, nl6, dst0), 20),
+            kernel_ms=kernel_only_ms(
+                lambda: pk.compact_carry(ak, seg6, nl6, dst0), 20),
+            plain_ms=cuda_ms(lambda: pk.compact_carry_plain(
+                ap, seg6, nl6, dst0), 3),
+            library_ms=cuda_ms(lambda: torch.index_select(ak.bins, 1, cols),
+                               5),
+            bytes=pk.compact_carry_bytes(n, G, len(lay), quantized), rows=n,
+            leaves=len(lay), largest=max(c for _s, c in lay),
+            smallest=min(c for _s, c in lay))
+    print("K6 compact_carry (%s payload): %d rows, %d even leaves %.4f ms, "
+          "kernel-only %.4f (plain %.4f, index_select of the bins %.4f); "
+          "%d skewed leaves (%d to %d rows) %.4f ms, kernel-only %.4f; exact"
+          % (mode, n, LEAVES, k6["even"]["ms"], k6["even"]["kernel_ms"],
+             k6["even"]["plain_ms"], k6["even"]["library_ms"],
+             k6["skewed"]["leaves"], k6["skewed"]["smallest"],
+             k6["skewed"]["largest"], k6["skewed"]["ms"],
+             k6["skewed"]["kernel_ms"]))
+    entry("compact_carry" + sfx, "compact_carry", k6["even"], 0.0, "exact",
           library="torch.index_select of the bin planes over the "
-                  "precomputed column list")
+                  "precomputed column list", skewed=dict(
+              child(k6["skewed"]), leaves=k6["skewed"]["leaves"],
+              smallest=k6["skewed"]["smallest"],
+              largest=k6["skewed"]["largest"]))
     del arenas, ak, ap, cols
     torch.cuda.empty_cache()
 

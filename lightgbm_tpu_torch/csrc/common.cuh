@@ -30,17 +30,6 @@ struct ArenaT {
   long long cap;
 };
 
-// Copy column s of src to column d of dst, every plane.
-template <typename P>
-__device__ __forceinline__ void move_row(const ArenaT<P>& src, long long s,
-                                         const ArenaT<P>& dst, long long d,
-                                         int G) {
-  for (int c = 0; c < G; ++c) dst.bins[c * dst.cap + d] = src.bins[c * src.cap + s];
-  dst.gh[d] = src.gh[s];
-  dst.gh[dst.cap + d] = src.gh[src.cap + s];
-  dst.rid[d] = src.rid[s];
-}
-
 // NaN-propagating min/max: jnp.maximum/jnp.minimum semantics, which the
 // reference scan relies on (fmaxf would swallow a NaN).
 __device__ __forceinline__ float jmax(float a, float b) {

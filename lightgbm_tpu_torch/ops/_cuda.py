@@ -70,9 +70,9 @@ _ENTRY_POINTS = {
         "lgbt_scatter_segments_i32": [_P, _P, _P, _P, _P, _I, _I, _P]},
     "compact_carry": {
         "lgbt_compact_carry": [_P, _P, _P, _LL, _P, _P, _I, _P, _P, _LL, _I,
-                               _I, _P],
+                               _P],
         "lgbt_compact_carry_i8": [_P, _P, _P, _LL, _P, _P, _I, _P, _P, _LL,
-                                  _I, _I, _P]},
+                                  _I, _P]},
 }
 
 LAUNCHES: Counter = Counter()

@@ -604,8 +604,7 @@ def compact_carry(arena: Arena, seg: torch.Tensor, nl: torch.Tensor,
     rc = _cuda.fn("lgbt_" + name)(
         arena.bins.data_ptr(), arena.payload.data_ptr(), arena.rid.data_ptr(),
         arena.cap, seg.data_ptr(), nl.data_ptr(), L, offsets.data_ptr(),
-        used.data_ptr(), dst0, arena.num_groups, SCATTER_BLOCKS,
-        _cuda.stream())
+        used.data_ptr(), dst0, arena.num_groups, _cuda.stream())
     _cuda.check(rc, name)
     return used
 

@@ -1,16 +1,17 @@
 """Another build of the port's kernels against this one, on the card.
 
     python -m lightgbm_tpu_torch.tools.compare_builds OTHER_CSRC [rows_millions]
+        [--save-leaf-seg PATH]
 
 OTHER_CSRC is the `lightgbm_tpu_torch/csrc` directory of another checkout
 (a parent commit unpacked with `git archive`, say).  In one process:
 
 1. K3 (`partition_segment.cu`), K7 (`leaf_histogram.cu`), K2
-   (`segment_histogram.cu`), K5 (`fused_root_histogram.cu`) and K1
-   (`split_scan.cu`) of both trees compiled with `ptxas -v` to cubins: each
-   kernel's resource line and whether its SASS (`cuobjdump -sass`, kernel
-   names demangled and K8's stage template argument dropped) is identical
-   in the two trees;
+   (`segment_histogram.cu`), K5 (`fused_root_histogram.cu`), K1
+   (`split_scan.cu`) and K6 (`compact_carry.cu`) of both trees compiled
+   with `ptxas -v` to cubins: each kernel's resource line and whether its
+   SASS (`cuobjdump -sass`, kernel names demangled and K8's stage template
+   argument dropped) is identical in the two trees;
 2. the four K3 instances (decision and pred mode with the bag's
    histogram, f32 and int8 payload) of both trees on a random 10.5M-row,
    28-feature arena (or rows_millions): at the root, off the pristine
@@ -30,22 +31,36 @@ OTHER_CSRC is the `lightgbm_tpu_torch/csrc` directory of another checkout
    (F=28, B=255), held equal (feature, threshold, default_left, gains
    within 1e-5) and timed likewise, kernel-only beside; then this tree's
    wrapper against the first version's wrapper work around the other
-   tree's entry point.
+   tree's entry point;
+6. K6 of both trees, f32 and int8, at rows_millions rows: the
+   smoke's 255 even leaves in a shuffled order, a skewed tree (one leaf
+   of half the rows, the rest geometric down to 20 rows), both with their
+   sources at any column, and the leaf_seg of a real carried tree in its
+   own arena geometry (`carried_leaf_seg.json` beside this file: the last
+   tree of four carried rounds of chip_smoke.py's data with its
+   parameters, which --save-leaf-seg PATH trains and writes anew); held
+   equal between the trees (every plane), then timed in the order other,
+   this, this, other, kernel-only beside; and a `copy_` of the bytes K6
+   moves (half read, half written) as the yardstick of a plain copy.
 
-The other tree's K3, K7 and K1 may take the C interface of the first
+The other tree's K3, K7, K1 and K6 may take the C interface of the first
 versions (a scratch arena and block counts for K3, no row list for K7, no
-ticket for K1); the tool reads which from the other tree's sources.
+ticket for K1, two launches over a grid of blocks a leaf for K6); the
+tool reads which from the other tree's sources.
 Needs nvcc and a CUDA device;
 builds into lightgbm_tpu_torch/_build/compare and prints one line per
 kernel and case.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
+import json
 import os
 import re
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -60,11 +75,11 @@ from . import cuda_ms
 G, B, LEAVES, CHILD = 28, 255, 255, 40_000
 MID_CHILD = 500_000     # K2's int8 mode packs its words up to 540,672 rows
 K3_STAGE_ARG = re.compile(r", \(int\)\d>")
-# K5's row source took a FUSED flag while it also served the first K2
-K5_FUSED_ARG = re.compile(r"(SegmentRows<[^,<>]+), (?:true|\(bool\)1)>")
+LEAF_SEG = Path(__file__).resolve().parent / "carried_leaf_seg.json"
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the C interface of the first K3 and K7 (scratch arena, block counts; no
-# row list) and of the first K1 (two launches, no ticket)
+# row list), of the first K1 (two launches, no ticket) and of the first K6
+# (two launches, a grid of blocks a leaf)
 OLD_ENTRY_POINTS = {
     "partition_segment": {
         "lgbt_partition_segment": [_P, _P, _P, _LL, _P, _P, _P, _LL, _P, _P,
@@ -82,8 +97,14 @@ OLD_ENTRY_POINTS = {
                                    _P]},
     "split_scan": {
         "lgbt_split_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
+    "compact_carry": {
+        "lgbt_compact_carry": [_P, _P, _P, _LL, _P, _P, _I, _P, _P, _LL, _I,
+                               _I, _P],
+        "lgbt_compact_carry_i8": [_P, _P, _P, _LL, _P, _P, _I, _P, _P, _LL,
+                                  _I, _I, _P]},
 }
 OLD_PART_BLOCKS, OLD_PRED_BLOCKS, OLD_LEAF_BLOCKS = 1024, 264, 264
+OLD_CARRY_BLOCKS = 64
 
 
 def _tool(name: str) -> str:
@@ -98,9 +119,9 @@ def _demangle(names):
 
 
 def _name(demangled: str) -> str:
-    """A kernel's name with the template arguments that only name a build
-    variant dropped (K8's stage, the first K5's FUSED flag)."""
-    return K5_FUSED_ARG.sub(r"\1>", K3_STAGE_ARG.sub(">", demangled))
+    """A kernel's name with the template argument that only names a build
+    variant dropped (K8's stage)."""
+    return K3_STAGE_ARG.sub(">", demangled)
 
 
 def _nvcc(src_dir: str, stem: str, out: str, cubin: bool) -> str:
@@ -159,6 +180,8 @@ def _is_old(src_dir: str, stem: str) -> bool:
         return "long long scap" in text
     if stem == "split_scan":
         return "int* ticket" not in text
+    if stem == "compact_carry":
+        return "carry_offsets_kernel" in text
     return "int* rows" not in text
 
 
@@ -555,26 +578,175 @@ def scans(other: str, out_dir: str) -> None:
                                           "other"))))
 
 
+def _skewed_counts(n, leaves=LEAVES):
+    """One leaf of half the rows, the others geometric down to 20 rows,
+    summing to n."""
+    rest = np.maximum(20, (n / 4 * 0.96 ** np.arange(leaves - 1)).astype(int))
+    rest = np.maximum(20, rest * (n - n // 2) // max(int(rest.sum()), 1))
+    sizes = np.concatenate([[n // 2], rest])
+    sizes[0] += n - int(sizes.sum())
+    return sizes
+
+
+def save_leaf_seg(path: str, n: int, rounds: int = 4) -> dict:
+    """Train `rounds` carried f32 rounds of chip_smoke.py's data (n rows)
+    with its parameters and write the last tree's K6 arguments (leaf
+    segments, nl, dst0, the arena's geometry) to path as JSON."""
+    import lightgbm_tpu_torch as lt
+    from ..ops import grow_partition as gp
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+    import chip_smoke as cs
+    dev = torch.device("cuda", torch.cuda.current_device())
+    X, y, _xh, _yh = cs.higgs_like(n)
+    ds = lt.Dataset(X, y, params=cs.PARAMS, device=dev).construct()
+    seen = []
+    real = gp.compact_carry
+
+    def capture(arena, seg, nl, dst0):
+        live = int(nl[0])
+        seen.append(dict(nl=live, L=int(seg.shape[0]), dst0=int(dst0),
+                         cap=int(arena.cap), rows=int(arena.num_data),
+                         seg=seg[:live].tolist()))
+        return real(arena, seg, nl, dst0)
+    gp.compact_carry = capture
+    try:
+        booster = lt.train(cs.path_params("f32"), ds, num_boost_round=rounds,
+                           device=dev)
+    finally:
+        gp.compact_carry = real
+    factor = booster._gbdt._arena_factor()
+    out = dict(seen[-1], factor=factor, tree=len(seen) - 1,
+               card=torch.cuda.get_device_name(0),
+               source="chip_smoke.py higgs_like(%d), PARAMS (f32, carried), "
+                      "the last of %d trees" % (n, rounds))
+    with open(path, "w") as f:
+        json.dump(out, f)
+    print("saved the carried leaf_seg of tree %d (%d leaves, %d rows) to %s"
+          % (out["tree"], out["nl"], sum(c for _s, c in out["seg"]), path))
+    return out
+
+
+def carries(other: str, n: int, out_dir: str,
+            carried: dict = None) -> None:
+    """K6 of both trees, f32 and int8: the even, skewed and carried
+    layouts (`carried`, else carried_leaf_seg.json), held equal, then
+    timed."""
+    dev = torch.device("cuda")
+    impl = {tag: _load(src, "compact_carry", out_dir, tag)
+            for tag, src in (("other", other), ("this", str(_cuda.CSRC)))}
+    rng = np.random.RandomState(4)
+    layouts = {}
+    for kind, counts in (("even", np.full(LEAVES, n // LEAVES)),
+                         ("skewed", _skewed_counts(n))):
+        starts = np.zeros(len(counts), np.int64)
+        pos = 0
+        for leaf in rng.permutation(len(counts)):
+            pos += int(rng.randint(0, 16))
+            starts[leaf] = pos
+            pos += int(counts[leaf])
+        layouts[kind] = dict(seg=np.stack([starts, counts], 1).tolist(),
+                             nl=len(counts), dst0=pk.pristine_work0(pos) + 777,
+                             rows=n, factor=4)
+    if carried is None and LEAF_SEG.exists():
+        with open(LEAF_SEG) as f:
+            carried = json.load(f)
+    if carried is not None:
+        layouts["carried"] = carried
+    for quantized in (False, True):
+        mode = "int8" if quantized else "f32"
+        for kind, lay in layouts.items():
+            seg = torch.tensor(lay["seg"], dtype=torch.int32, device=dev)
+            nl = torch.tensor([lay["nl"]], dtype=torch.int32, device=dev)
+            used = int(seg[:, 1].sum())
+            arenas = {}
+            for tag in impl:
+                a = pk.Arena(lay["rows"], G, lay["factor"], dev,
+                             quantized=quantized)
+                gen = torch.Generator(device=dev).manual_seed(5)
+                a.bins.copy_(torch.randint(0, 256, a.bins.shape, device=dev,
+                                           dtype=torch.uint8, generator=gen))
+                a.rid.copy_(torch.randint(-2 ** 31, 2 ** 31 - 1, a.rid.shape,
+                                          device=dev, dtype=torch.int32,
+                                          generator=gen))
+                if quantized:
+                    a.payload.copy_(torch.randint(
+                        -128, 128, a.payload.shape, device=dev,
+                        dtype=torch.int8, generator=gen))
+                else:
+                    a.payload.copy_(torch.randn(a.payload.shape, device=dev,
+                                                generator=gen))
+                arenas[tag] = a
+            offs = torch.empty(seg.shape[0], dtype=torch.int32, device=dev)
+            outs = {t: torch.empty(1, dtype=torch.int32, device=dev)
+                    for t in impl}
+            name = "lgbt_compact_carry" + ("_i8" if quantized else "")
+
+            def call(t):
+                fns, old = impl[t]
+                a = arenas[t]
+                args = [a.bins.data_ptr(), a.payload.data_ptr(),
+                        a.rid.data_ptr(), a.cap, seg.data_ptr(),
+                        nl.data_ptr(), seg.shape[0], offs.data_ptr(),
+                        outs[t].data_ptr(), lay["dst0"], G]
+                if old:
+                    args.append(OLD_CARRY_BLOCKS)
+                return lambda: _check(fns[name](*args, _cuda.stream()), "K6")
+            runs = {t: call(t) for t in impl}
+            for r in runs.values():
+                r()
+            torch.cuda.synchronize()
+            same = (int(outs["other"][0]) == int(outs["this"][0]) == used
+                    and all(torch.equal(getattr(arenas["other"], k),
+                                        getattr(arenas["this"], k))
+                            for k in ("bins", "payload", "rid")))
+            nbytes = pk.compact_carry_bytes(used, G, seg.shape[0], quantized)
+            print("K6 %s %s, %d leaves, %d rows (%d to %d a leaf; bound "
+                  "%.4f ms): %s; the two trees %s" % (
+                      mode, kind, lay["nl"], used, int(seg[:, 1].min()),
+                      int(seg[:, 1].max()), nbytes / 3.35e12 * 1e3,
+                      _both_ms(runs, 20), "agree" if same else "DIFFER"))
+            del arenas
+            torch.cuda.empty_cache()
+        # the yardstick: a plain device copy of the bytes K6 moves
+        src = torch.empty(nbytes // 8, dtype=torch.float32, device=dev)
+        dst = torch.empty_like(src)
+        print("K6 %s yardstick: copy_ of %d MB, %.4f ms" % (
+            mode, nbytes // 2 // 10 ** 6, cuda_ms(lambda: dst.copy_(src), 20)))
+        del src, dst
+
+
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    if not argv or not torch.cuda.is_available():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("other", nargs="?")
+    ap.add_argument("rows_millions", nargs="?", type=float, default=10.5)
+    ap.add_argument("--save-leaf-seg", metavar="PATH")
+    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    if not torch.cuda.is_available() or (args.other is None
+                                         and not args.save_leaf_seg):
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 1
-    n = int(float(argv[1]) * 1e6) if len(argv) > 1 else 10_500_000
-    print("%s; other tree %s" % (torch.cuda.get_device_name(0), argv[0]))
+    n = int(args.rows_millions * 1e6)
+    print("%s; other tree %s" % (torch.cuda.get_device_name(0), args.other))
     _cuda.build()
+    carried = None
+    if args.save_leaf_seg:
+        carried = save_leaf_seg(args.save_leaf_seg, n)
+        torch.cuda.empty_cache()
+    if args.other is None:
+        return 0
     out_dir = str(_cuda.BUILD_DIR / "compare")
     os.makedirs(out_dir, exist_ok=True)
     for stem in ("partition_segment", "leaf_histogram", "segment_histogram",
-                 "fused_root_histogram", "split_scan"):
-        sass_report(argv[0], stem, out_dir)
-    partitions(argv[0], n, out_dir)
+                 "fused_root_histogram", "split_scan", "compact_carry"):
+        sass_report(args.other, stem, out_dir)
+    partitions(args.other, n, out_dir)
     torch.cuda.empty_cache()
-    leaf_histograms(argv[0], n, out_dir)
+    leaf_histograms(args.other, n, out_dir)
     torch.cuda.empty_cache()
-    histograms(argv[0], n, out_dir)
+    histograms(args.other, n, out_dir)
     torch.cuda.empty_cache()
-    scans(argv[0], out_dir)
+    scans(args.other, out_dir)
+    carries(args.other, n, out_dir, carried)
     return 0
 
 

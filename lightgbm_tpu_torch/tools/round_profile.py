@@ -11,7 +11,8 @@ binned; then for the carried f32 and the quantized path, two rounds of
 `train` with `chip_smoke.py`'s parameters and one more round under
 torch.profiler (`chip_smoke.profile_round`): its wall time, device busy
 time, idle share and the device ms and launches of each kernel of the
-table (K1-K7).  The last line of each ROOT is one JSON object.
+table (K1-K7), then one line of K1, K2, K5 and K6's.  The last line of
+each ROOT is one JSON object.
 """
 from __future__ import annotations
 
@@ -54,7 +55,11 @@ def one(root: str, rows: int, rounds: int) -> int:
     for path in ("f32", "quantized"):
         booster = lt.train(cs.path_params(path), ds, num_boost_round=rounds,
                            device=dev)
-        out[path] = cs.profile_round(booster, path)
+        out[path] = prof = cs.profile_round(booster, path)
+        by = prof.get("by_kernel") or {}
+        print("%s round, device ms (launches): %s" % (path, ", ".join(
+            "%s %.3f (%d)" % (k, by[k]["ms"], by[k]["launches"]) if k in by
+            else "%s none" % k for k in ("K1", "K2", "K5", "K6"))))
         del booster
         torch.cuda.empty_cache()
     print(json.dumps({"root": root, "rows": rows, "profile": out}))

@@ -55,7 +55,15 @@ Tolerances, per kernel:
 - K1 at B = 2 to 1024, one and two children, 50 launches back to back on
   different inputs (the fused select's tickets), and 50 launches on each
   of two streams at once: feature, threshold and default_left equal,
-  gains and the selected rows rtol 1e-5.
+  gains and the selected rows rtol 1e-5;
+- K6's 16-byte copies: leaves of 0 to 2 rows (40 live of 255), a skewed
+  tree (one leaf of half the rows, the rest geometric down to 20) and
+  255 even leaves, sources at any column in a shuffled order, dst0
+  256-aligned or not, G = 28 and 40, f32 and int8: exact, every plane of
+  the whole arena;
+- K5 on both of K2's bodies (2^20 rows, a row a thread; 2^20 + 1 and
+  more, the slabs), starts 0, 4096 and odd, fewer rows than codes, G = 28
+  and 40, B = 63 and 255: exact.
 """
 import numpy as np
 import pytest
@@ -356,6 +364,127 @@ def test_compact_carry_matches_plain(quantized, dev):
     assert torch.equal(ak.rid, ap.rid)
     assert torch.equal(ak.bins, ap.bins)
     assert torch.equal(ak.payload, ap.payload)
+
+
+def _layout_arenas(dev, n, G, quantized, seed):
+    """Two equal arenas (kernel, plain) of n rows over G bin planes with
+    random bins, payload and row ids in the whole arena, not only the
+    pristine block, so every copied column carries distinct data."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(2):
+        a = pk.Arena(n, G, 6, dev, quantized=quantized)
+        out.append(a)
+    cap = out[0].cap
+    bins = torch.from_numpy(rng.randint(0, 256, (G, cap)).astype(np.uint8))
+    rid = torch.from_numpy(rng.randint(-2 ** 31, 2 ** 31 - 1, cap,
+                                       dtype=np.int64).astype(np.int32))
+    if quantized:
+        pay = torch.from_numpy(rng.randint(-128, 128, (2, cap)).astype(np.int8))
+    else:
+        pay = torch.from_numpy(rng.randn(2, cap).astype(np.float32))
+    for a in out:
+        a.bins.copy_(bins.to(dev))
+        a.payload.copy_(pay.to(dev))
+        a.rid.copy_(rid.to(dev))
+    return out
+
+
+def _carry_layout(kind, n, rng):
+    """Leaf row counts of one layout, summing to at most n: 'tiny' (0, 1
+    and 2 rows), 'skewed' (one leaf of half the rows, the rest geometric
+    down to 20) and 'even' (255 equal leaves)."""
+    if kind == "tiny":
+        return rng.choice([0, 1, 2], 255)
+    if kind == "skewed":
+        rest = np.maximum(20, (n / 4 * 0.96 ** np.arange(254)).astype(int))
+        rest = np.maximum(20, (rest * (n // 2) // rest.sum()))
+        return np.concatenate([[n // 2], rest])
+    return np.full(255, n // 255)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("G", [28, 40])
+@pytest.mark.parametrize("kind", ["tiny", "skewed", "even"])
+@pytest.mark.parametrize("dst_aligned", [True, False])
+def test_compact_carry_layouts(kind, G, quantized, dst_aligned, dev):
+    """K6 on layouts the 16-byte copies must handle: leaves of 0 to 2 rows
+    (units spanning leaves), one leaf of half the rows beside small ones,
+    equal leaves; sources at any column in a shuffled leaf order, 40 live
+    of 255 for the tiny layout (dead segments hold garbage); dst0
+    256-aligned or not; G = 28 and 40.  Exact, every plane, and nothing
+    outside the block written."""
+    n = 200_000
+    rng = np.random.RandomState(G + 7 * dst_aligned + len(kind))
+    ak, ap = _layout_arenas(dev, n, G, quantized, seed=3)
+    counts = _carry_layout(kind, n, rng)
+    L = len(counts)
+    live = 40 if kind == "tiny" else L
+    starts = np.full(L, 2 ** 30, np.int64)      # dead leaves: never read
+    pos = 3
+    for leaf in rng.permutation(live):
+        pos += int(rng.randint(0, 40))
+        starts[leaf] = pos
+        pos += int(counts[leaf])
+    total = int(counts[:live].sum())
+    dst0 = -(-pos // 2048) * 2048 + (256 * 3 if dst_aligned else 1001)
+    assert dst0 + total <= ak.cap
+    seg = torch.from_numpy(np.stack([starts, counts], 1).astype(np.int32)
+                           ).to(dev)
+    nl = torch.tensor([live], dtype=torch.int32, device=dev)
+    used_k = pk.compact_carry(ak, seg, nl, dst0)
+    torch.cuda.synchronize()
+    used_p = pk.compact_carry_plain(ap, seg, nl, dst0)
+    assert int(used_k[0]) == int(used_p[0]) == total
+    assert torch.equal(ak.bins, ap.bins)
+    assert torch.equal(ak.payload, ap.payload)
+    assert torch.equal(ak.rid, ap.rid)
+
+
+def _root_code_arenas(dev, n, G, B, ncodes, seed):
+    """Two equal quantized arenas over random bins and code planes, and
+    fresh [2, ncodes] codes for K5, on the card."""
+    rng = np.random.RandomState(seed)
+    bins = torch.from_numpy(rng.randint(0, B, (G, n)).astype(np.uint8))
+    old = torch.from_numpy(rng.randint(-127, 128, (2, n)).astype(np.int8))
+    out = []
+    for _ in range(2):
+        a = pk.Arena(n, G, 3, dev, quantized=True)
+        a.bins[:, :n] = bins.to(dev)
+        a.bins[:, n:] = 7
+        a.payload[:, :n] = old.to(dev)
+        out.append(a)
+    fresh = torch.from_numpy(np.stack([
+        rng.randint(-127, 128, ncodes), rng.randint(0, 128, ncodes)]
+    ).astype(np.int8)).to(dev)
+    return out, fresh
+
+
+@pytest.mark.parametrize("G", [28, 40])
+@pytest.mark.parametrize("B", [63, 255])
+@pytest.mark.parametrize("start,cnt,extra", [
+    (0, (1 << 20) + 1, 0),          # the slabs, every code used
+    (4096, 1 << 20, 5_000),         # a row a thread, cnt < ncodes
+    (777, (1 << 20) + 3_001, 17),   # the slabs from an odd start
+    (13, 300_001, 99)])             # a row a thread from an odd start
+def test_fused_refresh_histogram_cases(start, cnt, extra, G, B, dev):
+    """K5 on both bodies (segments of at most 2^20 rows a row a thread,
+    above that the slabs), G = 28 (one slab) and 40 (two), B = 63 and
+    255, starts 0, 4096 and odd, cnt below the codes' length: the
+    histogram, the code planes (written at [start, start + cnt) only) and
+    the untouched bins and row ids exact."""
+    n = start + cnt + 4_000
+    (ak, ap), fresh = _root_code_arenas(dev, n, G, B, cnt + extra,
+                                        seed=G + B + start)
+    seg = torch.tensor([start, cnt], dtype=torch.int32, device=dev)
+    got = pk.fused_refresh_histogram(ak, fresh, seg, B)
+    torch.cuda.synchronize()
+    want = pk.fused_refresh_histogram_plain(ap, fresh, seg, B)
+    assert int(want[..., 2].sum()) == G * cnt
+    assert torch.equal(got, want)
+    assert torch.equal(ak.payload, ap.payload)
+    assert torch.equal(ak.payload[:, start:start + cnt], fresh[:, :cnt])
+    assert torch.equal(ak.bins, ap.bins) and torch.equal(ak.rid, ap.rid)
 
 
 def test_quantized_carried_tree_matches_cpu(dev):

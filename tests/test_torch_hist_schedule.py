@@ -1,4 +1,6 @@
-"""A numpy model of K2's block schedule (csrc/segment_histogram.cu).
+"""A numpy model of K2's block schedule (csrc/segment_histogram.cu, its
+body in csrc/seg_hist.cuh, which K5 runs as well with its codes read in
+segment order).
 
 K2 histograms arena columns [start, start+cnt) with a fixed grid of
 `partition_kernel.HIST_BLOCKS` blocks that never learns the count on the
@@ -31,7 +33,7 @@ CSRC = Path(pk.__file__).resolve().parent.parent / "csrc"
 
 
 def _constants():
-    text = (CSRC / "segment_histogram.cu").read_text()
+    text = (CSRC / "seg_hist.cuh").read_text()
     hist = (CSRC / "histogram.cuh").read_text()
 
     def const(src, name):
