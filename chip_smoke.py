@@ -10,14 +10,16 @@
    the main paths' shapes against its plain PyTorch version on the same
    inputs, with the tolerance stated per kernel, and is timed with CUDA
    events beside the plain version and, where one PyTorch call computes the
-   same function, that call; K1, K2, K5 and K6 also kernel-only
+   same function, that call; K1, K2, K4, K5 and K6 also kernel-only
    (torch.profiler, without the wrapper's host work).  f32 arenas: K1
    split_scan, K2 segment_histogram, K3 partition_segment (decision mode
    at the root and in place on a 40k-row child, and pred mode with the
    bag's fused histogram at the bagged root and in place on a 40k-row
-   child), K4 scatter_segments, K6 compact_carry (255 even leaves in a
+   child), K4 scatter_segments in set mode and in add mode (the fused
+   paths' score update) and K6 compact_carry (255 even leaves in a
    shuffled order, and a skewed tree: one leaf of half the rows, the rest
-   down to 20 rows); quantized arenas (int8 codes made on
+   down to 20 rows; K4 also on a real carried tree's leaves, and beside
+   the chain its add mode replaces); quantized arenas (int8 codes made on
    the CPU): K2 in int8 mode, K5 fused_refresh_histogram, K3 in both modes
    moving the codes, K6 moving the codes, each held exactly equal to its
    plain version; K7 leaf_histogram over the dataset's row-major bins, f32
@@ -139,7 +141,8 @@ PARITY_PATHS = ("f32", "quantized", "weighted_f32", "weighted_quantized",
 PARTITION_KERNELS = ("segment_histogram", "segment_histogram_i8",
                      "partition_segment", "partition_segment_i8",
                      "partition_segment_pred", "partition_segment_pred_i8",
-                     "scatter_segments", "fused_root_histogram",
+                     "scatter_segments", "scatter_segments_add",
+                     "fused_root_histogram",
                      "compact_carry", "compact_carry_i8")
 # kernels of the line with no training path, and why
 NO_PATH = {
@@ -182,9 +185,13 @@ def path_kernels(path: str) -> tuple:
         return ("leaf_histogram", "split_scan"), PARTITION_KERNELS
     q = flag(path, "quantized")
     sfx = "_i8" if q else ""
+    # K4: set mode on the eager paths (leaf ids), add mode on the fused
+    # ones (the score update)
+    eager = flag(path, "bagged") or flag(path, "valid")
+    k4 = ("scatter_segments", "scatter_segments_add")
     must = ["split_scan", "segment_histogram" + sfx, "partition_segment" + sfx,
-            "scatter_segments"]
-    never = []
+            k4[not eager]]
+    never = [k4[eager]]
     if flag(path, "bagged"):
         must.append("partition_segment_pred" + sfx)
         never += ["fused_root_histogram", "compact_carry" + sfx]
@@ -659,40 +666,11 @@ def kernel_phase(ds, dev, results, quantized: bool):
                    for i in range(k)]
     for a in arenas:
         pk.partition_segment(a, make_sc(0, n, work0, cursor, 1), goleft)
-    seg = torch.tensor(pieces, dtype=torch.int32, device=dev)
-    nl = torch.tensor([LEAVES], dtype=torch.int32, device=dev)
-
-    # ---- K4 (payload-independent: measured with the f32 arenas) ----------
-    if not quantized:
-        vals = torch.randn(LEAVES, generator=gen, device=dev)
-        out_k = torch.zeros(n, device=dev)
-        out_p = torch.zeros(n, device=dev)
-        pk.scatter_segments(ak, seg, vals, nl, out_k)
-        pk.scatter_segments_plain(ak, seg, vals, nl, out_p)
-        expect(torch.equal(out_k, out_p), "K4: row-ordered outputs differ")
-        rid_all = torch.cat([ak.rid[s:s + c].long() for s, c in pieces])
-        val_all = torch.cat([vals[i].expand(c)
-                             for i, (_s, c) in enumerate(pieces)])
-        k4 = dict(
-            ms=cuda_ms(lambda: pk.scatter_segments(ak, seg, vals, nl, out_k),
-                       20),
-            plain_ms=cuda_ms(lambda: pk.scatter_segments_plain(
-                ak, seg, vals, nl, out_p), 3),
-            library_ms=cuda_ms(lambda: out_p.index_put_((rid_all,), val_all),
-                               5),
-            bytes=pk.scatter_bytes(n, LEAVES), rows=n)
-        print("K4 scatter_segments: %d rows %d leaves %.4f ms (plain %.4f, "
-              "index_put_ %.4f); exact" % (n, LEAVES, k4["ms"],
-                                           k4["plain_ms"], k4["library_ms"]))
-        entry("scatter_segments", "scatter_segments", k4, 0.0, "exact")
-        del rid_all, val_all, out_k, out_p
-
-    # ---- K6 -----------------------------------------------------------
-    # two layouts of the root split's output regions, compacted past both
-    # regions: the 255 even leaves in a shuffled order, so leaf-index order
-    # is not column order; and a skewed tree's leaves (one of half the
-    # rows, the rest geometric down to 20 rows, cut where they cross from
-    # one region to the other), as a real tree's sizes spread
+    # two layouts of the root split's output regions: the 255 even leaves
+    # in a shuffled order, so leaf-index order is not column order; and a
+    # skewed tree's leaves (one of half the rows, the rest geometric down
+    # to 20 rows, cut where they cross from one region to the other), as a
+    # real tree's sizes spread
     order = np.random.RandomState(5).permutation(LEAVES)
     rest = np.maximum(20, (n / 4 * 0.96 ** np.arange(LEAVES - 1)).astype(int))
     rest = np.maximum(20, rest * (n - n // 2) // max(int(rest.sum()), 1))
@@ -710,6 +688,13 @@ def kernel_phase(ds, dev, results, quantized: bool):
         "even": [pieces[i] for i in order],
         "skewed": [skewed[i] for i in np.random.RandomState(6).permutation(
             len(skewed))]}
+
+    # ---- K4 (payload-independent: measured with the f32 arenas) ----------
+    if not quantized:
+        k4_phase(ak, layouts, gen, results, entry)
+
+    # ---- K6 -----------------------------------------------------------
+    # the two layouts compacted past both regions
     dst0 = cursor + n_al + pk.TILE
     k6 = {}
     for what, lay in layouts.items():
@@ -752,6 +737,113 @@ def kernel_phase(ds, dev, results, quantized: bool):
               largest=k6["skewed"]["largest"]))
     del arenas, ak, ap, cols
     torch.cuda.empty_cache()
+
+
+def k4_phase(ak, layouts, gen, results, entry):
+    """K4 in set mode (f32 leaf values) and in add mode (the fused paths'
+    score update, shrinkage 0.1) on the even and skewed layouts of the root
+    split's regions and, at the full row count, on a real carried tree's
+    leaf segments (lightgbm_tpu_torch/tools/carried_leaf_seg.json, at its
+    columns of the same 6-fold arena), each layout's row ids in the order
+    a grown tree leaves them (`tools.tree_row_order`): each held bit for
+    bit to its plain version, then timed by CUDA events and kernel-only
+    beside the plain version, the library call over the expanded (row,
+    value) pairs (index_put_; with accumulate=True in add mode) and, in add
+    mode, the chain it replaces (a zeroed delta, K4 in set mode, a multiply
+    and an add over n rows)."""
+    import torch
+    from pathlib import Path
+    from lightgbm_tpu_torch.ops import partition_kernel as pk
+    from lightgbm_tpu_torch.tools import tree_row_order
+
+    n, dev = ak.num_data, ak.device
+    lays = dict(layouts)
+    path = (Path(pk.__file__).resolve().parent.parent / "tools"
+            / "carried_leaf_seg.json")
+    with open(path) as f:
+        carried = json.load(f)
+    if carried["rows"] == n and carried["cap"] == ak.cap:
+        lays["carried"] = [tuple(sc)
+                           for sc in carried["seg"][:carried["nl"]]]
+    # each layout's row ids in the order a grown tree leaves them (the
+    # pristine root's row order; a previous tree's carried order), written
+    # over the arena's row ids, which K6's phase then gets back
+    rid0 = ak.rid.clone()
+    shrink = 0.1
+    s_t = torch.tensor(shrink, dtype=torch.float32, device=dev)
+    r = {"set": {}, "add": {}}
+    for what, lay in lays.items():
+        L = len(lay)
+        order = torch.from_numpy(tree_row_order(
+            [c for _s, c in lay], np.random.RandomState(L),
+            LEAVES if what == "carried" else 0)).to(dev)
+        pos = 0
+        for s0, c in lay:
+            ak.rid[s0:s0 + c] = order[pos:pos + c]
+            pos += c
+        seg = torch.tensor(lay, dtype=torch.int32, device=dev)
+        nl = torch.tensor([L], dtype=torch.int32, device=dev)
+        vals = torch.randn(L, generator=gen, device=dev)
+        rid_all = torch.cat([ak.rid[s0:s0 + c].long() for s0, c in lay])
+        val_all = torch.cat([vals[i].expand(c)
+                             for i, (_s, c) in enumerate(lay)])
+        score = torch.randn(n, generator=gen, device=dev)
+        for mode in ("set", "add"):
+            sh = shrink if mode == "add" else None
+            out_k = score.clone()
+            out_p = score.clone()
+            pk.scatter_segments(ak, seg, vals, nl, out_k, shrink=sh)
+            pk.scatter_segments_plain(ak, seg, vals, nl, out_p, shrink=sh)
+            expect(torch.equal(out_k.view(torch.int32),
+                               out_p.view(torch.int32)),
+                   "K4 %s %s: outputs differ" % (mode, what))
+            if mode == "set":
+                lib = lambda: out_p.index_put_((rid_all,), val_all)
+            else:
+                prod = val_all * s_t
+                lib = lambda: out_p.index_put_((rid_all,), prod,
+                                               accumulate=True)
+            run = lambda: pk.scatter_segments(ak, seg, vals, nl, out_k,
+                                              shrink=sh)
+            r[mode][what] = dict(
+                ms=cuda_ms(run, 20), kernel_ms=kernel_only_ms(run, 20),
+                plain_ms=cuda_ms(lambda: pk.scatter_segments_plain(
+                    ak, seg, vals, nl, out_p, shrink=sh), 3),
+                library_ms=cuda_ms(lib, 5),
+                bytes=pk.scatter_bytes(n, L, add=mode == "add"), rows=n,
+                leaves=L, largest=max(c for _s, c in lay),
+                smallest=min(c for _s, c in lay))
+            if mode == "add":
+                def chain():
+                    delta = torch.zeros(n, device=dev)
+                    pk.scatter_segments(ak, seg, vals, nl, delta)
+                    out_p.add_(delta * s_t)
+                r[mode][what]["chain_ms"] = cuda_ms(chain, 20)
+                del prod
+        del rid_all, val_all, score, out_k, out_p, order
+    ak.rid.copy_(rid0)
+    del rid0
+    for mode, rm in r.items():
+        print("K4 scatter_segments %s mode: %d rows; %s; exact" % (
+            mode, n, "; ".join(
+                "%s (%d leaves, %d to %d rows) %.4f ms, kernel-only %.4f "
+                "(bound %.4f, plain %.4f, index_put_%s %.4f%s)" % (
+                    what, v["leaves"], v["smallest"], v["largest"], v["ms"],
+                    v["kernel_ms"], bound(v["bytes"], 0)[0], v["plain_ms"],
+                    "(accumulate)" if mode == "add" else "",
+                    v["library_ms"], ", the replaced chain %.4f"
+                    % v["chain_ms"] if "chain_ms" in v else "")
+                for what, v in rm.items())))
+        name = "scatter_segments" + ("_add" if mode == "add" else "")
+        entry(name, "scatter_segments", rm["even"], 0.0, "bit for bit",
+              op=mode, library="index_put_%s of the expanded (row, value) "
+              "pairs" % (", accumulate=True," if mode == "add" else ""),
+              layouts={what: dict(
+                  {k: v[k] for k in ("ms", "kernel_ms", "plain_ms",
+                                     "library_ms", "leaves", "smallest",
+                                     "largest", "chain_ms") if k in v},
+                  bound_ms=bound(v["bytes"], 0)[0])
+                  for what, v in rm.items()})
 
 
 def leaf_kernel_phase(ds, dev, results):
@@ -1068,15 +1160,27 @@ def training_phase(X, Xh, yh, ds_obj, valid_obj, rounds, dev, reduced, path):
         evals_result=evals or None, best_iteration=booster.best_iteration)
 
 
-def profile_round(booster, what: str) -> dict:
+# aten operations that launch nothing: views, aliases, no-op conversions
+NO_WORK_OPS = frozenset((
+    "view", "as_strided", "_reshape_alias", "reshape", "expand", "slice",
+    "select", "unsqueeze", "squeeze", "t", "transpose", "permute", "detach",
+    "alias", "to", "contiguous", "unbind", "narrow", "flatten", "view_as",
+    "lift_fresh", "empty", "empty_like", "empty_strided", "resize_"))
+
+
+def profile_round(booster, what: str, rows: int = None) -> dict:
     """One more boosting round under torch.profiler: its wall time, the
-    device time of every kernel by name, and the device's idle share."""
+    device time of every kernel by name, and the device's idle share; with
+    rows, also the PyTorch operations of the round over `rows` elements
+    (the innermost aten operations with an input of that many elements,
+    views and no-op conversions left out: each one a launch over the
+    rows), counted by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=rows is not None) as prof:
         t = time.perf_counter()
         booster.update()
         torch.cuda.synchronize()
@@ -1099,10 +1203,25 @@ def profile_round(booster, what: str) -> dict:
             k = by_kernel.setdefault(label, dict(ms=0.0, launches=0))
             k["ms"] += ms
             k["launches"] += cnt
+    if rows is not None:
+        over = {}
+        for ev in prof.events():
+            if (ev.device_type == torch.autograd.DeviceType.CPU
+                    and ev.name.startswith("aten::")
+                    and ev.name[6:] not in NO_WORK_OPS
+                    and not any(c.name.startswith("aten::")
+                                for c in ev.cpu_children)
+                    and any(int(np.prod(sh)) == rows and len(sh) > 0
+                            for sh in ev.input_shapes or ())):
+                over[ev.name] = over.get(ev.name, 0) + 1
+        print("  operations over the %d rows (innermost aten, by name): %s"
+              % (rows, ", ".join("%s %d" % kv for kv in sorted(over.items()))
+                 or "none"))
+    out = {} if rows is None else dict(ops_over_rows=over)
     if not by_name:
         print("profile (%s): the profiler saw no device events; device time "
               "not measured" % what)
-        return dict(wall_ms=wall_ms, device_ms=None, idle_share=None)
+        return dict(out, wall_ms=wall_ms, device_ms=None, idle_share=None)
     print("profile of one %s round (profiler on): wall %.1f ms, device busy "
           "%.1f ms, idle share %.3f, %d device launches"
           % (what, wall_ms, busy_ms, 1 - busy_ms / wall_ms,
@@ -1112,11 +1231,12 @@ def profile_round(booster, what: str) -> dict:
     print("  port kernels, device ms (launches): %s" % ", ".join(
         "%s %.3f (%d)" % (k, v["ms"], v["launches"])
         for k, v in sorted(by_kernel.items())))
-    return dict(wall_ms=wall_ms, device_ms=busy_ms,
-                idle_share=1 - busy_ms / wall_ms,
-                device_launches=sum(c for _, c in by_name.values()),
-                by_kernel=by_kernel,
-                top=[dict(name=n[:90], ms=ms, count=c) for n, (ms, c) in top])
+    out.update(wall_ms=wall_ms, device_ms=busy_ms,
+               idle_share=1 - busy_ms / wall_ms,
+               device_launches=sum(c for _, c in by_name.values()),
+               by_kernel=by_kernel,
+               top=[dict(name=n[:90], ms=ms, count=c) for n, (ms, c) in top])
+    return out
 
 
 def main(argv=None) -> int:
@@ -1193,11 +1313,11 @@ def main(argv=None) -> int:
         expect(gap <= AUC_GAP, "%s holdout AUC is %.4f from the valid_f32 "
                "run's (limit %.2f)" % (path, gap, AUC_GAP))
     # launches of each kernel in the run of the path it belongs to: K3's
-    # pred mode in the bagged runs, the int8 modes and K5 in the quantized
-    # carried run, the f32 modes in the f32 carried run, K7 in the label
-    # run; the kernels both carried paths run (K1, K4) report the quantized
-    # run; launches_by_path has every path's run.  The kernels of NO_PATH
-    # are on no training path and report 0
+    # pred mode and K4's set mode in the bagged runs, the int8 modes and K5
+    # in the quantized carried run, the f32 modes in the f32 carried run,
+    # K7 in the label run; the kernels both carried paths run (K1, K4's add
+    # mode) report the quantized run; launches_by_path has every path's
+    # run.  The kernels of NO_PATH are on no training path and report 0
     for name, r in results.items():
         r["launches_by_path"] = {p: int(launches[p].get(name, 0))
                                  for p in launches}
@@ -1211,6 +1331,8 @@ def main(argv=None) -> int:
             path = "label_f32"
         elif name.startswith("partition_segment_pred"):
             path = "bagged_quantized" if name.endswith("_i8") else "bagged_f32"
+        elif name == "scatter_segments":
+            path = "bagged_f32"
         elif name in ("segment_histogram", "partition_segment",
                       "compact_carry"):
             path = "f32"

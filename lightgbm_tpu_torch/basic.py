@@ -19,6 +19,7 @@ from .io.metadata import Metadata
 from .metric import is_bigger_better, metrics_from_config
 from .models.gbdt import GBDT
 from .objective import create_objective
+from .utils import log
 
 
 class LightGBMError(Exception):
@@ -121,8 +122,18 @@ class Booster:
     def add_valid(self, data: Dataset, name: str) -> "Booster":
         """Attach a validation set, evaluated with the config's metrics.  A
         dataset given no reference is binned on its own, as the JAX package
-        bins it (lightgbm_tpu/basic.py add_valid); pass
-        `reference=train_set` to bin it with the training set's mappers."""
+        bins it (lightgbm_tpu/basic.py add_valid), and a warning says what
+        that does: its metric walks the trees' training bin thresholds over
+        bins cut by other mappers, so it is not the metric of `predict` on
+        those rows.  Pass `reference=train_set` to bin it with the training
+        set's mappers."""
+        if data.reference is None:
+            log.warning(
+                "Validation set '%s' has no reference: it is binned on its "
+                "own mappers, and its metric walks the trees' training bin "
+                "thresholds over those bins, so it is not the metric of "
+                "predict() on its rows; pass reference=<the training "
+                "Dataset> to bin it with the training set's mappers", name)
         data.construct()
         self._gbdt.add_valid(name, data._binned,
                              metrics_from_config(self.config))

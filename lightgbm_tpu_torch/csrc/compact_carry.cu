@@ -28,7 +28,8 @@
 //   aligned 16-byte word of each byte plane (bins; int8 codes) and four of
 //   each 4-byte plane (f32 g/h, row ids).
 // - A thread finds the leaf of its unit's first column by a binary search
-//   of the prefix in shared memory (then a walk of at most K-1 counts).
+//   of the prefix in shared memory (then a walk of at most K-1 counts;
+//   live_segments.cuh, shared with K4).
 //   When the unit's 16 columns lie in that leaf and inside the block, it
 //   reads each plane's 16 source columns, which start at any column, as
 //   the aligned 16-byte words that hold them (the second only when the
@@ -46,7 +47,7 @@
 // Source words read past a leaf's columns are dropped by the shift; they
 // are never written back.  Counts, nl and the offsets stay on the device,
 // so the host never syncs.
-#include "common.cuh"
+#include "live_segments.cuh"
 
 namespace {
 
@@ -178,31 +179,6 @@ __device__ __forceinline__ void gather_payload(int8_t* codes, long long cap,
   const uint4 g = gather_bytes(b, src, valid), h = gather_bytes(b + cap, src, valid);
   put_bytes(b, d, g, valid, whole);
   put_bytes(b + cap, d, h, valid, whole);
-}
-
-__device__ __forceinline__ int live_count(const int* seg, int l, int live) {
-  return l < live ? seg[2 * l + 1] : 0;
-}
-
-// The leaf holding destination column j (0 <= j < the rows written): the
-// last prefix group whose offset is <= j, then its leaves in turn.  Sets
-// m, its offset and its count.
-__device__ __forceinline__ void find_leaf(const int* __restrict__ seg,
-                                          int live, const int* pre, int ng,
-                                          int K, long long j, int& m,
-                                          long long& off, long long& cnt) {
-  int lo = 0, hi = ng;
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (pre[mid] <= j) lo = mid; else hi = mid;
-  }
-  m = lo * K;
-  off = pre[lo];
-  cnt = live_count(seg, m, live);
-  while (j >= off + cnt) {
-    off += cnt;
-    cnt = live_count(seg, ++m, live);
-  }
 }
 
 // Destination unit [D, D + UNIT) of the block [dst0, end), every plane.

@@ -18,7 +18,8 @@ Which path an iteration runs follows the JAX rule (:518-550):
 
 - on the partition engine with no bagging, no validation set and no
   training metric, the fused paths (:533), where every row is in the bag
-  and the grower writes each row's leaf value (emit="score"):
+  and the grower's K4 adds each row's shrunk leaf value to the score
+  (emit="score"):
   - carried (`_run_fused_iter_carried`, :904-1016), where `_carried_ok`
     (:847-869, with the objective's `carry_fields` gate) allows it: the
     tree roots at one of two arena slots holding every row in the order
@@ -389,7 +390,7 @@ class GBDT:
 
     def _fused_iter(self, grad, hess, init_score: float) -> bool:
         """The fused paths' iteration (gbdt.py:719-1016): every row in the
-        bag, the score updated from the grower's per-row leaf values."""
+        bag, the score updated by the grower's K4 in add mode."""
         kw = {}
         if self._carried_active:
             p = self._carry_parity
@@ -410,11 +411,13 @@ class GBDT:
             grad, hess, g_scale, h_scale = qz.quantize_gradients(grad, hess,
                                                                  key)
             kw["quant_scales"] = (g_scale, h_scale)
-        arrays, delta, truncated = self._grow(grad, hess, "score", **kw)
+        # K4 adds each row's leaf value times the f32 shrinkage into the
+        # score: `score += delta * shrink` (gbdt.py:777) without the delta
+        arrays, _, truncated = self._grow(
+            grad, hess, "score", score=self.score,
+            shrinkage=self.shrinkage_rate, **kw)
         if self._carried_active:
             self._carry_parity = 1 - p
-        self.score += delta * torch.tensor(self.shrinkage_rate,
-                                           dtype=torch.float32)
         host_arrays = self._fetch_tree(arrays, truncated)
         if int(host_arrays.num_leaves) <= 1:
             return self._degenerate(init_score)

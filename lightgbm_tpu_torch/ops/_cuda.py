@@ -35,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 
 # source stem -> {C entry point: argtypes}
 _ENTRY_POINTS = {
@@ -66,8 +67,9 @@ _ENTRY_POINTS = {
         "lgbt_leaf_histogram_i8": [_P, _P, _P, _P, _P, _LL, _P, _I, _I, _P,
                                    _P, _I, _I, _P]},
     "scatter_segments": {
-        "lgbt_scatter_segments_f32": [_P, _P, _P, _P, _P, _I, _I, _P],
-        "lgbt_scatter_segments_i32": [_P, _P, _P, _P, _P, _I, _I, _P]},
+        "lgbt_scatter_segments_f32": [_P, _P, _P, _P, _P, _I, _P],
+        "lgbt_scatter_segments_i32": [_P, _P, _P, _P, _P, _I, _P],
+        "lgbt_scatter_segments_add": [_P, _P, _P, _P, _F, _P, _I, _P]},
     "compact_carry": {
         "lgbt_compact_carry": [_P, _P, _P, _LL, _P, _P, _I, _P, _P, _LL, _I,
                                _P],

@@ -81,7 +81,9 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
                         carried_root: Optional[int] = None,
                         carried_bump0: int = 0,
                         carry_dst: Optional[int] = None,
-                        in_bag: Optional[torch.Tensor] = None):
+                        in_bag: Optional[torch.Tensor] = None,
+                        score: Optional[torch.Tensor] = None,
+                        shrinkage: Optional[float] = None):
     """Grow one leaf-wise tree on the arena's rows.
 
     grad and hess [n] are f32 for an f32 arena; for a quantized arena they
@@ -94,10 +96,15 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
     `work0`, dumps the others past them, and builds the root histogram in
     the same pass; the root count stays on the device.
 
+    emit="score" needs every row in a live leaf (no in_bag): K4 adds each
+    row's leaf value times the f32 value of `shrinkage` into `score` (f32
+    [n], row order) in place, rounded as `score += delta * shrink` would
+    round it.
+
     Returns (TreeArrays on the arena's device, out [n], truncated): out is
-    each row's unshrunk leaf value (emit="score") or leaf id
-    (emit="leaf_ids", -1 for rows out of the bag) in row order; truncated
-    is a 0-d bool tensor, True when the arena ran out of room."""
+    `score` (emit="score") or each row's leaf id (emit="leaf_ids", -1 for
+    rows out of the bag) in row order; truncated is a 0-d bool tensor,
+    True when the arena ran out of room."""
     dev = arena.device
     n, G = arena.num_data, arena.num_groups
     F = num_bins.shape[0]
@@ -109,6 +116,10 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
         raise ValueError("partition engine supports n < 2^24 rows")
     if emit not in ("score", "leaf_ids"):
         raise ValueError("emit must be 'score' or 'leaf_ids', got %r" % emit)
+    if emit == "score" and (score is None or shrinkage is None
+                            or in_bag is not None):
+        raise ValueError("emit='score' adds into a score with a shrinkage, "
+                         "every row in the bag")
     if arena.quantized != (quant_scales is not None):
         raise ValueError("a quantized arena takes quant_scales, an f32 arena "
                          "none")
@@ -279,15 +290,18 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
 
     tree = tree_from_tables(node_mat, leaf_mat, nl)
 
-    # per-row outputs from the final segments (K4)
-    if emit == "score":
-        vals = tree.leaf_value
-        out = torch.zeros(n, dtype=f32, device=dev)
-    else:
-        vals = torch.arange(L, dtype=torch.int32, device=dev)
-        out = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    # per-row outputs from the final segments (K4): the shrunk leaf values
+    # added into the caller's score, or the leaf ids
     nl32 = nl.to(torch.int32)
-    scatter_segments(arena, leaf_seg, vals, nl32, out)
+    if emit == "score":
+        out = score
+        scatter_segments(arena, leaf_seg, tree.leaf_value, nl32, out,
+                         shrink=shrinkage)
+    else:
+        out = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        scatter_segments(arena, leaf_seg,
+                         torch.arange(L, dtype=torch.int32, device=dev), nl32,
+                         out)
     if carry_dst is not None:
         compact_carry(arena, leaf_seg, nl32, int(carry_dst))
     return tree, out, truncated

@@ -26,8 +26,10 @@ tensors:
   `partition_segment_pred`, the same split by a per-column predicate (its
   pred mode, the bagged root), optionally building one stream's histogram
   in the same pass (its hist_stream mode);
-- K4 `scatter_segments`: per-row values from the live segments
-  (`_compact_rows_kernel` together with its consumer's sort by row id);
+- K4 `scatter_segments`: per-row values from the live segments, set or
+  added to a row-ordered output (`_compact_rows_kernel` together with its
+  consumer's sort by row id; in add mode with the fused paths' score
+  update);
 - K5 `fused_refresh_histogram`: writes a segment's code planes and returns
   its int32 histogram in one pass (`_fused_root_kernel`);
 - K6 `compact_carry`: copies the live segments, in leaf-index order, into
@@ -56,8 +58,7 @@ SC_START, SC_CNT, SC_DST_A, SC_DST_B, SC_CNT_B, SC_CNT_A, SC_CHAN, SC_XR = \
     range(8)
 SC_LEN = 8
 
-HIST_BLOCKS = 264         # fixed grids: the host never learns a segment size
-SCATTER_BLOCKS = 64
+HIST_BLOCKS = 264         # fixed grid: the host never learns a segment size
 
 # K3's tiles (csrc/partition.cuh): rows a tile, and the bytes of a block's
 # staged tiles below which two blocks fit an SM
@@ -519,16 +520,23 @@ def partition_ablate(arena: Arena, sc: torch.Tensor, goleft: torch.Tensor,
 # --------------------------------------------------------------------------- #
 def scatter_segments_plain(arena: Arena, seg: torch.Tensor,
                            vals: torch.Tensor, nl: torch.Tensor,
-                           out: torch.Tensor) -> None:
+                           out: torch.Tensor,
+                           shrink: Optional[float] = None) -> None:
     """The composition K4 replaces: compact the live segments into a
-    (rowid, value) stream, then put each value at its row."""
+    (rowid, value) stream, then put each value at its row (set), or add
+    it times the f32 shrinkage as two f32 operations (add)."""
     live = int(nl.reshape(-1)[0])
     rids, stream = [], []
     for (start, cnt), v in zip(seg[:live].tolist(), vals[:live]):
         rids.append(arena.rid[start:start + cnt].long())
         stream.append(v.expand(cnt))
-    if rids:
-        out.index_put_((torch.cat(rids),), torch.cat(stream).to(out.dtype))
+    if not rids:
+        return
+    rows, stream = torch.cat(rids), torch.cat(stream).to(out.dtype)
+    if shrink is not None:
+        s = torch.tensor(shrink, dtype=torch.float32, device=out.device)
+        stream = out[rows] + stream * s
+    out.index_put_((rows,), stream)
 
 
 def _require_segments(seg: torch.Tensor, nl: torch.Tensor, dev) -> int:
@@ -541,31 +549,44 @@ def _require_segments(seg: torch.Tensor, nl: torch.Tensor, dev) -> int:
 
 
 def scatter_segments(arena: Arena, seg: torch.Tensor, vals: torch.Tensor,
-                     nl: torch.Tensor, out: torch.Tensor) -> None:
-    """out[rid[start_l + i]] = vals[l] for every live leaf l < nl[0] and row
-    i of its segment; seg [L, 2] int32 (start, count).  vals and out are
-    both f32 (leaf values) or both int32 (leaf ids)."""
+                     nl: torch.Tensor, out: torch.Tensor,
+                     shrink: Optional[float] = None) -> None:
+    """For every live leaf l < nl[0] and row i of its segment (seg [L, 2]
+    int32 (start, count)), r = rid[start_l + i]:
+    - set (shrink None): out[r] = vals[l]; vals and out both f32 (leaf
+      values) or both int32 (leaf ids);
+    - add (shrink, f32 vals and out): out[r] = out[r] + vals[l] * s, s the
+      f32 value of shrink, rounded as two f32 operations: bit for bit
+      `out += delta * torch.tensor(shrink)` over a delta holding vals[l] at
+      every live row."""
     dev = arena.device
     L = _require_segments(seg, nl, dev)
     if vals.dtype not in (torch.float32, torch.int32):
         raise TypeError("vals must be float32 or int32, got %s" % vals.dtype)
+    if shrink is not None and vals.dtype != torch.float32:
+        raise TypeError("add mode takes float32 vals, got %s" % vals.dtype)
     _cuda.require(vals, "vals", vals.dtype, dev, (L,))
     _cuda.require(out, "out", vals.dtype, dev)
     if not _cuda.plain_or_cuda(dev):
-        scatter_segments_plain(arena, seg, vals, nl, out)
+        scatter_segments_plain(arena, seg, vals, nl, out, shrink)
+        return
+    head = (arena.rid.data_ptr(), seg.data_ptr(), vals.data_ptr(),
+            nl.data_ptr())
+    tail = (out.data_ptr(), L, _cuda.stream())
+    if shrink is not None:
+        rc = _cuda.fn("lgbt_scatter_segments_add")(*head, shrink, *tail)
+        _cuda.check(rc, "scatter_segments_add")
         return
     name = ("lgbt_scatter_segments_f32" if vals.dtype == torch.float32
             else "lgbt_scatter_segments_i32")
-    rc = _cuda.fn(name)(arena.rid.data_ptr(), seg.data_ptr(), vals.data_ptr(),
-                        nl.data_ptr(), out.data_ptr(), L, SCATTER_BLOCKS,
-                        _cuda.stream())
-    _cuda.check(rc, "scatter_segments")
+    _cuda.check(_cuda.fn(name)(*head, *tail), "scatter_segments")
 
 
-def scatter_bytes(n: int, L: int) -> int:
-    """Bytes K4 must move: each row id read once, each output written
-    once, the per-leaf segments and values read once."""
-    return 8 * n + 12 * L
+def scatter_bytes(n: int, L: int, add: bool = False) -> int:
+    """Bytes K4 must move: each row id read once, each output written once
+    (and read once in add mode), the per-leaf segments and values read
+    once."""
+    return (12 if add else 8) * n + 12 * L
 
 
 # --------------------------------------------------------------------------- #

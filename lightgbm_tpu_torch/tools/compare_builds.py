@@ -1,14 +1,15 @@
 """Another build of the port's kernels against this one, on the card.
 
     python -m lightgbm_tpu_torch.tools.compare_builds OTHER_CSRC [rows_millions]
-        [--save-leaf-seg PATH]
+        [--save-leaf-seg PATH] [--only sass,K3,K7,K2,K1,K6,K4]
 
 OTHER_CSRC is the `lightgbm_tpu_torch/csrc` directory of another checkout
 (a parent commit unpacked with `git archive`, say).  In one process:
 
 1. K3 (`partition_segment.cu`), K7 (`leaf_histogram.cu`), K2
    (`segment_histogram.cu`), K5 (`fused_root_histogram.cu`), K1
-   (`split_scan.cu`) and K6 (`compact_carry.cu`) of both trees compiled
+   (`split_scan.cu`), K6 (`compact_carry.cu`) and K4
+   (`scatter_segments.cu`) of both trees compiled
    with `ptxas -v` to cubins: each kernel's resource line and whether its
    SASS (`cuobjdump -sass`, kernel names demangled and K8's stage template
    argument dropped) is identical in the two trees;
@@ -41,12 +42,20 @@ OTHER_CSRC is the `lightgbm_tpu_torch/csrc` directory of another checkout
    parameters, which --save-leaf-seg PATH trains and writes anew); held
    equal between the trees (every plane), then timed in the order other,
    this, this, other, kernel-only beside; and a `copy_` of the bytes K6
-   moves (half read, half written) as the yardstick of a plain copy.
+   moves (half read, half written) as the yardstick of a plain copy;
+7. K4 of both trees on the same three layouts: set mode (f32 and int32)
+   and add mode held equal bit for bit, then timed likewise, kernel-only
+   beside, with the bounds and index_put_ (accumulate=True for the add)
+   over the expanded (row, value) pairs; where the other tree's K4 has no
+   add mode, the chain it replaces (a zeroed delta, K4 in set mode, a
+   multiply and an add) stands in.
 
-The other tree's K3, K7, K1 and K6 may take the C interface of the first
+`--only` runs the named sections alone (sass is step 1).  The other
+tree's K3, K7, K1, K6 and K4 may take the C interface of the first
 versions (a scratch arena and block counts for K3, no row list for K7, no
-ticket for K1, two launches over a grid of blocks a leaf for K6); the
-tool reads which from the other tree's sources.
+ticket for K1, two launches over a grid of blocks a leaf for K6, a grid
+of blocks a leaf for K4); the tool reads which from the other tree's
+sources.
 Needs nvcc and a CUDA device;
 builds into lightgbm_tpu_torch/_build/compare and prints one line per
 kernel and case.
@@ -70,7 +79,7 @@ from ..ops import histogram_kernel as hk
 from ..ops import partition_kernel as pk
 from ..ops import split_kernel as sk
 from ..ops.split import SplitParams
-from . import cuda_ms
+from . import cuda_ms, tree_row_order
 
 G, B, LEAVES, CHILD = 28, 255, 255, 40_000
 MID_CHILD = 500_000     # K2's int8 mode packs its words up to 540,672 rows
@@ -102,9 +111,13 @@ OLD_ENTRY_POINTS = {
                                _I, _P],
         "lgbt_compact_carry_i8": [_P, _P, _P, _LL, _P, _P, _I, _P, _P, _LL,
                                   _I, _I, _P]},
+    "scatter_segments": {
+        "lgbt_scatter_segments_f32": [_P, _P, _P, _P, _P, _I, _I, _P],
+        "lgbt_scatter_segments_i32": [_P, _P, _P, _P, _P, _I, _I, _P]},
 }
 OLD_PART_BLOCKS, OLD_PRED_BLOCKS, OLD_LEAF_BLOCKS = 1024, 264, 264
-OLD_CARRY_BLOCKS = 64
+OLD_CARRY_BLOCKS = OLD_SCATTER_BLOCKS = 64
+SECTIONS = ("sass", "K3", "K7", "K2", "K1", "K6", "K4")
 
 
 def _tool(name: str) -> str:
@@ -182,6 +195,8 @@ def _is_old(src_dir: str, stem: str) -> bool:
         return "int* ticket" not in text
     if stem == "compact_carry":
         return "carry_offsets_kernel" in text
+    if stem == "scatter_segments":
+        return "grid_x" in text
     return "int* rows" not in text
 
 
@@ -715,11 +730,136 @@ def carries(other: str, n: int, out_dir: str,
         del src, dst
 
 
+def _scatter_layouts(n: int, carried: dict = None) -> dict:
+    """K4's layouts, as K6's (`carries`): 255 even leaves and a skewed
+    tree in a shuffled order at any column of a rid plane of their own
+    length, and the carried tree's leaf_seg in its arena's plane."""
+    rng = np.random.RandomState(8)
+    layouts = {}
+    for kind, counts in (("even", np.full(LEAVES, n // LEAVES)),
+                         ("skewed", _skewed_counts(n))):
+        starts = np.zeros(len(counts), np.int64)
+        pos = 0
+        for leaf in rng.permutation(len(counts)):
+            pos += int(rng.randint(0, 16))
+            starts[leaf] = pos
+            pos += int(counts[leaf])
+        layouts[kind] = dict(seg=np.stack([starts, counts], 1).tolist(),
+                             nl=len(counts), cap=-(-pos // 2048) * 2048)
+    if carried is None and LEAF_SEG.exists():
+        with open(LEAF_SEG) as f:
+            carried = json.load(f)
+    if carried is not None:
+        layouts["carried"] = carried
+    return layouts
+
+
+def scatters(other: str, n: int, out_dir: str, carried: dict = None) -> None:
+    """K4 of both trees on the even, skewed and carried layouts, each
+    leaf's row ids in the order a grown tree leaves them
+    (`tools.tree_row_order`: the pristine root's row order for even and
+    skewed, a previous 255-leaf tree's carried order for carried): set mode
+    (f32 leaf values and int32 leaf ids) and add mode (shrinkage 0.1) held
+    equal bit for bit, then timed in the order other, this, this, other,
+    kernel-only beside.  Where the other tree's K4 has no add mode (the
+    first version), its side of the add is the chain the add mode
+    replaces: a zeroed delta, its K4 in set mode, a multiply and an add
+    over n rows.  Beside them, the bounds and the library calls over the
+    expanded (row, value) pairs: index_put_, with accumulate=True for the
+    add."""
+    dev = torch.device("cuda")
+    impl = {tag: _load(src, "scatter_segments", out_dir, tag)
+            for tag, src in (("other", other), ("this", str(_cuda.CSRC)))}
+    shrink = 0.1
+    s_t = torch.tensor(shrink, dtype=torch.float32, device=dev)
+    for kind, lay in _scatter_layouts(n, carried).items():
+        gen = torch.Generator(device=dev).manual_seed(9)
+        seg_l = lay["seg"][:lay["nl"]]
+        seg = torch.tensor(seg_l, dtype=torch.int32, device=dev)
+        L = seg.shape[0]
+        nl = torch.tensor([L], dtype=torch.int32, device=dev)
+        rows = int(seg[:, 1].sum())
+        rid = torch.randint(-2 ** 31, 2 ** 31 - 1, (lay["cap"],),
+                            generator=gen, dtype=torch.int32, device=dev)
+        counts = [c for _s, c in seg_l]
+        order = torch.from_numpy(tree_row_order(
+            counts, np.random.RandomState(len(kind)),
+            LEAVES if kind == "carried" else 0)).to(dev)
+        pos = 0
+        for s0, c in seg_l:
+            rid[s0:s0 + c] = order[pos:pos + c]
+            pos += c
+        vals = torch.randn(L, generator=gen, device=dev)
+        ids = torch.arange(L, dtype=torch.int32, device=dev)
+        score0 = torch.randn(rows, generator=gen, device=dev)
+        outs = {t: {"f32": torch.zeros(rows, device=dev),
+                    "i32": torch.zeros(rows, dtype=torch.int32, device=dev),
+                    "add": score0.clone()} for t in impl}
+
+        def set_call(t, v, out):
+            fns, old = impl[t]
+            name = "lgbt_scatter_segments_%s" % (
+                "f32" if v.dtype == torch.float32 else "i32")
+            args = [rid.data_ptr(), seg.data_ptr(), v.data_ptr(),
+                    nl.data_ptr(), out.data_ptr(), L]
+            if old:
+                args.append(OLD_SCATTER_BLOCKS)
+            return lambda: _check(fns[name](*args, _cuda.stream()), "K4")
+
+        def add_call(t):
+            fns, old = impl[t]
+            out = outs[t]["add"]
+            if old:
+                def chain():
+                    delta = torch.zeros(rows, device=dev)
+                    set_call(t, vals, delta)()
+                    out.add_(delta * s_t)
+                return chain
+            return lambda: _check(fns["lgbt_scatter_segments_add"](
+                rid.data_ptr(), seg.data_ptr(), vals.data_ptr(),
+                nl.data_ptr(), shrink, out.data_ptr(), L, _cuda.stream()),
+                "K4 add")
+        runs = {"set": {t: set_call(t, vals, outs[t]["f32"]) for t in impl},
+                "add": {t: add_call(t) for t in impl}}
+        for t in impl:
+            set_call(t, ids, outs[t]["i32"])()
+            runs["set"][t]()
+            runs["add"][t]()
+        torch.cuda.synchronize()
+        same = all(torch.equal(outs["other"][k].view(torch.int32),
+                               outs["this"][k].view(torch.int32))
+                   for k in ("f32", "i32", "add"))
+        rid_all = torch.cat([rid[s0:s0 + c].long() for s0, c in seg_l])
+        val_all = torch.cat([vals[i].expand(c)
+                             for i, (_s, c) in enumerate(seg_l)])
+        prod = val_all * s_t
+        lib_out = torch.zeros(rows, device=dev)
+        lib = {"set": lambda: lib_out.index_put_((rid_all,), val_all),
+               "add": lambda: lib_out.index_put_((rid_all,), prod,
+                                                 accumulate=True)}
+        for mode in ("set", "add"):
+            nbytes = pk.scatter_bytes(rows, L, add=mode == "add")
+            print("K4 %s %s, %d leaves, %d rows (%d to %d a leaf; bound "
+                  "%.4f ms; index_put_%s %.4f ms): %s%s; the two trees %s" % (
+                      mode, kind, L, rows, int(seg[:, 1].min()),
+                      int(seg[:, 1].max()), nbytes / 3.35e12 * 1e3,
+                      ", accumulate" if mode == "add" else "",
+                      cuda_ms(lib[mode], 5), _both_ms(runs[mode], 20),
+                      " (other: the replaced chain)" if mode == "add"
+                      and impl["other"][1] else "",
+                      "agree" if same else "DIFFER"))
+        del rid, order, rid_all, val_all, prod, outs, lib_out
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("other", nargs="?")
     ap.add_argument("rows_millions", nargs="?", type=float, default=10.5)
     ap.add_argument("--save-leaf-seg", metavar="PATH")
+    ap.add_argument("--only", default=",".join(SECTIONS),
+                    help="comma-separated sections to run, of %s"
+                    % ", ".join(SECTIONS))
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available() or (args.other is None
                                          and not args.save_leaf_seg):
@@ -734,19 +874,27 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if args.other is None:
         return 0
+    only = set(args.only.split(","))
+    if not only <= set(SECTIONS):
+        print("--only takes %s" % ", ".join(SECTIONS), file=sys.stderr)
+        return 1
     out_dir = str(_cuda.BUILD_DIR / "compare")
     os.makedirs(out_dir, exist_ok=True)
-    for stem in ("partition_segment", "leaf_histogram", "segment_histogram",
-                 "fused_root_histogram", "split_scan", "compact_carry"):
-        sass_report(args.other, stem, out_dir)
-    partitions(args.other, n, out_dir)
-    torch.cuda.empty_cache()
-    leaf_histograms(args.other, n, out_dir)
-    torch.cuda.empty_cache()
-    histograms(args.other, n, out_dir)
-    torch.cuda.empty_cache()
-    scans(args.other, out_dir)
-    carries(args.other, n, out_dir, carried)
+    if "sass" in only:
+        for stem in ("partition_segment", "leaf_histogram",
+                     "segment_histogram", "fused_root_histogram",
+                     "split_scan", "compact_carry", "scatter_segments"):
+            sass_report(args.other, stem, out_dir)
+    sections = (("K3", lambda: partitions(args.other, n, out_dir)),
+                ("K7", lambda: leaf_histograms(args.other, n, out_dir)),
+                ("K2", lambda: histograms(args.other, n, out_dir)),
+                ("K1", lambda: scans(args.other, out_dir)),
+                ("K6", lambda: carries(args.other, n, out_dir, carried)),
+                ("K4", lambda: scatters(args.other, n, out_dir, carried)))
+    for name, run in sections:
+        if name in only:
+            run()
+            torch.cuda.empty_cache()
     return 0
 
 

@@ -468,6 +468,49 @@ def test_valid_set_without_reference_is_binned_as_jax():
     _assert_models_match(jb._gbdt.models, tb._gbdt.models, X)
 
 
+def _logloss(y, p):
+    p = np.clip(p, 1e-15, 1 - 1e-15)
+    return float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p)))
+
+
+def test_valid_set_without_reference_warns_and_parts_from_predict():
+    """A validation set given no reference: add_valid warns, once, through
+    the port's logger, and the set's walked metric (its evals_result: the
+    trees' training bin thresholds over its own bins) stands beside the
+    metric of Booster.predict on the same rows.  On this seeded case the
+    two bin matrices differ and so do the two metrics; with reference= the
+    two agree and nothing is warned."""
+    from lightgbm_tpu_torch.utils import log as tlog
+    X, y = _data("binary", seed=8)
+    rng = np.random.RandomState(21)
+    Xv = X[np.sort(rng.choice(len(X), 300, replace=False))] * 1.5
+    yv = (rng.rand(300) < 0.5).astype(np.float64)
+    ds = tlgb.Dataset(X, y, device="cpu")
+    out = {}
+    for ref in (None, ds):
+        lines = []
+        tlog.set_callback(lines.append)
+        try:
+            ev = {}
+            bst = tlgb.train(dict(VALID_PARAMS, metric="binary_logloss"), ds,
+                             num_boost_round=ROUNDS,
+                             valid_sets=[tlgb.Dataset(Xv, yv, reference=ref,
+                                                      device="cpu")],
+                             valid_names=["holdout"], evals_result=ev,
+                             verbose_eval=False, device="cpu")
+        finally:
+            tlog.set_callback(None)
+        walked = ev["holdout"]["binary_logloss"][-1]
+        out[ref is None] = (walked, _logloss(yv, bst.predict(Xv)),
+                            [ln for ln in lines if "no reference" in ln])
+    walked, predicted, warned = out[True]
+    assert len(warned) == 1 and "'holdout'" in warned[0]
+    assert abs(walked - predicted) > 1e-3, (walked, predicted)
+    walked, predicted, warned = out[False]
+    assert not warned
+    assert abs(walked - predicted) <= 1e-6, (walked, predicted)
+
+
 # --------------------------------------------------------------------------- #
 # the copied callback module
 # --------------------------------------------------------------------------- #

@@ -104,10 +104,12 @@ def test_shift_words_is_the_word_slice():
 # --------------------------------------------------------------------------- #
 # the schedule
 # --------------------------------------------------------------------------- #
-def block_prefix(counts, live):
-    """(pre, K, total): one block's scan as the kernel runs it."""
-    T = C["threads"]
-    K = max(1, -(-live // C["cap"]))
+def block_prefix(counts, live, threads=None, cap=None):
+    """(pre, K, total): one block's scan as the kernel runs it
+    (live_segments.cuh `scan_live`), with K6's block size and prefix
+    capacity unless given."""
+    T = C["threads"] if threads is None else threads
+    K = max(1, -(-live // (C["cap"] if cap is None else cap)))
     per = -(-live // T)
     lo = np.minimum(np.arange(T) * per, live)
     hi = np.minimum(lo + per, live)

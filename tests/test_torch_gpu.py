@@ -14,7 +14,11 @@ Tolerances, per kernel:
 - K2 segment_histogram: counts equal; g/h within 1e-5 of each bin's sum of
   |values| (shared-memory atomics add in a varying order; the plain version
   sums in f64);
-- K3 partition_segment and K4 scatter_segments: exact;
+- K3 partition_segment: exact;
+- K4 scatter_segments, set mode (f32 and int32) and add mode: bit for bit
+  on a random cut of 300k rows (250 live of 255 segments) and at 10.5M
+  rows on 255 even leaves, a skewed tree and a real carried tree's
+  segments;
 - K3 in pred mode with the hist_stream histogram (the bagged root): counts
   and planes exact; the histogram exact for codes, for f32 as K2's; at
   G=28 and at G=80, whose [G, 255, 3] histogram exceeds one block's shared
@@ -27,6 +31,9 @@ Tolerances, per kernel:
   f32 and quantized, with -1 at the out-of-bag rows;
 - a quantized tree on a carried root, compacted by K6: the same splits,
   thresholds, leaf ids and carried row order, leaf values rtol 1e-6;
+- the fused paths' score (carried and pristine, f32 and quantized, three
+  rounds): after every tree's K4 add, bit for bit the score the replaced
+  `score += delta * shrink` gives;
 - quantization: the same f32 gradients give equal codes and scales on the
   card and the CPU; from each device's own binary-logloss gradients the
   gradients agree to 1e-6, at most one code in a thousand differs, and one
@@ -38,6 +45,11 @@ Tolerances, per kernel:
 - a 63-leaf label-engine tree (K7 and K1) on dyadic gradients over a bag:
   the same splits, default directions, counts and leaf ids as on the CPU,
   leaf values rtol 1e-6;
+- the label engine past 2^24 rows (2^24 + 2^20 rows, 2 features, a bin
+  of more than 2^24 rows): K7's root histogram against its plain version
+  (counts equal below 2^24, the bin past it within one unit an add of
+  K7's blocks, g/h as K2's), and a 7-leaf tree against the CPU's (the
+  same splits, counts and leaf ids, leaf values rtol 1e-4);
 - K8 partition_ablate: every stage equal to its plain version (the
   per-tile checksums of the read, decide, lookback and stage stages, the
   full stage's planes);
@@ -211,26 +223,92 @@ def test_partition_segment_matches_plain(in_place, xr, dev):
     assert torch.equal(ak.payload, ap.payload)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
-def test_scatter_segments_matches_plain(dtype, dev):
-    ak, _ = _arenas(dev)
-    n = ak.num_data
-    rng = np.random.RandomState(3)
-    ak.rid[:n] = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
-    L, live = 255, 250
-    cuts = np.sort(rng.choice(np.arange(1, n), live - 1, replace=False))
-    bounds = np.concatenate([[0], cuts, [n]])
-    seg = np.zeros((L, 2), np.int32)
-    seg[:live, 0], seg[:live, 1] = bounds[:-1], np.diff(bounds)
-    seg = torch.from_numpy(seg).to(dev)
-    vals = (torch.randn(L, device=dev) if dtype == torch.float32
-            else torch.arange(L, dtype=torch.int32, device=dev))
-    nl = torch.tensor([live], dtype=torch.int32, device=dev)
-    out_k = torch.full((n,), -1, dtype=dtype, device=dev)
+def _scatter_layout(kind, dev):
+    """(arena, seg, nl, rows) of one K4 layout, its rid plane holding a
+    permutation of `rows` row ids at the live columns and garbage
+    elsewhere: 'random' (300k rows cut at random into 250 live of 255
+    segments from column 0), 'even' (255 equal leaves), 'skewed' (one leaf
+    of half the rows, the rest geometric down to 20) and 'carried' (a real
+    carried tree's leaf_seg, tools/carried_leaf_seg.json), the last three
+    at 10.5M rows; even and skewed in a shuffled order at any column."""
+    import json
+    from pathlib import Path
+    rng = np.random.RandomState(len(kind))
+    if kind == "carried":
+        path = Path(pk.__file__).resolve().parent.parent / "tools" / \
+            "carried_leaf_seg.json"
+        with open(path) as f:
+            lay = json.load(f)
+        seg = np.asarray(lay["seg"], np.int64)
+        starts, counts, live, n = seg[:, 0], seg[:, 1], lay["nl"], lay["rows"]
+    elif kind == "random":
+        n, live = 300_000, 250
+        cuts = np.sort(rng.choice(np.arange(1, n), live - 1, replace=False))
+        bounds = np.concatenate([[0], cuts, [n]])
+        starts, counts = bounds[:-1], np.diff(bounds)
+    else:
+        n = 10_500_000
+        counts = (_carry_layout(kind, n, rng) if kind == "skewed"
+                  else np.full(255, n // 255))
+        live = len(counts)
+        starts = np.zeros(live, np.int64)
+        pos = 0
+        for leaf in rng.permutation(live):
+            pos += int(rng.randint(0, 16))
+            starts[leaf] = pos
+            pos += int(counts[leaf])
+    rows = int(counts[:live].sum())
+    arena = pk.Arena(n, 1, 6, dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    arena.rid.copy_(torch.randint(-2 ** 31, 2 ** 31 - 1, arena.rid.shape,
+                                  generator=gen, dtype=torch.int32,
+                                  device=dev))
+    perm = torch.randperm(rows, generator=gen, device=dev).to(torch.int32)
+    pos = 0
+    for s0, c in zip(starts[:live].tolist(), counts[:live].tolist()):
+        arena.rid[s0:s0 + c] = perm[pos:pos + c]
+        pos += c
+    L = 255
+    seg = np.zeros((L, 2), np.int64)
+    seg[:len(starts), 0], seg[:len(starts), 1] = starts, counts
+    seg[live:] = (2 ** 30, 777)                 # dead segments: never read
+    return (arena, torch.from_numpy(seg.astype(np.int32)).to(dev),
+            torch.tensor([live], dtype=torch.int32, device=dev), rows)
+
+
+@pytest.mark.parametrize("kind", ["random", "even", "skewed", "carried"])
+@pytest.mark.parametrize("mode", ["set_f32", "set_i32", "add"])
+def test_scatter_segments_matches_plain(mode, kind, dev):
+    """K4 in set mode (f32 leaf values, int32 leaf ids) and in add mode
+    (out + vals * s, two f32 roundings; zero, tiny and normal terms on
+    normal and subnormal scores) against its plain version on the same
+    inputs, bit for bit, the whole output compared (rows of no live segment
+    keep their values)."""
+    arena, seg, nl, rows = _scatter_layout(kind, dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    L = seg.shape[0]
+    if mode == "set_i32":
+        vals = torch.arange(L, dtype=torch.int32, device=dev)
+        out_k = torch.randint(-9, 9, (rows + 5,), generator=gen,
+                              dtype=torch.int32, device=dev)
+    else:
+        # zeros, a term below the L2 reduction's range, and subnormal
+        # scores: the add mode's exact cases
+        vals = torch.randn(L, generator=gen, device=dev)
+        vals[:3] = torch.tensor([0.0, -0.0, 1e-32], device=dev)
+        out_k = torch.randn(rows + 5, generator=gen, device=dev) * 3
+        out_k[::97] = torch.tensor(-2e-39, device=dev)
+        out_k[::89] = torch.tensor(7e-42, device=dev)
+    shrink = 0.1 if mode == "add" else None
     out_p = out_k.clone()
-    pk.scatter_segments(ak, seg, vals, nl, out_k)
+    _cuda.reset_launch_counts()
+    pk.scatter_segments(arena, seg, vals, nl, out_k, shrink=shrink)
     torch.cuda.synchronize()
-    pk.scatter_segments_plain(ak, seg, vals, nl, out_p)
+    assert dict(_cuda.LAUNCHES) == {
+        "scatter_segments_add" if shrink else "scatter_segments": 1}
+    pk.scatter_segments_plain(arena, seg, vals, nl, out_p, shrink=shrink)
+    if mode == "add":
+        out_k, out_p = out_k.view(torch.int32), out_p.view(torch.int32)
     assert torch.equal(out_k, out_p)
 
 
@@ -649,6 +727,43 @@ def test_predict_leaf_inner_card_vs_cpu(dev):
 
 
 @pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_fused_scores_match_the_parent_formula(weighted, quantized, dev,
+                                               monkeypatch):
+    """Three rounds of the fused paths on the card (unweighted: the carried
+    arena; weighted: the pristine root), 200k rows, 63 leaves: at every
+    tree's K4 the live segments hold all n rows, and the score after K4's
+    add mode equals the formula it replaces (a zeroed delta, K4 in set
+    mode, `score += delta * torch.tensor(shrink)` on the card) bit for
+    bit."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import grow_partition as gp
+    X, y = _higgs_like(200_000, seed=19)
+    w = (np.random.RandomState(3).rand(len(y)).astype(np.float32) + 0.5
+         if weighted else None)
+    real = gp.scatter_segments
+    seen = []
+
+    def check(arena, seg, vals, nl, out, shrink=None):
+        delta = torch.zeros_like(out)
+        real(arena, seg, vals, nl, delta)
+        want = out + delta * torch.tensor(shrink, dtype=torch.float32)
+        real(arena, seg, vals, nl, out, shrink=shrink)
+        seen.append((int(seg[:int(nl[0]), 1].sum()),
+                     torch.equal(out.view(torch.int32),
+                                 want.view(torch.int32))))
+    monkeypatch.setattr(gp, "scatter_segments", check)
+    params = {"objective": "binary", "num_leaves": 63, "learning_rate": 0.1,
+              "max_bin": 255, "min_data_in_leaf": 20, "verbose": -1,
+              "tpu_quantized_grad": quantized}
+    bst = lt.train(params, lt.Dataset(X, y, weight=w, device=dev),
+                   num_boost_round=3, device=dev)
+    assert bst._gbdt._quantized is quantized
+    assert bool(bst._gbdt._carried_active) is not weighted
+    assert seen == [(len(y), True)] * 3
+
+
+@pytest.mark.parametrize("quantized", [False, True])
 def test_bagged_tree_matches_cpu(quantized, dev):
     """One 63-leaf tree on a bag of 0.8 of the rows, its root by K3 in pred
     mode with the hist_stream histogram, on the card against the CPU.
@@ -776,6 +891,94 @@ def test_label_tree_matches_cpu(dev):
     assert torch.equal(ik < 0, row0 < 0)
     torch.testing.assert_close(tk.leaf_value.cpu(), tp.leaf_value, rtol=1e-6,
                                atol=0.0)
+
+
+def test_label_engine_past_2_24_rows(dev):
+    """The label engine past K1's 2^24-row limit, where the split scan
+    keeps integer count cumsums (ops/grow.py KERNEL_SCAN_ROWS): 2^24 + 2^20
+    rows, 2 features, max_bin 15, 7 leaves; feature 0 mostly one value, so
+    one of its bins holds more than 2^24 rows, a count an f32 word rounds.
+    K7's root histogram on the card against its plain version there
+    (counts equal below 2^24; past it the plain version's count is the
+    exact one rounded once to f32, K7's within one unit an add of its
+    blocks' f32 atomics, as measured: 17290022 and 17290020 for 17290021
+    rows on an H100; g/h as K2's tolerance), and the card's tree against the
+    port's CPU run of the same data: split features, thresholds, default
+    directions, leaf counts and every row's leaf equal, leaf values rtol
+    1e-4 (the f32 sums are reassociated).  The gradients step by bin, so
+    the gains of the chosen splits stand far apart."""
+    from lightgbm_tpu_torch.ops import histogram_kernel as hk
+    from lightgbm_tpu_torch.ops.grow import KERNEL_SCAN_ROWS, grow_tree_label
+    n, F, B = (1 << 24) + (1 << 20), 2, 15
+    assert n >= KERNEL_SCAN_ROWS
+    rng = np.random.RandomState(24)
+    b0 = np.where(rng.rand(n) < 0.97, 0, rng.randint(1, B, n))
+    b1 = rng.randint(0, B, n)
+    big = int((b0 == 0).sum())
+    assert big > 1 << 24
+    bins = torch.from_numpy(np.stack([b0, b1], 1).astype(np.uint8))
+    step = rng.randn(2, B) * 2
+    grad = torch.from_numpy((step[0, b0] + step[1, b1] + 0.1 * rng.randn(n))
+                            .astype(np.float32))
+    hess = torch.from_numpy((rng.rand(n) * 0.5 + 0.5).astype(np.float32))
+    bins_d, grad_d, hess_d = bins.to(dev), grad.to(dev), hess.to(dev)
+    zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+    leaf0 = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = hk.leaf_histogram(bins_d, grad_d, hess_d, zeros, leaf0, B,
+                            hk.row_list(n, dev))
+    want = hk.leaf_histogram_plain(bins_d, grad_d, hess_d, zeros, leaf0, B)
+    scale = hk.leaf_histogram_plain(bins_d, grad_d.abs(), hess_d, zeros,
+                                    leaf0, B)
+    del zeros
+    faults = []
+    cnt_k, cnt_p = got[..., 2].cpu(), want[..., 2].cpu()
+    # an f32 count word holds no odd count past 2^24: the plain version
+    # rounds the exact count once, K7's blocks add their exact counts with
+    # f32 atomics, each add past 2^24 rounding (ROADMAP queue 3); every
+    # other bin's count is exact on both
+    exact = torch.from_numpy(np.stack([
+        np.bincount(b0, minlength=B), np.bincount(b1, minlength=B)]))
+    past = exact >= 1 << 24
+    assert int(past.sum()) == 1 and bool(past[0, 0])
+    if not torch.equal(cnt_k[~past], cnt_p[~past]):
+        faults.append("K7 root counts below 2^24 differ")
+    if float(cnt_p[0, 0]) != float(np.float32(big)):
+        faults.append("plain count %r, exact %d" % (float(cnt_p[0, 0]), big))
+    if abs(float(cnt_k[0, 0]) - big) > hk.LEAF_HIST_BLOCKS:
+        faults.append("K7 count %r, exact %d" % (float(cnt_k[0, 0]), big))
+    rel = float(((got - want).abs()[..., :2] / scale[..., :2].clamp_min(
+        1e-30)).max())
+    if rel > 1e-5:
+        faults.append("K7 root g/h: error %.3g of the |value| sums" % rel)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        nb = torch.full((F,), B, dtype=torch.int32, device=d)
+        z = torch.zeros(F, dtype=torch.int32, device=d)
+        tree, ids = grow_tree_label(
+            bins.to(d), grad.to(d), hess.to(d),
+            torch.zeros(n, dtype=torch.int32, device=d),
+            torch.ones(F, dtype=torch.bool, device=d), nb, z, z,
+            SplitParams(min_data_in_leaf=20), max_leaves=7, max_bin=B,
+            hist_impl="pallas")
+        out.append((tree, ids.cpu()))
+    (tk, ik), (tp, ip) = out
+    nl = int(tp.num_leaves)
+    if int(tk.num_leaves) != nl:
+        faults.append("leaves: card %d, CPU %d" % (int(tk.num_leaves), nl))
+    for name in ("split_feature", "threshold_bin", "default_left",
+                 "leaf_count"):
+        a, b = getattr(tk, name).cpu(), getattr(tp, name)
+        if not torch.equal(a, b):
+            faults.append("%s: card %s, CPU %s" % (name, a.tolist(),
+                                                   b.tolist()))
+    if not torch.equal(ik, ip):
+        faults.append("%d rows in other leaves" % int((ik != ip).sum()))
+    lv_k, lv_p = tk.leaf_value.cpu()[:nl], tp.leaf_value[:nl]
+    if not torch.allclose(lv_k, lv_p, rtol=1e-4, atol=0.0):
+        faults.append("leaf values: card %s, CPU %s" % (lv_k.tolist(),
+                                                        lv_p.tolist()))
+    assert nl == 7
+    assert not faults, "; ".join(faults)
 
 
 @pytest.mark.parametrize("quantized", [False, True])

@@ -41,7 +41,7 @@ def _arena(bins, cap=None):
 
 
 def _grow_port(c, params, max_leaves, max_depth=-1, monotone=None,
-               penalty=None, cap=None, emit="leaf_ids"):
+               penalty=None, cap=None, emit="leaf_ids", **kw):
     F = c["bins"].shape[1]
     arena = _arena(c["bins"], cap)
 
@@ -52,7 +52,7 @@ def _grow_port(c, params, max_leaves, max_depth=-1, monotone=None,
         torch.ones(F, dtype=torch.bool), t(c["nb"]), t(c["db"]), t(c["mt"]),
         SplitParams(**params), t(monotone), t(penalty, torch.float32),
         max_leaves=max_leaves, max_depth=max_depth, max_bin=c["B"],
-        emit=emit)
+        emit=emit, **kw)
     return tree, leaf_ids.numpy(), bool(truncated)
 
 
@@ -133,8 +133,14 @@ def test_score_emit_is_leaf_value_per_row():
     c = _case(6)
     params = dict(min_data_in_leaf=10)
     tree, ids, _ = _grow_port(c, params, 15)
-    _, score, _ = _grow_port(c, params, 15, emit="score")
-    np.testing.assert_array_equal(score, tree.leaf_value.numpy()[ids])
+    n = len(c["grad"])
+    score0 = np.random.RandomState(3).randn(n).astype(np.float32)
+    score = torch.from_numpy(score0.copy())
+    _, got, _ = _grow_port(c, params, 15, emit="score", score=score,
+                           shrinkage=0.1)
+    assert got is not None and np.shares_memory(got, score.numpy())
+    lv = tree.leaf_value.numpy()[ids]
+    np.testing.assert_array_equal(got, score0 + lv * np.float32(0.1))
 
 
 def test_arena_truncation_flag():
