@@ -51,8 +51,14 @@
    holdout AUC must reach 0.75, each quantized run's must be within 0.02
    of its f32 run's and each label run's within 0.02 of the valid-set f32
    run's, and each run's within 0.002 of the last accepted run of this
-   script (AUC_BEFORE); after each carried, bagged and label run, one more
-   round runs under torch.profiler for the device time by kernel;
+   script (AUC_BEFORE); every round after a run's first must be one CUDA
+   graph replay (one graph a run, two on the carried arena, one for each
+   root slot), and the fused runs (carried and weighted) must fetch their
+   trees only at drains, the eager runs one a round; each run prints its
+   graphs' node counts and capture-and-instantiate seconds, its drains and
+   fetches, and the ms a round of three more replayed rounds; then one
+   more replayed round, its drain included, runs under torch.profiler for
+   the device time by kernel and the idle share;
 6. prints one JSON line of training results and one of per-kernel results,
    then the device line {"ok": true, "device": {...}} as the last line.
 
@@ -185,13 +191,14 @@ def path_kernels(path: str) -> tuple:
         return ("leaf_histogram", "split_scan"), PARTITION_KERNELS
     q = flag(path, "quantized")
     sfx = "_i8" if q else ""
-    # K4: set mode on the eager paths (leaf ids), add mode on the fused
-    # ones (the score update)
-    eager = flag(path, "bagged") or flag(path, "valid")
+    # K4: set mode on the bagged paths (leaf ids for the walk), add mode
+    # elsewhere (the score update: in the fused paths' grower, after the
+    # fetch on the valid-set path)
+    set_mode = flag(path, "bagged")
     k4 = ("scatter_segments", "scatter_segments_add")
     must = ["split_scan", "segment_histogram" + sfx, "partition_segment" + sfx,
-            k4[not eager]]
-    never = [k4[eager]]
+            k4[not set_mode]]
+    never = [k4[set_mode]]
     if flag(path, "bagged"):
         must.append("partition_segment_pred" + sfx)
         never += ["fused_root_histogram", "compact_carry" + sfx]
@@ -1002,6 +1009,7 @@ def parity_phase(dev, path: str):
             mask = bst._gbdt._bag_mask
             bags.append(None if mask is None else mask.copy())
             evals.append(bst.eval_valid())
+        bst.num_trees()                 # drains the fused paths' trees
         g = bst._gbdt
         expect(g._quantized is quantized
                and bool(g._carried_active) is carried(path),
@@ -1140,6 +1148,22 @@ def training_phase(X, Xh, yh, ds_obj, valid_obj, rounds, dev, reduced, path):
                % (path, last, holdout_auc))
         extra = ("; evals_result holdout AUC %s, best_iteration %d"
                  % (evals["holdout"]["auc"], booster.best_iteration))
+    # every round after a path's first is one graph replay; the fused
+    # paths fetch their trees only at drains, the eager path one a round
+    graphs = g._graphs.stats()
+    replays = sum(x["replays"] for x in graphs)
+    fused = not (flag(path, "bagged") or flag(path, "valid")
+                 or flag(path, "label"))
+    expect(len(graphs) == (2 if carried(path) else 1)
+           and replays == trained - 1,
+           "%s: %d graphs, %d replays in %d rounds"
+           % (path, len(graphs), replays, trained))
+    expect((g._tree_fetches, g._drains > 0) == ((0, True) if fused
+                                                 else (trained, False)),
+           "%s: %d tree fetches, %d drains in %d rounds"
+           % (path, g._tree_fetches, g._drains, trained))
+    fetches = dict(drains=g._drains, tree_fetches=g._tree_fetches)
+    replay_ms = replayed_round_ms(booster, REPLAYED_ROUNDS)
     round_ms = train_s * 1e3 / trained
     rate = len(X) * trained / train_s
     arena = "carried arena" if carried(path) else (
@@ -1153,11 +1177,42 @@ def training_phase(X, Xh, yh, ds_obj, valid_obj, rounds, dev, reduced, path):
           % (path, arena, len(X), " (cut by --rows)" if reduced else "",
              X.shape[1], trained, leaves, train_s, round_ms, rate,
              peak / 1e9, holdout_auc, len(Xh), predict_s, extra))
+    print("  graphs (%s): %d captured, %d replays in training; nodes %s; "
+          "capture and instantiate %s s; %d drains, %d tree fetches; "
+          "%.1f ms a replayed round (%d more rounds, host clock, ending in "
+          "a drain and a synchronize)"
+          % (path, len(graphs), replays, [x["nodes"] for x in graphs],
+             ["%.3f" % x["capture_s"] for x in graphs], fetches["drains"],
+             fetches["tree_fetches"], replay_ms, REPLAYED_ROUNDS))
     return booster, launches, dict(
         train_s=train_s, round_ms=round_ms, rows_rounds_per_s=rate,
         peak_bytes=peak, holdout_auc=holdout_auc, leaves=leaves,
         predict_s=predict_s, rows=len(X), launches=launches,
-        evals_result=evals or None, best_iteration=booster.best_iteration)
+        evals_result=evals or None, best_iteration=booster.best_iteration,
+        graphs=graphs, replay_round_ms=replay_ms, **fetches)
+
+
+REPLAYED_ROUNDS = 3
+
+
+def replayed_round_ms(booster, rounds: int) -> float:
+    """Host ms a round over `rounds` more rounds of a trained booster, every
+    one a graph replay, from a synchronized card to the drain and
+    synchronize after the last."""
+    import torch
+    g = booster._gbdt
+    g._sync_model()
+    torch.cuda.synchronize()
+    before = sum(x["replays"] for x in g._graphs.stats())
+    t = time.perf_counter()
+    for _ in range(rounds):
+        booster.update()
+    g._sync_model()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / rounds
+    expect(sum(x["replays"] for x in g._graphs.stats()) == before + rounds,
+           "a timed round did not replay its graph")
+    return ms
 
 
 # aten operations that launch nothing: views, aliases, no-op conversions
@@ -1169,22 +1224,51 @@ NO_WORK_OPS = frozenset((
 
 
 def profile_round(booster, what: str, rows: int = None) -> dict:
-    """One more boosting round under torch.profiler: its wall time, the
-    device time of every kernel by name, and the device's idle share; with
-    rows, also the PyTorch operations of the round over `rows` elements
-    (the innermost aten operations with an input of that many elements,
-    views and no-op conversions left out: each one a launch over the
-    rows), counted by name."""
+    """One more boosting round under torch.profiler, a graph replay with the
+    drain of its tree at its end: its wall time, the device time of every
+    kernel by name, and the device's idle share.  With rows, also the
+    PyTorch operations of a round over `rows` elements (the innermost aten
+    operations with an input of that many elements, views and no-op
+    conversions left out: each one a launch over the rows), counted by
+    name from a capture of the round: the booster's graphs are dropped
+    first, one round captures anew under a profiler of the host, and the
+    carried path's other slot captures too before the profiled round.  A
+    package without graphs (an older checkout) has its profiled round's
+    operations counted."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    g = booster._gbdt
+    graphs = getattr(g, "_graphs", None)
+    sync = getattr(g, "_sync_model", lambda: None)
+    over = None
+    if rows is not None and graphs is not None:
+        graphs.reset()
+        with profile(activities=[ProfilerActivity.CPU],
+                     record_shapes=True) as prof:
+            booster.update()
+        over = ops_over_rows(prof, rows)
+        while True:
+            held = len(graphs.graphs)
+            booster.update()
+            if len(graphs.graphs) == held:
+                break
+    sync()
     torch.cuda.synchronize()
+    replays = (None if graphs is None else
+               sum(x["replays"] for x in graphs.stats()))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=rows is not None) as prof:
+                 record_shapes=rows is not None and graphs is None) as prof:
         t = time.perf_counter()
         booster.update()
+        sync()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+    if graphs is not None:
+        expect(sum(x["replays"] for x in graphs.stats()) == replays + 1
+               and len(graphs.graphs) == (2 if g._carried_active else 1),
+               "profile (%s): the profiled round did not replay its graph"
+               % what)
     by_name = {}
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -1204,27 +1288,22 @@ def profile_round(booster, what: str, rows: int = None) -> dict:
             k["ms"] += ms
             k["launches"] += cnt
     if rows is not None:
-        over = {}
-        for ev in prof.events():
-            if (ev.device_type == torch.autograd.DeviceType.CPU
-                    and ev.name.startswith("aten::")
-                    and ev.name[6:] not in NO_WORK_OPS
-                    and not any(c.name.startswith("aten::")
-                                for c in ev.cpu_children)
-                    and any(int(np.prod(sh)) == rows and len(sh) > 0
-                            for sh in ev.input_shapes or ())):
-                over[ev.name] = over.get(ev.name, 0) + 1
-        print("  operations over the %d rows (innermost aten, by name): %s"
-              % (rows, ", ".join("%s %d" % kv for kv in sorted(over.items()))
-                 or "none"))
+        if over is None:
+            over = ops_over_rows(prof, rows)
+        print("  operations over the %d rows (innermost aten, by name%s): "
+              "%s" % (rows, "" if graphs is None else ", from a capture",
+                      ", ".join("%s %d" % kv for kv in sorted(over.items()))
+                      or "none"))
     out = {} if rows is None else dict(ops_over_rows=over)
     if not by_name:
         print("profile (%s): the profiler saw no device events; device time "
               "not measured" % what)
         return dict(out, wall_ms=wall_ms, device_ms=None, idle_share=None)
-    print("profile of one %s round (profiler on): wall %.1f ms, device busy "
-          "%.1f ms, idle share %.3f, %d device launches"
-          % (what, wall_ms, busy_ms, 1 - busy_ms / wall_ms,
+    print("profile of one %s round (%s, profiler on): wall %.1f ms, device "
+          "busy %.1f ms, idle share %.3f, %d device launches"
+          % (what, "eager" if graphs is None else
+             "a graph replay, the drain of its tree included", wall_ms,
+             busy_ms, 1 - busy_ms / wall_ms,
              sum(c for _, c in by_name.values())))
     for name, (ms, cnt) in top:
         print("  %9.3f ms %6d x  %s" % (ms, cnt, name[:90]))
@@ -1237,6 +1316,23 @@ def profile_round(booster, what: str, rows: int = None) -> dict:
                by_kernel=by_kernel,
                top=[dict(name=n[:90], ms=ms, count=c) for n, (ms, c) in top])
     return out
+
+
+def ops_over_rows(prof, rows: int) -> dict:
+    """The innermost aten operations of a host profile with an input of
+    `rows` elements, views and no-op conversions left out, by name."""
+    import torch
+    over = {}
+    for ev in prof.events():
+        if (ev.device_type == torch.autograd.DeviceType.CPU
+                and ev.name.startswith("aten::")
+                and ev.name[6:] not in NO_WORK_OPS
+                and not any(c.name.startswith("aten::")
+                            for c in ev.cpu_children)
+                and any(int(np.prod(sh)) == rows and len(sh) > 0
+                        for sh in ev.input_shapes or ())):
+            over[ev.name] = over.get(ev.name, 0) + 1
+    return over
 
 
 def main(argv=None) -> int:
@@ -1291,8 +1387,7 @@ def main(argv=None) -> int:
         booster, launches[path], train[path] = training_phase(
             X, Xh, yh, ds_obj, valid_obj, args.rounds, dev,
             args.rows != ROWS, path)
-        if carried(path) or flag(path, "bagged") or flag(path, "label"):
-            train[path]["profile"] = profile_round(booster, path)
+        train[path]["profile"] = profile_round(booster, path)
         del booster
         torch.cuda.empty_cache()
     for f32 in ("f32", "weighted_f32", "bagged_f32", "valid_f32"):

@@ -148,7 +148,7 @@ class Booster:
         return self._gbdt.current_iteration
 
     def num_trees(self) -> int:
-        return len(self._gbdt.models)
+        return self._gbdt.num_trees()
 
     def eval_train(self) -> List[tuple]:
         """(dataset name, metric name, value, bigger_is_better) of each

@@ -120,6 +120,9 @@ def train(params: Dict[str, Any], train_set: Dataset,
             break
         if finished:
             break
+    # the deferred trees drained before the count (lightgbm_tpu/engine.py:
+    # 257-267): a drain may still trim trailing degenerate rounds
+    booster._gbdt._sync_model()
     if booster.best_iteration <= 0:
         booster.best_iteration = booster.num_trees()
     return booster

@@ -3,9 +3,9 @@
 Port of the k=1 subset of lightgbm_tpu/models/gbdt.py `_train_one_iter_impl`
 (:496-687): gradients on the device, optionally quantized to int8 codes
 (`tpu_quantized_grad`), one tree grown by the partition or the label
-engine, shrinkage and boost-from-average, and ONE packed host fetch per
-tree.  The model text is the reference v2 format, so models load in both
-packages.
+engine, shrinkage and boost-from-average, and the tree's host fetch:
+deferred on the fused paths, one a tree on the eager path.  The model text
+is the reference v2 format, so models load in both packages.
 
 The tree engine is chosen once, as `_setup_tree_engine` (:1209-1345) does
 for the serial learner: the partition engine (ops/grow_partition.py) where
@@ -46,6 +46,26 @@ left for good at the first that may not (:542-550); the score is kept in
 row order throughout, so leaving needs no materialization, and the eager
 tree's work region may overwrite the carry slots.
 
+On the card a round's device work, from the score to the packed tree, is
+one CUDA graph replay (ops/graphs.py; `jit` of `_build_fused_iter` in
+JAX): the gradients, the carried gather, the quantization under the
+round's key, the grower with its kernels and, on the fused paths, K4's
+score update and K6's compaction.  The round's host inputs, the feature
+mask and the quantization key, reach the graph through one device buffer
+(`_round_inp`), copied from pinned memory before each replay.  The first
+round of a path runs eagerly; the first of each graph key (the carried
+slot, the path) captures.  The CPU runs the same rounds eagerly.
+
+The fused paths defer each tree's fetch as JAX does (`_inflight`,
+:161-165, :561-572): the packed tree is copied to a pinned host buffer
+behind an event and a placeholder takes its model slot; every
+_DRAIN_EVERY rounds, and at every point that reads the model
+(`_sync_model`, :1642-1647), `_drain_inflight` (:1113-1168) unpacks the
+pending trees and rolls a degenerate stop back.  The eager path fetches
+each tree in its round: its score update needs the host tree, and its
+out-of-bag walk the tree's depth (device prediction, ROADMAP queue 1 item
+8, will walk on the device).
+
 Configurations this slice does not run raise NotImplementedError naming the
 ROADMAP.md item that will bring them; none is served by a substitute.
 """
@@ -60,18 +80,23 @@ from ..config import Config
 from ..io.dataset import BinnedDataset
 from ..metric import Metric
 from ..objective import ObjectiveFunction, create_objective
-from ..ops.grow import (TreeArrays, grow_tree_label, pack_tree_arrays,
-                        predict_leaf_inner, unpack_tree_vectors)
+from ..ops.grow import (TreeArrays, grow_tree_label, pack_tree_vector,
+                        predict_leaf_inner, unpack_tree_vector)
 from ..ops import quantize as qz
 from ..ops import threefry
+from ..ops.graphs import RoundGraphs
 from ..ops.grow_partition import grow_tree_partition
 from ..ops.partition_kernel import (TILE, Arena, arena_bytes, init_pristine,
-                                    pristine_work0)
+                                    pristine_work0, scatter_segments)
 from ..ops.split import SplitParams
+from ..ops.split_kernel import params_vector
 from ..utils import log
 from .tree import K_CATEGORICAL_MASK, K_DEFAULT_LEFT_MASK, Tree
 
 K_EPSILON = 1e-15
+# rounds between bulk fetches of the fused paths' deferred trees
+# (lightgbm_tpu/models/gbdt.py:40)
+_DRAIN_EVERY = 48
 
 
 class _DatasetState:
@@ -160,6 +185,15 @@ class GBDT:
         # None until the first iteration that may run the carried arena
         # decides (gbdt.py:548-551); False for good once it is left
         self._carried_active: Optional[bool] = None
+        # the deferred pipeline (gbdt.py:161-165): pending fused rounds,
+        # the stop a drain found, and the fetches made
+        self._inflight: List[dict] = []
+        self._deferred_stopped = False
+        self._drains = 0
+        self._tree_fetches = 0
+        # pinned host buffers on the card, one per pending round: its
+        # inputs, its packed tree and the event of the tree's copy
+        self._ring: List[dict] = []
         if train_set is not None:
             self._setup_train(train_set)
 
@@ -209,6 +243,14 @@ class GBDT:
                 np.asarray(ds.metadata.init_score, np.float32).reshape(-1),
                 device=dev)
         self.max_leaves = L
+        self._pvec = params_vector(self.split_params, dev)
+        self._shrink_f32 = torch.tensor(self.shrinkage_rate,
+                                        dtype=torch.float32, device=dev)
+        # the round's host inputs on the device: the quantization key's two
+        # words, then the feature mask (ops/graphs.py's static inputs)
+        self._round_inp = torch.zeros(2 + ds.num_features, dtype=torch.int64,
+                                      device=dev)
+        self._graphs = RoundGraphs(dev)
         self._setup_tree_engine()
         self._quantized = bool(cfg.tpu_quantized_grad
                                and self._use_partition_engine)
@@ -277,7 +319,7 @@ class GBDT:
         a.rid[s0:s0 + n] = a.rid[:n]
 
     # ------------------------------------------------------------------ #
-    def _feature_sample(self) -> torch.Tensor:
+    def _feature_sample(self) -> np.ndarray:
         frac = self.config.feature_fraction
         F = self.train_set.num_features
         mask = np.ones(F, bool)
@@ -286,7 +328,57 @@ class GBDT:
             idx = self._feat_rng.choice(F, used, replace=False)
             mask = np.zeros(F, bool)
             mask[idx] = True
-        return torch.as_tensor(mask, device=self.device)
+        return mask
+
+    def _slot(self, i: int) -> Optional[dict]:
+        """The pinned ring slot of the i-th pending round on the card
+        (None on the CPU); a drain, which waits on every pending copy,
+        frees them all."""
+        if self.device.type != "cuda":
+            return None
+        while len(self._ring) <= i:
+            self._ring.append(dict(
+                inp=torch.empty(self._round_inp.shape, dtype=torch.int64,
+                                pin_memory=True),
+                out=None, event=torch.cuda.Event()))
+        return self._ring[i]
+
+    def _stage_inputs(self, slot: Optional[dict], key) -> None:
+        """The round's feature mask and quantization key into
+        `_round_inp`, through the slot's pinned buffer on the card."""
+        vals = np.zeros(self._round_inp.shape[0], np.int64)
+        if key is not None:
+            vals[:2] = key
+        vals[2:] = self._feature_sample()
+        if slot is None:
+            self._round_inp.copy_(torch.from_numpy(vals))
+            return
+        slot["inp"].numpy()[:] = vals
+        self._round_inp.copy_(slot["inp"], non_blocking=True)
+
+    def _to_host(self, packed: torch.Tensor, slot: Optional[dict]):
+        """Start the packed tree's copy to the host: (host tensor, event
+        to wait on).  On the CPU the round's own output is the host
+        tensor, with no event."""
+        if slot is None:
+            return packed, None
+        if slot["out"] is None:
+            slot["out"] = torch.empty(packed.shape, dtype=packed.dtype,
+                                      pin_memory=True)
+        slot["out"].copy_(packed, non_blocking=True)
+        slot["event"].record()
+        return slot["out"], slot["event"]
+
+    def _unpack(self, host: torch.Tensor) -> TreeArrays:
+        """A fetched packed tree as host TreeArrays; warns once when the
+        arena truncated it."""
+        arrays, truncated = unpack_tree_vector(host.numpy(), self.max_leaves)
+        if truncated and not self._truncation_warned:
+            self._truncation_warned = True
+            log.warning("Tree growth truncated at %d leaves by partition-"
+                        "arena overflow; raise tpu_arena_factor",
+                        int(arrays.num_leaves))
+        return arrays
 
     def _boost_from_average(self) -> float:
         if self.models or self.train_set.metadata.init_score is not None:
@@ -309,7 +401,8 @@ class GBDT:
         """gbdt.py:419-433: every bagging_freq iterations a new bag of
         int(bagging_fraction * n) rows drawn without replacement by the
         booster's one RandomState; between draws the bag persists.  Returns
-        the in-bag predicate (uint8 [n] on the device), or None without
+        the in-bag predicate (uint8 [n] on the device, one buffer that each
+        draw rewrites: a graph's static input), or None without
         bagging."""
         cfg = self.config
         n = self.num_data
@@ -320,8 +413,11 @@ class GBDT:
             mask = np.full(n, -1, np.int32)
             mask[idx] = 0
             self._bag_mask = mask
-            self._bag_pred = torch.as_tensor((mask == 0).astype(np.uint8),
+            pred = torch.from_numpy((mask == 0).astype(np.uint8))
+            if self._bag_pred is None:
+                self._bag_pred = torch.empty(n, dtype=torch.uint8,
                                              device=self.device)
+            self._bag_pred.copy_(pred)
             self._bag_count = bag_cnt
         elif cfg.bagging_freq <= 0 or cfg.bagging_fraction >= 1.0:
             self._bag_mask = self._bag_pred = self._bag_count = None
@@ -329,7 +425,14 @@ class GBDT:
 
     def train_one_iter(self) -> bool:
         """One boosting round; True when training cannot continue (no leaf
-        meets the split requirements)."""
+        meets the split requirements).  On the fused paths that is known
+        when the round's tree is drained, so a later call returns True and
+        the drain rolls the rounds from the degenerate one on back
+        (gbdt.py:504-510)."""
+        if len(self._inflight) >= _DRAIN_EVERY:
+            self._sync_model()
+        if self._deferred_stopped:
+            return True
         init_score = self._boost_from_average()
         cfg = self.config
         if not self.objective.class_need_train(0):
@@ -355,92 +458,118 @@ class GBDT:
             self._carried_active = self._carried_ok()
             if self._carried_active:
                 self._init_carried()
+        key = None
+        if self._quantized:
+            # the iteration's key: unfolded on the carried path, whose noise
+            # follows arena positions (gbdt.py:947-951, :1000), and on the
+            # eager path (:1383-1388); folded with the class on the
+            # non-carried fused path (:755-756, :802)
+            key = qz.quantize_key(self._quant_seed, self.iter)
+            if fused_ok and not self._carried_active:
+                key = threefry.fold_in(key, 0)
+        slot = self._slot(len(self._inflight))
+        self._stage_inputs(slot, key)
+        if fused_ok:
+            return self._fused_iter(slot, init_score)
+        return self._eager_iter(slot, init_score, deferred_ok)
+
+    def _round(self, parity: Optional[int], emit: str, bagged: bool):
+        """A round's device work from the score to the packed tree: the
+        function ops/graphs.py captures.  The objective's gradients, on a
+        carried root gathered into its slot's order (JAX computes the same
+        elementwise gradients from its carried score planes, gbdt.py:
+        931-939), quantized under the key in `_round_inp`, and one tree
+        grown under the feature mask there by the booster's engine.  The
+        label engine grows over the bag mask (0 in the bag, -1 out) and
+        never truncates.  Returns (packed tree, the grower's `out`, the
+        tree's device arrays...)."""
+        cfg = self.config
+        n = self.num_data
+        dev = self.device
+        inp = self._round_inp
+        mask = inp[2:] != 0
         grad, hess = self.objective.get_gradients(self.score)
         grad, hess = grad.to(torch.float32), hess.to(torch.float32)
-        if fused_ok:
-            return self._fused_iter(grad, hess, init_score)
-        return self._eager_iter(grad, hess, init_score, deferred_ok)
-
-    def _grow(self, grad, hess, emit: str, in_bag=None, **kw):
-        """One tree by the booster's engine: (TreeArrays, per-row output,
-        truncation flag).  The label engine emits leaf ids over the bag
-        mask (0 in the bag, -1 out) and never truncates."""
-        cfg = self.config
+        common = dict(max_leaves=self.max_leaves, max_depth=cfg.max_depth,
+                      max_bin=self.max_bin, pvec=self._pvec)
         if not self._use_partition_engine:
-            n = self.num_data
-            row_init = (torch.zeros(n, dtype=torch.int32, device=self.device)
-                        if in_bag is None else in_bag.to(torch.int32) - 1)
-            tree, leaf_ids = grow_tree_label(
-                self.train_set.device_bins(self.device), grad, hess,
-                row_init, self._feature_sample(), self.num_bins,
+            row_init = (self._bag_pred.to(torch.int32) - 1 if bagged else
+                        torch.zeros(n, dtype=torch.int32, device=dev))
+            tree, out = grow_tree_label(
+                self.train_set.device_bins(dev), grad, hess, row_init, mask,
+                self.num_bins, self.default_bins, self.missing_types,
+                self.split_params, self.monotone, self.penalty,
+                hist_impl=cfg.tpu_histogram_impl, **common)
+            truncated = torch.zeros((), dtype=torch.bool, device=dev)
+        else:
+            kw = {}
+            if parity is not None:
+                root0 = self._carry_slots[parity]
+                rid = self.arena.rid[root0:root0 + n].long()
+                grad, hess = grad[rid], hess[rid]
+                kw.update(carried_root=root0,
+                          carried_bump0=self._carry_bump0,
+                          carry_dst=self._carry_slots[1 - parity])
+            if self._quantized:
+                grad, hess, g_scale, h_scale = qz.quantize_gradients(
+                    grad, hess, inp[:2])
+                kw["quant_scales"] = (g_scale, h_scale)
+            if emit == "score":
+                kw.update(score=self.score, shrinkage=self.shrinkage_rate)
+            if bagged:
+                kw["in_bag"] = self._bag_pred
+            tree, out, truncated = grow_tree_partition(
+                self.arena, grad, hess, mask, self.num_bins,
                 self.default_bins, self.missing_types, self.split_params,
-                self.monotone, self.penalty, max_leaves=self.max_leaves,
-                max_depth=cfg.max_depth, max_bin=self.max_bin,
-                hist_impl=cfg.tpu_histogram_impl)
-            return tree, leaf_ids, torch.zeros((), dtype=torch.bool,
-                                               device=self.device)
-        if in_bag is not None:
-            kw["in_bag"] = in_bag
-        return grow_tree_partition(
-            self.arena, grad, hess,
-            self._feature_sample(), self.num_bins, self.default_bins,
-            self.missing_types, self.split_params, self.monotone,
-            self.penalty, max_leaves=self.max_leaves,
-            max_depth=cfg.max_depth, max_bin=self.max_bin, emit=emit, **kw)
+                self.monotone, self.penalty, emit=emit, **kw, **common)
+        return (pack_tree_vector(tree, truncated), out) + tuple(tree)
 
-    def _fused_iter(self, grad, hess, init_score: float) -> bool:
-        """The fused paths' iteration (gbdt.py:719-1016): every row in the
-        bag, the score updated by the grower's K4 in add mode."""
-        kw = {}
-        if self._carried_active:
-            p = self._carry_parity
-            root0 = self._carry_slots[p]
-            # the carried root's order: JAX computes the same elementwise
-            # gradients from its carried score planes (gbdt.py:931-939)
-            rid = self.arena.rid[root0:root0 + self.num_data].long()
-            grad, hess = grad[rid], hess[rid]
-            kw = dict(carried_root=root0, carried_bump0=self._carry_bump0,
-                      carry_dst=self._carry_slots[1 - p])
-        if self._quantized:
-            # the carried path draws its noise by arena position under the
-            # iteration's key (gbdt.py:947-951, :1000); the non-carried one
-            # by row under the key folded with the class (:755-756, :802)
-            key = qz.quantize_key(self._quant_seed, self.iter)
-            if not self._carried_active:
-                key = threefry.fold_in(key, 0)
-            grad, hess, g_scale, h_scale = qz.quantize_gradients(grad, hess,
-                                                                 key)
-            kw["quant_scales"] = (g_scale, h_scale)
-        # K4 adds each row's leaf value times the f32 shrinkage into the
-        # score: `score += delta * shrink` (gbdt.py:777) without the delta
-        arrays, _, truncated = self._grow(
-            grad, hess, "score", score=self.score,
-            shrinkage=self.shrinkage_rate, **kw)
-        if self._carried_active:
+    def _run_round(self, parity: Optional[int], emit: str, bagged: bool):
+        """`_round` through the booster's graphs: (packed tree, out, device
+        TreeArrays), all the graph's own until the next round."""
+        cfg = self.config
+        key = (self._use_partition_engine, parity, emit, bagged,
+               self._quantized, self.max_leaves, cfg.max_depth, self.max_bin,
+               self.num_data, self.train_set.num_features)
+        out = self._graphs.run(key, key[:1] + key[2:],
+                               lambda: self._round(parity, emit, bagged))
+        return out[0], out[1], TreeArrays(*out[2:])
+
+    def _fused_iter(self, slot, init_score: float) -> bool:
+        """The fused paths' iteration (gbdt.py:719-1016, :561-572): every
+        row in the bag, the score updated by the grower's K4 in add mode
+        (`score += delta * shrink`, :777, without the delta), the tree's
+        fetch deferred."""
+        p = self._carry_parity if self._carried_active else None
+        packed, _, _ = self._run_round(p, "score", False)
+        if p is not None:
             self._carry_parity = 1 - p
-        host_arrays = self._fetch_tree(arrays, truncated)
-        if int(host_arrays.num_leaves) <= 1:
-            return self._degenerate(init_score)
-        new_tree = Tree.from_arrays(host_arrays, self.train_set)
-        new_tree.shrink(self.shrinkage_rate)
-        return self._append(new_tree, init_score)
+        host, event = self._to_host(packed, slot)
+        self.models.append(None)            # placeholder; drained later
+        self._inflight.append(dict(host=host, event=event, it=self.iter,
+                                   init_score=init_score,
+                                   slot=len(self.models) - 1))
+        self.iter += 1
+        return False
 
-    def _eager_iter(self, grad, hess, init_score: float,
-                    deferred_ok: bool) -> bool:
+    def _eager_iter(self, slot, init_score: float, deferred_ok: bool) -> bool:
         """The eager path's iteration (gbdt.py:593-687, growing through
-        `_grow_one_tree`, :1372-1417): the bag, the pristine root, per-row
-        leaf ids (-1 out of the bag), and the score updates."""
+        `_grow_one_tree`, :1372-1417): the bag, the pristine root, the
+        tree fetched in its round, and the score updates.  Without a bag
+        the partition engine leaves its leaves' segments and K4's add mode
+        adds every row's value in one launch (ROADMAP queue 1, item 7c);
+        with one, per-row leaf ids (-1 out of the bag) and the out-of-bag
+        rows' walk."""
         in_bag = self._bagging(self.iter)
-        kw = {}
-        if self._quantized:
-            # the iteration's key unfolded, noise and scales over all n rows
-            # in row order, out-of-bag rows included (gbdt.py:1383-1388)
-            grad, hess, g_scale, h_scale = qz.quantize_gradients(
-                grad, hess, qz.quantize_key(self._quant_seed, self.iter))
-            kw["quant_scales"] = (g_scale, h_scale)
-        arrays, leaf_ids, truncated = self._grow(grad, hess, "leaf_ids",
-                                                 in_bag=in_bag, **kw)
-        host_arrays = self._fetch_tree(arrays, truncated)
+        bagged = in_bag is not None
+        segments = self._use_partition_engine and not bagged
+        packed, out, arrays = self._run_round(
+            None, "segments" if segments else "leaf_ids", bagged)
+        host, event = self._to_host(packed, slot)
+        if event is not None:
+            event.synchronize()
+        self._tree_fetches += 1
+        host_arrays = self._unpack(host)
         nl = int(host_arrays.num_leaves)
         if nl <= 1:
             return self._degenerate(init_score)
@@ -448,42 +577,30 @@ class GBDT:
         if deferred_ok:
             # gbdt.py:1103 (deferred): the device tree's f32 leaf values
             # times the f32 shrinkage
-            lv = arrays.leaf_value * torch.tensor(self.shrinkage_rate,
-                                                  dtype=torch.float32)
+            lv = arrays.leaf_value * self._shrink_f32
         new_tree.shrink(self.shrinkage_rate)
         if not deferred_ok:
             # gbdt.py:1623: the host tree's f64-shrunk values, cast to f32
-            lv = torch.as_tensor(new_tree.leaf_value[:nl].astype(np.float32),
-                                 device=self.device)
-        if in_bag is not None:
-            # out-of-bag rows by the binned walk (gbdt.py:1104-1109)
-            walked = predict_leaf_inner(
-                self.train_set.device_bins(self.device), arrays,
-                self.num_bins, self.default_bins,
-                depth=int(host_arrays.leaf_depth[:nl].max()))
-            leaf_ids = torch.where(leaf_ids >= 0, leaf_ids, walked)
-        self.score += lv[leaf_ids.clamp(0, nl - 1).long()]
+            host_lv = np.zeros(self.max_leaves, np.float32)
+            host_lv[:nl] = new_tree.leaf_value[:nl]
+            lv = torch.as_tensor(host_lv, device=self.device)
+        if segments:
+            # s = 1 adds each value exactly as `score += lv[leaf_ids]`
+            scatter_segments(self.arena, out, lv, arrays.num_leaves.view(1),
+                             self.score, shrink=1.0)
+        else:
+            leaf_ids = out
+            if bagged:
+                # out-of-bag rows by the binned walk (gbdt.py:1104-1109)
+                walked = predict_leaf_inner(
+                    self.train_set.device_bins(self.device), arrays,
+                    self.num_bins, self.default_bins,
+                    depth=int(host_arrays.leaf_depth[:nl].max()))
+                leaf_ids = torch.where(leaf_ids >= 0, leaf_ids, walked)
+            self.score += lv[leaf_ids.clamp(0, nl - 1).long()]
         for _, vs, _m in self.valid_states:
             self._add_tree_score(vs, new_tree)
         return self._append(new_tree, init_score)
-
-    def _fetch_tree(self, arrays: TreeArrays,
-                    truncated: torch.Tensor) -> TreeArrays:
-        """The one host fetch of a tree (ints and f32 are exact in f64),
-        with the arena-truncation flag riding it; warns once on
-        truncation."""
-        ivec, fvec = pack_tree_arrays(arrays)
-        ivec = torch.cat([ivec, truncated.to(torch.int32).view(1)])
-        host = torch.cat([ivec.double(), fvec.double()]).cpu().numpy()
-        ivec_h, fvec_h = host[:ivec.shape[0]], host[ivec.shape[0]:]
-        host_arrays = unpack_tree_vectors(ivec_h, fvec_h.astype(np.float32),
-                                          self.max_leaves, 0)
-        if ivec_h[-1] and not self._truncation_warned:
-            self._truncation_warned = True
-            log.warning("Tree growth truncated at %d leaves by partition-"
-                        "arena overflow; raise tpu_arena_factor",
-                        int(host_arrays.num_leaves))
-        return host_arrays
 
     def _append(self, tree: Tree, init_score: float) -> bool:
         if abs(init_score) > K_EPSILON:
@@ -503,6 +620,52 @@ class GBDT:
                     "meet the split requirements")
         return True
 
+    def _drain_inflight(self) -> bool:
+        """Materialize the pending fused rounds' trees (gbdt.py:1113-1168):
+        unpack each, shrink it and add its bias.  True when a drained round
+        was degenerate: it and every later pending round are removed and
+        the iteration count rolled back to it, as the eager stop leaves
+        them; a degenerate first round keeps the prior as a constant tree.
+        The score needs no undo: K4 added a one-leaf tree's zero leaf
+        value, so the rounds after it trained on the same score.  (Under
+        quantized gradients a later round's other noise may still grow a
+        tree, whose score update then stays: training has stopped, and the
+        fused paths' score is read by nothing but further training.)"""
+        if not self._inflight:
+            return False
+        pending, self._inflight = self._inflight, []
+        self._drains += 1
+        for ent in pending:
+            if ent["event"] is not None:
+                ent["event"].synchronize()
+        for ent in pending:
+            host_arrays = self._unpack(ent["host"])
+            slot = ent["slot"]
+            if int(host_arrays.num_leaves) > 1:
+                tree = Tree.from_arrays(host_arrays, self.train_set)
+                tree.shrink(self.shrinkage_rate)
+                if abs(ent["init_score"]) > K_EPSILON:
+                    tree.add_bias(ent["init_score"])
+                self.models[slot] = tree
+                continue
+            if slot == 0:
+                tree = Tree(1)
+                tree.as_constant(ent["init_score"])
+                self._add_constant(ent["init_score"])
+                self.models[0] = tree
+            log.warning("Stopped training because there are no more leaves "
+                        "that meet the split requirements")
+            del self.models[max(slot, 1):]
+            self.iter = ent["it"]
+            return True
+        return False
+
+    def _sync_model(self) -> None:
+        """Drain the pending trees before the model is read
+        (gbdt.py:1642-1647); a stop found here ends training at the next
+        round."""
+        if self._drain_inflight():
+            self._deferred_stopped = True
     # ------------------------------------------------------------------ #
     # validation sets and metrics (gbdt.py:398-414, :1649-1667, :2233-2243)
     # ------------------------------------------------------------------ #
@@ -510,6 +673,7 @@ class GBDT:
                   metrics: Sequence[Metric]) -> None:
         """Attach a validation set binned with the training set's mappers;
         the model so far is replayed onto its score."""
+        self._sync_model()
         state = _DatasetState(valid_set, self.device)
         for m in metrics:
             m.init(valid_set.metadata, valid_set.num_data)
@@ -532,9 +696,11 @@ class GBDT:
         state.score += lv[leaf.long()]
 
     def eval_train(self) -> Dict[str, List[float]]:
+        self._sync_model()
         return self._eval_state(self.score, self.train_metrics)
 
     def eval_valid(self) -> Dict[str, Dict[str, List[float]]]:
+        self._sync_model()
         return {name: self._eval_state(vs.score, metrics)
                 for name, vs, metrics in self.valid_states}
 
@@ -550,6 +716,11 @@ class GBDT:
 
     @property
     def current_iteration(self) -> int:
+        self._sync_model()
+        return len(self.models)
+
+    def num_trees(self) -> int:
+        self._sync_model()
         return len(self.models)
 
     # ------------------------------------------------------------------ #
@@ -557,6 +728,7 @@ class GBDT:
                     ) -> np.ndarray:
         """Raw scores by the host walk of every tree (device prediction is
         ROADMAP.md queue 1, item 8)."""
+        self._sync_model()
         X = np.ascontiguousarray(np.asarray(X, np.float64))
         if X.ndim != 2 or X.shape[1] <= self.max_feature_idx:
             log.fatal("The number of features in data (%d) is not the same "
@@ -580,6 +752,7 @@ class GBDT:
 
     def feature_importance(self, num_iteration: int = -1) -> np.ndarray:
         """Split counts per raw feature."""
+        self._sync_model()
         imp = np.zeros(self.max_feature_idx + 1, np.float64)
         iters = len(self.models) if num_iteration <= 0 else num_iteration
         for tree in self.models[:iters]:
@@ -588,6 +761,7 @@ class GBDT:
         return imp
 
     def save_model_to_string(self, num_iteration: int = -1) -> str:
+        self._sync_model()
         ss = [self.sub_model_name, "version=v2",
               "num_class=%d" % self.num_class,
               "num_tree_per_iteration=%d" % self.num_tree_per_iteration,

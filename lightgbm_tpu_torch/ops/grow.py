@@ -96,6 +96,26 @@ def pack_tree_arrays(t: TreeArrays):
     return torch.cat(ints), torch.cat(floats)
 
 
+def pack_tree_vector(t: TreeArrays, truncated: torch.Tensor) -> torch.Tensor:
+    """One f64 device vector of a tree for one host fetch: pack_tree_arrays'
+    ints, the arena-truncation flag (a 0-d bool), then its floats (ints and
+    f32 are exact in f64)."""
+    ivec, fvec = pack_tree_arrays(t)
+    return torch.cat([ivec.double(), truncated.to(torch.float64).view(1),
+                      fvec.double()])
+
+
+def unpack_tree_vector(vec: np.ndarray, max_leaves: int):
+    """Host-side inverse of pack_tree_vector: (TreeArrays of numpy arrays,
+    truncated)."""
+    ni = sum(int(np.prod(shape)) if shape else 1
+             for name, shape, _ in _tree_field_spec(max_leaves, 0)
+             if name not in _TREE_FLOAT_FIELDS)
+    arrays = unpack_tree_vectors(vec[:ni], vec[ni + 1:].astype(np.float32),
+                                 max_leaves, 0)
+    return arrays, bool(vec[ni])
+
+
 def predict_leaf_inner(bins: torch.Tensor, tree: TreeArrays,
                        num_bins: torch.Tensor, default_bins: torch.Tensor,
                        depth: int) -> torch.Tensor:
@@ -179,9 +199,11 @@ def new_tables(max_leaves: int, device):
     bounds) and node table [L-1, 10] of an empty tree."""
     f32 = torch.float32
     leaf_mat = torch.zeros((max_leaves, 6), dtype=f32, device=device)
-    leaf_mat[:, _LP] = -1.0
-    leaf_mat[:, _LMIN] = -torch.inf
-    leaf_mat[:, _LMAX] = torch.inf
+    # fills on the device: an assignment of a Python number would copy it
+    # from the host, which a captured grower must not
+    leaf_mat[:, _LP].fill_(-1.0)
+    leaf_mat[:, _LMIN].fill_(-torch.inf)
+    leaf_mat[:, _LMAX].fill_(torch.inf)
     node_mat = torch.zeros((max(max_leaves - 1, 1), 10), dtype=f32,
                            device=device)
     return leaf_mat, node_mat
@@ -303,7 +325,8 @@ def grow_tree_label(bins: torch.Tensor, grad: torch.Tensor,
                     monotone: Optional[torch.Tensor] = None,
                     penalty: Optional[torch.Tensor] = None, *,
                     max_leaves: int, max_depth: int = -1, max_bin: int,
-                    hist_impl: str = "auto"):
+                    hist_impl: str = "auto",
+                    pvec: Optional[torch.Tensor] = None):
     """Grow one leaf-wise tree with the label engine; returns (TreeArrays
     on the bins' device, leaf_ids int32 [n]).
 
@@ -323,7 +346,10 @@ def grow_tree_label(bins: torch.Tensor, grad: torch.Tensor,
     device argmax over the split cache, the smaller child is picked on the
     device, and once no leaf has a split the `done` flag masks every later
     step back (K7 then histograms a leaf no row holds).  Leaf and node
-    counts are kept as int64, exact past 2^24 rows."""
+    counts are kept as int64, exact past 2^24 rows.  With pvec (K1's
+    vector of params, split_kernel.params_vector) nothing between the
+    inputs and the outputs reads or copies a host value, so the grower can
+    be captured into a CUDA graph (ops/graphs.py)."""
     n, F = bins.shape
     dev = bins.device
     if num_bins.shape[0] != F:
@@ -347,7 +373,8 @@ def grow_tree_label(bins: torch.Tensor, grad: torch.Tensor,
     root_h = (hess * in_bag).sum()
     root_c = in_bag.sum()
 
-    pvec = params_vector(params, dev)
+    if pvec is None:
+        pvec = params_vector(params, dev)
     fvec1 = build_feature_statics(num_bins, default_bins, missing_types,
                                   monotone=monotone, penalty=penalty,
                                   feature_mask=feature_mask, children=1)
@@ -361,7 +388,10 @@ def grow_tree_label(bins: torch.Tensor, grad: torch.Tensor,
                                 minc, maxc)
             rows = split_scan(hists, fvec2 if len(hists) == 2 else fvec1,
                               svec, pvec)[1]
-            return rows, rows[:, [_OLC, _ORC]].long()
+            # lanes by stacking: indexing by a list would copy the
+            # index from the host
+            return rows, torch.stack([rows[:, _OLC], rows[:, _ORC]],
+                                     dim=1).long()
         out = []
         for c in range(hists.shape[0]):
             mn = mx = None
@@ -441,7 +471,7 @@ def grow_tree_label(bins: torch.Tensor, grad: torch.Tensor,
         depth, min_l, max_l, min_r, max_r = record_split(
             node_mat, leaf_mat, bi, nl, row, feat, fs[0], done, mono)
 
-        sums = torch.stack([row[[_OLG, _OLH]], row[[_ORG, _ORH]]])
+        sums = torch.stack([row[_OLG:_OLH + 1], row[_ORG:_ORH + 1]])
         rows2, cnts2 = scan(torch.stack([left_hist, right_hist]), sums,
                             torch.stack([lc, rc]),
                             torch.stack([min_l, min_r]),

@@ -39,9 +39,13 @@ The JAX loop is one `lax.while_loop`; here it is a Python loop of exactly
 max_leaves-1 steps whose state lives in device tensors.  A step that cannot
 split (no positive gain, or no room) degenerates exactly as in JAX: the
 partition runs with cnt=0 and every table write is masked back, so the
-remaining steps repeat the same no-op.  No step reads a value on the host:
-the kernels read the segment and the decision from the device vector `sc`,
-and the caller syncs once per tree when it fetches the packed tree.
+remaining steps repeat the same no-op.  Nothing between the inputs and the
+outputs reads a value on the host or copies one to the device: the kernels
+read the segment and the decision from the device vector `sc`, built on
+the device, and the split parameters come in as K1's vector (`pvec`).  So
+the whole grower can be captured into a CUDA graph (ops/graphs.py), which
+the driver replays once a round; the Python values it bakes in (the arena
+columns, max_leaves, the shrinkage) are fixed per graph.
 """
 from __future__ import annotations
 
@@ -68,6 +72,16 @@ def _align(x, unit: int):
     return (x + unit - 1) // unit * unit
 
 
+def _sc_vector(head, dev) -> torch.Tensor:
+    """K3's int32 [SC_LEN] segment vector with its first words set from
+    Python ints by fills on the device (no host-to-device copy)."""
+    sc = torch.zeros(SC_LEN, dtype=torch.int32, device=dev)
+    for i, v in enumerate(head):
+        if v:
+            sc[i].fill_(v)
+    return sc
+
+
 def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
                         feature_mask: torch.Tensor, num_bins: torch.Tensor,
                         default_bins: torch.Tensor,
@@ -83,7 +97,8 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
                         carry_dst: Optional[int] = None,
                         in_bag: Optional[torch.Tensor] = None,
                         score: Optional[torch.Tensor] = None,
-                        shrinkage: Optional[float] = None):
+                        shrinkage: Optional[float] = None,
+                        pvec: Optional[torch.Tensor] = None):
     """Grow one leaf-wise tree on the arena's rows.
 
     grad and hess [n] are f32 for an f32 arena; for a quantized arena they
@@ -99,12 +114,19 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
     emit="score" needs every row in a live leaf (no in_bag): K4 adds each
     row's leaf value times the f32 value of `shrinkage` into `score` (f32
     [n], row order) in place, rounded as `score += delta * shrink` would
-    round it.
+    round it.  emit="segments" returns the leaves' segments instead, for
+    the caller's own K4 pass over the arena as the tree left it.
 
-    Returns (TreeArrays on the arena's device, out [n], truncated): out is
-    `score` (emit="score") or each row's leaf id (emit="leaf_ids", -1 for
-    rows out of the bag) in row order; truncated is a 0-d bool tensor,
-    True when the arena ran out of room."""
+    pvec is the split parameters as K1 takes them
+    (split_kernel.params_vector of params); without it the grower builds
+    it, a copy from the host that a captured grower must not make.
+
+    Returns (TreeArrays on the arena's device, out, truncated): out is
+    `score` (emit="score"), each row's leaf id in row order (emit=
+    "leaf_ids", int32 [n], -1 for rows out of the bag) or the leaves'
+    (start, count) arena segments (emit="segments", int32 [L, 2], live
+    below the tree's num_leaves); truncated is a 0-d bool tensor, True
+    when the arena ran out of room."""
     dev = arena.device
     n, G = arena.num_data, arena.num_groups
     F = num_bins.shape[0]
@@ -114,8 +136,11 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
             "item 11)")
     if n >= (1 << 24):
         raise ValueError("partition engine supports n < 2^24 rows")
-    if emit not in ("score", "leaf_ids"):
-        raise ValueError("emit must be 'score' or 'leaf_ids', got %r" % emit)
+    if emit not in ("score", "leaf_ids", "segments"):
+        raise ValueError("emit must be 'score', 'leaf_ids' or 'segments', "
+                         "got %r" % emit)
+    if emit == "segments" and in_bag is not None:
+        raise ValueError("emit='segments' needs every row in a live leaf")
     if emit == "score" and (score is None or shrinkage is None
                             or in_bag is not None):
         raise ValueError("emit='score' adds into a score with a shrinkage, "
@@ -166,8 +191,7 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
     if in_bag is not None:
         arena.payload[0, :n] = grad
         arena.payload[1, :n] = hess
-        sc0 = torch.tensor([0, n, root_s0, oob_dst] + [0] * (SC_LEN - 4),
-                           dtype=torch.int32, device=dev)
+        sc0 = _sc_vector((0, n, root_s0, oob_dst), dev)
         root_hist = partition_segment_pred(arena, sc0, in_bag, hist_stream=0,
                                            max_bin=B)
         if arena.quantized:
@@ -175,8 +199,7 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
         root_cnt = sc0[SC_CNT_A:SC_CNT_A + 1]
     else:
         root_cnt = torch.full((1,), n, dtype=torch.int32, device=dev)
-        sc0 = torch.tensor([root_s0, n] + [0] * (SC_LEN - 2),
-                           dtype=torch.int32, device=dev)
+        sc0 = _sc_vector((root_s0, n), dev)
         if arena.quantized:
             root_hist = dequantize_hist(
                 fused_refresh_histogram(arena, torch.stack([grad, hess]),
@@ -192,7 +215,8 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
                                   monotone=monotone, penalty=penalty,
                                   feature_mask=feature_mask, children=1)
     fvec2 = fvec1.repeat(2, 1)
-    pvec = params_vector(params, dev)
+    if pvec is None:
+        pvec = params_vector(params, dev)
     root_row = split_scan(root_hist.unsqueeze(0), fvec1,
                           child_vector(root_g.view(1), root_h.view(1),
                                        root_cnt_f),
@@ -203,7 +227,7 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
     leaf_mat, node_mat = new_tables(L, dev)
     leaf_mat[0, _LC] = root_cnt_f[0]
     leaf_seg = torch.zeros((L, 2), dtype=torch.int32, device=dev)
-    leaf_seg[0, 0] = root_s0
+    leaf_seg[0, 0].fill_(root_s0)
     leaf_seg[0, 1] = root_cnt[0]
     hist_cache = torch.zeros((L,) + tuple(root_hist.shape), dtype=f32,
                              device=dev)
@@ -293,7 +317,9 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
     # per-row outputs from the final segments (K4): the shrunk leaf values
     # added into the caller's score, or the leaf ids
     nl32 = nl.to(torch.int32)
-    if emit == "score":
+    if emit == "segments":
+        out = leaf_seg
+    elif emit == "score":
         out = score
         scatter_segments(arena, leaf_seg, tree.leaf_value, nl32, out,
                          shrink=shrinkage)

@@ -38,7 +38,9 @@ def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
                        key: threefry.Key):
     """(g_code, h_code, g_scale, h_scale): int8 [n] codes and 0-d f32
     scales.  u[i] is drawn for position i of the vectors given, so the
-    caller decides whether noise follows row order or arena order."""
+    caller decides whether noise follows row order or arena order.  key:
+    a pair of ints or an int64 [2] tensor on the gradients' device
+    (threefry.uniform)."""
     g = grad.to(torch.float32)
     h = hess.to(torch.float32)
     g_scale = torch.clamp_min(g.abs().max(), 1e-30) / CODE_MAX

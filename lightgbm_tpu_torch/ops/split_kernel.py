@@ -307,7 +307,7 @@ def scan_bytes_and_ops(CH: int, F: int, B: int) -> tuple:
 def no_split_row(device) -> torch.Tensor:
     """The split-cache row of a leaf with no valid split."""
     row = torch.zeros(ROW_W, dtype=torch.float32, device=device)
-    row[_OG] = NEG
-    row[_OF] = -1.0
+    row[_OG].fill_(NEG)         # fills on the device, no host copy
+    row[_OF].fill_(-1.0)
     return row
 

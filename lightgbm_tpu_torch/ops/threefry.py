@@ -15,11 +15,13 @@ split into a (high, low) pair of 32-bit words, and the two output words are
 XOR'd into one 32-bit draw.  The float is jax.random._uniform's: the top 23
 bits as the mantissa of a float in [1, 2), minus 1.
 
-A key is a (k1, k2) pair of Python ints.
+A key is a (k1, k2) pair of Python ints, or, for `uniform`, the same two
+words in an int64 [2] tensor on the device, so that a captured CUDA graph
+reads the key of each round from a buffer instead of baking it in.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
@@ -27,7 +29,7 @@ M32 = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
-Key = Tuple[int, int]
+Key = Union[Tuple[int, int], torch.Tensor]
 
 
 def _rotl(x, r: int):
@@ -64,9 +66,17 @@ def fold_in(key: Key, data: int) -> Key:
 
 def uniform(key: Key, n: int, device=None) -> torch.Tensor:
     """jax.random.uniform(key, (n,), float32) in [0, 1), bit for bit: the
-    32-bit draw of element i hashes the counter pair (0, i)."""
+    32-bit draw of element i hashes the counter pair (0, i).  key: a pair
+    of ints, or an int64 [2] tensor holding them (on the draw's device,
+    which it then sets), read by the same integer ops without a host
+    read."""
     if n >= 1 << 32:
         raise ValueError("draws of 2^32 or more values are not supported")
+    if isinstance(key, torch.Tensor):
+        if key.dtype != torch.int64 or tuple(key.shape) != (2,):
+            raise ValueError("a tensor key is int64 [2], got %s %s"
+                             % (key.dtype, tuple(key.shape)))
+        device = key.device
     lo = torch.arange(n, dtype=torch.int64, device=device)
     b1, b2 = threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
     bits = ((b1 ^ b2) >> 9) | 0x3F800000

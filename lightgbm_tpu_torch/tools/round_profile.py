@@ -9,12 +9,14 @@ each ROOT in turn, in a process of its own that imports that ROOT's
 package: `chip_smoke.py`'s Higgs-shaped data (10.5M rows by default),
 binned; then for the carried f32 and the quantized path, two rounds of
 `train` with `chip_smoke.py`'s parameters and one more round under
-torch.profiler (`chip_smoke.profile_round`): its wall time, device busy
-time, idle share and the device ms and launches of each kernel of the
-table (K1-K7), the round's PyTorch operations over the n rows by name (a
-launch each: the elementwise passes, fills and gathers outside the
-port's kernels), then one line of K1, K2, K4, K5 and K6's and the count
-of those operations.  The last line of each ROOT is one JSON object.
+torch.profiler (`chip_smoke.profile_round`; with CUDA graphs a replay
+with the drain of its tree, an older package's round eagerly): its wall
+time, device busy time, idle share and the device ms and launches of
+each kernel of the table (K1-K7), a round's PyTorch operations over the
+n rows by name (a launch each: the elementwise passes, fills and gathers
+outside the port's kernels; with graphs counted from a fresh capture of
+the round), then one line of K1, K2, K4, K5 and K6's and the count of
+those operations.  The last line of each ROOT is one JSON object.
 """
 from __future__ import annotations
 

@@ -168,7 +168,8 @@ def test_carried_truncation_matches_jax():
         tb.update()
         np.testing.assert_array_equal(_port_carried_rid(tb._gbdt, len(y)),
                                       _jax_carried_rid(jb._gbdt, len(y)))
-    jb.predict(X[:1])                       # drains JAX's pending trees
+    for b in (jb, tb):
+        b.predict(X[:1])                    # drains the pending trees
     jg, tg = jb._gbdt, tb._gbdt
     assert jg._carried_active and tg._carried_active
     assert jg._truncation_warned and tg._truncation_warned

@@ -75,7 +75,18 @@ Tolerances, per kernel:
   the whole arena;
 - K5 on both of K2's bodies (2^20 rows, a row a thread; 2^20 + 1 and
   more, the slabs), starts 0, 4096 and odd, fewer rows than codes, G = 28
-  and 40, B = 63 and 255: exact.
+  and 40, B = 63 and 255: exact;
+- the rounds as CUDA graphs (ops/graphs.py), on each of the ten training
+  paths (carried, pristine, bagged and valid-set, f32 and quantized; the
+  label engine, unbagged and bagged), five rounds at 20k rows against the
+  same booster run eagerly, with a new feature mask and quantization key
+  every round: the score, each round's tree, the carried row order and
+  the validation score bit for bit (f32 gradients rounded to dyadic
+  values, so K2's and K7's f32 atomics add them exactly); two more
+  rounds' launch counts equal the graphs' captured counts times their
+  replays, and the eager twin's; RoundGraphs on a plain function: eager
+  warm-up, capture, replays that read a rewritten input, launch counts,
+  and a capture that reads a host value raising.
 """
 import numpy as np
 import pytest
@@ -735,23 +746,26 @@ def test_fused_scores_match_the_parent_formula(weighted, quantized, dev,
     tree's K4 the live segments hold all n rows, and the score after K4's
     add mode equals the formula it replaces (a zeroed delta, K4 in set
     mode, `score += delta * torch.tensor(shrink)` on the card) bit for
-    bit."""
+    bit.  The check runs inside the rounds' CUDA graphs, so it reads no
+    value on the host: each round adds its live rows and its verdict into
+    one device tally."""
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.ops import grow_partition as gp
     X, y = _higgs_like(200_000, seed=19)
     w = (np.random.RandomState(3).rand(len(y)).astype(np.float32) + 0.5
          if weighted else None)
     real = gp.scatter_segments
-    seen = []
+    tally = torch.zeros(2, dtype=torch.int64, device=dev)
 
     def check(arena, seg, vals, nl, out, shrink=None):
         delta = torch.zeros_like(out)
         real(arena, seg, vals, nl, delta)
         want = out + delta * torch.tensor(shrink, dtype=torch.float32)
         real(arena, seg, vals, nl, out, shrink=shrink)
-        seen.append((int(seg[:int(nl[0]), 1].sum()),
-                     torch.equal(out.view(torch.int32),
-                                 want.view(torch.int32))))
+        live = torch.arange(seg.shape[0], device=out.device) < nl
+        tally.add_(torch.stack([
+            (seg[:, 1].long() * live).sum(),
+            (out.view(torch.int32) == want.view(torch.int32)).all().long()]))
     monkeypatch.setattr(gp, "scatter_segments", check)
     params = {"objective": "binary", "num_leaves": 63, "learning_rate": 0.1,
               "max_bin": 255, "min_data_in_leaf": 20, "verbose": -1,
@@ -760,7 +774,8 @@ def test_fused_scores_match_the_parent_formula(weighted, quantized, dev,
                    num_boost_round=3, device=dev)
     assert bst._gbdt._quantized is quantized
     assert bool(bst._gbdt._carried_active) is not weighted
-    assert seen == [(len(y), True)] * 3
+    assert bst.num_trees() == 3
+    assert tally.tolist() == [3 * len(y), 3]
 
 
 @pytest.mark.parametrize("quantized", [False, True])
@@ -1342,3 +1357,177 @@ def test_split_scan_two_streams(dev):
         with torch.cuda.stream(st):
             tickets = sk._tickets(dev, _cuda.stream(dev), CH)
         assert int(tickets.abs().sum()) == 0
+
+
+# --------------------------------------------------------------------------- #
+# the rounds as CUDA graphs (ops/graphs.py) against the same rounds eagerly
+# --------------------------------------------------------------------------- #
+GRAPH_PATHS = {
+    "carried_f32": {}, "carried_quantized": dict(quantized=True),
+    "pristine_f32": dict(weighted=True),
+    "pristine_quantized": dict(weighted=True, quantized=True),
+    "bagged_f32": dict(bagged=True),
+    "bagged_quantized": dict(bagged=True, quantized=True),
+    "valid_f32": dict(valid=True), "valid_quantized": dict(valid=True,
+                                                           quantized=True),
+    "label_f32": dict(label=True),
+    "label_bagged_f32": dict(label=True, bagged=True),
+}
+
+
+class _EagerRounds:
+    """A booster's graphs replaced by plain calls: the eager twin."""
+
+    def run(self, key, warm_key, fn):
+        return fn()
+
+
+def _dyadic_gradients(g):
+    """The booster's f32 gradients rounded to multiples of 1/64 and its
+    hessians to multiples of 1/64 in [1/64, 1]: every histogram sum of
+    20k rows is then exact in f32, whatever order the atomics add in."""
+    real = g.objective.get_gradients
+
+    def get(score):
+        grad, hess = real(score)
+        return (torch.round(grad * 64) / 64,
+                torch.clamp(torch.round(hess * 64), min=1) / 64)
+    g.objective.get_gradients = get
+
+
+def _graph_boosters(dev, flags):
+    import lightgbm_tpu_torch as lt
+    X, y = _higgs_like(20_000, seed=23)
+    Xv, yv = _higgs_like(5_000, seed=24)
+    w = (np.random.RandomState(3).rand(len(y)).astype(np.float32) + 0.5
+         if flags.get("weighted") else None)
+    params = {"objective": "binary", "num_leaves": 31, "learning_rate": 0.1,
+              "max_bin": 63, "min_data_in_leaf": 20, "verbose": -1,
+              "feature_fraction": 0.8,
+              "tpu_quantized_grad": bool(flags.get("quantized"))}
+    if flags.get("bagged"):
+        params.update(bagging_fraction=0.8, bagging_freq=1)
+    if flags.get("valid"):
+        params["metric"] = "auc"
+    if flags.get("label"):
+        params.update(tpu_tree_engine="label", tpu_histogram_impl="pallas")
+    out = []
+    for _ in range(2):
+        ds = lt.Dataset(X, y, weight=w, device=dev)
+        bst = lt.Booster(params, ds, device=dev)
+        if flags.get("valid"):
+            bst.add_valid(lt.Dataset(Xv, yv, reference=ds, device=dev), "v")
+        if not flags.get("quantized"):
+            _dyadic_gradients(bst._gbdt)
+        out.append(bst)
+    out[1]._gbdt._graphs = _EagerRounds()
+    return out
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("path", sorted(GRAPH_PATHS))
+def test_graph_rounds_match_eager(path, dev):
+    """Five rounds of a 31-leaf booster at 20k rows through its CUDA graphs
+    (round 1 eagerly, then a capture for each key, then replays) against
+    its twin run eagerly, with a new feature mask (feature_fraction 0.8)
+    and, quantized, a new key every round.  After every round, bit for
+    bit: the training score, the round's packed tree (the fused paths'
+    pinned copy; the eager path's host tree), the carried row order and
+    each validation score; f32 gradients dyadic, quantized ones as the
+    objective gives them.  The trees of consecutive rounds differ, so no
+    replay returned a stale tree.  Then two more rounds each: the launch
+    counts of the graph booster equal its graphs' captured counts times
+    their replays, and the eager twin's launch counts."""
+    flags = GRAPH_PATHS[path]
+    a, b = _graph_boosters(dev, flags)
+    ga, gb = a._gbdt, b._gbdt
+    fused = not any(flags.get(k) for k in ("bagged", "valid", "label"))
+    trees = []
+    for r in range(5):
+        a.update()
+        b.update()
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(ga.score), _bits(gb.score)), r
+        if fused:
+            ea, eb = ga._inflight[-1], gb._inflight[-1]
+            ea["event"].synchronize()
+            eb["event"].synchronize()
+            assert torch.equal(ea["host"], eb["host"]), r
+            trees.append(ea["host"].clone())
+        else:
+            ta, tb = ga.models[-1].to_string(), gb.models[-1].to_string()
+            assert ta == tb, r
+            trees.append(ta)
+        if ga._carried_active:
+            s = ga._carry_slots[ga._carry_parity]
+            assert ga._carry_parity == gb._carry_parity
+            rid = ga.arena.rid[s:s + ga.num_data]
+            assert torch.equal(rid, gb.arena.rid[s:s + gb.num_data]), r
+        for (_, va, _m), (_, vb, _n) in zip(ga.valid_states,
+                                            gb.valid_states):
+            assert torch.equal(_bits(va.score), _bits(vb.score)), r
+    for t0, t1 in zip(trees, trees[1:]):
+        assert not (torch.equal(t0, t1) if fused else t0 == t1)
+    stats = ga._graphs.stats()
+    assert len(stats) == (2 if ga._carried_active else 1)
+    assert sum(x["replays"] for x in stats) == 4
+    assert all(x["nodes"] > x["launches"] > 0 for x in stats)
+    before = {k: g.replays for k, g in ga._graphs.graphs.items()}
+    counts = []
+    for bst in (a, b):
+        _cuda.reset_launch_counts()
+        for _ in range(2):
+            bst.update()
+        torch.cuda.synchronize()
+        counts.append(dict(_cuda.LAUNCHES))
+    want = {}
+    for k, g in ga._graphs.graphs.items():
+        for name, c in g.launches.items():
+            want[name] = want.get(name, 0) + c * (g.replays - before[k])
+    if flags.get("valid"):
+        want["scatter_segments_add"] = want.get("scatter_segments_add",
+                                                0) + 2
+    assert counts[0] == counts[1] == want
+    assert a.model_to_string() == b.model_to_string()
+    assert a.num_trees() == 7
+
+
+def test_round_graphs_capture_replay_and_fault(dev):
+    """RoundGraphs on a plain function over a static input: the first call
+    for a warm-up key runs eagerly, the next captures and replays, later
+    calls replay and see the input rewritten in between; K1's launches
+    count once a replay; a function that reads a host value cannot be
+    captured and the call raises."""
+    from lightgbm_tpu_torch.ops.graphs import RoundGraphs
+    x = torch.zeros(1000, device=dev)
+    hist, fvec, svec, pvec = _scan_inputs(dev, 1, 28, 63, 5)
+    graphs = RoundGraphs(dev)
+
+    def fn():
+        return (x * 2 + 1, sk.split_scan(hist, fvec, svec, pvec)[1])
+    _cuda.reset_launch_counts()
+    outs = []
+    for k in range(4):
+        x.fill_(float(k))
+        y, best = graphs.run("k", "w", fn)
+        outs.append((float(y[0]), best.clone()))
+    assert [o[0] for o in outs] == [1.0, 3.0, 5.0, 7.0]
+    want = sk.split_scan_plain(hist, fvec, svec, pvec)[1]
+    for _, best in outs:
+        torch.testing.assert_close(best, want, rtol=1e-5, atol=1e-5)
+    (g,) = graphs.graphs.values()
+    assert g.replays == 3 and g.nodes >= 2 and g.seconds > 0
+    assert dict(g.launches) == {"split_scan": 1}
+    assert dict(_cuda.LAUNCHES) == {"split_scan": 4}
+
+    def reads_host():
+        return (x + float(x.sum()),)
+    graphs.run("bad", "w2", reads_host)             # eager: allowed
+    with pytest.raises(RuntimeError):
+        graphs.run("bad", "w2", reads_host)
+    assert "bad" not in graphs.graphs
+    torch.cuda.synchronize()
+    assert float((x * 2).sum()) == 6000.0

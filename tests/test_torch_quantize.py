@@ -2,6 +2,9 @@
 
 - ops/threefry: `uniform` equals jax.random.uniform under
   fold_in(PRNGKey(seed), iteration) bit for bit, and the keys are equal;
+  so does `uniform` under the same key as an int64 [2] tensor, as the
+  driver stages it for a captured round (unfolded and folded with 0), and
+  `quantize_gradients` under a tensor key gives JAX's codes;
 - ops/quantize: `quantize_gradients` gives equal codes and scales for the
   same f32 inputs and key; `dequantize_hist` equals JAX's;
 - the plain versions of K2 in int8 mode (`segment_histogram` on a quantized
@@ -39,6 +42,27 @@ def test_uniform_matches_jax_bit_for_bit(seed, iteration, n):
     got = tf.uniform(tkey, n).numpy()
     assert got.dtype == np.float32
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("iteration", [0, 1, 499])
+@pytest.mark.parametrize("seed", [0, 7, 2**31 - 1, 2**32 - 3])
+def test_uniform_tensor_key_matches_jax_bit_for_bit(seed, iteration, fold):
+    jkey = jq.quantize_key(seed, iteration)
+    tkey = tq.quantize_key(seed, iteration)
+    if fold:
+        jkey, tkey = jax.random.fold_in(jkey, 0), tf.fold_in(tkey, 0)
+    want = np.asarray(jax.random.uniform(jkey, (4097,), jnp.float32))
+    got = tf.uniform(torch.tensor(tkey, dtype=torch.int64), 4097).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_uniform_tensor_key_is_checked():
+    with pytest.raises(ValueError, match="int64"):
+        tf.uniform(torch.tensor([1, 2], dtype=torch.int32), 8)
+    with pytest.raises(ValueError, match="int64"):
+        tf.uniform(torch.tensor([1, 2, 3]), 8)
 
 
 @pytest.mark.parametrize("seed", [0, 7, 2**31 - 1, 2**32 - 3])
@@ -102,6 +126,11 @@ def test_quantize_gradients_matches_jax(kind, seed, iteration, fold):
                                   np.asarray(jh))
     assert np.float32(tgs) == np.float32(jgs)
     assert np.float32(ths) == np.float32(jhs)
+    # the key as a captured round reads it: an int64 [2] tensor
+    kt = tq.quantize_gradients(torch.from_numpy(g), torch.from_numpy(h),
+                               torch.tensor(tkey, dtype=torch.int64))
+    for a, b in zip(kt, (tg, th, tgs, ths)):
+        assert torch.equal(a, b)
     hist = np.random.RandomState(1).randint(-2**20, 2**20, (5, 40, 3))
     np.testing.assert_array_equal(
         tq.dequantize_hist(torch.from_numpy(hist.astype(np.int32)), tgs,

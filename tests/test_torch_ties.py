@@ -52,7 +52,8 @@ def test_quantized_127_leaf_tree_matches_jax():
                       device="cpu")
     jb.update()
     tb.update()
-    jb.predict(X[:1])                       # drains JAX's pending tree
+    for b in (jb, tb):
+        b.predict(X[:1])                    # drains the pending tree
     a, b = tb._gbdt.models[0], jb._gbdt.models[0]
     assert tb._gbdt._quantized and tb._gbdt._carried_active
     assert a.num_leaves == b.num_leaves > 1
