@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (lightgbm_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--rows N] [--rounds R]
+    python3 chip_smoke.py [--rows N] [--rounds R] [--predict-rounds P]
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from csrc/ (one nvcc per source, in
@@ -45,22 +45,40 @@
    evaluated AUC must equal the host prediction's; and f32 on the label
    engine (tpu_tree_engine=label, tpu_histogram_impl=pallas), unbagged and
    bagged, whose every tree must reach 255 leaves; each run predicts the
-   holdout; the launch counters, zeroed just before each train call and
+   holdout through KP1 (predict_ensemble), bit for bit the host walk's
+   sums; the launch counters, zeroed just before each train call and
    read just after, show that every kernel of that path ran and that no
-   kernel of another path did; trees must reach more than one leaf, the
+   kernel of another path did (KP2 walk_binned: its masked add on the
+   bagged runs, its add mode on the valid-set runs, on no other; KP1 on
+   none); trees must reach more than one leaf, the
    holdout AUC must reach 0.75, each quantized run's must be within 0.02
    of its f32 run's and each label run's within 0.02 of the valid-set f32
    run's, and each run's within 0.002 of the last accepted run of this
    script (AUC_BEFORE); every round after a run's first must be one CUDA
    graph replay (one graph a run, two on the carried arena, one for each
-   root slot), and the fused runs (carried and weighted) must fetch their
-   trees only at drains, the eager runs one a round; each run prints its
+   root slot), and every run but the valid-set ones must fetch its trees
+   only at drains, the valid-set runs one a round; each run prints its
    graphs' node counts and capture-and-instantiate seconds, its drains and
    fetches, and the ms a round of three more replayed rounds; then one
    more replayed round, its drain included, runs under torch.profiler for
    the device time by kernel and the idle share;
-6. prints one JSON line of training results and one of per-kernel results,
-   then the device line {"ok": true, "device": {...}} as the last line.
+   after the bagged f32 run, KP2 on its last round's 255-leaf device tree
+   and bag at the full row count: leaf mode, masked add and add against
+   the plain versions, bit for bit, timed beside the bytes each mode
+   must move (in masked add only the rows out of the bag read bins);
+6. prediction phase: the f32 carried configuration trained for
+   --predict-rounds rounds (500, the reference's Higgs experiment) at the
+   full row count, each drain timed; KP1 on the model over the holdout
+   and 1M training rows, bit for bit its plain version on the card and
+   (holdout) the host walk, timed kernel-only, from numpy and by the host
+   walk, with the bound and the copy of X alone; leaf indices and early
+   stop (freq 10, margins 4 and 10) equal to the host walk's; the serving
+   buckets (1, 7, 1000, 4097 rows) equal to predict; the ensemble's device
+   bytes equal to the estimate; KP1's launches counted over the holdout's
+   predict;
+7. prints one JSON line of training and prediction results and one of
+   per-kernel results, then the device line {"ok": true, "device": {...}}
+   as the last line.
 
 Exits non-zero, without the device line, when there is no CUDA device, when
 the package is missing, or when any phase fails.
@@ -114,7 +132,9 @@ KERNEL_NAMES = (
     ("K4", ("scatter_segments_kernel",)),
     ("K6", ("compact_carry_kernel", "carry_offsets_kernel",
             "carry_copy_kernel")),
-    ("K7", ("leaf_select_kernel", "leaf_accumulate_kernel")))
+    ("K7", ("leaf_select_kernel", "leaf_accumulate_kernel")),
+    ("KP1", ("predict_ensemble_kernel",)),
+    ("KP2", ("walk_binned_kernel",)))
 
 
 def kernel_label(name: str):
@@ -150,6 +170,11 @@ PARTITION_KERNELS = ("segment_histogram", "segment_histogram_i8",
                      "scatter_segments", "scatter_segments_add",
                      "fused_root_histogram",
                      "compact_carry", "compact_carry_i8")
+# KP2's counters by mode (ops/predict_kernel.walk_binned): its masked add
+# is the bagged rounds' score update, its add mode the valid-set rounds'
+# validation score; its leaf mode has no training path
+WALK_MASKED, WALK_ADD = "walk_binned_masked_add", "walk_binned_add"
+WALKS = ("walk_binned", WALK_MASKED, WALK_ADD)
 # kernels of the line with no training path, and why
 NO_PATH = {
     "leaf_histogram_i8": "the JAX package has no training path for "
@@ -186,9 +211,17 @@ def path_params(path: str, **extra) -> dict:
 
 def path_kernels(path: str) -> tuple:
     """(kernels the path must launch, kernels it must not): the launch
-    counter names."""
+    counter names.  KP1 (prediction) runs in no training path; KP2 runs in
+    the bagged ones (masked add, the score update of a round's out-of-bag
+    rows) and the valid-set ones (add, the validation score), never in the
+    fused ones."""
+    walks = [w for w in WALKS
+             if not (w == WALK_MASKED and flag(path, "bagged"))
+             and not (w == WALK_ADD and flag(path, "valid"))]
+    walk_must = tuple(w for w in WALKS if w not in walks)
     if flag(path, "label"):
-        return ("leaf_histogram", "split_scan"), PARTITION_KERNELS
+        return (("leaf_histogram", "split_scan") + walk_must,
+                PARTITION_KERNELS + ("predict_ensemble",) + tuple(walks))
     q = flag(path, "quantized")
     sfx = "_i8" if q else ""
     # K4: set mode on the bagged paths (leaf ids for the walk), add mode
@@ -207,7 +240,8 @@ def path_kernels(path: str) -> tuple:
             must.append("fused_root_histogram")
         (must if carried(path) else never).append("compact_carry" + sfx)
         never.append("partition_segment_pred" + sfx)
-    return tuple(must), tuple(never)
+    return (tuple(must) + walk_must,
+            tuple(never) + ("predict_ensemble",) + tuple(walks))
 
 
 SRC = "lightgbm_tpu_torch/csrc/%s.cu"
@@ -221,6 +255,10 @@ REPLACES = {
     "leaf_histogram": "lightgbm_tpu/ops/histogram_pallas.py:156",
     "leaf_histogram_i8": "lightgbm_tpu/ops/histogram_pallas.py:211",
     "partition_ablate": "tools/kernel_ablate.py:199",
+    # port-only kernels: the JAX functions they replace reach no
+    # pl.pallas_call
+    "predict_ensemble": "lightgbm_tpu/ops/predict.py:323",
+    "walk_binned": "lightgbm_tpu/ops/grow.py:856",
 }
 
 
@@ -288,6 +326,32 @@ def bound(nbytes: float, ops: float) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ensemble_bytes(n: int, F: int, table_bytes: int) -> int:
+    """Bytes KP1 must move for a sum over n rows of F features: X read
+    once (every feature of the prediction run's model is split on), the
+    f64 sums written once, the walk tables read once."""
+    return 8 * n * F + 8 * n + table_bytes
+
+
+def walk_binned_bytes(walked, G: int, nodes: int, leaves: int,
+                      mode: str) -> int:
+    """Bytes KP2 must move over the n rows of walked (bool [n], the rows
+    that walk the tree: all of them in leaf and add mode, the rows out of
+    the bag in masked add): the 32-byte sectors that hold a walking row's
+    G bins (a row in the bag reads none), the tree's tables and leaf
+    values once, and per row the leaf written (leaf), or the score read
+    and written (add; masked add also reads every row's id)."""
+    import torch
+    n = walked.shape[0]
+    rows = walked.nonzero()[:, 0].long() * G
+    sectors = torch.zeros(-(-n * G // 32), dtype=torch.bool,
+                          device=walked.device)
+    for off in list(range(0, G, 32)) + [G - 1]:
+        sectors[(rows + off) // 32] = True
+    per_row = {"leaf": 4, "add": 8, "masked_add": 12}[mode]
+    return 32 * int(sectors.sum()) + n * per_row + nodes * 21 + leaves * 4
 
 
 class Failure(Exception):
@@ -1125,6 +1189,12 @@ def training_phase(X, Xh, yh, ds_obj, valid_obj, rounds, dev, reduced, path):
     predict_s = time.perf_counter() - t
     expect(pred.shape == (len(Xh),) and np.all(np.isfinite(pred)),
            "%s holdout predictions are not finite [n]" % path)
+    # KP1's sums against the host walk of the same trees, bit for bit
+    raw = booster.predict(Xh, raw_score=True)
+    host = booster.predict(Xh, raw_score=True, device=False)
+    expect(np.array_equal(raw, host), "%s: KP1's holdout sums differ from "
+           "the host walk's by up to %.3g" % (path,
+                                              float(np.abs(raw - host).max())))
     leaves = [m.num_leaves for m in g.models]
     trained = len(leaves)
     expect((trained == rounds or flag(path, "valid")) and min(leaves) > 1,
@@ -1148,17 +1218,17 @@ def training_phase(X, Xh, yh, ds_obj, valid_obj, rounds, dev, reduced, path):
                % (path, last, holdout_auc))
         extra = ("; evals_result holdout AUC %s, best_iteration %d"
                  % (evals["holdout"]["auc"], booster.best_iteration))
-    # every round after a path's first is one graph replay; the fused
-    # paths fetch their trees only at drains, the eager path one a round
+    # every round after a path's first is one graph replay; the rounds
+    # that no validation set reads (fused, bagged, label engine) fetch
+    # their trees only at drains, the valid-set ones one a round
     graphs = g._graphs.stats()
     replays = sum(x["replays"] for x in graphs)
-    fused = not (flag(path, "bagged") or flag(path, "valid")
-                 or flag(path, "label"))
+    deferred = not flag(path, "valid")
     expect(len(graphs) == (2 if carried(path) else 1)
            and replays == trained - 1,
            "%s: %d graphs, %d replays in %d rounds"
            % (path, len(graphs), replays, trained))
-    expect((g._tree_fetches, g._drains > 0) == ((0, True) if fused
+    expect((g._tree_fetches, g._drains > 0) == ((0, True) if deferred
                                                  else (trained, False)),
            "%s: %d tree fetches, %d drains in %d rounds"
            % (path, g._tree_fetches, g._drains, trained))
@@ -1335,11 +1405,267 @@ def ops_over_rows(prof, rows: int) -> dict:
     return over
 
 
+PREDICT_ROUNDS = 500        # the reference's Higgs experiment
+TRAIN_ROWS_PREDICTED = 1_000_000
+EARLY_STOPS = ((10, 4.0), (10, 10.0))
+BUCKETS = (1, 7, 1000, 4097)
+
+
+def prediction_phase(X, Xh, ds_obj, dev, rounds, results):
+    """The f32 carried configuration trained for `rounds` rounds at the
+    dataset's rows (the entry a user calls: Booster.update, then predict),
+    each drain timed; then KP1 on the model: the holdout and 1M training
+    rows against its plain version on the card and the holdout against the
+    host walk, bit for bit; timed kernel-only (CUDA events, X on the
+    card), from numpy (the wall of predict, the copy of X included) and
+    by the host walk; leaf indices, early stop and the serving buckets
+    against the host and the full sums; the ensemble's device bytes
+    against the estimate.  The launch counters are zeroed just before the
+    holdout's predict and read just after."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import _cuda
+    from lightgbm_tpu_torch.ops import predict as pr
+    from lightgbm_tpu_torch.ops.predict_kernel import predict_ensemble
+
+    ds_obj.set_weight(None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst = lt.Booster(PARAMS, ds_obj, device=dev)
+    g = bst._gbdt
+    drains = []
+    real_drain = g._drain_inflight
+
+    def timed_drain():
+        pending = len(g._inflight)
+        t = time.perf_counter()
+        out = real_drain()
+        drains.append((pending, (time.perf_counter() - t) * 1e3))
+        return out
+    g._drain_inflight = timed_drain
+    for _ in range(rounds):
+        bst.update()
+    g._sync_model()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    g._drain_inflight = real_drain
+    leaves = [m.num_leaves for m in g.models]
+    expect(len(leaves) == rounds and min(leaves) > 1 and g._carried_active
+           and g._tree_fetches == 0,
+           "prediction run: %d trees, leaves %d..%d, carried %s, %d fetches"
+           % (len(leaves), min(leaves), max(leaves), g._carried_active,
+              g._tree_fetches))
+    full = [ms for k, ms in drains if k >= 48]
+    print("prediction run (f32, carried arena): %d rows x %d features, %d "
+          "rounds, %d trees, %d leaves (%d to %d a tree); train %.3f s "
+          "(%.1f ms a round, set-up included); %d drains, of 48 trees "
+          "%.1f-%.1f ms (mean %.1f), the last of %d trees %.1f ms"
+          % (len(X), X.shape[1], rounds, len(leaves), sum(leaves),
+             min(leaves), max(leaves), train_s, train_s * 1e3 / rounds,
+             len(drains), min(full or [0]), max(full or [0]),
+             float(np.mean(full or [0])), drains[-1][0], drains[-1][1]))
+
+    ens = g._device_ensemble()
+    tb, T, F = ens.tables, len(g.models), X.shape[1]
+    expect(ens.device_bytes() == pr.estimate_device_bytes(g.models, 1),
+           "ensemble: device bytes %d, estimated %d" % (
+               ens.device_bytes(), pr.estimate_device_bytes(g.models, 1)))
+    # the main path: predict on the holdout, counted, after one warm-up
+    # call on the same rows (the first launch loads the kernel's module,
+    # the first call of a size allocates the pinned staging)
+    bst.predict(Xh, raw_score=True)
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t = time.perf_counter()
+    raw_h = bst.predict(Xh, raw_score=True)
+    wall_h = (time.perf_counter() - t) * 1e3
+    launches = int(_cuda.LAUNCHES["predict_ensemble"])
+    expect(launches > 0, "predict did not launch KP1")
+    t = time.perf_counter()
+    host_h = bst.predict(Xh, raw_score=True, device=False)
+    host_ms = (time.perf_counter() - t) * 1e3
+    expect(np.array_equal(raw_h, host_h), "KP1: holdout sums differ from "
+           "the host walk's by up to %.3g" % float(np.abs(raw_h - host_h)
+                                                  .max()))
+    rows = {}
+    for what, Xs in (("holdout", Xh), ("train_1m", X[:TRAIN_ROWS_PREDICTED])):
+        Xs = np.ascontiguousarray(Xs, np.float64)
+        n = len(Xs)
+        Xd = torch.from_numpy(Xs).to(dev)
+        out = torch.empty((1, n), dtype=torch.float64, device=dev)
+        predict_ensemble(tb, Xd, T, 1, out)
+        plain = pr.predict_ensemble_plain(tb, Xd, T, 1)
+        expect(torch.equal(out, plain), "KP1 %s: sums differ from the "
+               "plain version's by up to %.3g" % (
+                   what, float((out - plain).abs().max())))
+        kernel_ms = cuda_ms(lambda: predict_ensemble(tb, Xd, T, 1, out), 5)
+        plain_ms = cuda_ms(lambda: pr.predict_ensemble_plain(tb, Xd, T, 1),
+                           1, warmup=0)
+        if what == "holdout":
+            wall_ms = wall_h
+        else:
+            bst.predict(Xs, raw_score=True)     # the staging, as above
+            t = time.perf_counter()
+            got = bst.predict(Xs, raw_score=True)
+            wall_ms = (time.perf_counter() - t) * 1e3
+            expect(np.array_equal(got, out[0].cpu().numpy()),
+                   "KP1 train_1m: predict differs from the kernel's sums")
+        # the copy of X alone, from pinned memory
+        pinned = torch.from_numpy(Xs).pin_memory()
+        pcie_ms = cuda_ms(lambda: Xd.copy_(pinned, non_blocking=True), 3)
+        nbytes = ensemble_bytes(n, F, ens.device_bytes())
+        rows[what] = dict(rows=n, kernel_ms=kernel_ms, wall_ms=wall_ms,
+                          plain_ms=plain_ms, pcie_ms=pcie_ms, bytes=nbytes,
+                          bound_ms=bound(nbytes, 0)[0],
+                          rows_per_s_kernel=n / kernel_ms * 1e3,
+                          rows_per_s_wall=n / wall_ms * 1e3)
+        del Xd, out, plain, pinned
+    rows["holdout"]["host_walk_ms"] = host_ms
+    for what, r in rows.items():
+        print("KP1 predict_ensemble (%s, %d rows, %d trees): kernel %.3f ms "
+              "(%.4g rows/s; bound %.4f ms), from numpy %.3f ms (%.4g rows/s;"
+              " the copy of X alone %.3f ms), plain %.1f ms%s; exact"
+              % (what, r["rows"], T, r["kernel_ms"], r["rows_per_s_kernel"],
+                 r["bound_ms"], r["wall_ms"], r["rows_per_s_wall"],
+                 r["pcie_ms"], r["plain_ms"],
+                 ", host walk %.1f ms" % host_ms if what == "holdout"
+                 else ""))
+    # leaf indices
+    t = time.perf_counter()
+    leaf = bst.predict(Xh, pred_leaf=True)
+    leaf_ms = (time.perf_counter() - t) * 1e3
+    leaf_host = bst.predict(Xh, pred_leaf=True, device=False)
+    expect(leaf.shape == (len(Xh), T) and np.array_equal(leaf, leaf_host),
+           "KP1 leaf mode: leaves differ from the host walk's")
+    # early stop
+    stops = {}
+    for freq, margin in EARLY_STOPS:
+        kw = dict(raw_score=True, pred_early_stop=True,
+                  pred_early_stop_freq=freq, pred_early_stop_margin=margin)
+        t = time.perf_counter()
+        es = bst.predict(Xh, **kw)
+        es_ms = (time.perf_counter() - t) * 1e3
+        es_host = bst.predict(Xh, device=False, **kw)
+        expect(np.array_equal(es, es_host), "KP1 early stop (%d, %g): sums "
+               "differ from the host's" % (freq, margin))
+        stops["freq%d_margin%g" % (freq, margin)] = dict(
+            wall_ms=es_ms, stopped_share=float(np.mean(es != raw_h)))
+    # the serving buckets
+    for n in BUCKETS:
+        got = g.predict_bucketed(Xh[:n], raw_score=True)
+        expect(np.array_equal(got, raw_h[:n]), "predict_bucketed(%d rows) "
+               "differs from predict" % n)
+    print("KP1 leaf mode: %d x %d leaves equal to the host walk's (%.1f ms "
+          "from numpy); early stop equal to the host's: %s; buckets %s "
+          "equal to predict; device bytes %d equal to the estimate"
+          % (len(Xh), T, leaf_ms, ", ".join(
+              "freq %s: %.1f ms, %.3f of the rows stopped" % (
+                  k.replace("freq", "").replace("_margin", ", margin "),
+                  v["wall_ms"], v["stopped_share"])
+              for k, v in stops.items()), list(BUCKETS), ens.device_bytes()))
+    h = rows["holdout"]
+    b_ms, b_by = bound(h["bytes"], 0)
+    results["predict_ensemble"] = dict(
+        name="predict_ensemble", route="cuda", source=SRC % "predict_ensemble",
+        replaces=REPLACES["predict_ensemble"], port_only=True,
+        mode="f64 sum", launches=launches, max_abs_err=0.0,
+        tolerance="bit for bit (plain version and host walk)",
+        ms=h["kernel_ms"], plain_ms=h["plain_ms"], bound_ms=b_ms,
+        bound_by=b_by, library_ms=None,
+        library="none: no single PyTorch call walks a tree",
+        host_walk_ms=host_ms, wall_ms=h["wall_ms"], pcie_ms=h["pcie_ms"],
+        rows=h["rows"], trees=T, train_1m=rows["train_1m"], leaf_ms=leaf_ms,
+        early_stop=stops)
+    return dict(train_s=train_s, trees=T, leaves=sum(leaves),
+                drains_ms=drains, predict=rows, early_stop=stops,
+                leaf_ms=leaf_ms, device_bytes=ens.device_bytes(),
+                launches=launches)
+
+
+def kp2_phase(booster, dev, results):
+    """KP2 on the last round of a bagged run: its 255-leaf device tree, its
+    bag's K4 leaf ids (-1 out of the bag) and the dataset's row-major bins
+    at the full row count.  Leaf mode against the plain walk, the masked
+    add (the round's score update) and the add mode (a validation set's)
+    against the plain adds, bit for bit; timed by CUDA events and
+    kernel-only beside the bound and the plain version."""
+    import torch
+    from lightgbm_tpu_torch.ops.grow import TreeArrays
+    from lightgbm_tpu_torch.ops.predict_kernel import (walk_binned,
+                                                       walk_binned_plain)
+
+    g = booster._gbdt
+    (graph,) = g._graphs.graphs.values()
+    outs = [t.clone() for t in graph.outputs]
+    ids, tree = outs[1], TreeArrays(*outs[2:])
+    nl = int(tree.num_leaves)
+    bins = g.train_set.device_bins(dev)
+    n, G = bins.shape
+    in_bag = int((ids >= 0).sum())
+    expect(nl == LEAVES and in_bag == g._bag_count,
+           "KP2: the tree has %d leaves, %d rows in its bag of %d"
+           % (nl, in_bag, g._bag_count))
+    nb, db = g.num_bins, g.default_bins
+    got = walk_binned(bins, tree, nb, db)
+    want = walk_binned_plain(bins, tree, nb, db)
+    expect(torch.equal(got, want), "KP2 leaf mode: leaves differ")
+    expect(torch.equal(got[ids >= 0], ids[ids >= 0]),
+           "KP2 leaf mode: a row of the bag walks to another leaf than K4's")
+    lv = tree.leaf_value * g._shrink_f32
+    score0 = torch.randn(n, generator=torch.Generator(device=dev)
+                         .manual_seed(9), device=dev)
+    r = {}
+    for mode, kw in (("masked_add", dict(leaf_ids=ids)), ("add", {}),
+                     ("leaf", None)):
+        if kw is None:
+            run = lambda: walk_binned(bins, tree, nb, db)
+            plain = lambda: walk_binned_plain(bins, tree, nb, db)
+        else:
+            sk_, sp_ = score0.clone(), score0.clone()
+            walk_binned(bins, tree, nb, db, lv=lv, score=sk_, **kw)
+            walk_binned_plain(bins, tree, nb, db, lv=lv, score=sp_, **kw)
+            expect(torch.equal(sk_.view(torch.int32), sp_.view(torch.int32)),
+                   "KP2 %s: scores differ" % mode)
+            run = lambda: walk_binned(bins, tree, nb, db, lv=lv, score=sk_,
+                                      **kw)
+            plain = lambda: walk_binned_plain(bins, tree, nb, db, lv=lv,
+                                              score=sp_, **kw)
+        walked = ids < 0 if mode == "masked_add" else torch.ones_like(
+            ids, dtype=torch.bool)
+        nbytes = walk_binned_bytes(walked, G, tree.split_feature.shape[0],
+                                   nl, mode)
+        r[mode] = dict(ms=cuda_ms(run, 10), kernel_ms=kernel_only_ms(run, 10),
+                       plain_ms=cuda_ms(plain, 1, warmup=0), bytes=nbytes,
+                       bound_ms=bound(nbytes, 0)[0])
+    per_round = int(graph.launches.get(WALK_MASKED, 0))
+    print("KP2 walk_binned: %d rows x %d features, a %d-leaf tree of the "
+          "bagged run, %d rows in its bag; %s; a bagged round launches it "
+          "%d time(s); exact" % (n, G, nl, in_bag, "; ".join(
+              "%s %.4f ms, kernel-only %.4f (bound %.4f, plain %.3f)" % (
+                  m, v["ms"], v["kernel_ms"], v["bound_ms"], v["plain_ms"])
+              for m, v in r.items()), per_round))
+    for name, mode in ((WALK_MASKED, "masked_add"), (WALK_ADD, "add")):
+        v = r[mode]
+        results[name] = dict(
+            name=name, route="cuda", source=SRC % "walk_binned",
+            replaces=REPLACES["walk_binned"], port_only=True, mode=mode,
+            launches=0, max_abs_err=0.0, tolerance="bit for bit",
+            ms=v["ms"], kernel_ms=v["kernel_ms"], plain_ms=v["plain_ms"],
+            bound_ms=v["bound_ms"], bound_by="bytes", library_ms=None,
+            library="none: no single PyTorch call walks a tree", rows=n,
+            leaves=nl, in_bag=in_bag, launches_a_bagged_round=per_round,
+            leaf_mode=r["leaf"] if mode == "masked_add" else None)
+    del outs, ids, tree, score0
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=ROWS,
                     help="training rows (the widths are never cut)")
     ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--predict-rounds", type=int, default=PREDICT_ROUNDS,
+                    help="rounds of the prediction run's model")
     args = ap.parse_args(argv)
 
     import torch
@@ -1388,6 +1714,8 @@ def main(argv=None) -> int:
             X, Xh, yh, ds_obj, valid_obj, args.rounds, dev,
             args.rows != ROWS, path)
         train[path]["profile"] = profile_round(booster, path)
+        if path == "bagged_f32":
+            kp2_phase(booster, dev, results)
         del booster
         torch.cuda.empty_cache()
     for f32 in ("f32", "weighted_f32", "bagged_f32", "valid_f32"):
@@ -1407,6 +1735,9 @@ def main(argv=None) -> int:
         gap = abs(train[path]["holdout_auc"] - train["valid_f32"]["holdout_auc"])
         expect(gap <= AUC_GAP, "%s holdout AUC is %.4f from the valid_f32 "
                "run's (limit %.2f)" % (path, gap, AUC_GAP))
+    prediction = prediction_phase(X, Xh, ds_obj, dev, args.predict_rounds,
+                                  results)
+    torch.cuda.empty_cache()
     # launches of each kernel in the run of the path it belongs to: K3's
     # pred mode and K4's set mode in the bagged runs, the int8 modes and K5
     # in the quantized carried run, the f32 modes in the f32 carried run,
@@ -1422,8 +1753,16 @@ def main(argv=None) -> int:
             expect(not any(r["launches_by_path"].values()),
                    "kernel %s was launched on a training path" % name)
             continue
+        if name == "predict_ensemble":
+            # the prediction run's predict on the holdout
+            expect(r["launches"] > 0, "KP1 was not launched by predict")
+            continue
         if name == "leaf_histogram":
             path = "label_f32"
+        elif name == WALK_MASKED:
+            path = "bagged_f32"
+        elif name == WALK_ADD:
+            path = "valid_f32"
         elif name.startswith("partition_segment_pred"):
             path = "bagged_quantized" if name.endswith("_i8") else "bagged_f32"
         elif name == "scatter_segments":
@@ -1436,7 +1775,8 @@ def main(argv=None) -> int:
         r["launches"] = int(launches[path].get(name, 0))
         expect(r["launches"] > 0, "kernel %s was not launched on the %s "
                "training path" % (name, path))
-    print(json.dumps({"card": card, "training": train, "parity": parity}))
+    print(json.dumps({"card": card, "training": train, "parity": parity,
+                      "prediction": prediction}))
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

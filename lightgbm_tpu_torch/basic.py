@@ -26,6 +26,36 @@ class LightGBMError(Exception):
     pass
 
 
+def _to_matrix(data):
+    """Prediction input as a matrix: a pandas DataFrame (category columns
+    as their codes) or Series, a scipy sparse matrix (kept sparse, as CSR),
+    or anything numpy reads, a vector as one column.  Copied from the
+    in-memory branches of lightgbm_tpu/basic.py:31 `_to_matrix`."""
+    try:
+        import pandas as pd
+        if isinstance(data, pd.DataFrame):
+            cat_cols = [c for c in data.columns
+                        if str(data[c].dtype) in ("category",)]
+            df = data.copy()
+            for c in cat_cols:
+                df[c] = df[c].cat.codes
+            return df.to_numpy(dtype=np.float64)
+        if isinstance(data, pd.Series):
+            return data.to_numpy(dtype=np.float64)[:, None]
+    except ImportError:
+        pass
+    try:
+        import scipy.sparse as sp
+        if sp.issparse(data):
+            return data.tocsr()
+    except ImportError:
+        pass
+    arr = np.asarray(data, np.float64)
+    if arr.ndim == 1:
+        arr = arr[:, None]
+    return arr
+
+
 class Dataset:
     """Lazily-constructed training dataset."""
 
@@ -166,10 +196,29 @@ class Booster:
         return [(name, metric_name, v, is_bigger_better(metric_name))
                 for metric_name, vals in results.items() for v in vals]
 
-    def predict(self, data, num_iteration: int = -1,
-                raw_score: bool = False) -> np.ndarray:
-        return self._gbdt.predict(np.asarray(data, np.float64), num_iteration,
-                                  raw_score=raw_score)
+    def predict(self, data, num_iteration: int = -1, raw_score: bool = False,
+                pred_leaf: bool = False, pred_contrib: bool = False,
+                pred_early_stop: bool = False, pred_early_stop_freq: int = 10,
+                pred_early_stop_margin: float = 10.0,
+                device: Optional[bool] = None) -> np.ndarray:
+        """Predictions of the first num_iteration iterations
+        (lightgbm_tpu/basic.py:536-549): each row's leaf per tree
+        (pred_leaf), its SHAP contributions (pred_contrib), or its scores,
+        raw or through the objective's link, with the margin-based early
+        stop.  Scores and leaves come from the device ensemble (KP1 on the
+        card) unless device=False pins the host walk; they agree bit for
+        bit."""
+        mat = _to_matrix(data)
+        if pred_leaf:
+            return self._gbdt.predict_leaf_index(mat, num_iteration,
+                                                 device=device)
+        if pred_contrib:
+            return self._gbdt.predict_contrib(mat, num_iteration)
+        return self._gbdt.predict(
+            mat, num_iteration, raw_score=raw_score,
+            early_stop=pred_early_stop,
+            early_stop_freq=pred_early_stop_freq,
+            early_stop_margin=pred_early_stop_margin, device=device)
 
     def model_to_string(self, num_iteration: int = -1) -> str:
         return self._gbdt.save_model_to_string(num_iteration)

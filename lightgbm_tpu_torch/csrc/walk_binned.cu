@@ -1,0 +1,107 @@
+// KP2: one tree walked over the uint8 bins, with the score update fused.
+//
+// Port-only: the JAX package walks a device tree over the binned rows with
+// plain jnp (lightgbm_tpu/ops/grow.py predict_leaf_inner :856-901, a
+// while_loop of gathers until every row rests at a leaf), for the
+// out-of-bag rows' score update of a bagged round (models/gbdt.py
+// :1095-1111) and each validation set's score (`_add_tree_score`,
+// :2233-2243).  Its plain version here is ops/grow.predict_leaf_inner.
+//
+// One thread a row walks from the root until it reaches a leaf, so no
+// depth is needed and the round that launches it reads nothing on the
+// host.  A node decides as DecisionInner (tree.h:289-296): the row's bin
+// of the node's inner feature is missing when the missing type is Zero and
+// it is the feature's default bin, or NaN and it is the feature's last
+// bin; a missing bin goes to the default side, any other bin left when
+// bin <= threshold_bin.  A tree of one leaf puts every row in leaf 0.
+// Modes:
+// - leaf: leaf[row] = the row's leaf;
+// - masked add: rows with leaf_ids[row] >= 0 (a bagged round's rows in
+//   the bag, K4's set-mode leaf ids) add lv[leaf_ids[row]], the others
+//   (out of the bag, -1) walk and add lv[leaf]: score[row] + lv[...],
+//   one f32 add, as `score += lv[where(ids >= 0, ids, walked)]`;
+// - add: every row walks and adds (a validation set's score).
+// lv holds the values to add, already shrunk by the caller.
+//
+// What bounds it on an H100: bytes.  Each row's G bins are read once
+// (a walk reads depth of them, but their 32-byte sectors are the row's),
+// the score read and written once, the ids read once.  A simple kernel:
+// the tree's tables are read through the read-only cache; staging them in
+// shared memory is later work (ROADMAP queue 2).
+#include "common.cuh"
+
+namespace {
+
+constexpr int WALK_THREADS = 256;
+enum : int { MODE_LEAF = 0, MODE_MASKED_ADD = 1, MODE_ADD = 2 };
+
+struct TreeT {
+  const int* feature;          // [N] inner feature
+  const int* threshold_bin;    // [N]
+  const uint8_t* default_left; // [N] bool
+  const int* missing_type;     // [N]
+  const int* left;             // [N] left child (~leaf for a leaf)
+  const int* right;            // [N] right child
+  const int* num_leaves;       // 0-d, on the device
+  int nodes;                   // N, the node slots
+};
+
+__device__ __forceinline__ int walk(const TreeT& t, const uint8_t* b,
+                                    const int* __restrict__ num_bins,
+                                    const int* __restrict__ default_bins,
+                                    int num_leaves) {
+  int node = num_leaves > 1 ? 0 : -1;
+  // a tree of nl leaves has nl - 1 <= nodes internal nodes on any path
+  for (int step = 0; node >= 0 && step < t.nodes; ++step) {
+    const int f = __ldg(t.feature + node);
+    const int bin = b[f];
+    const int mt = __ldg(t.missing_type + node);
+    const bool missing = (mt == 1 && bin == __ldg(default_bins + f)) ||
+                         (mt == 2 && bin == __ldg(num_bins + f) - 1);
+    const bool left = missing ? __ldg(t.default_left + node) != 0
+                              : bin <= __ldg(t.threshold_bin + node);
+    node = left ? __ldg(t.left + node) : __ldg(t.right + node);
+  }
+  return node < 0 ? ~node : 0;
+}
+
+__global__ void __launch_bounds__(WALK_THREADS)
+walk_binned_kernel(TreeT t, const uint8_t* __restrict__ bins, long long n,
+                   int G, const int* __restrict__ num_bins,
+                   const int* __restrict__ default_bins, int mode,
+                   const float* __restrict__ lv,
+                   const int* __restrict__ leaf_ids, int* __restrict__ leaf,
+                   float* __restrict__ score) {
+  const long long row = (long long)blockIdx.x * WALK_THREADS + threadIdx.x;
+  if (row >= n) return;
+  int l = mode == MODE_MASKED_ADD ? leaf_ids[row] : -1;
+  if (l < 0)
+    l = walk(t, bins + row * G, num_bins, default_bins, __ldg(t.num_leaves));
+  if (mode == MODE_LEAF) {
+    leaf[row] = l;
+    return;
+  }
+  score[row] = __fadd_rn(score[row], __ldg(lv + l));
+}
+
+}  // namespace
+
+// bins [n, G] uint8 row-major; the tree's node arrays [nodes]; leaf [n]
+// int32 (leaf mode); lv [L] f32, score [n] f32, leaf_ids [n] int32 (masked
+// add).
+LGBT_API int lgbt_walk_binned(
+    const int* feature, const int* threshold_bin, const uint8_t* default_left,
+    const int* missing_type, const int* left, const int* right,
+    const int* num_leaves, int nodes, const uint8_t* bins, long long n,
+    int G, const int* num_bins, const int* default_bins, int mode,
+    const float* lv, const int* leaf_ids, int* leaf, float* score,
+    cudaStream_t stream) {
+  if (n <= 0 || nodes < 1 || mode < MODE_LEAF || mode > MODE_ADD)
+    return (int)cudaErrorInvalidValue;
+  TreeT t{feature, threshold_bin, default_left, missing_type,
+          left,    right,         num_leaves,   nodes};
+  const long long blocks = (n + WALK_THREADS - 1) / WALK_THREADS;
+  walk_binned_kernel<<<(unsigned)blocks, WALK_THREADS, 0, stream>>>(
+      t, bins, n, G, num_bins, default_bins, mode, lv, leaf_ids, leaf, score);
+  return (int)cudaGetLastError();
+}

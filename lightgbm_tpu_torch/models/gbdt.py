@@ -4,8 +4,10 @@ Port of the k=1 subset of lightgbm_tpu/models/gbdt.py `_train_one_iter_impl`
 (:496-687): gradients on the device, optionally quantized to int8 codes
 (`tpu_quantized_grad`), one tree grown by the partition or the label
 engine, shrinkage and boost-from-average, and the tree's host fetch:
-deferred on the fused paths, one a tree on the eager path.  The model text
-is the reference v2 format, so models load in both packages.
+deferred wherever nothing reads the host tree within the round, one a tree
+otherwise; then prediction (:1672-1858) on the device (ops/predict.py,
+KP1) or, asked for, the host walk.  The model text is the reference v2
+format, so models load in both packages.
 
 The tree engine is chosen once, as `_setup_tree_engine` (:1209-1345) does
 for the serial learner: the partition engine (ops/grow_partition.py) where
@@ -38,8 +40,9 @@ Which path an iteration runs follows the JAX rule (:518-550):
   the pristine root, bagged by K3 in pred mode, quantized under the
   iteration's key unfolded, :1385-1387; or the label engine over the bag
   mask), and the training score adds each row's leaf value, the
-  out-of-bag rows' by a binned tree walk; validation scores follow by the
-  same walk, and metrics are evaluated on the host.
+  out-of-bag rows' by the binned tree walk KP2 (ops/predict_kernel.
+  walk_binned) in the same launch; validation scores follow by KP2's add
+  mode, and metrics are evaluated on the host.
 
 The carried arena is entered at the first iteration that may run it and
 left for good at the first that may not (:542-550); the score is kept in
@@ -56,15 +59,21 @@ mask and the quantization key, reach the graph through one device buffer
 round of a path runs eagerly; the first of each graph key (the carried
 slot, the path) captures.  The CPU runs the same rounds eagerly.
 
-The fused paths defer each tree's fetch as JAX does (`_inflight`,
-:161-165, :561-572): the packed tree is copied to a pinned host buffer
-behind an event and a placeholder takes its model slot; every
-_DRAIN_EVERY rounds, and at every point that reads the model
-(`_sync_model`, :1642-1647), `_drain_inflight` (:1113-1168) unpacks the
-pending trees and rolls a degenerate stop back.  The eager path fetches
-each tree in its round: its score update needs the host tree, and its
-out-of-bag walk the tree's depth (device prediction, ROADMAP queue 1 item
-8, will walk on the device).
+Wherever no validation set or training metric reads the host tree within
+the round (`deferred_ok`, :520-524), each tree's fetch is deferred as JAX
+defers it (`_inflight`, :161-165, :561-572, :623-641): on the fused paths,
+and on the eager path's bagged runs and label-engine runs, whose round
+ends in its graph with the score updated from the device tree (the
+device leaf values times the f32 shrinkage, `_update_train_score_device`,
+:1095-1111: over the bag's K4 leaf ids and KP2's walk of the out-of-bag
+rows in one masked-add launch, or the label engine's leaf ids and a
+gather).  The packed tree is copied to a pinned host buffer behind an
+event and a placeholder takes its model slot; every _DRAIN_EVERY rounds,
+and at every point that reads the model (`_sync_model`, :1642-1647),
+`_drain_inflight` (:1113-1168) unpacks the pending trees and rolls a
+degenerate stop back.  The valid-set runs fetch each tree in their round,
+as JAX does: the scores add the host tree's f64-shrunk leaf values, the
+validation sets' by KP2's add mode on the round's device tree.
 
 Configurations this slice does not run raise NotImplementedError naming the
 ROADMAP.md item that will bring them; none is served by a substitute.
@@ -81,10 +90,12 @@ from ..io.dataset import BinnedDataset
 from ..metric import Metric
 from ..objective import ObjectiveFunction, create_objective
 from ..ops.grow import (TreeArrays, grow_tree_label, pack_tree_vector,
-                        predict_leaf_inner, unpack_tree_vector)
+                        unpack_tree_vector)
 from ..ops import quantize as qz
 from ..ops import threefry
 from ..ops.graphs import RoundGraphs
+from ..ops.predict import DeviceEnsemble
+from ..ops.predict_kernel import walk_binned
 from ..ops.grow_partition import grow_tree_partition
 from ..ops.partition_kernel import (TILE, Arena, arena_bytes, init_pristine,
                                     pristine_work0, scatter_segments)
@@ -168,6 +179,13 @@ class GBDT:
         self.label_idx = 0
         self.feature_names: List[str] = []
         self.feature_infos: List[str] = []
+        # a model of boosting=rf predicts the mean of its trees
+        # (gbdt.py:1748-1751); loaded from model text, not trained here
+        self.average_output = False
+        # the device ensemble cached on (len(models), _model_gen): a load
+        # and every drain bump the generation
+        self._model_gen = 0
+        self._dev_ens_cache: Optional[tuple] = None
         self._feat_rng = np.random.RandomState(config.feature_fraction_seed)
         # bagging (gbdt.py:159, :419-433): one RandomState per booster; the
         # bag as the JAX mask (int32 [n]: 0 in the bag, -1 out), its
@@ -473,7 +491,8 @@ class GBDT:
             return self._fused_iter(slot, init_score)
         return self._eager_iter(slot, init_score, deferred_ok)
 
-    def _round(self, parity: Optional[int], emit: str, bagged: bool):
+    def _round(self, parity: Optional[int], emit: str, bagged: bool,
+               update: bool):
         """A round's device work from the score to the packed tree: the
         function ops/graphs.py captures.  The objective's gradients, on a
         carried root gathered into its slot's order (JAX computes the same
@@ -481,8 +500,12 @@ class GBDT:
         931-939), quantized under the key in `_round_inp`, and one tree
         grown under the feature mask there by the booster's engine.  The
         label engine grows over the bag mask (0 in the bag, -1 out) and
-        never truncates.  Returns (packed tree, the grower's `out`, the
-        tree's device arrays...)."""
+        never truncates.  With `update` (the eager path's deferred rounds)
+        the round ends with the score updated from the device tree
+        (gbdt.py:1095-1111): the device leaf values times the f32
+        shrinkage, added over the per-row leaf ids, the out-of-bag rows'
+        walked by KP2 in the same masked-add launch.  Returns (packed
+        tree, the grower's `out`, the tree's device arrays...)."""
         cfg = self.config
         n = self.num_data
         dev = self.device
@@ -522,17 +545,34 @@ class GBDT:
                 self.arena, grad, hess, mask, self.num_bins,
                 self.default_bins, self.missing_types, self.split_params,
                 self.monotone, self.penalty, emit=emit, **kw, **common)
+        if update:
+            lv = tree.leaf_value * self._shrink_f32
+            self._add_leaf_values(lv, out, bagged, tree)
         return (pack_tree_vector(tree, truncated), out) + tuple(tree)
 
-    def _run_round(self, parity: Optional[int], emit: str, bagged: bool):
+    def _add_leaf_values(self, lv: torch.Tensor, leaf_ids: torch.Tensor,
+                         bagged: bool, tree: TreeArrays) -> None:
+        """The training score adds lv (f32 [L]) at each row's leaf: over a
+        bag (leaf ids -1 out of it) by KP2's masked add, which walks the
+        out-of-bag rows; otherwise by a gather of every row's leaf id."""
+        if bagged:
+            walk_binned(self.train_set.device_bins(self.device), tree,
+                        self.num_bins, self.default_bins, lv=lv,
+                        score=self.score, leaf_ids=leaf_ids)
+        else:
+            self.score += lv[leaf_ids.long()]
+
+    def _run_round(self, parity: Optional[int], emit: str, bagged: bool,
+                   update: bool = False):
         """`_round` through the booster's graphs: (packed tree, out, device
         TreeArrays), all the graph's own until the next round."""
         cfg = self.config
-        key = (self._use_partition_engine, parity, emit, bagged,
+        key = (self._use_partition_engine, parity, emit, bagged, update,
                self._quantized, self.max_leaves, cfg.max_depth, self.max_bin,
                self.num_data, self.train_set.num_features)
-        out = self._graphs.run(key, key[:1] + key[2:],
-                               lambda: self._round(parity, emit, bagged))
+        out = self._graphs.run(
+            key, key[:1] + key[2:],
+            lambda: self._round(parity, emit, bagged, update))
         return out[0], out[1], TreeArrays(*out[2:])
 
     def _fused_iter(self, slot, init_score: float) -> bool:
@@ -544,6 +584,11 @@ class GBDT:
         packed, _, _ = self._run_round(p, "score", False)
         if p is not None:
             self._carry_parity = 1 - p
+        return self._defer(packed, slot, init_score)
+
+    def _defer(self, packed: torch.Tensor, slot, init_score: float) -> bool:
+        """Start the packed tree's copy to the host and leave a placeholder
+        in its model slot until a drain (gbdt.py:561-572, :623-641)."""
         host, event = self._to_host(packed, slot)
         self.models.append(None)            # placeholder; drained later
         self._inflight.append(dict(host=host, event=event, it=self.iter,
@@ -554,17 +599,24 @@ class GBDT:
 
     def _eager_iter(self, slot, init_score: float, deferred_ok: bool) -> bool:
         """The eager path's iteration (gbdt.py:593-687, growing through
-        `_grow_one_tree`, :1372-1417): the bag, the pristine root, the
-        tree fetched in its round, and the score updates.  Without a bag
-        the partition engine leaves its leaves' segments and K4's add mode
-        adds every row's value in one launch (ROADMAP queue 1, item 7c);
-        with one, per-row leaf ids (-1 out of the bag) and the out-of-bag
-        rows' walk."""
+        `_grow_one_tree`, :1372-1417): the bag, the pristine root, per-row
+        leaf ids (-1 out of the bag) or, on the partition engine without a
+        bag, the leaves' segments.  With deferred_ok (a bag or the label
+        engine, no validation set, no training metric) the round updates
+        the score from the device tree and its fetch is deferred
+        (:623-641).  Otherwise the tree is fetched in its round and the
+        scores add its host leaf values (:1616-1630): the training score by
+        K4's add mode over the segments (ROADMAP queue 1, item 7c), KP2's
+        masked add over a bag, or a gather; each validation set's by KP2's
+        add mode on the round's device tree."""
         in_bag = self._bagging(self.iter)
         bagged = in_bag is not None
         segments = self._use_partition_engine and not bagged
         packed, out, arrays = self._run_round(
-            None, "segments" if segments else "leaf_ids", bagged)
+            None, "segments" if segments else "leaf_ids", bagged,
+            update=deferred_ok)
+        if deferred_ok:
+            return self._defer(packed, slot, init_score)
         host, event = self._to_host(packed, slot)
         if event is not None:
             event.synchronize()
@@ -574,32 +626,20 @@ class GBDT:
         if nl <= 1:
             return self._degenerate(init_score)
         new_tree = Tree.from_arrays(host_arrays, self.train_set)
-        if deferred_ok:
-            # gbdt.py:1103 (deferred): the device tree's f32 leaf values
-            # times the f32 shrinkage
-            lv = arrays.leaf_value * self._shrink_f32
         new_tree.shrink(self.shrinkage_rate)
-        if not deferred_ok:
-            # gbdt.py:1623: the host tree's f64-shrunk values, cast to f32
-            host_lv = np.zeros(self.max_leaves, np.float32)
-            host_lv[:nl] = new_tree.leaf_value[:nl]
-            lv = torch.as_tensor(host_lv, device=self.device)
+        # gbdt.py:1623: the host tree's f64-shrunk values, cast to f32
+        host_lv = np.zeros(self.max_leaves, np.float32)
+        host_lv[:nl] = new_tree.leaf_value[:nl]
+        lv = torch.as_tensor(host_lv, device=self.device)
         if segments:
             # s = 1 adds each value exactly as `score += lv[leaf_ids]`
             scatter_segments(self.arena, out, lv, arrays.num_leaves.view(1),
                              self.score, shrink=1.0)
         else:
-            leaf_ids = out
-            if bagged:
-                # out-of-bag rows by the binned walk (gbdt.py:1104-1109)
-                walked = predict_leaf_inner(
-                    self.train_set.device_bins(self.device), arrays,
-                    self.num_bins, self.default_bins,
-                    depth=int(host_arrays.leaf_depth[:nl].max()))
-                leaf_ids = torch.where(leaf_ids >= 0, leaf_ids, walked)
-            self.score += lv[leaf_ids.clamp(0, nl - 1).long()]
+            self._add_leaf_values(lv, out, bagged, arrays)
         for _, vs, _m in self.valid_states:
-            self._add_tree_score(vs, new_tree)
+            walk_binned(vs.bins, arrays, vs.num_bins, vs.default_bins, lv=lv,
+                        score=vs.score)
         return self._append(new_tree, init_score)
 
     def _append(self, tree: Tree, init_score: float) -> bool:
@@ -621,20 +661,21 @@ class GBDT:
         return True
 
     def _drain_inflight(self) -> bool:
-        """Materialize the pending fused rounds' trees (gbdt.py:1113-1168):
-        unpack each, shrink it and add its bias.  True when a drained round
-        was degenerate: it and every later pending round are removed and
-        the iteration count rolled back to it, as the eager stop leaves
-        them; a degenerate first round keeps the prior as a constant tree.
-        The score needs no undo: K4 added a one-leaf tree's zero leaf
-        value, so the rounds after it trained on the same score.  (Under
-        quantized gradients a later round's other noise may still grow a
-        tree, whose score update then stays: training has stopped, and the
-        fused paths' score is read by nothing but further training.)"""
+        """Materialize the pending deferred rounds' trees (gbdt.py:
+        1113-1168): unpack each, shrink it and add its bias.  True when a
+        drained round was degenerate: it and every later pending round are
+        removed and the iteration count rolled back to it, as the eager
+        stop leaves them; a degenerate first round keeps the prior as a
+        constant tree.  The training score is then rebuilt from the model
+        that remains (`_rebuild_train_score`), as JAX rebuilds it: a
+        degenerate round added its one leaf's zero value, but under a bag
+        or quantized gradients a later pending round may still have grown
+        a tree whose update the rollback removes."""
         if not self._inflight:
             return False
         pending, self._inflight = self._inflight, []
         self._drains += 1
+        self._model_gen += 1
         for ent in pending:
             if ent["event"] is not None:
                 ent["event"].synchronize()
@@ -657,8 +698,24 @@ class GBDT:
                         "that meet the split requirements")
             del self.models[max(slot, 1):]
             self.iter = ent["it"]
+            self._rebuild_train_score()
             return True
         return False
+
+    def _rebuild_train_score(self) -> None:
+        """The training score recomputed from the model (gbdt.py:
+        1047-1059): the init score, then every tree's host leaf values by
+        KP2's add mode over the training bins."""
+        ds = self.train_set
+        self.score.zero_()
+        if ds.metadata.init_score is not None:
+            self.score += torch.as_tensor(
+                np.asarray(ds.metadata.init_score, np.float32).reshape(-1),
+                device=self.device)
+        bins = ds.device_bins(self.device)
+        for tree in self.models:
+            _walk_add(bins, self.num_bins, self.default_bins, self.score,
+                      tree)
 
     def _sync_model(self) -> None:
         """Drain the pending trees before the model is read
@@ -682,18 +739,10 @@ class GBDT:
         self.valid_states.append((name, state, list(metrics)))
 
     def _add_tree_score(self, state: _DatasetState, tree: Tree) -> None:
-        """Add a host tree's output to a dataset's score by the binned walk
-        on the device."""
-        if tree.num_leaves <= 1:
-            state.add_constant(float(tree.leaf_value[0]))
-            return
-        arrays, depth = _tree_to_device(tree, self.device)
-        leaf = predict_leaf_inner(state.bins, arrays, state.num_bins,
-                                  state.default_bins, depth=depth)
-        lv = torch.as_tensor(
-            tree.leaf_value[:tree.num_leaves].astype(np.float32),
-            device=self.device)
-        state.score += lv[leaf.long()]
+        """Add a host tree's output to a dataset's score by KP2's add mode
+        on the device (gbdt.py:2233-2243)."""
+        _walk_add(state.bins, state.num_bins, state.default_bins,
+                  state.score, tree)
 
     def eval_train(self) -> Dict[str, List[float]]:
         self._sync_model()
@@ -724,31 +773,160 @@ class GBDT:
         return len(self.models)
 
     # ------------------------------------------------------------------ #
-    def predict_raw(self, X: np.ndarray, num_iteration: int = -1
-                    ) -> np.ndarray:
-        """Raw scores by the host walk of every tree (device prediction is
-        ROADMAP.md queue 1, item 8)."""
-        self._sync_model()
+    # prediction on raw features (gbdt.py:1672-1858)
+    # ------------------------------------------------------------------ #
+    def _check_features(self, X) -> np.ndarray:
         X = np.ascontiguousarray(np.asarray(X, np.float64))
         if X.ndim != 2 or X.shape[1] <= self.max_feature_idx:
             log.fatal("The number of features in data (%d) is not the same "
                       "as it was in training data (%d)"
                       % (X.shape[1] if X.ndim == 2 else 0,
                          self.max_feature_idx + 1))
-        iters = len(self.models)
-        if num_iteration > 0:
-            iters = min(num_iteration, iters)
-        out = np.zeros(X.shape[0], np.float64)
-        for tree in self.models[:iters]:
-            out += tree.predict(X)
+        return X
+
+    def _iterations(self, num_iteration: int) -> int:
+        total = len(self.models) // max(self.num_tree_per_iteration, 1)
+        return total if num_iteration <= 0 else min(num_iteration, total)
+
+    def predict_raw(self, X, num_iteration: int = -1,
+                    early_stop: bool = False, early_stop_freq: int = 10,
+                    early_stop_margin: float = 10.0,
+                    device: Optional[bool] = None) -> np.ndarray:
+        """Raw scores of the first num_iteration iterations (all with
+        num_iteration <= 0).  device: None or True walks the device
+        ensemble (KP1 on the card; its plain version on a CPU booster),
+        False the host trees one by one, as the JAX package lets serving
+        pin it.  Both sum in f64 in tree order and agree bit for bit.
+        early_stop: a row stops once its margin 2|score| reaches
+        early_stop_margin, checked every early_stop_freq trees
+        (prediction_early_stop.cpp; off for an averaged model).  scipy
+        sparse input is densified in chunks."""
+        self._sync_model()
+        if _issparse(X):
+            return _by_dense_chunks(X, lambda x: self.predict_raw(
+                x, num_iteration, early_stop=early_stop,
+                early_stop_freq=early_stop_freq,
+                early_stop_margin=early_stop_margin, device=device))
+        X = self._check_features(X)
+        k = self.num_tree_per_iteration
+        iters = self._iterations(num_iteration)
+        use_es = early_stop and not self.average_output
+        if use_es and k != 1:
+            raise NotImplementedError(
+                "prediction early stop of a multiclass model is not ported "
+                "yet (ROADMAP.md queue 1, item 11)")
+        freq = max(early_stop_freq, 1)
+        if device is False:
+            out = self._predict_host(X, iters, use_es, freq,
+                                     early_stop_margin)
+        else:
+            out = self._device_ensemble().predict_sum(
+                X, iters, early_stop_freq=freq if use_es else 0,
+                early_stop_margin=early_stop_margin)
+        if self.average_output:
+            # RF semantics survive model reload (rf.hpp averages outputs)
+            out /= max(iters, 1)
+        return out[0] if k == 1 else out.T  # [n] or [n, k]
+
+    def _predict_host(self, X: np.ndarray, iters: int, use_es: bool,
+                      freq: int, margin: float) -> np.ndarray:
+        """[k, n] raw scores by the host walk of each tree, with the
+        margin-based early stop of prediction_early_stop.cpp:14-89 (copied
+        from lightgbm_tpu/models/gbdt.py:1715-1747, k = 1 only): the
+        reference counts trees between checks, k a step."""
+        k = self.num_tree_per_iteration
+        n = X.shape[0]
+        out = np.zeros((k, n), np.float64)
+        active = np.ones(n, bool) if use_es else None
+        es_counter = 0
+        for it in range(iters):
+            if use_es and es_counter >= freq and active.any():
+                es_counter = 0
+                active &= 2.0 * np.abs(out[0]) < margin
+                if not active.any():
+                    break
+            rows = X[active] if use_es else X
+            if rows.shape[0] == 0:
+                break
+            for kk in range(k):
+                pred = self.models[it * k + kk].predict(rows)
+                if use_es:
+                    out[kk, active] += pred
+                else:
+                    out[kk] += pred
+            es_counter += k
         return out
 
-    def predict(self, X: np.ndarray, num_iteration: int = -1,
-                raw_score: bool = False) -> np.ndarray:
-        raw = self.predict_raw(X, num_iteration)
+    def _device_ensemble(self) -> DeviceEnsemble:
+        """The model's walk tables on the booster's device, cached on the
+        model's length and generation (gbdt.py:1754-1768)."""
+        key = (len(self.models), self._model_gen)
+        if self._dev_ens_cache is None or self._dev_ens_cache[0] != key:
+            self._dev_ens_cache = (key, DeviceEnsemble(
+                self.models, self.num_tree_per_iteration, self.device))
+        return self._dev_ens_cache[1]
+
+    def predict(self, X, num_iteration: int = -1, raw_score: bool = False,
+                early_stop: bool = False, early_stop_freq: int = 10,
+                early_stop_margin: float = 10.0,
+                device: Optional[bool] = None) -> np.ndarray:
+        raw = self.predict_raw(X, num_iteration, early_stop=early_stop,
+                               early_stop_freq=early_stop_freq,
+                               early_stop_margin=early_stop_margin,
+                               device=device)
+        return self._convert_output(raw, raw_score)
+
+    def _convert_output(self, raw: np.ndarray, raw_score: bool) -> np.ndarray:
         if raw_score or self.objective is None:
             return raw
         return np.asarray(self.objective.convert_output(raw))
+
+    def predict_bucketed(self, X, num_iteration: int = -1,
+                         raw_score: bool = False, max_bucket: int = 1 << 20,
+                         ensemble: Optional[DeviceEnsemble] = None
+                         ) -> np.ndarray:
+        """The serving path (gbdt.py:1795-1824): rows padded to the
+        power-of-two bucket, each row's output equal to predict()'s device
+        path.  `ensemble`: walk this DeviceEnsemble instead of the cached
+        one (a serving fleet checks one out under its byte ledger)."""
+        self._sync_model()
+        X = self._check_features(X)
+        ens = ensemble if ensemble is not None else self._device_ensemble()
+        k = self.num_tree_per_iteration
+        iters = self._iterations(num_iteration)
+        out = ens.predict_bucketed(X, iters, max_bucket=max_bucket)
+        if self.average_output:
+            out /= max(iters, 1)
+        raw = out[0] if k == 1 else out.T
+        return self._convert_output(raw, raw_score)
+
+    def predict_leaf_index(self, X, num_iteration: int = -1,
+                           device: Optional[bool] = None) -> np.ndarray:
+        """int32 [n, iters*k]: each row's leaf in every tree, from the
+        device ensemble (KP1's leaf mode) or, with device=False, the host
+        walk (gbdt.py:1843-1853)."""
+        self._sync_model()
+        if _issparse(X):
+            return _by_dense_chunks(X, lambda x: self.predict_leaf_index(
+                x, num_iteration, device=device))
+        X = self._check_features(X)
+        iters = self._iterations(num_iteration)
+        T = iters * self.num_tree_per_iteration
+        if device is False:
+            out = np.zeros((X.shape[0], T), np.int32)
+            for i in range(T):
+                out[:, i] = self.models[i].predict_leaf_index(X)
+            return out
+        return self._device_ensemble().predict_leaf(X, iters)
+
+    def predict_contrib(self, X, num_iteration: int = -1) -> np.ndarray:
+        """TreeSHAP contributions on the host, as the JAX package computes
+        them (models/shap.py)."""
+        self._sync_model()
+        from .shap import predict_contrib as _shap
+        if _issparse(X):
+            return _by_dense_chunks(X, lambda x: _shap(self, x, num_iteration))
+        return _shap(self, self._check_features(X), num_iteration)
 
     def feature_importance(self, num_iteration: int = -1) -> np.ndarray:
         """Split counts per raw feature."""
@@ -769,6 +947,8 @@ class GBDT:
               "max_feature_idx=%d" % self.max_feature_idx]
         if self.objective is not None:
             ss.append("objective=%s" % self.objective.to_string())
+        if self.average_output:
+            ss.append("average_output")
         ss.append("feature_names=" + " ".join(self.feature_names))
         ss.append("feature_infos=" + " ".join(self.feature_infos))
         num_used = len(self.models)
@@ -789,7 +969,9 @@ class GBDT:
 
     def load_model_from_string(self, text: str) -> None:
         """LoadModelFromString (gbdt_model_text.cpp:343+), one tree per
-        iteration."""
+        iteration; the bare `average_output` line marks a model whose
+        prediction is the mean of its trees (gbdt.py:1955-1964)."""
+        self._model_gen += 1
         header: Dict[str, str] = {}
         for line in text.split("\n"):
             line = line.strip()
@@ -798,6 +980,8 @@ class GBDT:
             if "=" in line:
                 k, v = line.split("=", 1)
                 header[k.strip()] = v.strip()
+            elif line == "average_output":
+                header["average_output"] = "1"
         if header.get("version") != "v2":
             log.warning("Unknown model version %s", header.get("version"))
         if int(header.get("num_tree_per_iteration",
@@ -807,6 +991,7 @@ class GBDT:
                 "(ROADMAP.md queue 1, item 11)")
         self.label_idx = int(header.get("label_index", "0"))
         self.max_feature_idx = int(header.get("max_feature_idx", "0"))
+        self.average_output = "average_output" in header
         self.feature_names = header.get("feature_names", "").split()
         self.feature_infos = header.get("feature_infos", "").split()
         if "objective" in header and self.objective is None:
@@ -870,9 +1055,10 @@ def _repr_g(v: float) -> str:
                                       fractional=False)
 
 
-def _tree_to_device(tree: Tree, device) -> Tuple[TreeArrays, int]:
-    """A host tree's node arrays on the device for the binned walk
-    (gbdt.py:2246-2310), and its depth: the walk's level count."""
+def _tree_to_device(tree: Tree, device) -> TreeArrays:
+    """A host tree's node arrays on the device for KP2's walk
+    (gbdt.py:2246-2310): `add_valid`'s replay of earlier trees and the
+    rebuild of the training score."""
     nl = tree.num_leaves
     n = nl - 1
     dt = tree.decision_type[:n].astype(np.int32)
@@ -885,7 +1071,7 @@ def _tree_to_device(tree: Tree, device) -> Tuple[TreeArrays, int]:
 
     zn = np.zeros(n)
     zl = np.zeros(nl)
-    arrays = TreeArrays(
+    return TreeArrays(
         split_feature=t(tree.split_feature_inner[:n], np.int32),
         threshold_bin=t(tree.threshold_in_bin[:n], np.int32),
         default_left=t((dt & K_DEFAULT_LEFT_MASK) > 0, bool),
@@ -898,12 +1084,41 @@ def _tree_to_device(tree: Tree, device) -> Tuple[TreeArrays, int]:
         leaf_count=t(zl, np.int32), leaf_parent=t(zl, np.int32),
         leaf_depth=t(zl, np.int32), num_leaves=t(nl, np.int32),
         is_cat=t(zn, bool), cat_mask=t(np.zeros((n, 0)), bool))
-    depth, stack = 0, [(0, 0)]
-    while stack:
-        node, d = stack.pop()
-        if node < 0:
-            depth = max(depth, d)
-            continue
-        stack += [(int(tree.left_child[node]), d + 1),
-                  (int(tree.right_child[node]), d + 1)]
-    return arrays, depth
+
+
+def _walk_add(bins: torch.Tensor, num_bins: torch.Tensor,
+              default_bins: torch.Tensor, score: torch.Tensor,
+              tree: Tree) -> None:
+    """score += the host tree's f32 leaf value at each row's leaf (a
+    constant for a one-leaf tree), the rows walked by KP2's add mode."""
+    if tree.num_leaves <= 1:
+        score += float(tree.leaf_value[0])
+        return
+    lv = torch.as_tensor(
+        tree.leaf_value[:tree.num_leaves].astype(np.float32),
+        device=score.device)
+    walk_binned(bins, _tree_to_device(tree, score.device), num_bins,
+                default_bins, lv=lv, score=score)
+
+
+def _issparse(X) -> bool:
+    """lightgbm_tpu/io/dataset.py:28: a scipy sparse matrix."""
+    try:
+        import scipy.sparse as sp
+        return sp.issparse(X)
+    except ImportError:
+        return False
+
+
+def _dense_matrix(X) -> np.ndarray:
+    """The input conversion the verbatim models/shap.py imports: its rows
+    arrive dense here (predict_contrib densifies sparse input in chunks)."""
+    return np.asarray(X, np.float64)
+
+
+def _by_dense_chunks(X, fn) -> np.ndarray:
+    """fn over a scipy sparse X densified in chunks of about 2^24 values,
+    joined by rows (lightgbm_tpu/models/gbdt.py:1681-1691)."""
+    step = max(1, (1 << 24) // max(X.shape[1], 1))
+    return np.concatenate([fn(np.asarray(X[i:i + step].todense()))
+                           for i in range(0, X.shape[0], step)], axis=0)

@@ -36,6 +36,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 # source stem -> {C entry point: argtypes}
 _ENTRY_POINTS = {
@@ -75,6 +76,12 @@ _ENTRY_POINTS = {
                                _P],
         "lgbt_compact_carry_i8": [_P, _P, _P, _LL, _P, _P, _I, _P, _P, _LL,
                                   _I, _P]},
+    "predict_ensemble": {
+        "lgbt_predict_ensemble": [_P] * 12 + [_LL, _I, _I, _I, _I, _I, _D,
+                                              _P, _LL, _P, _P]},
+    "walk_binned": {
+        "lgbt_walk_binned": [_P] * 7 + [_I, _P, _LL, _I, _P, _P, _I, _P, _P,
+                                        _P, _P, _P]},
 }
 
 LAUNCHES: Counter = Counter()

@@ -10,7 +10,8 @@ ops/histogram.py) and its sibling by subtraction.  The tree tables and the
 per-split bookkeeping (Tree::Split, the monotone bounds, the depth limit)
 are shared with the partition engine (ops/grow_partition.py), as JAX
 shares them between its two engines.  The walk is plain tensor code, as it
-is plain `jnp` in JAX: no kernel.
+is plain `jnp` in JAX; on the card KP2 (ops/predict_kernel.walk_binned)
+walks instead.
 """
 from __future__ import annotations
 
@@ -117,20 +118,20 @@ def unpack_tree_vector(vec: np.ndarray, max_leaves: int):
 
 
 def predict_leaf_inner(bins: torch.Tensor, tree: TreeArrays,
-                       num_bins: torch.Tensor, default_bins: torch.Tensor,
-                       depth: int) -> torch.Tensor:
+                       num_bins: torch.Tensor,
+                       default_bins: torch.Tensor) -> torch.Tensor:
     """Leaf index (int32 [n]) per row by walking the tree over the inner
     bins [n, F] (Tree::GetLeafAt + DecisionInner, tree.h:233-248, 289-296),
-    as lightgbm_tpu/ops/grow.py:856-901 does.
+    as lightgbm_tpu/ops/grow.py:856-901 does: KP2's plain version
+    (ops/predict_kernel.walk_binned).
 
     Vectorized node walk: every row holds a current node (>= 0 internal,
     negative = ~leaf), routed by threshold and missing type (zero: the
-    feature's default bin; NaN: its last bin) as the grower decides.  The
-    JAX loop tests `any(node >= 0)` each level; here that test would be a
-    host sync per level, so the caller passes the tree's depth (its largest
-    leaf depth, which the one fetch per tree brings) and the walk runs
-    exactly that many levels with no sync.  Categorical nodes and EFB
-    bundles are not ported."""
+    feature's default bin; NaN: its last bin) as the grower decides,
+    level by level until every row rests at a leaf, as JAX's while_loop
+    does.  The test of that is a host read a level, which costs nothing on
+    the CPU; on the card the kernel walks each row to its leaf instead.
+    Categorical nodes and EFB bundles are not ported."""
     if tree.cat_mask.shape[1] > 0:
         raise NotImplementedError(
             "categorical splits are not ported yet (ROADMAP.md queue 1, "
@@ -147,7 +148,7 @@ def predict_leaf_inner(bins: torch.Tensor, tree: TreeArrays,
     left, right = tree.left_child.long(), tree.right_child.long()
     db_all = default_bins.long()
     mb_all = num_bins.long() - 1
-    for _ in range(depth):
+    while bool((node >= 0).any()):
         nd = node.clamp_min(0)
         feat = feat_all[nd]
         col = bins.gather(1, feat[:, None])[:, 0].long()

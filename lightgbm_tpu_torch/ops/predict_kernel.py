@@ -1,0 +1,177 @@
+"""KP1 and KP2: the walk kernels of device prediction and of the eager
+paths' score updates.
+
+Both are port-only: the JAX package walks with plain jnp or a signature
+matmul, with no Pallas kernel (csrc/predict_ensemble.cu and
+csrc/walk_binned.cu say what each replaces).  As for every kernel of the
+port, the tensor's device decides: a CPU tensor runs the plain version, a
+CUDA tensor launches the kernel or raises.
+
+- `predict_ensemble` (KP1): an ensemble's walk tables (ops/predict.py)
+  over raw f64 rows, summing leaf values in f64, with early stop, or
+  writing each row's leaf per tree; plain version
+  ops/predict.predict_ensemble_plain.
+- `walk_binned` (KP2): one device tree (ops/grow.TreeArrays) over the
+  uint8 bins [n, G], writing each row's leaf or adding a leaf value to the
+  row's f32 score (all rows, or the rows whose leaf id is -1, the others
+  adding the value of their leaf id); plain version
+  ops/grow.predict_leaf_inner and the same adds.  Counted as
+  `walk_binned` (leaf mode), `walk_binned_add` and
+  `walk_binned_masked_add`.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import _cuda
+from .grow import TreeArrays, predict_leaf_inner
+from .predict import (MODE_LEAF, MODE_SUM, MODE_SUM_EARLY_STOP,
+                      EnsembleTables, predict_ensemble_plain)
+
+_TABLE_DTYPES = dict(node_off=torch.int32, leaf_off=torch.int32,
+                     cat_off=torch.int32, feature=torch.int32,
+                     threshold=torch.float64, decision=torch.int8,
+                     left=torch.int32, right=torch.int32,
+                     leaf_value=torch.float64, cat_bound=torch.int32,
+                     cat_words=torch.int32)
+
+
+def predict_ensemble(tb: EnsembleTables, X: torch.Tensor, T: int, k: int,
+                     out: torch.Tensor, row0: int = 0, mode: int = MODE_SUM,
+                     freq: int = 0, margin: float = 0.0) -> None:
+    """KP1 over the m rows of X [m, F] f64, which are rows row0.. of out:
+    sum modes write out[:, row0:row0+m] ([k, n] f64), leaf mode
+    out[row0:row0+m] ([n, T] int32).  T trees t < T are walked; early stop
+    (mode MODE_SUM_EARLY_STOP) needs k = 1 and freq >= 1."""
+    dev = X.device
+    m, F = X.shape
+    if mode not in (MODE_SUM, MODE_SUM_EARLY_STOP, MODE_LEAF):
+        raise ValueError("unknown mode %r" % mode)
+    if mode == MODE_SUM_EARLY_STOP and (k != 1 or freq < 1):
+        raise ValueError("early stop needs k = 1 and freq >= 1")
+    ntrees = tb.node_off.shape[0] - 1
+    if not 0 <= T <= ntrees:
+        raise ValueError("T=%d outside the ensemble's %d trees" % (T, ntrees))
+    if F <= tb.max_feature:
+        raise ValueError("X has %d features, and a node reads feature %d"
+                         % (F, tb.max_feature))
+    for name, dtype in _TABLE_DTYPES.items():
+        _cuda.require(getattr(tb, name), name, dtype, dev)
+    _cuda.require(X, "X", torch.float64, dev)
+    leaf = mode == MODE_LEAF
+    if leaf:
+        _cuda.require(out, "out", torch.int32, dev)
+        if out.dim() != 2 or out.shape[1] != T or out.shape[0] < row0 + m:
+            raise ValueError("out: shape %s for rows %d.. of T=%d"
+                             % (tuple(out.shape), row0, T))
+    else:
+        _cuda.require(out, "out", torch.float64, dev)
+        if out.dim() != 2 or out.shape[0] != k or out.shape[1] < row0 + m:
+            raise ValueError("out: shape %s for rows %d.. of k=%d"
+                             % (tuple(out.shape), row0, k))
+    if m == 0:
+        return
+    if not _cuda.plain_or_cuda(dev):
+        got = predict_ensemble_plain(tb, X, T, k, mode, freq, margin)
+        if leaf:
+            out[row0:row0 + m] = got
+        else:
+            out[:, row0:row0 + m] = got
+        return
+    n_total = out.shape[0] if leaf else out.shape[1]
+    if leaf:
+        o_ptr, l_ptr = 0, out.data_ptr() + 4 * row0 * T
+    else:
+        o_ptr, l_ptr = out.data_ptr() + 8 * row0, 0
+    rc = _cuda.fn("lgbt_predict_ensemble")(
+        *(getattr(tb, name).data_ptr() for name in _TABLE_DTYPES),
+        X.data_ptr(), m, F, T, k, mode, max(freq, 1), float(margin), o_ptr,
+        n_total, l_ptr, _cuda.stream(dev))
+    _cuda.check(rc, "predict_ensemble")
+
+
+_WALK_LEAF, _WALK_MASKED_ADD, _WALK_ADD = 0, 1, 2
+
+
+def walk_binned_plain(bins: torch.Tensor, tree: TreeArrays,
+                      num_bins: torch.Tensor, default_bins: torch.Tensor,
+                      lv: Optional[torch.Tensor] = None,
+                      score: Optional[torch.Tensor] = None,
+                      leaf_ids: Optional[torch.Tensor] = None):
+    """KP2 in plain PyTorch: the leaf of every row (no score), or
+    `score += lv[leaf]` in place, with leaf_ids >= 0 taking the place of
+    the walk's leaf where given."""
+    leaf = predict_leaf_inner(bins, tree, num_bins, default_bins)
+    if score is None:
+        return leaf
+    if leaf_ids is not None:
+        leaf = torch.where(leaf_ids >= 0, leaf_ids, leaf)
+    score.add_(lv[leaf.long()])
+    return None
+
+
+def walk_binned(bins: torch.Tensor, tree: TreeArrays,
+                num_bins: torch.Tensor, default_bins: torch.Tensor,
+                lv: Optional[torch.Tensor] = None,
+                score: Optional[torch.Tensor] = None,
+                leaf_ids: Optional[torch.Tensor] = None):
+    """KP2: one tree over bins [n, G] uint8.  With no score: returns each
+    row's leaf (int32 [n]).  With lv (f32 [L]) and score (f32 [n]): adds
+    lv[leaf] to every row's score in place (one f32 add), and with
+    leaf_ids (int32 [n]) only the rows whose id is -1 walk, the others
+    adding lv[leaf_ids]."""
+    dev = bins.device
+    n, G = bins.shape
+    _cuda.require(bins, "bins", torch.uint8, dev)
+    N = tree.split_feature.shape[0]
+    for name, dtype in (("split_feature", torch.int32),
+                        ("threshold_bin", torch.int32),
+                        ("default_left", torch.bool),
+                        ("missing_type", torch.int32),
+                        ("left_child", torch.int32),
+                        ("right_child", torch.int32)):
+        _cuda.require(getattr(tree, name), name, dtype, dev, (N,))
+    nl = tree.num_leaves.reshape(())
+    _cuda.require(nl, "num_leaves", torch.int32, dev, ())
+    _cuda.require(num_bins, "num_bins", torch.int32, dev, (G,))
+    _cuda.require(default_bins, "default_bins", torch.int32, dev, (G,))
+    if tree.cat_mask.shape[1] > 0:
+        raise NotImplementedError(
+            "categorical splits are not ported yet (ROADMAP.md queue 1, "
+            "item 11)")
+    if score is None:
+        if lv is not None or leaf_ids is not None:
+            raise ValueError("lv and leaf_ids need a score")
+        mode = _WALK_LEAF
+        out = torch.empty(n, dtype=torch.int32, device=dev)
+    else:
+        _cuda.require(score, "score", torch.float32, dev, (n,))
+        if lv is None:
+            raise ValueError("a score update needs lv")
+        _cuda.require(lv, "lv", torch.float32, dev)
+        if leaf_ids is not None:
+            _cuda.require(leaf_ids, "leaf_ids", torch.int32, dev, (n,))
+        mode = _WALK_ADD if leaf_ids is None else _WALK_MASKED_ADD
+        out = None
+    if not _cuda.plain_or_cuda(dev):
+        got = walk_binned_plain(bins, tree, num_bins, default_bins, lv,
+                                score, leaf_ids)
+        return got if out is not None else None
+    if n == 0:
+        return out
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+    rc = _cuda.fn("lgbt_walk_binned")(
+        tree.split_feature.data_ptr(), tree.threshold_bin.data_ptr(),
+        tree.default_left.data_ptr(), tree.missing_type.data_ptr(),
+        tree.left_child.data_ptr(), tree.right_child.data_ptr(),
+        nl.data_ptr(), N, bins.data_ptr(), n, G,
+        num_bins.data_ptr(), default_bins.data_ptr(), mode, ptr(lv),
+        ptr(leaf_ids), ptr(out), ptr(score), _cuda.stream(dev))
+    _cuda.check(rc, ("walk_binned", "walk_binned_masked_add",
+                     "walk_binned_add")[mode])
+    return out
+

@@ -2,13 +2,17 @@
 port or another checkout's, on the card.
 
     python lightgbm_tpu_torch/tools/round_profile.py [ROOT ...] [--rows N]
+        [--paths f32,quantized] [--timed 3]
 
 ROOT is the root of a checkout holding `lightgbm_tpu_torch` (a parent
 commit unpacked with `git archive`, say); this checkout's by default.  For
 each ROOT in turn, in a process of its own that imports that ROOT's
 package: `chip_smoke.py`'s Higgs-shaped data (10.5M rows by default),
-binned; then for the carried f32 and the quantized path, two rounds of
-`train` with `chip_smoke.py`'s parameters and one more round under
+binned; then for each path (`chip_smoke.PATHS` keys with neither weights
+nor a validation set; the carried f32 and the quantized path by default),
+two rounds of `train` with `chip_smoke.py`'s parameters, `--timed` more
+rounds on the host clock (from a synchronized card to the drain and
+synchronize after the last, no profiler), and one more round under
 torch.profiler (`chip_smoke.profile_round`; with CUDA graphs a replay
 with the drain of its tree, an older package's round eagerly): its wall
 time, device busy time, idle share and the device ms and launches of
@@ -39,7 +43,7 @@ def _chip_smoke():
     return mod
 
 
-def one(root: str, rows: int, rounds: int) -> int:
+def one(root: str, rows: int, rounds: int, paths, timed: int) -> int:
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
     import lightgbm_tpu_torch as lt
@@ -56,10 +60,22 @@ def one(root: str, rows: int, rounds: int) -> int:
     print("data: %d x %d binned in %.1f s" % (X.shape[0], X.shape[1],
                                               time.perf_counter() - t))
     out = {}
-    for path in ("f32", "quantized"):
+    for path in paths:
         booster = lt.train(cs.path_params(path), ds, num_boost_round=rounds,
                            device=dev)
+        sync = getattr(booster._gbdt, "_sync_model", lambda: None)
+        sync()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(timed):
+            booster.update()
+        sync()
+        torch.cuda.synchronize()
+        round_ms = (time.perf_counter() - t) * 1e3 / max(timed, 1)
+        print("%s: %.1f ms a round over %d rounds (host clock, the drain "
+              "included)" % (path, round_ms, timed))
         out[path] = prof = cs.profile_round(booster, path, rows=rows)
+        prof["round_ms"] = round_ms
         by = prof.get("by_kernel") or {}
         print("%s round, device ms (launches): %s; operations over the rows:"
               " %d" % (path, ", ".join(
@@ -78,16 +94,20 @@ def main(argv=None) -> int:
     ap.add_argument("roots", nargs="*", default=[str(REPO)])
     ap.add_argument("--rows", type=int, default=10_500_000)
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--paths", default="f32,quantized")
+    ap.add_argument("--timed", type=int, default=3)
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    paths = args.paths.split(",")
     if args.one:
-        return one(args.roots[0], args.rows, args.rounds)
+        return one(args.roots[0], args.rows, args.rounds, paths, args.timed)
     rc = 0
     for root in args.roots:
         sys.stdout.flush()
         rc |= subprocess.run([sys.executable, __file__, "--one", root,
                               "--rows", str(args.rows), "--rounds",
-                              str(args.rounds)]).returncode
+                              str(args.rounds), "--paths", args.paths,
+                              "--timed", str(args.timed)]).returncode
     return rc
 
 

@@ -197,15 +197,12 @@ def test_predict_leaf_inner_matches_jax(case):
                                                for k, v in host.items()}),
         jnp.asarray(num_bins), jnp.asarray(default_bins)))
     tt = interop.tree_arrays_from_numpy(host, device="cpu")
-    depth = int(np.asarray(host["leaf_depth"])[:nl].max()) if nl > 1 else 0
-    # the tree's depth, and more levels than it: a row at a leaf stays
-    for d in (depth, depth + 3):
-        got = tgrow.predict_leaf_inner(torch.from_numpy(bins), tt,
-                                       torch.from_numpy(num_bins),
-                                       torch.from_numpy(default_bins),
-                                       depth=d)
-        assert got.dtype == torch.int32
-        np.testing.assert_array_equal(got.numpy(), want)
+    # no depth: the walk runs until every row rests at a leaf, as JAX's
+    got = tgrow.predict_leaf_inner(torch.from_numpy(bins), tt,
+                                   torch.from_numpy(num_bins),
+                                   torch.from_numpy(default_bins))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 # --------------------------------------------------------------------------- #
@@ -264,6 +261,8 @@ def bagged():
             masks.append((np.asarray(jb._gbdt._bag_mask),
                           tb._gbdt._bag_mask.copy(), tb._gbdt._bag_count))
         jb.predict(X[:1])                   # drains JAX's pending trees
+        assert tb._gbdt._tree_fetches == 0  # the port's are pending too
+        tb.num_trees()                      # and drain here
         out[name] = dict(X=X, jb=jb, tb=tb, masks=masks, params=params)
     return out
 

@@ -23,7 +23,16 @@ Tolerances, per kernel:
   and planes exact; the histogram exact for codes, for f32 as K2's; at
   G=28 and at G=80, whose [G, 255, 3] histogram exceeds one block's shared
   memory (the kernel then walks its rows once more per feature chunk);
-- the binned tree walk: equal leaves on the card and the CPU;
+- the binned tree walk, KP2 walk_binned: equal leaves on the card and
+  the CPU, and in its add and masked-add modes equal f32 scores (bit for
+  bit); a one-leaf tree puts every row in leaf 0;
+- KP1 predict_ensemble, every mode against its plain version on the card,
+  bit for bit: the fixture models ref50 (binary), cat50 (multi-word
+  categorical bitsets) and mc50 as k = 3 and k = 5, on rows with NaNs,
+  zeros, values below 1e-35, negative and out-of-range categories, at 1,
+  255, 257 and 100,003 rows; sums of all trees and of a third, early stop,
+  leaf indices, rows written at an offset; DeviceEnsemble in small chunks
+  against the host walk, and its device bytes against the estimate;
 - K2 in int8 mode, K5 fused_refresh_histogram, K6 compact_carry and K3 with
   the code payload: exact (integer atomics are order-independent);
 - a grown tree on dyadic gradients (every sum exact in f32): the same
@@ -88,6 +97,8 @@ Tolerances, per kernel:
   warm-up, capture, replays that read a rewritten input, launch counts,
   and a capture that reads a host value raising.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -96,6 +107,7 @@ from lightgbm_tpu_torch.ops import _cuda
 from lightgbm_tpu_torch.ops import partition_kernel as pk
 from lightgbm_tpu_torch.ops import split_kernel as sk
 from lightgbm_tpu_torch.ops.grow import predict_leaf_inner
+from lightgbm_tpu_torch.ops.predict_kernel import walk_binned
 from lightgbm_tpu_torch.ops import quantize as qz
 from lightgbm_tpu_torch.ops.grow_partition import grow_tree_partition
 from lightgbm_tpu_torch.ops.split import SplitParams
@@ -713,9 +725,11 @@ def test_partition_pred_hist_matches_plain(quantized, G, dev):
 
 def test_predict_leaf_inner_card_vs_cpu(dev):
     """A 63-leaf tree grown on the CPU, walked over the same bins with every
-    missing type on the card and on the CPU."""
+    missing type: KP2 on the card in each mode against its plain version
+    on the CPU (predict_leaf_inner and the same f32 adds), bit for bit;
+    and a one-leaf tree."""
     rng = np.random.RandomState(14)
-    n, F, B = 200_000, 8, 64
+    n, F, B = 200_003, 8, 64
     bins = torch.from_numpy(rng.randint(0, B, (F, n)).astype(np.uint8))
     grad = torch.from_numpy(rng.randn(n).astype(np.float32))
     hess = torch.from_numpy((rng.rand(n) + 0.1).astype(np.float32))
@@ -727,14 +741,136 @@ def test_predict_leaf_inner_card_vs_cpu(dev):
     tree, _, _ = grow_tree_partition(
         arena, grad, hess, torch.ones(F, dtype=torch.bool), nb, db, mt,
         SplitParams(min_data_in_leaf=20), max_leaves=63, max_bin=B)
-    depth = int(tree.leaf_depth.max())
+    assert int(tree.num_leaves) == 63
     bins_rows = bins.t().contiguous()
-    want = predict_leaf_inner(bins_rows, tree, nb, db, depth=depth)
+    want = predict_leaf_inner(bins_rows, tree, nb, db)
     on_card = type(tree)(*(t.to(dev) for t in tree))
-    for d in (depth, depth + 3):
-        got = predict_leaf_inner(bins_rows.to(dev), on_card, nb.to(dev),
-                                 db.to(dev), depth=d)
-        assert torch.equal(got.cpu(), want)
+    args = (bins_rows.to(dev), on_card, nb.to(dev), db.to(dev))
+    _cuda.reset_launch_counts()
+    got = walk_binned(*args)
+    assert torch.equal(got.cpu(), want)
+    lv = torch.from_numpy(rng.randn(63).astype(np.float32))
+    score = torch.from_numpy(rng.randn(n).astype(np.float32))
+    ids = torch.from_numpy(np.where(rng.rand(n) < 0.8, rng.randint(0, 63, n),
+                                    -1).astype(np.int32))
+    for leaf_ids in (None, ids):
+        s_cpu = score.clone()
+        walk_binned(bins_rows, tree, nb, db, lv=lv, score=s_cpu,
+                    leaf_ids=leaf_ids)
+        s_dev = score.to(dev)
+        walk_binned(*args, lv=lv.to(dev), score=s_dev,
+                    leaf_ids=None if leaf_ids is None else leaf_ids.to(dev))
+        assert torch.equal(s_dev.cpu().view(torch.int32),
+                           s_cpu.view(torch.int32))
+    assert dict(_cuda.LAUNCHES) == {"walk_binned": 1, "walk_binned_add": 1,
+                                    "walk_binned_masked_add": 1}
+    one = on_card._replace(num_leaves=torch.ones((), dtype=torch.int32,
+                                                 device=dev))
+    assert int(walk_binned(args[0], one, args[2], args[3]).abs().sum()) == 0
+
+
+# --------------------------------------------------------------------------- #
+# KP1 predict_ensemble
+# --------------------------------------------------------------------------- #
+_INTEROP = os.path.join(os.path.dirname(__file__), "fixtures", "interop")
+
+
+def _fixture_trees(name):
+    """A fixture model's trees parsed by the port's Tree.from_string."""
+    from lightgbm_tpu_torch.models.tree import Tree
+    with open(os.path.join(_INTEROP, name + ".txt")) as f:
+        text = f.read()
+    trees = []
+    for blk in text.split("Tree=")[1:]:
+        body = blk.split("\n\n")[0]
+        body = body[body.index("\n") + 1:]
+        if "end of trees" in body:
+            body = body[:body.index("end of trees")]
+        trees.append(Tree.from_string(body))
+    return trees
+
+
+def _fixture_rows(name, n, seed):
+    """n rows drawn from a fixture's test set, with NaNs, exact zeros,
+    "zero" values below 1e-35, negative and out-of-range categories."""
+    test = np.loadtxt(os.path.join(_INTEROP, name))[:, 1:]
+    rng = np.random.RandomState(seed)
+    X = test[rng.randint(0, len(test), n)].copy()
+    X[rng.rand(*X.shape) < 0.05] = np.nan
+    X[rng.rand(*X.shape) < 0.05] = 0.0
+    X[rng.rand(*X.shape) < 0.02] = 1e-36
+    X[rng.rand(*X.shape) < 0.02] = -3.5
+    X[rng.rand(*X.shape) < 0.01] = 1e6
+    return X
+
+
+PREDICT_CASES = {"binary": ("ref50", "binary.test", 1),
+                 "categorical": ("cat50", "cat.test", 1),
+                 "k3": ("mc50", "multiclass.test", 3),
+                 "k5": ("mc50", "multiclass.test", 5)}
+
+
+@pytest.mark.parametrize("rows", [1, 255, 257, 100_003])
+@pytest.mark.parametrize("case", sorted(PREDICT_CASES))
+def test_predict_ensemble_matches_plain(case, rows, dev):
+    """KP1 on the card against its plain version on the same card, every
+    mode, bit for bit: sums (all trees and a third of them), early stop
+    (k = 1: every 3 trees at margin 1, every 10 at margin 4), leaf
+    indices; and the wrapper's chunked entry (rows written at an
+    offset)."""
+    from lightgbm_tpu_torch.ops import predict as pr
+    from lightgbm_tpu_torch.ops.predict_kernel import predict_ensemble
+    model, data, k = PREDICT_CASES[case]
+    trees = _fixture_trees(model)
+    X = torch.from_numpy(_fixture_rows(data, rows, 5 + rows)).to(dev)
+    tb = pr.build_tables(trees, dev)
+    T = len(trees)
+    _cuda.reset_launch_counts()
+    for t_used in (T, T // 3):
+        out = torch.full((k, rows), 7.0, dtype=torch.float64, device=dev)
+        predict_ensemble(tb, X, t_used, k, out)
+        want = pr.predict_ensemble_plain(tb, X, t_used, k)
+        assert torch.equal(out, want), t_used
+    if k == 1:
+        for freq, margin in ((3, 1.0), (10, 4.0)):
+            out = torch.zeros((1, rows), dtype=torch.float64, device=dev)
+            predict_ensemble(tb, X, T, 1, out, mode=pr.MODE_SUM_EARLY_STOP,
+                             freq=freq, margin=margin)
+            want = pr.predict_ensemble_plain(
+                tb, X, T, 1, pr.MODE_SUM_EARLY_STOP, freq, margin)
+            assert torch.equal(out, want), (freq, margin)
+    leaf = torch.full((rows, T), -5, dtype=torch.int32, device=dev)
+    predict_ensemble(tb, X, T, k, leaf, mode=pr.MODE_LEAF)
+    assert torch.equal(leaf, pr.predict_ensemble_plain(tb, X, T, k,
+                                                       pr.MODE_LEAF))
+    # rows 1.. of a larger output, as the chunked entry writes them
+    big = torch.zeros((k, rows + 1), dtype=torch.float64, device=dev)
+    predict_ensemble(tb, X, T, k, big, 1)
+    assert torch.equal(big[:, 1:], pr.predict_ensemble_plain(tb, X, T, k))
+    assert _cuda.LAUNCHES["predict_ensemble"] == (6 if k == 1 else 4)
+
+
+def test_device_ensemble_chunks_match_the_host_walk(dev, monkeypatch):
+    """DeviceEnsemble on the card with a small chunk (the staging buffers
+    cycle several times): the sums equal the host walk of the same trees
+    bit for bit, the leaves the host leaves, and device_bytes the
+    estimate."""
+    from lightgbm_tpu_torch.ops import predict as pr
+    monkeypatch.setattr(pr, "_CHUNK_BYTES", 8 * 4 * 1000 + 8)
+    trees = _fixture_trees("cat50")
+    X = _fixture_rows("cat.test", 9_001, 3)
+    ens = pr.DeviceEnsemble(trees, 1, device=dev)
+    host = np.zeros(len(X))
+    for t in trees:
+        host += t.predict(X)
+    np.testing.assert_array_equal(ens.predict_sum(X, len(trees))[0], host)
+    leaf = ens.predict_leaf(X, len(trees))
+    for i in (0, 17, len(trees) - 1):
+        np.testing.assert_array_equal(leaf[:, i],
+                                      trees[i].predict_leaf_index(X))
+    assert ens.device_bytes() == pr.estimate_device_bytes(trees, 1)
+    np.testing.assert_array_equal(ens.predict_bucketed(X[:7], len(trees))[0],
+                                  host[:7])
 
 
 @pytest.mark.parametrize("quantized", [False, True])
@@ -1434,24 +1570,25 @@ def test_graph_rounds_match_eager(path, dev):
     (round 1 eagerly, then a capture for each key, then replays) against
     its twin run eagerly, with a new feature mask (feature_fraction 0.8)
     and, quantized, a new key every round.  After every round, bit for
-    bit: the training score, the round's packed tree (the fused paths'
-    pinned copy; the eager path's host tree), the carried row order and
-    each validation score; f32 gradients dyadic, quantized ones as the
-    objective gives them.  The trees of consecutive rounds differ, so no
+    bit: the training score, the round's packed tree (the deferred
+    rounds' pinned copy: fused, bagged and label-engine runs; the
+    valid-set runs' host tree), the carried row order and each validation
+    score; f32 gradients dyadic, quantized ones as the objective gives
+    them.  The trees of consecutive rounds differ, so no
     replay returned a stale tree.  Then two more rounds each: the launch
     counts of the graph booster equal its graphs' captured counts times
     their replays, and the eager twin's launch counts."""
     flags = GRAPH_PATHS[path]
     a, b = _graph_boosters(dev, flags)
     ga, gb = a._gbdt, b._gbdt
-    fused = not any(flags.get(k) for k in ("bagged", "valid", "label"))
+    deferred = not flags.get("valid")
     trees = []
     for r in range(5):
         a.update()
         b.update()
         torch.cuda.synchronize()
         assert torch.equal(_bits(ga.score), _bits(gb.score)), r
-        if fused:
+        if deferred:
             ea, eb = ga._inflight[-1], gb._inflight[-1]
             ea["event"].synchronize()
             eb["event"].synchronize()
@@ -1470,7 +1607,7 @@ def test_graph_rounds_match_eager(path, dev):
                                             gb.valid_states):
             assert torch.equal(_bits(va.score), _bits(vb.score)), r
     for t0, t1 in zip(trees, trees[1:]):
-        assert not (torch.equal(t0, t1) if fused else t0 == t1)
+        assert not (torch.equal(t0, t1) if deferred else t0 == t1)
     stats = ga._graphs.stats()
     assert len(stats) == (2 if ga._carried_active else 1)
     assert sum(x["replays"] for x in stats) == 4
@@ -1488,8 +1625,15 @@ def test_graph_rounds_match_eager(path, dev):
         for name, c in g.launches.items():
             want[name] = want.get(name, 0) + c * (g.replays - before[k])
     if flags.get("valid"):
+        # after each fetch: the training score by K4's add mode, the
+        # validation score by KP2's add mode
         want["scatter_segments_add"] = want.get("scatter_segments_add",
                                                 0) + 2
+        want["walk_binned_add"] = 2
+    else:
+        assert ga._tree_fetches == 0
+    if flags.get("bagged"):
+        assert want["walk_binned_masked_add"] == 2
     assert counts[0] == counts[1] == want
     assert a.model_to_string() == b.model_to_string()
     assert a.num_trees() == 7

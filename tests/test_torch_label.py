@@ -333,7 +333,9 @@ def test_label_training_matches_jax(name):
             np.testing.assert_array_equal(tmask, np.asarray(jmask))
         bags.append(None if tmask is None else tmask.copy())
     jb.predict(X[:1])                    # drains JAX's pending trees
+    tb.num_trees()                       # drains the port's
     tg, jg = tb._gbdt, jb._gbdt
+    assert tg._tree_fetches == 0 and tg._drains == 1
     assert not tg._use_partition_engine and not jg._use_partition_engine
     assert tg.arena is None and tg._carried_active is None
     _assert_trees_match(jg.models, tg.models, X, bags)

@@ -256,7 +256,8 @@ def _body(path):
 
 
 @pytest.mark.parametrize("path", ["utils/log.py", "io/bin_mapper.py",
-                                  "io/metadata.py", "models/tree.py"])
+                                  "io/metadata.py", "models/tree.py",
+                                  "models/shap.py"])
 def test_copied_modules_are_verbatim(path):
     port = _body("lightgbm_tpu_torch/" + path)
     assert port[0] == "# Copied from lightgbm_tpu/%s; kept in step with it " \
