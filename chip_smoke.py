@@ -69,13 +69,19 @@
 6. prediction phase: the f32 carried configuration trained for
    --predict-rounds rounds (500, the reference's Higgs experiment) at the
    full row count, each drain timed; KP1 on the model over the holdout
-   and 1M training rows, bit for bit its plain version on the card and
-   (holdout) the host walk, timed kernel-only, from numpy and by the host
-   walk, with the bound and the copy of X alone; leaf indices and early
-   stop (freq 10, margins 4 and 10) equal to the host walk's; the serving
-   buckets (1, 7, 1000, 4097 rows) equal to predict; the ensemble's device
-   bytes equal to the estimate; KP1's launches counted over the holdout's
-   predict;
+   and 1M training rows, as f32 rows (as the data comes) and as f64 rows,
+   bit for bit its plain version on the card and (holdout) the host walk,
+   timed by CUDA events, kernel-only (torch.profiler), from numpy and by
+   the host walk, with the bound (X at its own width), the node visits
+   (the depths of the leaves reached) and ns a visit, and predict's host
+   steps alone (the conversion to f64, the copy into pinned staging, the
+   copy over PCIe, the output's fetch); leaf indices and early stop (freq
+   10, margins 4 and 10) equal to the host walk's; the serving buckets
+   (1, 7, 1000, 4097 rows) equal to predict and timed, and KP1's
+   small-batch walk at 1024 rows against its plain version; the
+   ensemble's device bytes equal to the estimate; KP1's launches counted
+   over the holdout's predict (row tiles) and the buckets' (small-batch
+   walk);
 7. prints one JSON line of training and prediction results and one of
    per-kernel results, then the device line {"ok": true, "device": {...}}
    as the last line.
@@ -133,7 +139,8 @@ KERNEL_NAMES = (
     ("K6", ("compact_carry_kernel", "carry_offsets_kernel",
             "carry_copy_kernel")),
     ("K7", ("leaf_select_kernel", "leaf_accumulate_kernel")),
-    ("KP1", ("predict_ensemble_kernel",)),
+    ("KP1", ("predict_ensemble_kernel", "predict_small_kernel",
+             "predict_small_sum_kernel")),
     ("KP2", ("walk_binned_kernel",)))
 
 
@@ -170,6 +177,8 @@ PARTITION_KERNELS = ("segment_histogram", "segment_histogram_i8",
                      "scatter_segments", "scatter_segments_add",
                      "fused_root_histogram",
                      "compact_carry", "compact_carry_i8")
+# KP1's counters: its row tiles and its small-batch walk
+PREDICT_KERNELS = ("predict_ensemble", "predict_ensemble_small")
 # KP2's counters by mode (ops/predict_kernel.walk_binned): its masked add
 # is the bagged rounds' score update, its add mode the valid-set rounds'
 # validation score; its leaf mode has no training path
@@ -221,7 +230,7 @@ def path_kernels(path: str) -> tuple:
     walk_must = tuple(w for w in WALKS if w not in walks)
     if flag(path, "label"):
         return (("leaf_histogram", "split_scan") + walk_must,
-                PARTITION_KERNELS + ("predict_ensemble",) + tuple(walks))
+                PARTITION_KERNELS + PREDICT_KERNELS + tuple(walks))
     q = flag(path, "quantized")
     sfx = "_i8" if q else ""
     # K4: set mode on the bagged paths (leaf ids for the walk), add mode
@@ -241,7 +250,7 @@ def path_kernels(path: str) -> tuple:
         (must if carried(path) else never).append("compact_carry" + sfx)
         never.append("partition_segment_pred" + sfx)
     return (tuple(must) + walk_must,
-            tuple(never) + ("predict_ensemble",) + tuple(walks))
+            tuple(never) + PREDICT_KERNELS + tuple(walks))
 
 
 SRC = "lightgbm_tpu_torch/csrc/%s.cu"
@@ -302,10 +311,12 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return a.elapsed_time(b) / reps
 
 
-def kernel_only_ms(fn, reps: int) -> float:
+def kernel_only_ms(fn, reps: int):
     """Device ms a call of fn spends in the port's kernels (torch.profiler
     over reps calls after a warm-up): the time without the wrapper's host
-    work and without the memsets of its allocations."""
+    work and without the memsets of its allocations.  None where the trace
+    holds no event of the port's kernels (the device events it held are
+    printed): a time the profiler did not record is never a number."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -314,10 +325,17 @@ def kernel_only_ms(fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA
-             and kernel_label(ev.name) is not None)
-    return us / 1e3 / reps
+    device = [ev for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    ours = [ev for ev in device if kernel_label(ev.name) is not None]
+    if not ours:
+        names = sorted({ev.name[:60] for ev in device})
+        print("kernel-only: the profiler's trace of %d calls held %d device "
+              "events, none of the port's kernels%s" % (
+                  reps, len(device), (": " + "; ".join(names[:4]))
+                  if names else ""))
+        return None
+    return sum(ev.time_range.elapsed_us() for ev in ours) / 1e3 / reps
 
 
 def bound(nbytes: float, ops: float) -> tuple:
@@ -328,11 +346,11 @@ def bound(nbytes: float, ops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def ensemble_bytes(n: int, F: int, table_bytes: int) -> int:
+def ensemble_bytes(n: int, F: int, itemsize: int, table_bytes: int) -> int:
     """Bytes KP1 must move for a sum over n rows of F features: X read
-    once (every feature of the prediction run's model is split on), the
-    f64 sums written once, the walk tables read once."""
-    return 8 * n * F + 8 * n + table_bytes
+    once at its own width (every feature of the prediction run's model is
+    split on), the f64 sums written once, the walk tables read once."""
+    return itemsize * n * F + 8 * n + table_bytes
 
 
 def walk_binned_bytes(walked, G: int, nodes: int, leaves: int,
@@ -454,8 +472,8 @@ def kernel_phase(ds, dev, results, quantized: bool):
             library_ms=index_add_ms(ak, 0, n),
             bytes=pk.fused_refresh_bytes(n, G, B), ops=3 * G * n, rows=n)
         print("K5 fused_refresh_histogram: root %d rows %.4f ms, kernel-only "
-              "%.4f (plain %.4f, index_add_ %.4f); exact"
-              % (n, k5["ms"], k5["kernel_ms"], k5["plain_ms"],
+              "%s (plain %.4f, index_add_ %.4f); exact"
+              % (n, k5["ms"], profiled(k5["kernel_ms"]), k5["plain_ms"],
                  k5["library_ms"]))
         entry("fused_root_histogram", "fused_root_histogram", k5, 0.0,
               "exact")
@@ -496,11 +514,12 @@ def kernel_phase(ds, dev, results, quantized: bool):
             bytes=pk.segment_histogram_bytes(c, G, B, quantized),
             ops=3 * G * c, rows=c, hist=got)
     print("K2 segment_histogram (%s): root %d rows %.4f ms, kernel-only "
-          "%.4f (plain %.4f, index_add_ %.4f); child %d rows %.4f ms, "
-          "kernel-only %.4f; rel err %.3g"
-          % (mode, n, k2["root"]["ms"], k2["root"]["kernel_ms"],
+          "%s (plain %.4f, index_add_ %.4f); child %d rows %.4f ms, "
+          "kernel-only %s; rel err %.3g"
+          % (mode, n, k2["root"]["ms"], profiled(k2["root"]["kernel_ms"]),
              k2["root"]["plain_ms"], k2["root"]["library_ms"],
-             segs["child"][1], k2["child"]["ms"], k2["child"]["kernel_ms"],
+             segs["child"][1], k2["child"]["ms"],
+             profiled(k2["child"]["kernel_ms"]),
              max(k2["root"]["rel_err"], k2["child"]["rel_err"])))
     entry("segment_histogram" + sfx, "segment_histogram", k2["root"],
           max(k2["root"]["max_abs_err"], k2["child"]["max_abs_err"]),
@@ -546,9 +565,10 @@ def kernel_phase(ds, dev, results, quantized: bool):
                   plain_ms=cuda_ms(lambda: sk.split_scan_plain(
                       hist2, fvec, svec, pvec), 5),
                   bytes=k1_bytes, ops=k1_ops, library_ms=None)
-        print("K1 split_scan: CH=2 F=%d B=%d %.4f ms, kernel-only %.4f "
+        print("K1 split_scan: CH=2 F=%d B=%d %.4f ms, kernel-only %s "
               "(plain %.4f); gain rel err %.3g, %d valid features"
-              % (G, B, k1["ms"], k1["kernel_ms"], k1["plain_ms"], gain_rel,
+              % (G, B, k1["ms"], profiled(k1["kernel_ms"]), k1["plain_ms"],
+                 gain_rel,
                  int(valid.sum())))
         entry("split_scan", "split_scan", k1, k1_err,
               "feature, threshold, default_left equal; gain rtol 1e-5",
@@ -793,13 +813,14 @@ def kernel_phase(ds, dev, results, quantized: bool):
             leaves=len(lay), largest=max(c for _s, c in lay),
             smallest=min(c for _s, c in lay))
     print("K6 compact_carry (%s payload): %d rows, %d even leaves %.4f ms, "
-          "kernel-only %.4f (plain %.4f, index_select of the bins %.4f); "
-          "%d skewed leaves (%d to %d rows) %.4f ms, kernel-only %.4f; exact"
-          % (mode, n, LEAVES, k6["even"]["ms"], k6["even"]["kernel_ms"],
+          "kernel-only %s (plain %.4f, index_select of the bins %.4f); "
+          "%d skewed leaves (%d to %d rows) %.4f ms, kernel-only %s; exact"
+          % (mode, n, LEAVES, k6["even"]["ms"],
+             profiled(k6["even"]["kernel_ms"]),
              k6["even"]["plain_ms"], k6["even"]["library_ms"],
              k6["skewed"]["leaves"], k6["skewed"]["smallest"],
              k6["skewed"]["largest"], k6["skewed"]["ms"],
-             k6["skewed"]["kernel_ms"]))
+             profiled(k6["skewed"]["kernel_ms"])))
     entry("compact_carry" + sfx, "compact_carry", k6["even"], 0.0, "exact",
           library="torch.index_select of the bin planes over the "
                   "precomputed column list", skewed=dict(
@@ -897,10 +918,11 @@ def k4_phase(ak, layouts, gen, results, entry):
     for mode, rm in r.items():
         print("K4 scatter_segments %s mode: %d rows; %s; exact" % (
             mode, n, "; ".join(
-                "%s (%d leaves, %d to %d rows) %.4f ms, kernel-only %.4f "
+                "%s (%d leaves, %d to %d rows) %.4f ms, kernel-only %s "
                 "(bound %.4f, plain %.4f, index_put_%s %.4f%s)" % (
                     what, v["leaves"], v["smallest"], v["largest"], v["ms"],
-                    v["kernel_ms"], bound(v["bytes"], 0)[0], v["plain_ms"],
+                    profiled(v["kernel_ms"]), bound(v["bytes"], 0)[0],
+                    v["plain_ms"],
                     "(accumulate)" if mode == "add" else "",
                     v["library_ms"], ", the replaced chain %.4f"
                     % v["chain_ms"] if "chain_ms" in v else "")
@@ -1470,9 +1492,10 @@ def prediction_phase(X, Xh, ds_obj, dev, rounds, results):
     expect(ens.device_bytes() == pr.estimate_device_bytes(g.models, 1),
            "ensemble: device bytes %d, estimated %d" % (
                ens.device_bytes(), pr.estimate_device_bytes(g.models, 1)))
-    # the main path: predict on the holdout, counted, after one warm-up
-    # call on the same rows (the first launch loads the kernel's module,
-    # the first call of a size allocates the pinned staging)
+    # the main path: predict on the holdout (f32, as a user passes it),
+    # counted, after one warm-up call on the same rows (the first launch
+    # loads the kernel's module, the first call of a size allocates the
+    # pinned staging)
     bst.predict(Xh, raw_score=True)
     torch.cuda.synchronize()
     _cuda.reset_launch_counts()
@@ -1487,49 +1510,66 @@ def prediction_phase(X, Xh, ds_obj, dev, rounds, results):
     expect(np.array_equal(raw_h, host_h), "KP1: holdout sums differ from "
            "the host walk's by up to %.3g" % float(np.abs(raw_h - host_h)
                                                   .max()))
+    depths = leaf_depths(g.models, dev)
     rows = {}
     for what, Xs in (("holdout", Xh), ("train_1m", X[:TRAIN_ROWS_PREDICTED])):
-        Xs = np.ascontiguousarray(Xs, np.float64)
         n = len(Xs)
-        Xd = torch.from_numpy(Xs).to(dev)
-        out = torch.empty((1, n), dtype=torch.float64, device=dev)
-        predict_ensemble(tb, Xd, T, 1, out)
-        plain = pr.predict_ensemble_plain(tb, Xd, T, 1)
-        expect(torch.equal(out, plain), "KP1 %s: sums differ from the "
-               "plain version's by up to %.3g" % (
-                   what, float((out - plain).abs().max())))
-        kernel_ms = cuda_ms(lambda: predict_ensemble(tb, Xd, T, 1, out), 5)
-        plain_ms = cuda_ms(lambda: pr.predict_ensemble_plain(tb, Xd, T, 1),
-                           1, warmup=0)
-        if what == "holdout":
-            wall_ms = wall_h
-        else:
-            bst.predict(Xs, raw_score=True)     # the staging, as above
+        visits = walk_visits(tb, depths, torch.from_numpy(
+            np.ascontiguousarray(Xs, np.float32)).to(dev), T)
+        for dt in (np.float32, np.float64):
+            Xn = np.ascontiguousarray(Xs, dt)
+            Xd = torch.from_numpy(Xn).to(dev)
+            out = torch.empty((1, n), dtype=torch.float64, device=dev)
+            predict_ensemble(tb, Xd, T, 1, out)
+            plain = pr.predict_ensemble_plain(tb, Xd, T, 1)
+            expect(torch.equal(out, plain), "KP1 %s %s: sums differ from "
+                   "the plain version's by up to %.3g" % (
+                       what, np.dtype(dt).name,
+                       float((out - plain).abs().max())))
+            kernel_ms = cuda_ms(lambda: predict_ensemble(tb, Xd, T, 1, out),
+                                5)
+            ko_ms = kernel_only_ms(lambda: predict_ensemble(tb, Xd, T, 1,
+                                                            out), 5)
+            plain_ms = cuda_ms(lambda: pr.predict_ensemble_plain(
+                tb, Xd, T, 1), 1, warmup=0)
+            bst.predict(Xn, raw_score=True)     # the staging, as above
             t = time.perf_counter()
-            got = bst.predict(Xs, raw_score=True)
+            got = bst.predict(Xn, raw_score=True)
             wall_ms = (time.perf_counter() - t) * 1e3
             expect(np.array_equal(got, out[0].cpu().numpy()),
-                   "KP1 train_1m: predict differs from the kernel's sums")
-        # the copy of X alone, from pinned memory
-        pinned = torch.from_numpy(Xs).pin_memory()
-        pcie_ms = cuda_ms(lambda: Xd.copy_(pinned, non_blocking=True), 3)
-        nbytes = ensemble_bytes(n, F, ens.device_bytes())
-        rows[what] = dict(rows=n, kernel_ms=kernel_ms, wall_ms=wall_ms,
-                          plain_ms=plain_ms, pcie_ms=pcie_ms, bytes=nbytes,
-                          bound_ms=bound(nbytes, 0)[0],
-                          rows_per_s_kernel=n / kernel_ms * 1e3,
-                          rows_per_s_wall=n / wall_ms * 1e3)
-        del Xd, out, plain, pinned
-    rows["holdout"]["host_walk_ms"] = host_ms
+                   "KP1 %s %s: predict differs from the kernel's sums"
+                   % (what, np.dtype(dt).name))
+            if what == "holdout":
+                expect(np.array_equal(got, raw_h), "KP1 holdout %s: sums "
+                       "differ from the f32 rows' predict"
+                       % np.dtype(dt).name)
+            split = host_split(Xs, Xd, out, dt)
+            nbytes = ensemble_bytes(n, F, Xn.itemsize, ens.device_bytes())
+            rows["%s_%s" % (what, "f32" if dt == np.float32 else "f64")] = \
+                dict(rows=n, dtype=np.dtype(dt).name, kernel_ms=kernel_ms,
+                     kernel_only_ms=ko_ms, wall_ms=wall_ms,
+                     plain_ms=plain_ms, split_ms=split, bytes=nbytes,
+                     bound_ms=bound(nbytes, 0)[0], visits=visits,
+                     visits_per_row=visits / n,
+                     ns_per_visit=kernel_ms * 1e6 / visits,
+                     visits_per_s=visits / kernel_ms * 1e3,
+                     rows_per_s_kernel=n / kernel_ms * 1e3,
+                     rows_per_s_wall=n / wall_ms * 1e3)
+            del Xd, out, plain
+    rows["holdout_f32"]["host_walk_ms"] = host_ms
     for what, r in rows.items():
-        print("KP1 predict_ensemble (%s, %d rows, %d trees): kernel %.3f ms "
-              "(%.4g rows/s; bound %.4f ms), from numpy %.3f ms (%.4g rows/s;"
-              " the copy of X alone %.3f ms), plain %.1f ms%s; exact"
-              % (what, r["rows"], T, r["kernel_ms"], r["rows_per_s_kernel"],
-                 r["bound_ms"], r["wall_ms"], r["rows_per_s_wall"],
-                 r["pcie_ms"], r["plain_ms"],
-                 ", host walk %.1f ms" % host_ms if what == "holdout"
-                 else ""))
+        print("KP1 predict_ensemble (%s, %d rows, %d trees): kernel %.3f ms"
+              " (kernel-only %s; %.4g rows/s; bound %.4f ms), from numpy "
+              "%.3f ms (%.4g rows/s; %s), plain %.1f ms%s; %d visits (%.1f "
+              "a row), %.4f ns a visit (%.4g visits/s); exact"
+              % (what, r["rows"], T, r["kernel_ms"],
+                 profiled(r["kernel_only_ms"]), r["rows_per_s_kernel"],
+                 r["bound_ms"], r["wall_ms"],
+                 r["rows_per_s_wall"], ", ".join(
+                     "%s %.3f" % kv for kv in r["split_ms"].items()),
+                 r["plain_ms"], ", host walk %.1f ms" % host_ms
+                 if what == "holdout_f32" else "", r["visits"],
+                 r["visits_per_row"], r["ns_per_visit"], r["visits_per_s"]))
     # leaf indices
     t = time.perf_counter()
     leaf = bst.predict(Xh, pred_leaf=True)
@@ -1550,36 +1590,163 @@ def prediction_phase(X, Xh, ds_obj, dev, rounds, results):
                "differ from the host's" % (freq, margin))
         stops["freq%d_margin%g" % (freq, margin)] = dict(
             wall_ms=es_ms, stopped_share=float(np.mean(es != raw_h)))
-    # the serving buckets
+    # the serving buckets, the small-batch walk's path: counted from zero,
+    # each bucket against predict, then timed
+    _cuda.reset_launch_counts()
     for n in BUCKETS:
         got = g.predict_bucketed(Xh[:n], raw_score=True)
         expect(np.array_equal(got, raw_h[:n]), "predict_bucketed(%d rows) "
                "differs from predict" % n)
+    small_launches = int(_cuda.LAUNCHES["predict_ensemble_small"])
+    expect(small_launches > 0, "the serving buckets did not launch KP1's "
+           "small-batch walk")
+    bucket_ms = {}
+    for n in BUCKETS:
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            g.predict_bucketed(Xh[:n], raw_score=True)
+            ms.append((time.perf_counter() - t) * 1e3)
+        bucket_ms[n] = min(ms)
+    small = small_phase(tb, T, F, Xh, ens.device_bytes(), dev)
     print("KP1 leaf mode: %d x %d leaves equal to the host walk's (%.1f ms "
           "from numpy); early stop equal to the host's: %s; buckets %s "
-          "equal to predict; device bytes %d equal to the estimate"
+          "equal to predict, %d small-batch launches, ms (best of 5, host "
+          "clock): %s; device bytes %d equal to the estimate"
           % (len(Xh), T, leaf_ms, ", ".join(
               "freq %s: %.1f ms, %.3f of the rows stopped" % (
                   k.replace("freq", "").replace("_margin", ", margin "),
                   v["wall_ms"], v["stopped_share"])
-              for k, v in stops.items()), list(BUCKETS), ens.device_bytes()))
-    h = rows["holdout"]
+              for k, v in stops.items()), list(BUCKETS), small_launches,
+             ", ".join("%d rows %.3f" % kv for kv in bucket_ms.items()),
+             ens.device_bytes()))
+    print("KP1 predict_ensemble_small (%d rows, %d trees): kernel %.4f ms "
+          "(kernel-only %s; bound %.5f ms), plain %.1f ms; exact"
+          % (small["rows"], T, small["ms"],
+             profiled(small["kernel_only_ms"]), small["bound_ms"],
+             small["plain_ms"]))
+    h = rows["holdout_f32"]
     b_ms, b_by = bound(h["bytes"], 0)
     results["predict_ensemble"] = dict(
         name="predict_ensemble", route="cuda", source=SRC % "predict_ensemble",
         replaces=REPLACES["predict_ensemble"], port_only=True,
-        mode="f64 sum", launches=launches, max_abs_err=0.0,
+        mode="f64 sum over f32 rows, row tiles", launches=launches,
+        max_abs_err=0.0,
         tolerance="bit for bit (plain version and host walk)",
         ms=h["kernel_ms"], plain_ms=h["plain_ms"], bound_ms=b_ms,
         bound_by=b_by, library_ms=None,
         library="none: no single PyTorch call walks a tree",
-        host_walk_ms=host_ms, wall_ms=h["wall_ms"], pcie_ms=h["pcie_ms"],
-        rows=h["rows"], trees=T, train_1m=rows["train_1m"], leaf_ms=leaf_ms,
-        early_stop=stops)
+        kernel_only_ms=h["kernel_only_ms"], host_walk_ms=host_ms,
+        wall_ms=h["wall_ms"], rows=h["rows"], trees=T, by_shape=rows,
+        leaf_ms=leaf_ms, early_stop=stops)
+    results["predict_ensemble_small"] = dict(
+        name="predict_ensemble_small", route="cuda",
+        source=SRC % "predict_ensemble",
+        replaces=REPLACES["predict_ensemble"], port_only=True,
+        mode="f64 sum over f32 rows, (tree, row) pairs and an ordered sum",
+        launches=small_launches, max_abs_err=0.0,
+        tolerance="bit for bit (plain version and predict)",
+        ms=small["ms"], plain_ms=small["plain_ms"],
+        bound_ms=small["bound_ms"], bound_by="bytes", library_ms=None,
+        library="none: no single PyTorch call walks a tree",
+        kernel_only_ms=small["kernel_only_ms"], rows=small["rows"],
+        trees=T, bucket_ms=bucket_ms)
     return dict(train_s=train_s, trees=T, leaves=sum(leaves),
                 drains_ms=drains, predict=rows, early_stop=stops,
-                leaf_ms=leaf_ms, device_bytes=ens.device_bytes(),
-                launches=launches)
+                leaf_ms=leaf_ms, bucket_ms=bucket_ms,
+                device_bytes=ens.device_bytes(), launches=launches,
+                small_launches=small_launches)
+
+
+def profiled(ms) -> str:
+    """A kernel-only time for print: the profiler's ms, or "not recorded"
+    where its trace held none of the kernel's events (kernel_only_ms gave
+    None; the CUDA-event time stands)."""
+    return "not recorded" if ms is None else "%.4f" % ms
+
+
+def leaf_depths(trees, dev) -> list:
+    """Each tree's leaf depths by leaf id (the internal nodes a walk to
+    that leaf visits), on the card."""
+    import torch
+    out = []
+    for t in trees:
+        depth = np.zeros(max(t.num_leaves, 1), np.int64)
+        stack = [(0, 0)] if t.num_leaves > 1 else []
+        while stack:
+            node, d = stack.pop()
+            for c in (int(t.left_child[node]), int(t.right_child[node])):
+                if c < 0:
+                    depth[~c] = d + 1
+                else:
+                    stack.append((c, d + 1))
+        out.append(torch.from_numpy(depth).to(dev))
+    return out
+
+
+def walk_visits(tb, depths, Xd, T: int) -> int:
+    """The node visits of KP1's sums over the rows of Xd: the sum over rows
+    and trees of the depth of the leaf reached, from KP1's leaf mode (in
+    chunks of 2^18 rows)."""
+    import torch
+    from lightgbm_tpu_torch.ops import predict as pr
+    from lightgbm_tpu_torch.ops.predict_kernel import predict_ensemble
+    visits = 0
+    for a in range(0, Xd.shape[0], 1 << 18):
+        xs = Xd[a:a + (1 << 18)]
+        leaf = torch.empty((xs.shape[0], T), dtype=torch.int32,
+                           device=Xd.device)
+        predict_ensemble(tb, xs, T, 1, leaf, mode=pr.MODE_LEAF)
+        visits += sum(int(depths[t][leaf[:, t].long()].sum())
+                      for t in range(T))
+    return visits
+
+
+def host_split(Xs, Xd, out, dt) -> dict:
+    """Where predict's host time goes, each step alone, in ms: the
+    conversion of the f32 rows to dt (none for f32), their copy into
+    pinned staging of dt (host clock), the copy over PCIe (CUDA events)
+    and the output's fetch to numpy (host clock)."""
+    import torch
+    t = time.perf_counter()
+    Xn = np.ascontiguousarray(Xs, dt)
+    convert = (time.perf_counter() - t) * 1e3 if dt != np.float32 else 0.0
+    pinned = torch.empty(Xn.shape, dtype=Xd.dtype, pin_memory=True)
+    pinned.numpy()[:] = Xn
+    t = time.perf_counter()
+    pinned.numpy()[:] = Xn
+    staging = (time.perf_counter() - t) * 1e3
+    pcie = cuda_ms(lambda: Xd.copy_(pinned, non_blocking=True), 3)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out.cpu().numpy()
+    fetch = (time.perf_counter() - t) * 1e3
+    return dict(convert=convert, staging=staging, pcie=pcie, output=fetch)
+
+
+def small_phase(tb, T: int, F: int, Xh, table_bytes: int, dev) -> dict:
+    """KP1's small-batch walk at the 1000-row bucket's 1024 rows (f32):
+    against its plain version on the card, bit for bit, and timed."""
+    import torch
+    from lightgbm_tpu_torch.ops import predict as pr
+    from lightgbm_tpu_torch.ops.predict_kernel import predict_ensemble
+    n = min(1024, len(Xh))
+    Xd = torch.from_numpy(np.ascontiguousarray(Xh[:n], np.float32)).to(dev)
+    out = torch.empty((1, n), dtype=torch.float64, device=dev)
+
+    def run():
+        predict_ensemble(tb, Xd, T, 1, out, small=True)
+    run()
+    plain = pr.ordered_sum_plain(pr.tree_values_plain(tb, Xd, T), 1)
+    expect(torch.equal(out, plain), "KP1 small-batch walk: sums differ from "
+           "the plain version's")
+    nbytes = ensemble_bytes(n, F, 4, table_bytes)
+    return dict(rows=n, ms=cuda_ms(run, 20),
+                kernel_only_ms=kernel_only_ms(run, 20),
+                plain_ms=cuda_ms(lambda: pr.ordered_sum_plain(
+                    pr.tree_values_plain(tb, Xd, T), 1), 1, warmup=0),
+                bytes=nbytes, bound_ms=bound(nbytes, 0)[0])
 
 
 def kp2_phase(booster, dev, results):
@@ -1641,8 +1808,9 @@ def kp2_phase(booster, dev, results):
     print("KP2 walk_binned: %d rows x %d features, a %d-leaf tree of the "
           "bagged run, %d rows in its bag; %s; a bagged round launches it "
           "%d time(s); exact" % (n, G, nl, in_bag, "; ".join(
-              "%s %.4f ms, kernel-only %.4f (bound %.4f, plain %.3f)" % (
-                  m, v["ms"], v["kernel_ms"], v["bound_ms"], v["plain_ms"])
+              "%s %.4f ms, kernel-only %s (bound %.4f, plain %.3f)" % (
+                  m, v["ms"], profiled(v["kernel_ms"]), v["bound_ms"],
+                  v["plain_ms"])
               for m, v in r.items()), per_round))
     for name, mode in ((WALK_MASKED, "masked_add"), (WALK_ADD, "add")):
         v = r[mode]
@@ -1753,9 +1921,11 @@ def main(argv=None) -> int:
             expect(not any(r["launches_by_path"].values()),
                    "kernel %s was launched on a training path" % name)
             continue
-        if name == "predict_ensemble":
-            # the prediction run's predict on the holdout
-            expect(r["launches"] > 0, "KP1 was not launched by predict")
+        if name in PREDICT_KERNELS:
+            # the prediction run's predict on the holdout, and its serving
+            # buckets (the small-batch walk)
+            expect(r["launches"] > 0, "%s was not launched by predict"
+                   % name)
             continue
         if name == "leaf_histogram":
             path = "label_f32"

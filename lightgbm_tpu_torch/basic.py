@@ -26,34 +26,54 @@ class LightGBMError(Exception):
     pass
 
 
-def _to_matrix(data):
-    """Prediction input as a matrix: a pandas DataFrame (category columns
-    as their codes) or Series, a scipy sparse matrix (kept sparse, as CSR),
-    or anything numpy reads, a vector as one column.  Copied from the
-    in-memory branches of lightgbm_tpu/basic.py:31 `_to_matrix`."""
+def _to_matrix(data, float32: bool = False):
+    """(matrix, names): the input as a matrix, a pandas DataFrame (category
+    columns as their codes, its column names as names) or Series, a scipy
+    sparse matrix (kept sparse, as CSR), or anything numpy reads, a vector
+    as one column; names None but for a DataFrame.  Copied from the
+    in-memory branches of lightgbm_tpu/basic.py:31-64 `_to_matrix` (the
+    file-path branch is not).  With float32, a float32 numpy array stays
+    float32 (the device walk widens each value to f64 where it compares
+    it, which is exact); everything else is f64."""
     try:
         import pandas as pd
         if isinstance(data, pd.DataFrame):
+            names = [str(c) for c in data.columns]
             cat_cols = [c for c in data.columns
                         if str(data[c].dtype) in ("category",)]
             df = data.copy()
             for c in cat_cols:
                 df[c] = df[c].cat.codes
-            return df.to_numpy(dtype=np.float64)
+            return df.to_numpy(dtype=np.float64), names
         if isinstance(data, pd.Series):
-            return data.to_numpy(dtype=np.float64)[:, None]
+            return data.to_numpy(dtype=np.float64)[:, None], None
     except ImportError:
         pass
     try:
         import scipy.sparse as sp
         if sp.issparse(data):
-            return data.tocsr()
+            return data.tocsr(), None
     except ImportError:
         pass
-    arr = np.asarray(data, np.float64)
+    if float32 and isinstance(data, np.ndarray) and data.dtype == np.float32:
+        arr = data
+    else:
+        arr = np.asarray(data, np.float64)
     if arr.ndim == 1:
         arr = arr[:, None]
-    return arr
+    return arr, None
+
+
+# Copied from lightgbm_tpu/basic.py:67-76.
+def _pandas_categorical_columns(data) -> List[int]:
+    try:
+        import pandas as pd
+        if isinstance(data, pd.DataFrame):
+            return [i for i, c in enumerate(data.columns)
+                    if str(data[c].dtype) == "category"]
+    except ImportError:
+        pass
+    return []
 
 
 class Dataset:
@@ -80,9 +100,15 @@ class Dataset:
     def construct(self) -> "Dataset":
         if self._binned is not None:
             return self
-        mat = np.asarray(self.data, np.float64)
-        if mat.ndim == 1:
-            mat = mat[:, None]
+        if isinstance(self.data, str):
+            raise NotImplementedError(
+                "a Dataset from a file path is not ported yet (ROADMAP.md "
+                "queue 1, item 3)")
+        mat, names = _to_matrix(self.data)
+        if not isinstance(mat, np.ndarray):
+            raise NotImplementedError(
+                "a Dataset from sparse input is not ported yet (ROADMAP.md "
+                "queue 1, item 3)")
         cfg = Config(self.params)
         meta = Metadata(mat.shape[0])
         if self.label is not None:
@@ -91,10 +117,20 @@ class Dataset:
             meta.set_weights(np.asarray(self.weight))
         if self.init_score is not None:
             meta.set_init_score(np.asarray(self.init_score))
-        categorical = ([] if self.categorical_feature in ("auto", None)
-                       else list(self.categorical_feature))
-        names = (list(self.feature_name)
-                 if self.feature_name != "auto" and self.feature_name else None)
+        # category columns and names as lightgbm_tpu/basic.py:199-211 reads
+        # them: a category column reaches the binner, which raises until
+        # categorical features are ported
+        categorical = []
+        if self.categorical_feature == "auto":
+            categorical = _pandas_categorical_columns(self.data)
+        elif self.categorical_feature:
+            for c in self.categorical_feature:
+                if isinstance(c, str) and names and c in names:
+                    categorical.append(names.index(c))
+                elif isinstance(c, int):
+                    categorical.append(c)
+        if self.feature_name != "auto" and self.feature_name:
+            names = list(self.feature_name)
         ref = (self.reference.construct()._binned
                if self.reference is not None else None)
         self._binned = BinnedDataset.construct(
@@ -207,8 +243,8 @@ class Booster:
         raw or through the objective's link, with the margin-based early
         stop.  Scores and leaves come from the device ensemble (KP1 on the
         card) unless device=False pins the host walk; they agree bit for
-        bit."""
-        mat = _to_matrix(data)
+        bit.  A float32 array reaches the device walk as float32."""
+        mat, _ = _to_matrix(data, float32=True)
         if pred_leaf:
             return self._gbdt.predict_leaf_index(mat, num_iteration,
                                                  device=device)

@@ -158,4 +158,4 @@ def reset_parameter(**kwargs) -> Callable:
     among them) need the booster's reset_parameter."""
     raise NotImplementedError(
         "reset_parameter and learning-rate schedules are not ported yet "
-        "(ROADMAP.md queue 1, item 11)")
+        "(ROADMAP.md queue 1, item 7b)")

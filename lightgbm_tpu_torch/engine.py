@@ -24,7 +24,7 @@ def _pop_param(params: Dict[str, Any], canonical: str, default):
     return out
 
 
-def _not_ported(what: str, item: str = "queue 1, item 11") -> None:
+def _not_ported(what: str, item: str = "queue 1, item 7b") -> None:
     raise NotImplementedError("%s is not ported yet (ROADMAP.md %s)"
                               % (what, item))
 

@@ -775,8 +775,14 @@ class GBDT:
     # ------------------------------------------------------------------ #
     # prediction on raw features (gbdt.py:1672-1858)
     # ------------------------------------------------------------------ #
-    def _check_features(self, X) -> np.ndarray:
-        X = np.ascontiguousarray(np.asarray(X, np.float64))
+    def _check_features(self, X, float32: bool = False) -> np.ndarray:
+        """X as a C-contiguous f64 matrix, or with float32 a float32 array
+        kept float32 (the device walk widens each value to f64 where it
+        compares it, which is exact); raises when it has too few
+        features."""
+        keep = float32 and isinstance(X, np.ndarray) and \
+            X.dtype == np.float32
+        X = np.ascontiguousarray(X if keep else np.asarray(X, np.float64))
         if X.ndim != 2 or X.shape[1] <= self.max_feature_idx:
             log.fatal("The number of features in data (%d) is not the same "
                       "as it was in training data (%d)"
@@ -807,7 +813,7 @@ class GBDT:
                 x, num_iteration, early_stop=early_stop,
                 early_stop_freq=early_stop_freq,
                 early_stop_margin=early_stop_margin, device=device))
-        X = self._check_features(X)
+        X = self._check_features(X, float32=device is not False)
         k = self.num_tree_per_iteration
         iters = self._iterations(num_iteration)
         use_es = early_stop and not self.average_output
@@ -890,7 +896,7 @@ class GBDT:
         path.  `ensemble`: walk this DeviceEnsemble instead of the cached
         one (a serving fleet checks one out under its byte ledger)."""
         self._sync_model()
-        X = self._check_features(X)
+        X = self._check_features(X, float32=True)
         ens = ensemble if ensemble is not None else self._device_ensemble()
         k = self.num_tree_per_iteration
         iters = self._iterations(num_iteration)
@@ -909,7 +915,7 @@ class GBDT:
         if _issparse(X):
             return _by_dense_chunks(X, lambda x: self.predict_leaf_index(
                 x, num_iteration, device=device))
-        X = self._check_features(X)
+        X = self._check_features(X, float32=device is not False)
         iters = self._iterations(num_iteration)
         T = iters * self.num_tree_per_iteration
         if device is False:

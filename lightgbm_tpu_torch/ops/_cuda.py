@@ -77,8 +77,11 @@ _ENTRY_POINTS = {
         "lgbt_compact_carry_i8": [_P, _P, _P, _LL, _P, _P, _I, _P, _P, _LL,
                                   _I, _P]},
     "predict_ensemble": {
-        "lgbt_predict_ensemble": [_P] * 12 + [_LL, _I, _I, _I, _I, _I, _D,
-                                              _P, _LL, _P, _P]},
+        "lgbt_predict_ensemble": [_P] * 7 + [_I, _LL, _I, _I, _I, _I, _I,
+                                             _I, _D, _I, _P, _LL, _P, _P],
+        "lgbt_predict_ensemble_small": [_P] * 7 + [_I, _LL, _I, _I, _I, _I,
+                                                   _I, _I, _D, _I, _P, _LL,
+                                                   _P, _P, _P]},
     "walk_binned": {
         "lgbt_walk_binned": [_P] * 7 + [_I, _P, _LL, _I, _P, _P, _I, _P, _P,
                                         _P, _P, _P]},

@@ -6,27 +6,30 @@ path-signature tensor and one einsum per row chunk (`_chunk_scores`
 :322-364), thresholds compared in double-single f32 and leaf values
 summed in f32.  On an H100 that is 2 rows T L N operations where a walk
 reads about depth x T nodes a row, so the port walks: KP1
-(ops/predict_kernel.predict_ensemble, csrc/predict_ensemble.cu) takes one
-thread a row through every tree, comparing and summing in f64.  Its sums
-equal the host walk (`out += tree.predict(X)` in models/tree.py) bit for
-bit, which the JAX design could not.
+(ops/predict_kernel.predict_ensemble, csrc/predict_ensemble.cu) walks
+row tiles through groups of trees staged in shared memory, or, for a
+small batch, one (tree, row) pair a thread followed by an ordered sum,
+comparing and summing in f64.  Its sums equal the host walk (`out +=
+tree.predict(X)` in models/tree.py) bit for bit, which the JAX design
+could not.
 
 The ensemble is held as walk tables, concatenated over the trees:
-- per node, at the [T+1] node offset: raw split feature (int32),
-  threshold (f64; a categorical node's bitset index), decision bits
-  (int8: categorical, default-left, missing type) and the two children
-  (int32, ~leaf for a leaf);
-- per leaf, at the [T+1] leaf offset: the value (f64, the host tree's
-  shrunk values with their bias);
+- per tree, in preorder, one 16-byte item a node or leaf at the [T+1]
+  item offset: the f64 threshold (a categorical node's bitset index) or
+  leaf value (the host tree's shrunk values with their bias), an int32
+  meta (raw feature and decision bits, or the leaf id with the sign bit)
+  and the int32 right child (the left child is the next item);
+- the [G+1] first tree of each group KP1 stages together;
 - for categorical nodes, at the [T+1] boundary offset: each tree's
   `cat_boundaries`, rebased onto the concatenated `cat_threshold` words
   (uint32, held as int32 bits).
 No table grows as T L N, so every ensemble builds (`ok` is always True).
 
 Tree t adds to class t % k, as JAX's final reshape does.  X reaches the
-card as f64 in row chunks of at most _CHUNK_BYTES through pinned staging,
-and the output is fetched once, at the end.  On the CPU the tables and
-X stay there and the plain version runs.
+card in its own width (float32 stays float32, anything else is f64) in
+row chunks of at most _CHUNK_BYTES through pinned staging, and the output
+is fetched once, at the end.  On the CPU the tables and X stay there and
+the plain version runs.
 """
 from __future__ import annotations
 
@@ -73,41 +76,79 @@ def pow2_buckets(max_batch: int) -> List[int]:
 
 class EnsembleTables(NamedTuple):
     """The walk tables of an ensemble (torch tensors on one device)."""
-    node_off: torch.Tensor     # int32 [T+1]
-    leaf_off: torch.Tensor     # int32 [T+1]
+    items: torch.Tensor        # int32 [max(I, 1), 4] preorder items
+    tree_off: torch.Tensor     # int32 [T+1] first item of each tree
+    group_off: torch.Tensor    # int32 [G+1] first tree of each group
     cat_off: torch.Tensor      # int32 [T+1]
-    feature: torch.Tensor      # int32 [max(N, 1)] raw feature
-    threshold: torch.Tensor    # f64   [max(N, 1)]
-    decision: torch.Tensor     # int8  [max(N, 1)] decision_type bits
-    left: torch.Tensor         # int32 [max(N, 1)]
-    right: torch.Tensor        # int32 [max(N, 1)]
-    leaf_value: torch.Tensor   # f64   [max(L, 1)]
     cat_bound: torch.Tensor    # int32 [max(C, 1)] absolute word offsets
     cat_words: torch.Tensor    # int32 [max(W, 1)] uint32 bitset words
     max_feature: int           # the largest raw feature a node reads, -1
+    stage_items: int           # items of the largest group a stage holds
 
 
-# bytes a table entry of each kind holds: a tree's three offsets, a node,
-# a leaf, a boundary, a word
-_TREE_BYTES = 3 * 4
-_NODE_BYTES = 4 + 8 + 1 + 4 + 4
-_LEAF_BYTES = 8
+# An item is 16 bytes: the f64 threshold (a categorical node's bitset
+# index) or leaf value, int32 meta, int32 right child (the left child of
+# an internal node is the next item).  meta: raw feature | decision bits
+# << 24 for an internal node, leaf id | LEAF_BIT for a leaf.
+_ITEM_BYTES = 16
+_LEAF_BIT = -(1 << 31)
+_FEATURE_BITS = 24
+# a group's items, the one stage capacity of KP1 (a group is staged in 48
+# KB of shared memory; the kernel sizes its stages from the tables'
+# stage_items and refuses a capacity whose ring of two does not fit); a
+# tree of more items is a group of its own, walked from global memory
+_STAGE_ITEMS = 3072
+# a group of 4 trees or more holds a multiple of 4 (KP1 walks 4 at once)
+_GROUP_QUANTUM = 4
+# bytes a table entry of each kind holds: a tree's two offsets, a group's
+# offset, a boundary, a word
+_TREE_BYTES = 2 * 4
+_GROUP_BYTES = 4
 _BOUND_BYTES = 4
 _WORD_BYTES = 4
 
 
+def _tree_items(t) -> int:
+    """Items of a tree in the walk tables: its nodes and its leaves."""
+    return 2 * max(t.num_leaves, 1) - 1
+
+
+def tree_groups(sizes: List[int], stage_items: int = None) -> List[int]:
+    """The first tree of each group over trees of `sizes` items, and the
+    tree count at the end ([G+1]): consecutive trees of at most
+    stage_items items together, a group of 4 or more trees cut to a
+    multiple of 4; a larger tree alone."""
+    cap = _STAGE_ITEMS if stage_items is None else stage_items
+    off = [0]
+    t = 0
+    while t < len(sizes):
+        e, items = t, 0
+        while e < len(sizes) and items + sizes[e] <= cap:
+            items += sizes[e]
+            e += 1
+        if e == t:
+            e = t + 1
+        elif e - t >= _GROUP_QUANTUM and e < len(sizes):
+            e = t + (e - t) // _GROUP_QUANTUM * _GROUP_QUANTUM
+        off.append(e)
+        t = e
+    return off
+
+
 def ensemble_layout(trees: List, num_classes: int) -> dict:
     """The sizes of the walk tables DeviceEnsemble builds for these trees,
-    computed without touching the device: k, the trees T, the nodes N,
-    the leaves L, the categorical boundaries C and bitset words W.
-    `ok` is always True: no table grows as T L N, so every ensemble
-    builds (the JAX layout's signature tensor could refuse one)."""
+    computed without touching the device: k, the trees T, the internal
+    nodes N, the leaves L, the items I (N + L), the groups G, the
+    categorical boundaries C and bitset words W.  `ok` is always True: no
+    table grows as T L N, so every ensemble builds (the JAX layout's
+    signature tensor could refuse one)."""
     N = sum(max(t.num_leaves - 1, 0) for t in trees)
     L = sum(max(t.num_leaves, 1) for t in trees)
     C = sum(len(t.cat_boundaries) for t in trees if t.num_cat > 0)
     W = sum(len(t.cat_threshold) for t in trees if t.num_cat > 0)
+    G = len(tree_groups([_tree_items(t) for t in trees])) - 1
     return {"k": max(num_classes, 1), "T": len(trees), "N": N, "L": L,
-            "C": C, "W": W, "ok": True}
+            "I": N + L, "G": G, "C": C, "W": W, "ok": True}
 
 
 def estimate_device_bytes(trees: List, num_classes: int) -> int:
@@ -116,69 +157,101 @@ def estimate_device_bytes(trees: List, num_classes: int) -> int:
     reserved before the build never drifts from the accounting after it
     (lightgbm_tpu/ops/predict.py:110)."""
     lay = ensemble_layout(trees, num_classes)
-    return int((lay["T"] + 1) * _TREE_BYTES
-               + max(lay["N"], 1) * _NODE_BYTES
-               + max(lay["L"], 1) * _LEAF_BYTES
+    return int(max(lay["I"], 1) * _ITEM_BYTES
+               + (lay["T"] + 1) * _TREE_BYTES
+               + (lay["G"] + 1) * _GROUP_BYTES
                + max(lay["C"], 1) * _BOUND_BYTES
                + max(lay["W"], 1) * _WORD_BYTES)
+
+
+def _preorder(t) -> tuple:
+    """A tree's items in preorder: (kind, index) with kind 0 an internal
+    node and 1 a leaf, and each item's right child's position (0 for a
+    leaf).  An internal node's left child is the item after it."""
+    if t.num_leaves <= 1:
+        return [(1, 0)], [0]
+    order, right = [], []
+    stack = [(0, -1)]            # (child, position of the node it is right of)
+    while stack:
+        c, parent = stack.pop()
+        if parent >= 0:
+            right[parent] = len(order)
+        right.append(0)
+        if c < 0:
+            order.append((1, ~c))
+            continue
+        stack.append((int(t.right_child[c]), len(order)))
+        stack.append((int(t.left_child[c]), -1))
+        order.append((0, c))
+    return order, right
 
 
 def build_tables(trees: List, device) -> EnsembleTables:
     """The walk tables of `trees` on `device`."""
     lay = ensemble_layout(trees, 1)
-    N, L = max(lay["N"], 1), max(lay["L"], 1)
-    node_off = np.zeros(len(trees) + 1, np.int32)
-    leaf_off = np.zeros(len(trees) + 1, np.int32)
+    items = np.zeros((max(lay["I"], 1), 2), np.float64)
+    lanes = items.view(np.int32)         # [I, 4]: meta and right in 2, 3
+    tree_off = np.zeros(len(trees) + 1, np.int32)
     cat_off = np.zeros(len(trees) + 1, np.int32)
-    feature = np.zeros(N, np.int32)
-    threshold = np.zeros(N, np.float64)
-    decision = np.zeros(N, np.int8)
-    left = np.zeros(N, np.int32)
-    right = np.zeros(N, np.int32)
-    leaf_value = np.zeros(L, np.float64)
     bounds: List[int] = []
     words: List[int] = []
-    na = la = 0
+    max_feature = -1
+    ia = 0
     for ti, t in enumerate(trees):
-        nn, nl = max(t.num_leaves - 1, 0), max(t.num_leaves, 1)
-        feature[na:na + nn] = t.split_feature[:nn]
-        threshold[na:na + nn] = t.threshold[:nn]
-        decision[na:na + nn] = t.decision_type[:nn]
-        left[na:na + nn] = t.left_child[:nn]
-        right[na:na + nn] = t.right_child[:nn]
-        leaf_value[la:la + nl] = t.leaf_value[:nl]
+        order, right = _preorder(t)
+        kind = np.array([k for k, _ in order], np.int64)
+        idx = np.array([c for _, c in order], np.int64)
+        node, leaf = idx[kind == 0], idx[kind == 1]
+        rows = np.arange(ia, ia + len(order))
+        feat = np.asarray(t.split_feature, np.int64)[node]
+        if len(feat):
+            if feat.max() >= 1 << _FEATURE_BITS:
+                raise ValueError("feature %d past KP1's %d-bit field"
+                                 % (feat.max(), _FEATURE_BITS))
+            max_feature = max(max_feature, int(feat.max()))
+        lv = (np.asarray(t.leaf_value, np.float64)[leaf] if t.num_leaves >= 1
+              and len(t.leaf_value) else np.zeros(len(leaf)))
+        dec = np.asarray(t.decision_type, np.int64)[node] & 0xFF
+        items[rows[kind == 0], 0] = np.asarray(t.threshold, np.float64)[node]
+        items[rows[kind == 1], 0] = lv
+        lanes[rows[kind == 0], 2] = (feat | dec << _FEATURE_BITS).astype(
+            np.uint32).view(np.int32)
+        lanes[rows[kind == 1], 2] = (leaf + _LEAF_BIT).astype(np.int32)
+        lanes[rows, 3] = np.asarray(right, np.int32)
         if t.num_cat > 0:
             bounds.extend(len(words) + int(b) for b in t.cat_boundaries)
             words.extend(int(w) for w in t.cat_threshold)
-        na += nn
-        la += nl
-        node_off[ti + 1], leaf_off[ti + 1] = na, la
+        ia += len(order)
+        tree_off[ti + 1] = ia
         cat_off[ti + 1] = len(bounds)
+    group_off = np.array(tree_groups([_tree_items(t) for t in trees]),
+                         np.int32)
+    stage_items = max([int(tree_off[b] - tree_off[a]) for a, b in
+                       zip(group_off[:-1], group_off[1:])
+                       if tree_off[b] - tree_off[a] <= _STAGE_ITEMS] or [0])
     cat_bound = np.array(bounds or [0], np.int32)
     cat_words = np.array(words or [0], np.uint32).view(np.int32)
 
     def dev(a):
         return torch.as_tensor(a, device=device)
-    return EnsembleTables(dev(node_off), dev(leaf_off), dev(cat_off),
-                          dev(feature), dev(threshold), dev(decision),
-                          dev(left), dev(right), dev(leaf_value),
-                          dev(cat_bound), dev(cat_words),
-                          int(feature[:na].max()) if na else -1)
+    return EnsembleTables(dev(lanes), dev(tree_off), dev(group_off),
+                          dev(cat_off), dev(cat_bound), dev(cat_words),
+                          max_feature, stage_items)
 
 
 # --------------------------------------------------------------------------- #
 # KP1's plain version
 # --------------------------------------------------------------------------- #
-def _cat_left(tb: EnsembleTables, cat0: int, i: torch.Tensor,
+def _cat_left(tb: EnsembleTables, cat0: int, thr: torch.Tensor,
               v: torch.Tensor, is_cat: torch.Tensor) -> torch.Tensor:
     """CategoricalDecision (models/tree.py `_categorical_go_left`): the
-    value truncated toward zero is a member of node i's bitset; NaN,
-    negative ids and ids past the bitset are non-members."""
+    value truncated toward zero is a member of the bitset at index thr;
+    NaN, negative ids and ids past the bitset are non-members."""
     nan = torch.isnan(v)
     iv = torch.where(is_cat & ~nan, v, 0.0).to(torch.int64)
     valid = is_cat & ~nan & (iv >= 0)
     iv = torch.where(valid, iv, 0)
-    ci = torch.where(is_cat, tb.threshold[i], 0.0).to(torch.int64)
+    ci = torch.where(is_cat, thr, 0.0).to(torch.int64)
     b = (cat0 + ci).clamp(0, tb.cat_bound.shape[0] - 2)
     lo = tb.cat_bound[b].long()
     hi = tb.cat_bound[b + 1].long()
@@ -189,64 +262,103 @@ def _cat_left(tb: EnsembleTables, cat0: int, i: torch.Tensor,
     return valid & in_bounds & (member > 0)
 
 
-def _tree_leaf(tb: EnsembleTables, offs: tuple, X: torch.Tensor,
-               t: int) -> torch.Tensor:
-    """The leaf (int64 [m]) of tree t for every row of X [m, F] f64, by the
-    host walk's decisions (models/tree.py Tree.predict_leaf_index), all
-    rows at once, level by level until every row rests at a leaf."""
-    node_off, _, cat_off = offs
-    base, end = node_off[t], node_off[t + 1]
-    m = X.shape[0]
-    node = torch.full((m,), 0 if end > base else -1, dtype=torch.int64,
+def _tree_leaf_item(tb: EnsembleTables, offs: tuple, X: torch.Tensor,
+                    t: int) -> torch.Tensor:
+    """The item (int64 [m], into tb.items) of the leaf of tree t that each
+    row of X [m, F] (f32 or f64, compared in f64) reaches, by the host
+    walk's decisions (models/tree.py Tree.predict_leaf_index), all rows at
+    once, level by level until every row rests at a leaf."""
+    tree_off, cat_off = offs
+    base = tree_off[t]
+    lanes = tb.items
+    value = lanes.view(torch.float64)[:, 0]
+    item = torch.full((X.shape[0],), base, dtype=torch.int64,
                       device=X.device)
-    active = node >= 0
-    while bool(active.any()):
-        i = base + node.clamp_min(0)
-        v = X.gather(1, tb.feature[i].long()[:, None])[:, 0]
-        dec = tb.decision[i].long()
+    meta = lanes[item, 2]
+    while bool((meta >= 0).any()):
+        active = meta >= 0
+        feat = (meta & ((1 << _FEATURE_BITS) - 1)).long()
+        dec = (meta >> _FEATURE_BITS).long() & 0xFF
+        thr = value[item]
+        v = X.gather(1, torch.where(active, feat, 0)[:, None])[:, 0].to(
+            torch.float64)
         mt = (dec >> 2) & 3
         vn = torch.where(torch.isnan(v) & (mt != MISSING_NAN), 0.0, v)
         zero = vn.abs() <= K_ZERO_THRESHOLD
         missing = (((mt == MISSING_ZERO) & zero)
                    | ((mt == MISSING_NAN) & torch.isnan(vn)))
-        go_left = torch.where(missing, (dec & 2) != 0, vn <= tb.threshold[i])
-        is_cat = (dec & 1) != 0
+        go_left = torch.where(missing, (dec & 2) != 0, vn <= thr)
+        is_cat = active & ((dec & 1) != 0)
         if bool(is_cat.any()):
-            go_left = torch.where(is_cat, _cat_left(tb, cat_off[t], i, v,
+            go_left = torch.where(is_cat, _cat_left(tb, cat_off[t], thr, v,
                                                      is_cat), go_left)
-        nxt = torch.where(go_left, tb.left[i], tb.right[i]).long()
-        node = torch.where(active, nxt, node)
-        active = node >= 0
-    return ~node
+        nxt = torch.where(go_left, item + 1, base + lanes[item, 3].long())
+        item = torch.where(active, nxt, item)
+        meta = lanes[item, 2]
+    return item
 
 
 MODE_SUM, MODE_SUM_EARLY_STOP, MODE_LEAF = 0, 1, 2
+
+
+def _offsets(tb: EnsembleTables) -> tuple:
+    return tb.tree_off.tolist(), tb.cat_off.tolist()
 
 
 def predict_ensemble_plain(tb: EnsembleTables, X: torch.Tensor, T: int,
                            k: int, mode: int = MODE_SUM, freq: int = 0,
                            margin: float = 0.0) -> torch.Tensor:
     """KP1 in plain PyTorch: the trees t < T walked over every row of X
-    [m, F] f64, one tree at a time.  Sum modes return [k, m] f64, each
-    row's leaf values added in tree order in f64 (tree t to class t % k);
-    with early stop (k = 1) a row stops before tree t, t a positive
-    multiple of freq, once 2|sum| < margin fails.  Leaf mode returns
-    [m, T] int32."""
-    offs = (tb.node_off.tolist(), tb.leaf_off.tolist(), tb.cat_off.tolist())
+    [m, F] (f32 or f64, each value compared in f64), one tree at a time.
+    Sum modes return [k, m] f64, each row's leaf values added in tree
+    order in f64 (tree t to class t % k); with early stop (k = 1) a row
+    stops before tree t, t a positive multiple of freq, once 2|sum| <
+    margin fails.  Leaf mode returns [m, T] int32."""
+    offs = _offsets(tb)
     m = X.shape[0]
     if mode == MODE_LEAF:
         out = torch.zeros((m, T), dtype=torch.int32, device=X.device)
         for t in range(T):
-            out[:, t] = _tree_leaf(tb, offs, X, t).to(torch.int32)
+            item = _tree_leaf_item(tb, offs, X, t)
+            out[:, t] = tb.items[item, 2] & ((1 << _FEATURE_BITS) - 1)
         return out
+    value = tb.items.view(torch.float64)[:, 0]
     out = torch.zeros((k, m), dtype=torch.float64, device=X.device)
     active = torch.ones(m, dtype=torch.bool, device=X.device)
     for t in range(T):
         if mode == MODE_SUM_EARLY_STOP and t > 0 and t % freq == 0:
             active &= 2.0 * out[0].abs() < margin
-        value = tb.leaf_value[offs[1][t] + _tree_leaf(tb, offs, X, t)]
+        v = value[_tree_leaf_item(tb, offs, X, t)]
         c = t % k
-        out[c] = torch.where(active, out[c] + value, out[c])
+        out[c] = torch.where(active, out[c] + v, out[c])
+    return out
+
+
+def tree_values_plain(tb: EnsembleTables, X: torch.Tensor,
+                      T: int) -> torch.Tensor:
+    """The small-batch walk in plain PyTorch: [T, m] f64, the leaf value
+    of tree t that row r reaches at [t, r]."""
+    offs = _offsets(tb)
+    value = tb.items.view(torch.float64)[:, 0]
+    out = torch.zeros((T, X.shape[0]), dtype=torch.float64, device=X.device)
+    for t in range(T):
+        out[t] = value[_tree_leaf_item(tb, offs, X, t)]
+    return out
+
+
+def ordered_sum_plain(vals: torch.Tensor, k: int, mode: int = MODE_SUM,
+                      freq: int = 0, margin: float = 0.0) -> torch.Tensor:
+    """The small batch's second pass in plain PyTorch: [k, m] f64, each
+    row's values vals[t, row] of the trees t % k == c added in tree order
+    from 0.0, with the early stop of predict_ensemble_plain (k = 1)."""
+    T, m = vals.shape
+    out = torch.zeros((k, m), dtype=torch.float64, device=vals.device)
+    active = torch.ones(m, dtype=torch.bool, device=vals.device)
+    for t in range(T):
+        if mode == MODE_SUM_EARLY_STOP and t > 0 and t % freq == 0:
+            active &= 2.0 * out[0].abs() < margin
+        c = t % k
+        out[c] = torch.where(active, out[c] + vals[t], out[c])
     return out
 
 
@@ -305,24 +417,27 @@ class DeviceEnsemble:
         return out.cpu().numpy()
 
     def _chunks(self, X: np.ndarray):
-        """(first row, f64 rows on the device) of X: on the card in chunks
-        of at most _CHUNK_BYTES through two pinned staging buffers, so a
-        chunk's copy overlaps the walk of the one before; on the CPU the
-        whole matrix at once."""
-        X = np.ascontiguousarray(X, np.float64)
+        """(first row, rows on the device) of X, f32 if X is float32 and
+        f64 otherwise: on the card in chunks of at most _CHUNK_BYTES through
+        two pinned staging buffers of X's dtype, so a chunk's copy overlaps
+        the walk of the one before; on the CPU the whole matrix at once."""
+        dtype = np.float32 if X.dtype == np.float32 else np.float64
+        X = np.ascontiguousarray(X, dtype)
         n, F = X.shape
         if n == 0:
             return
         if self.device.type != "cuda":
             yield 0, torch.from_numpy(X)
             return
-        rows = min(n, max(1, _CHUNK_BYTES // (8 * max(F, 1))))
+        rows = min(n, max(1, _CHUNK_BYTES // (X.itemsize * max(F, 1))))
+        tdt = torch.float32 if dtype == np.float32 else torch.float64
         if not self._staging or self._staging[0].shape[0] < rows \
-                or self._staging[0].shape[1] != F:
+                or self._staging[0].shape[1] != F \
+                or self._staging[0].dtype != tdt:
             for ev in self._events:
                 if ev is not None:
                     ev.synchronize()
-            self._staging = [torch.empty((rows, F), dtype=torch.float64,
+            self._staging = [torch.empty((rows, F), dtype=tdt,
                                          pin_memory=True) for _ in range(2)]
         for i, a in enumerate(range(0, n, rows)):
             b = min(n, a + rows)
@@ -360,7 +475,8 @@ class DeviceEnsemble:
         n = X.shape[0]
         B = bucket_rows(n, max_bucket)
         if B > n:
-            Xp = np.zeros((B, X.shape[1]), np.float64)
+            Xp = np.zeros((B, X.shape[1]),
+                          np.float32 if X.dtype == np.float32 else np.float64)
             Xp[:n] = X
         else:
             Xp = X

@@ -8,9 +8,11 @@ port, the tensor's device decides: a CPU tensor runs the plain version, a
 CUDA tensor launches the kernel or raises.
 
 - `predict_ensemble` (KP1): an ensemble's walk tables (ops/predict.py)
-  over raw f64 rows, summing leaf values in f64, with early stop, or
-  writing each row's leaf per tree; plain version
-  ops/predict.predict_ensemble_plain.
+  over raw f32 or f64 rows, summing leaf values in f64, with early stop,
+  or writing each row's leaf per tree, by row tiles or, for a small
+  batch, by (tree, row) pairs and an ordered sum; plain versions
+  ops/predict.predict_ensemble_plain and, for the small batch,
+  tree_values_plain with ordered_sum_plain.
 - `walk_binned` (KP2): one device tree (ops/grow.TreeArrays) over the
   uint8 bins [n, G], writing each row's leaf or adding a leaf value to the
   row's f32 score (all rows, or the rows whose leaf id is -1, the others
@@ -28,38 +30,56 @@ import torch
 from . import _cuda
 from .grow import TreeArrays, predict_leaf_inner
 from .predict import (MODE_LEAF, MODE_SUM, MODE_SUM_EARLY_STOP,
-                      EnsembleTables, predict_ensemble_plain)
+                      EnsembleTables, ordered_sum_plain,
+                      predict_ensemble_plain, tree_values_plain)
 
-_TABLE_DTYPES = dict(node_off=torch.int32, leaf_off=torch.int32,
-                     cat_off=torch.int32, feature=torch.int32,
-                     threshold=torch.float64, decision=torch.int8,
-                     left=torch.int32, right=torch.int32,
-                     leaf_value=torch.float64, cat_bound=torch.int32,
-                     cat_words=torch.int32)
+_TABLE_NAMES = ("items", "tree_off", "group_off", "cat_off", "cat_bound",
+                "cat_words")
+# the small-batch walk takes a batch of at most this many (tree, row)
+# pairs (its [T, n] f64 scratch at most 256 MB) and at most _SMALL_ROWS
+# rows; larger batches walk by row tiles.  On an H100 over 500 trees the
+# small walk beat the row tiles at every batch that
+# tools/compare_builds.py --only KP1 timed, up to 100k rows (64k: 1.24
+# against 1.74 ms; 100k: 1.80 against 1.91; PERF.md, KP1)
+_SMALL_PAIRS = 1 << 25
+_SMALL_ROWS = 65536
+
+
+def small_batch(m: int, T: int) -> bool:
+    """Whether KP1 walks m rows of T trees by (tree, row) pairs: batches
+    too small to fill the card with row tiles."""
+    return m <= _SMALL_ROWS and m * T <= _SMALL_PAIRS
 
 
 def predict_ensemble(tb: EnsembleTables, X: torch.Tensor, T: int, k: int,
                      out: torch.Tensor, row0: int = 0, mode: int = MODE_SUM,
-                     freq: int = 0, margin: float = 0.0) -> None:
-    """KP1 over the m rows of X [m, F] f64, which are rows row0.. of out:
-    sum modes write out[:, row0:row0+m] ([k, n] f64), leaf mode
-    out[row0:row0+m] ([n, T] int32).  T trees t < T are walked; early stop
-    (mode MODE_SUM_EARLY_STOP) needs k = 1 and freq >= 1."""
+                     freq: int = 0, margin: float = 0.0,
+                     small: Optional[bool] = None) -> None:
+    """KP1 over the m rows of X [m, F] (f32 or f64, each value compared in
+    f64), which are rows row0.. of out: sum modes write out[:, row0:row0+m]
+    ([k, n] f64), leaf mode out[row0:row0+m] ([n, T] int32).  T trees
+    t < T are walked; early stop (mode MODE_SUM_EARLY_STOP) needs k = 1
+    and freq >= 1.  small: the small-batch walk (True) or the row tiles
+    (False); by default small_batch(m, T) decides.  Counted as
+    `predict_ensemble` (row tiles) and `predict_ensemble_small`."""
     dev = X.device
     m, F = X.shape
     if mode not in (MODE_SUM, MODE_SUM_EARLY_STOP, MODE_LEAF):
         raise ValueError("unknown mode %r" % mode)
     if mode == MODE_SUM_EARLY_STOP and (k != 1 or freq < 1):
         raise ValueError("early stop needs k = 1 and freq >= 1")
-    ntrees = tb.node_off.shape[0] - 1
+    ntrees = tb.tree_off.shape[0] - 1
     if not 0 <= T <= ntrees:
         raise ValueError("T=%d outside the ensemble's %d trees" % (T, ntrees))
     if F <= tb.max_feature:
         raise ValueError("X has %d features, and a node reads feature %d"
                          % (F, tb.max_feature))
-    for name, dtype in _TABLE_DTYPES.items():
-        _cuda.require(getattr(tb, name), name, dtype, dev)
-    _cuda.require(X, "X", torch.float64, dev)
+    for name in _TABLE_NAMES:
+        _cuda.require(getattr(tb, name), name, torch.int32, dev)
+    if X.dtype not in (torch.float32, torch.float64):
+        raise TypeError("X: dtype %s, expected torch.float32 or "
+                        "torch.float64" % X.dtype)
+    _cuda.require(X, "X", X.dtype, dev)
     leaf = mode == MODE_LEAF
     if leaf:
         _cuda.require(out, "out", torch.int32, dev)
@@ -73,23 +93,36 @@ def predict_ensemble(tb: EnsembleTables, X: torch.Tensor, T: int, k: int,
                              % (tuple(out.shape), row0, k))
     if m == 0:
         return
+    if small is None:
+        small = small_batch(m, T)
     if not _cuda.plain_or_cuda(dev):
-        got = predict_ensemble_plain(tb, X, T, k, mode, freq, margin)
         if leaf:
-            out[row0:row0 + m] = got
+            out[row0:row0 + m] = predict_ensemble_plain(tb, X, T, k, mode)
+        elif small:
+            out[:, row0:row0 + m] = ordered_sum_plain(
+                tree_values_plain(tb, X, T), k, mode, freq, margin)
         else:
-            out[:, row0:row0 + m] = got
+            out[:, row0:row0 + m] = predict_ensemble_plain(
+                tb, X, T, k, mode, freq, margin)
         return
     n_total = out.shape[0] if leaf else out.shape[1]
     if leaf:
         o_ptr, l_ptr = 0, out.data_ptr() + 4 * row0 * T
     else:
         o_ptr, l_ptr = out.data_ptr() + 8 * row0, 0
-    rc = _cuda.fn("lgbt_predict_ensemble")(
-        *(getattr(tb, name).data_ptr() for name in _TABLE_DTYPES),
-        X.data_ptr(), m, F, T, k, mode, max(freq, 1), float(margin), o_ptr,
-        n_total, l_ptr, _cuda.stream(dev))
-    _cuda.check(rc, "predict_ensemble")
+    args = [*(getattr(tb, name).data_ptr() for name in _TABLE_NAMES),
+            X.data_ptr(), int(X.dtype == torch.float32), m, F,
+            tb.max_feature + 1, T, k, mode, max(freq, 1), float(margin),
+            tb.stage_items, o_ptr, n_total, l_ptr]
+    if small:
+        vals = None if leaf else torch.empty((T, m), dtype=torch.float64,
+                                             device=dev)
+        rc = _cuda.fn("lgbt_predict_ensemble_small")(
+            *args, 0 if vals is None else vals.data_ptr(), _cuda.stream(dev))
+        _cuda.check(rc, "predict_ensemble_small")
+    else:
+        rc = _cuda.fn("lgbt_predict_ensemble")(*args, _cuda.stream(dev))
+        _cuda.check(rc, "predict_ensemble")
 
 
 _WALK_LEAF, _WALK_MASKED_ADD, _WALK_ADD = 0, 1, 2

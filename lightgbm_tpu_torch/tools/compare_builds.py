@@ -1,15 +1,16 @@
 """Another build of the port's kernels against this one, on the card.
 
     python -m lightgbm_tpu_torch.tools.compare_builds OTHER_CSRC [rows_millions]
-        [--save-leaf-seg PATH] [--only sass,K3,K7,K2,K1,K6,K4]
+        [--save-leaf-seg PATH] [--only sass,K3,K7,K2,K1,K6,K4,KP1]
 
 OTHER_CSRC is the `lightgbm_tpu_torch/csrc` directory of another checkout
 (a parent commit unpacked with `git archive`, say).  In one process:
 
 1. K3 (`partition_segment.cu`), K7 (`leaf_histogram.cu`), K2
    (`segment_histogram.cu`), K5 (`fused_root_histogram.cu`), K1
-   (`split_scan.cu`), K6 (`compact_carry.cu`) and K4
-   (`scatter_segments.cu`) of both trees compiled
+   (`split_scan.cu`), K6 (`compact_carry.cu`), K4
+   (`scatter_segments.cu`) and KP1 (`predict_ensemble.cu`) of both trees
+   compiled
    with `ptxas -v` to cubins: each kernel's resource line and whether its
    SASS (`cuobjdump -sass`, kernel names demangled and K8's stage template
    argument dropped) is identical in the two trees;
@@ -48,14 +49,28 @@ OTHER_CSRC is the `lightgbm_tpu_torch/csrc` directory of another checkout
    beside, with the bounds and index_put_ (accumulate=True for the add)
    over the expanded (row, value) pairs; where the other tree's K4 has no
    add mode, the chain it replaces (a zeroed delta, K4 in set mode, a
-   multiply and an add) stands in.
+   multiply and an add) stands in;
+8. KP1 (`predict_ensemble.cu`) of both trees on one model: 500 rounds of
+   chip_smoke.py's f32 carried configuration trained on its data at
+   min(rows_millions, 1) million rows (kept as model text in the build
+   directory), walked over the 100k holdout and the training rows: the
+   sums held equal bit for bit (the other tree's on f64 rows, this tree's
+   on f64 and on f32 rows), then timed in the order other, this, this,
+   other (CUDA events), kernel-only beside, with the node visits (the
+   depths of the leaves reached, from this tree's leaf mode) and ns a
+   visit; then the sweep over batch sizes (kp1_sweep: this tree's row
+   tiles and small-batch walk beside the other tree's walk, 1 to 100k
+   rows); then Booster.predict from numpy, f32 and f64 rows, of each
+   tree's package (the other tree's package is OTHER_CSRC's parent
+   directory), a process each, in the same order.
 
 `--only` runs the named sections alone (sass is step 1).  The other
 tree's K3, K7, K1, K6 and K4 may take the C interface of the first
 versions (a scratch arena and block counts for K3, no row list for K7, no
 ticket for K1, two launches over a grid of blocks a leaf for K6, a grid
-of blocks a leaf for K4); the tool reads which from the other tree's
-sources.
+of blocks a leaf for K4, one thread a row over the first walk tables for
+KP1, built here as that version built them); the tool reads which from
+the other tree's sources.
 Needs nvcc and a CUDA device;
 builds into lightgbm_tpu_torch/_build/compare and prints one line per
 kernel and case.
@@ -114,10 +129,17 @@ OLD_ENTRY_POINTS = {
     "scatter_segments": {
         "lgbt_scatter_segments_f32": [_P, _P, _P, _P, _P, _I, _I, _P],
         "lgbt_scatter_segments_i32": [_P, _P, _P, _P, _P, _I, _I, _P]},
+    "predict_ensemble": {
+        "lgbt_predict_ensemble": [_P] * 12 + [_LL, _I, _I, _I, _I, _I,
+                                              ctypes.c_double, _P, _LL, _P,
+                                              _P]},
 }
 OLD_PART_BLOCKS, OLD_PRED_BLOCKS, OLD_LEAF_BLOCKS = 1024, 264, 264
 OLD_CARRY_BLOCKS = OLD_SCATTER_BLOCKS = 64
-SECTIONS = ("sass", "K3", "K7", "K2", "K1", "K6", "K4")
+SECTIONS = ("sass", "K3", "K7", "K2", "K1", "K6", "K4", "KP1")
+KP1_ROUNDS, KP1_HOLDOUT = 500, 100_000
+KP1_SWEEP_ROWS = (1, 64, 256, 1024, 2048, 4096, 8192, 16384, 32768, 65536,
+                  100_000)
 
 
 def _tool(name: str) -> str:
@@ -197,6 +219,8 @@ def _is_old(src_dir: str, stem: str) -> bool:
         return "carry_offsets_kernel" in text
     if stem == "scatter_segments":
         return "grid_x" in text
+    if stem == "predict_ensemble":
+        return "node_off" in text
     return "int* rows" not in text
 
 
@@ -852,6 +876,223 @@ def scatters(other: str, n: int, out_dir: str, carried: dict = None) -> None:
         torch.cuda.empty_cache()
 
 
+def _first_kp1_tables(trees, dev) -> list:
+    """The first KP1's walk tables (node_off, leaf_off, cat_off, feature,
+    threshold, decision, left, right, leaf_value, cat_bound, cat_words),
+    as its ops/predict.py build_tables laid them out: per node 21 bytes,
+    per leaf 8, children ~leaf for a leaf."""
+    nn = [max(t.num_leaves - 1, 0) for t in trees]
+    nl = [max(t.num_leaves, 1) for t in trees]
+    node_off = np.concatenate([[0], np.cumsum(nn)]).astype(np.int32)
+    leaf_off = np.concatenate([[0], np.cumsum(nl)]).astype(np.int32)
+    N, L = max(int(node_off[-1]), 1), max(int(leaf_off[-1]), 1)
+    cols = dict(feature=np.zeros(N, np.int32),
+                threshold=np.zeros(N, np.float64),
+                decision=np.zeros(N, np.int8), left=np.zeros(N, np.int32),
+                right=np.zeros(N, np.int32))
+    leaf_value = np.zeros(L, np.float64)
+    cat_off = np.zeros(len(trees) + 1, np.int32)
+    bounds, words = [], []
+    for ti, t in enumerate(trees):
+        a, k = node_off[ti], nn[ti]
+        for name, src in (("feature", t.split_feature),
+                          ("threshold", t.threshold),
+                          ("decision", t.decision_type),
+                          ("left", t.left_child), ("right", t.right_child)):
+            cols[name][a:a + k] = src[:k]
+        leaf_value[leaf_off[ti]:leaf_off[ti] + nl[ti]] = t.leaf_value[:nl[ti]]
+        if t.num_cat > 0:
+            bounds.extend(len(words) + int(b) for b in t.cat_boundaries)
+            words.extend(int(w) for w in t.cat_threshold)
+        cat_off[ti + 1] = len(bounds)
+    arrays = [node_off, leaf_off, cat_off, cols["feature"],
+              cols["threshold"], cols["decision"], cols["left"],
+              cols["right"], leaf_value, np.array(bounds or [0], np.int32),
+              np.array(words or [0], np.uint32).view(np.int32)]
+    return [torch.as_tensor(a, device=dev) for a in arrays]
+
+
+def _kp1_model(n: int, path: str):
+    """The trees of a KP1_ROUNDS-round model of chip_smoke.py's
+    configuration (f32, carried) trained on its data at n rows, saved as
+    model text at path (read back if it is there), the data, and
+    chip_smoke itself."""
+    import lightgbm_tpu_torch as lt
+    from ..interop import booster_from_model_string
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+    import chip_smoke as cs
+    dev = torch.device("cuda", torch.cuda.current_device())
+    X, y, Xh, _yh = cs.higgs_like(n)
+    if not os.path.exists(path):
+        ds = lt.Dataset(X, y, params=cs.PARAMS, device=dev).construct()
+        bst = lt.train(cs.path_params("f32"), ds,
+                       num_boost_round=KP1_ROUNDS, device=dev)
+        with open(path, "w") as f:
+            f.write(bst.model_to_string())
+        del bst, ds
+        torch.cuda.empty_cache()
+    with open(path) as f:
+        text = f.read()
+    trees = booster_from_model_string(text, device=dev)._gbdt.models
+    return trees, X, Xh, cs
+
+
+_KP1_WALL = r"""
+import sys, time, numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+sys.path.insert(1, sys.argv[2])
+import lightgbm_tpu_torch as lt
+import chip_smoke as cs
+X, _y, Xh, _yh = cs.higgs_like(int(sys.argv[4]))
+with open(sys.argv[3]) as f:
+    bst = lt.Booster(model_str=f.read(), device=torch.device("cuda"))
+out = []
+for what, Xs in (("holdout", Xh), ("train", X[:int(sys.argv[4])])):
+    for dt in (np.float32, np.float64):
+        Xn = np.ascontiguousarray(Xs, dt)
+        bst.predict(Xn, raw_score=True)
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            bst.predict(Xn, raw_score=True)
+            ms.append((time.perf_counter() - t) * 1e3)
+        out.append("%s %s %.3f" % (what, np.dtype(dt).name, min(ms)))
+print("; ".join(out))
+"""
+
+
+def kp1_sweep(tb, T: int, Xh, call_other, old: bool) -> None:
+    """KP1's two paths of this tree and the other tree's walk over the
+    first m rows of the holdout (f32; the first KP1 takes them as f64), m
+    from one row to the whole holdout: held equal bit for bit, then timed
+    by CUDA events over back-to-back calls in the order other, tiles,
+    small, small, tiles, other (the small-batch walk whatever its default
+    cap, the row tiles whatever their width)."""
+    from ..ops.predict_kernel import predict_ensemble
+    dev = torch.device("cuda")
+    for m in KP1_SWEEP_ROWS:
+        x32 = torch.from_numpy(np.ascontiguousarray(Xh[:m], np.float32)
+                               ).to(dev)
+        xo = x32.double() if old else x32
+        outs = {k: torch.empty((1, m), dtype=torch.float64, device=dev)
+                for k in ("other", "tiles", "small")}
+        runs = {"other": lambda: call_other(xo, outs["other"]),
+                "tiles": lambda: predict_ensemble(tb, x32, T, 1,
+                                                  outs["tiles"], small=False),
+                "small": lambda: predict_ensemble(tb, x32, T, 1,
+                                                  outs["small"], small=True)}
+        for run in runs.values():
+            run()
+        torch.cuda.synchronize()
+        same = (torch.equal(outs["other"], outs["tiles"])
+                and torch.equal(outs["tiles"], outs["small"]))
+        reps = 50 if m <= 8192 else 10
+        ev = {}
+        for tag in ("other", "tiles", "small", "small", "tiles", "other"):
+            ev.setdefault(tag, []).append(cuda_ms(runs[tag], reps))
+        print("KP1 sweep, %d rows x %d trees, X f32: other %s; this tiles "
+              "%s; this small %s ms (CUDA events, %d calls); %s" % (
+                  m, T, *("/".join("%.4f" % v for v in ev[t])
+                          for t in ("other", "tiles", "small")), reps,
+                  "the paths agree" if same else "DIFFER"))
+        del x32, xo, outs
+        torch.cuda.empty_cache()
+
+
+def kp1(other: str, n: int, out_dir: str) -> None:
+    """KP1 of both trees on one 500-round model over the 100k holdout and
+    n training rows: sums held equal bit for bit (the other tree's f64
+    rows; this tree's f64 and f32 rows), then timed in the order other,
+    this, this, other, kernel-only beside, with the node visits (the
+    depths of the leaves reached) per ns; then the wall of Booster.predict
+    from numpy (f32 and f64 rows) of each tree's package, a process each,
+    in the same order."""
+    from ..ops import predict as pr
+    dev = torch.device("cuda")
+    model_path = os.path.join(out_dir, "kp1_model_%d.txt" % n)
+    trees, X, Xh, cs = _kp1_model(n, model_path)
+    T = len(trees)
+    fns, old = _load(other, "predict_ensemble", out_dir, "other")
+    tb = pr.build_tables(trees, dev)
+    from ..ops.predict_kernel import predict_ensemble
+    first = _first_kp1_tables(trees, dev) if old else None
+    depths = cs.leaf_depths(trees, dev)
+    print("KP1 model: %d trees, %d leaves, %d walk-table bytes (the first "
+          "layout %s)" % (T, sum(t.num_leaves for t in trees),
+                          sum(x.numel() * x.element_size() for x in tb
+                              if isinstance(x, torch.Tensor)),
+                          sum(x.numel() * x.element_size() for x in first)
+                          if old else "not built"))
+
+    def call_other(Xd, out):
+        if old:
+            _check(fns["lgbt_predict_ensemble"](
+                *(x.data_ptr() for x in first), Xd.data_ptr(), Xd.shape[0],
+                Xd.shape[1], T, 1, 0, 1, 0.0, out.data_ptr(), Xd.shape[0],
+                0, _cuda.stream()), "KP1 other")
+        else:
+            _check(fns["lgbt_predict_ensemble"](
+                *(getattr(tb, k).data_ptr() for k in (
+                    "items", "tree_off", "group_off", "cat_off",
+                    "cat_bound", "cat_words")), Xd.data_ptr(),
+                int(Xd.dtype == torch.float32), Xd.shape[0], Xd.shape[1],
+                tb.max_feature + 1, T, 1, 0, 1, 0.0, tb.stage_items,
+                out.data_ptr(), Xd.shape[0], 0, _cuda.stream()),
+                "KP1 other")
+
+    for what, Xs in (("holdout", Xh), ("train", X[:n])):
+        x64 = torch.from_numpy(np.ascontiguousarray(Xs, np.float64)).to(dev)
+        x32 = torch.from_numpy(np.ascontiguousarray(Xs, np.float32)).to(dev)
+        m = x64.shape[0]
+        outs = {k: torch.empty((1, m), dtype=torch.float64, device=dev)
+                for k in ("other", "f64", "f32")}
+        call_other(x64, outs["other"])
+        predict_ensemble(tb, x64, T, 1, outs["f64"], small=False)
+        predict_ensemble(tb, x32, T, 1, outs["f32"], small=False)
+        torch.cuda.synchronize()
+        same = (torch.equal(outs["other"], outs["f64"])
+                and torch.equal(outs["f64"], outs["f32"]))
+        visits = cs.walk_visits(tb, depths, x64, T)
+        reps = 10 if m <= KP1_HOLDOUT else 3
+        for dt, xd in (("f64", x64), ("f32", x32)):
+            runs = {"other": lambda xd=xd: call_other(x64 if old else xd,
+                                                     outs["other"]),
+                    "this": lambda xd=xd, dt=dt: predict_ensemble(
+                        tb, xd, T, 1, outs[dt], small=False)}
+            ev = {}
+            for tag in ("other", "this", "this", "other"):
+                ev.setdefault(tag, []).append(cuda_ms(runs[tag], reps))
+            ko = {tag: _kernel_ms(runs[tag], reps)
+                  for tag in ("other", "this")}
+            print("KP1 %s, %d rows x %d trees, X %s (the first KP1's f64): "
+                  "other %.4f, this %.4f, this %.4f, other "
+                  "%.4f ms; kernel-only, ms: other %s; this %s; %d visits "
+                  "(%.1f a row): %.4f ns a visit this (%.4g visits/s), "
+                  "%.4f other; the trees %s" % (
+                      what, m, T, dt, ev["other"][0], ev["this"][0],
+                      ev["this"][1], ev["other"][1], ko["other"],
+                      ko["this"], visits, visits / m,
+                      min(ev["this"]) * 1e6 / visits,
+                      visits / min(ev["this"]) * 1e3,
+                      min(ev["other"]) * 1e6 / visits,
+                      "agree" if same else "DIFFER"))
+        del x64, x32, outs
+        torch.cuda.empty_cache()
+    kp1_sweep(tb, T, Xh, call_other, old)
+    # the wall of predict from numpy, each tree's package in a process
+    roots = {"other": str(Path(other).resolve().parents[1]),
+             "this": str(Path(__file__).resolve().parents[2])}
+    for tag in ("other", "this", "this", "other"):
+        r = subprocess.run([sys.executable, "-c", _KP1_WALL, roots[tag],
+                            roots["this"], model_path, str(n)],
+                           capture_output=True, text=True)
+        line = (r.stdout.strip().splitlines() or ["(no output)"])[-1]
+        print("KP1 predict from numpy, %s package, ms (best of 3): %s%s"
+              % (tag, line, "" if r.returncode == 0
+                 else "; FAILED: " + r.stderr[-400:]))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("other", nargs="?")
@@ -883,14 +1124,17 @@ def main(argv=None) -> int:
     if "sass" in only:
         for stem in ("partition_segment", "leaf_histogram",
                      "segment_histogram", "fused_root_histogram",
-                     "split_scan", "compact_carry", "scatter_segments"):
+                     "split_scan", "compact_carry", "scatter_segments",
+                     "predict_ensemble"):
             sass_report(args.other, stem, out_dir)
     sections = (("K3", lambda: partitions(args.other, n, out_dir)),
                 ("K7", lambda: leaf_histograms(args.other, n, out_dir)),
                 ("K2", lambda: histograms(args.other, n, out_dir)),
                 ("K1", lambda: scans(args.other, out_dir)),
                 ("K6", lambda: carries(args.other, n, out_dir, carried)),
-                ("K4", lambda: scatters(args.other, n, out_dir, carried)))
+                ("K4", lambda: scatters(args.other, n, out_dir, carried)),
+                ("KP1", lambda: kp1(args.other, min(n, 1_000_000),
+                                    out_dir)))
     for name, run in sections:
         if name in only:
             run()

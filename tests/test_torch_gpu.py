@@ -26,13 +26,19 @@ Tolerances, per kernel:
 - the binned tree walk, KP2 walk_binned: equal leaves on the card and
   the CPU, and in its add and masked-add modes equal f32 scores (bit for
   bit); a one-leaf tree puts every row in leaf 0;
-- KP1 predict_ensemble, every mode against its plain version on the card,
-  bit for bit: the fixture models ref50 (binary), cat50 (multi-word
-  categorical bitsets) and mc50 as k = 3 and k = 5, on rows with NaNs,
-  zeros, values below 1e-35, negative and out-of-range categories, at 1,
-  255, 257 and 100,003 rows; sums of all trees and of a third, early stop,
-  leaf indices, rows written at an offset; DeviceEnsemble in small chunks
-  against the host walk, and its device bytes against the estimate;
+- KP1 predict_ensemble, every mode of its row tiles and of its
+  small-batch walk against its plain version on the card, bit for bit,
+  on f64 rows and on f32 rows: the fixture models ref50 (binary), cat50
+  (multi-word categorical bitsets) and mc50 as k = 3 and k = 5, on rows
+  with NaNs, zeros, values below 1e-35, negative and out-of-range
+  categories, at 1, 7, 255, 257, 1000 and 100,003 rows; sums of all trees
+  and of a third, early stop at freqs that do not line up with a group,
+  leaf indices, rows written at an offset, the launch counts of each
+  path; a synthetic forest with a tree larger than a shared-memory stage
+  (walked from global memory) at 28 and 100 features (the rows' features
+  from the shared tile and through L1); DeviceEnsemble in small chunks
+  against the host walk, f64 and f32 staging, and its device bytes
+  against the estimate;
 - K2 in int8 mode, K5 fused_refresh_histogram, K6 compact_carry and K3 with
   the code payload: exact (integer atomics are order-independent);
 - a grown tree on dyadic gradients (every sum exact in f32): the same
@@ -810,64 +816,154 @@ PREDICT_CASES = {"binary": ("ref50", "binary.test", 1),
                  "k5": ("mc50", "multiclass.test", 5)}
 
 
-@pytest.mark.parametrize("rows", [1, 255, 257, 100_003])
-@pytest.mark.parametrize("case", sorted(PREDICT_CASES))
-def test_predict_ensemble_matches_plain(case, rows, dev):
-    """KP1 on the card against its plain version on the same card, every
-    mode, bit for bit: sums (all trees and a third of them), early stop
-    (k = 1: every 3 trees at margin 1, every 10 at margin 4), leaf
-    indices; and the wrapper's chunked entry (rows written at an
-    offset)."""
+def _kp1_both_paths(tb, X, T, k, want, **kw):
+    """KP1's row tiles and its small-batch walk on the card, each against
+    want (the plain version on the card), bit for bit."""
     from lightgbm_tpu_torch.ops import predict as pr
     from lightgbm_tpu_torch.ops.predict_kernel import predict_ensemble
+    rows = X.shape[0]
+    for small in (False, True):
+        if kw.get("mode") == pr.MODE_LEAF:
+            out = torch.full((rows, T), -5, dtype=torch.int32,
+                             device=X.device)
+        else:
+            out = torch.full((k, rows), 7.0, dtype=torch.float64,
+                             device=X.device)
+        predict_ensemble(tb, X, T, k, out, small=small, **kw)
+        assert torch.equal(out, want), (small, kw)
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+@pytest.mark.parametrize("rows", [1, 7, 255, 257, 1000, 100_003])
+@pytest.mark.parametrize("case", sorted(PREDICT_CASES))
+def test_predict_ensemble_matches_plain(case, rows, dtype, dev):
+    """KP1 on the card against its plain version on the same card, every
+    mode, by row tiles and by the small-batch walk, bit for bit, on f64
+    rows and on f32 rows (compared widened to f64): sums (all trees and a
+    third of them, which ends inside a group), early stop (k = 1: every 3
+    trees at margin 1, every 10 at margin 4; neither lines up with a
+    group of 4 trees), leaf indices; and the wrapper's chunked entry (rows
+    written at an offset) with the path the row count picks."""
+    from lightgbm_tpu_torch.ops import predict as pr
+    from lightgbm_tpu_torch.ops.predict_kernel import (predict_ensemble,
+                                                       small_batch)
     model, data, k = PREDICT_CASES[case]
     trees = _fixture_trees(model)
     X = torch.from_numpy(_fixture_rows(data, rows, 5 + rows)).to(dev)
+    if dtype == "f32":
+        X = X.float()
     tb = pr.build_tables(trees, dev)
     T = len(trees)
     _cuda.reset_launch_counts()
     for t_used in (T, T // 3):
-        out = torch.full((k, rows), 7.0, dtype=torch.float64, device=dev)
-        predict_ensemble(tb, X, t_used, k, out)
-        want = pr.predict_ensemble_plain(tb, X, t_used, k)
-        assert torch.equal(out, want), t_used
+        _kp1_both_paths(tb, X, t_used, k,
+                        pr.predict_ensemble_plain(tb, X, t_used, k))
     if k == 1:
         for freq, margin in ((3, 1.0), (10, 4.0)):
-            out = torch.zeros((1, rows), dtype=torch.float64, device=dev)
-            predict_ensemble(tb, X, T, 1, out, mode=pr.MODE_SUM_EARLY_STOP,
-                             freq=freq, margin=margin)
             want = pr.predict_ensemble_plain(
                 tb, X, T, 1, pr.MODE_SUM_EARLY_STOP, freq, margin)
-            assert torch.equal(out, want), (freq, margin)
-    leaf = torch.full((rows, T), -5, dtype=torch.int32, device=dev)
-    predict_ensemble(tb, X, T, k, leaf, mode=pr.MODE_LEAF)
-    assert torch.equal(leaf, pr.predict_ensemble_plain(tb, X, T, k,
-                                                       pr.MODE_LEAF))
+            _kp1_both_paths(tb, X, T, 1, want, mode=pr.MODE_SUM_EARLY_STOP,
+                            freq=freq, margin=margin)
+    _kp1_both_paths(tb, X, T, k,
+                    pr.predict_ensemble_plain(tb, X, T, k, pr.MODE_LEAF),
+                    mode=pr.MODE_LEAF)
     # rows 1.. of a larger output, as the chunked entry writes them
     big = torch.zeros((k, rows + 1), dtype=torch.float64, device=dev)
     predict_ensemble(tb, X, T, k, big, 1)
     assert torch.equal(big[:, 1:], pr.predict_ensemble_plain(tb, X, T, k))
-    assert _cuda.LAUNCHES["predict_ensemble"] == (6 if k == 1 else 4)
+    calls = 5 if k == 1 else 3
+    small = small_batch(rows, T)
+    assert dict(_cuda.LAUNCHES) == {
+        "predict_ensemble": calls + (not small),
+        "predict_ensemble_small": calls + small}
 
 
-def test_device_ensemble_chunks_match_the_host_walk(dev, monkeypatch):
+def _random_tree(rng, leaves, F):
+    """A tree of `leaves` leaves grown as LightGBM grows one (a leaf splits
+    into the next node id, keeping its id on the left), on random
+    features below F with random thresholds, missing types and default
+    sides."""
+    from lightgbm_tpu_torch.models.tree import Tree
+    t = Tree(leaves)
+    parent = np.full(leaves, -1)
+    for node in range(leaves - 1):
+        leaf = rng.randint(0, t.num_leaves)
+        p = parent[leaf]
+        if p >= 0:
+            if t.left_child[p] == ~leaf:
+                t.left_child[p] = node
+            else:
+                t.right_child[p] = node
+        t.left_child[node], t.right_child[node] = ~leaf, ~t.num_leaves
+        parent[leaf] = parent[t.num_leaves] = node
+        t.split_feature[node] = rng.randint(0, F)
+        t.threshold[node] = rng.choice([rng.randn(), 0.0, -1e-36])
+        t.decision_type[node] = rng.randint(0, 3) << 2 | rng.randint(0, 2) << 1
+        t.num_leaves += 1
+    t.leaf_value = rng.randn(leaves) * 0.1
+    return t
+
+
+@pytest.mark.parametrize("F", [28, 300])
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+def test_predict_ensemble_large_tree_and_wide_rows(F, dtype, dev):
+    """A synthetic forest whose one 2,000-leaf tree (3,999 items) is larger
+    than a shared-memory stage, so KP1 walks it from global memory in the
+    same loop, between groups staged in shared memory; at F = 300 the
+    rows' features outgrow the shared tile (even the narrower tiles of
+    20,000 rows over 132 SMs: 160 f64 or 192 f32 rows, 384 or 230 KB)
+    and KP1 reads them through L1.
+    Sums, early stop and leaves of both paths against the plain version,
+    bit for bit, with f32 and f64 rows, and the groups as built."""
+    from lightgbm_tpu_torch.ops import predict as pr
+    rng = np.random.RandomState(F)
+    sizes = [31] * 9 + [2000] + [255] * 11 + [7]
+    trees = [_random_tree(rng, L, F) for L in sizes]
+    tb = pr.build_tables(trees, dev)
+    groups = tb.group_off.tolist()
+    assert [9, 10] == groups[groups.index(9):groups.index(9) + 2]
+    assert tb.stage_items <= pr._STAGE_ITEMS
+    X = rng.randn(20_000, F)
+    X[rng.rand(*X.shape) < 0.05] = np.nan
+    X[rng.rand(*X.shape) < 0.05] = 0.0
+    Xd = torch.from_numpy(X).to(dev)
+    if dtype == "f32":
+        Xd = Xd.float()
+    T = len(trees)
+    for t_used in (T, 11, 5):
+        _kp1_both_paths(tb, Xd, t_used, 1,
+                        pr.predict_ensemble_plain(tb, Xd, t_used, 1))
+    _kp1_both_paths(tb, Xd, T, 3, pr.predict_ensemble_plain(tb, Xd, T, 3))
+    want = pr.predict_ensemble_plain(tb, Xd, T, 1, pr.MODE_SUM_EARLY_STOP,
+                                     3, 0.3)
+    _kp1_both_paths(tb, Xd, T, 1, want, mode=pr.MODE_SUM_EARLY_STOP, freq=3,
+                    margin=0.3)
+    _kp1_both_paths(tb, Xd, T, 1,
+                    pr.predict_ensemble_plain(tb, Xd, T, 1, pr.MODE_LEAF),
+                    mode=pr.MODE_LEAF)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_device_ensemble_chunks_match_the_host_walk(dtype, dev, monkeypatch):
     """DeviceEnsemble on the card with a small chunk (the staging buffers
-    cycle several times): the sums equal the host walk of the same trees
-    bit for bit, the leaves the host leaves, and device_bytes the
-    estimate."""
+    cycle several times), on f64 rows and on f32 rows (staged as f32): the
+    sums equal the host walk of the same values as f64 bit for bit, the
+    leaves the host leaves, and device_bytes the estimate."""
     from lightgbm_tpu_torch.ops import predict as pr
     monkeypatch.setattr(pr, "_CHUNK_BYTES", 8 * 4 * 1000 + 8)
     trees = _fixture_trees("cat50")
-    X = _fixture_rows("cat.test", 9_001, 3)
+    X = _fixture_rows("cat.test", 9_001, 3).astype(dtype)
     ens = pr.DeviceEnsemble(trees, 1, device=dev)
     host = np.zeros(len(X))
     for t in trees:
-        host += t.predict(X)
+        host += t.predict(X.astype(np.float64))
     np.testing.assert_array_equal(ens.predict_sum(X, len(trees))[0], host)
+    assert ens._staging[0].dtype == (torch.float32 if dtype == np.float32
+                                     else torch.float64)
     leaf = ens.predict_leaf(X, len(trees))
     for i in (0, 17, len(trees) - 1):
-        np.testing.assert_array_equal(leaf[:, i],
-                                      trees[i].predict_leaf_index(X))
+        np.testing.assert_array_equal(
+            leaf[:, i], trees[i].predict_leaf_index(X.astype(np.float64)))
     assert ens.device_bytes() == pr.estimate_device_bytes(trees, 1)
     np.testing.assert_array_equal(ens.predict_bucketed(X[:7], len(trees))[0],
                                   host[:7])

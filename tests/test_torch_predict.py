@@ -17,6 +17,13 @@ against the JAX package and the reference's interop fixtures, on the CPU.
   `Booster.predict`, on a numpy array, a DataFrame and a CSR matrix;
 - `predict_bucketed`, `pow2_buckets` and `bucket_rows` equal JAX's;
 - `estimate_device_bytes` equals `device_bytes()` of the built ensemble;
+- KP1's packed tables hold every tree field by field (preorder items, the
+  left child next, the right child's item), in groups of at most a
+  stage's items, by fours; the small-batch walk's plain version (leaf
+  values per tree, then an ordered sum) equals the row walk and the host
+  walk bit for bit, with early stop;
+- f32 rows reach the device walk as f32 and predict, bit for bit, what
+  the host walk predicts from the same values as f64;
 - the ensemble cache is rebuilt after `load_model_from_string`;
 - rows narrower than the model raise on every path (host walk, device
   sums, leaves, SHAP), and KP1's wrapper refuses an X that lacks a
@@ -187,6 +194,7 @@ def test_device_bytes_equal_the_estimate(name, trained):
     lay = tpredict.ensemble_layout(ttrees, k)
     assert lay["ok"] and lay["T"] == len(ttrees)
     assert lay["N"] == sum(t.num_leaves - 1 for t in ttrees)
+    assert lay["I"] == lay["N"] + lay["L"]
     assert (lay["W"] > 0) is (name == "cat50")
 
 
@@ -375,6 +383,129 @@ def test_rf_model_predicts_the_mean_of_its_trees(raw_score):
 
 
 # --------------------------------------------------------------------------- #
+# KP1's packed tables, its small-batch sum and its f32 feed
+# --------------------------------------------------------------------------- #
+def _assert_items_are_the_tree(tb, ti, tree):
+    """Tree ti's items, field by field: a preorder walk of the host tree
+    and of its items side by side (the left child the next item, the
+    right child at the item's right field)."""
+    lanes = tb.items.numpy()
+    value = tb.items.view(torch.float64)[:, 0].numpy()
+    base = int(tb.tree_off[ti])
+    assert int(tb.tree_off[ti + 1]) - base == 2 * max(tree.num_leaves, 1) - 1
+    stack = [(0, 0)] if tree.num_leaves > 1 else [(-1, 0)]
+    while stack:
+        node, item = stack.pop()
+        meta, right = int(lanes[base + item, 2]), int(lanes[base + item, 3])
+        if node < 0:
+            assert meta < 0 and meta & 0xFFFFFF == ~node
+            assert value[base + item] == tree.leaf_value[~node]
+            continue
+        assert meta >= 0 and meta & 0xFFFFFF == tree.split_feature[node]
+        assert meta >> 24 == tree.decision_type[node]
+        assert value[base + item] == tree.threshold[node]
+        stack.append((int(tree.right_child[node]), right))
+        stack.append((int(tree.left_child[node]), item + 1))
+
+
+@pytest.mark.parametrize("name", ENSEMBLES)
+def test_packed_items_hold_every_tree(name, trained):
+    _, ttrees, k, X = _case(name, trained)
+    tb = tpredict.build_tables(ttrees, "cpu")
+    for ti, tree in enumerate(ttrees):
+        _assert_items_are_the_tree(tb, ti, tree)
+    groups = tb.group_off.tolist()
+    assert groups[0] == 0 and groups[-1] == len(ttrees)
+    assert groups == tpredict.tree_groups(
+        [2 * t.num_leaves - 1 for t in ttrees])
+    assert 0 < tb.stage_items <= tpredict._STAGE_ITEMS
+    lay = tpredict.ensemble_layout(ttrees, k)
+    assert lay["I"] == len(tb.items) and lay["G"] == len(groups) - 1
+
+
+def test_tree_groups_fill_a_stage_by_fours():
+    """Groups of consecutive trees up to the stage's items, a group of 4
+    trees or more cut to a multiple of 4 unless it is the last; a tree
+    larger than a stage alone."""
+    assert tpredict.tree_groups([509] * 13) == [0, 4, 8, 13]
+    assert tpredict.tree_groups([61] * 9 + [3999] + [61] * 3) == \
+        [0, 8, 9, 10, 13]
+    assert tpredict.tree_groups([1] * 5, stage_items=3) == [0, 3, 5]
+    assert tpredict.tree_groups([]) == [0]
+
+
+@pytest.mark.parametrize("name", ["nan_zero", "cat50", "mc50_k3"])
+def test_small_batch_sum_is_the_row_walk(name, trained):
+    """The small-batch walk's plain version (each tree's leaf value, then
+    each row's values added in tree order) equals the row walk and the
+    host walk bit for bit: all trees, a third, and early stop."""
+    _, ttrees, k, X = _case(name, trained)
+    tb = tpredict.build_tables(ttrees, "cpu")
+    Xt = torch.from_numpy(np.ascontiguousarray(X))
+    T = len(ttrees)
+    vals = tpredict.tree_values_plain(tb, Xt, T)
+    for t_used in (T, T // 3):
+        got = tpredict.ordered_sum_plain(vals[:t_used], k)
+        assert torch.equal(got,
+                           tpredict.predict_ensemble_plain(tb, Xt, t_used, k))
+        host = np.zeros((k, len(X)))
+        for t in range(t_used):
+            host[t % k] += ttrees[t].predict(X)
+        np.testing.assert_array_equal(got.numpy(), host)
+    if k == 1:
+        for freq, margin in ((3, 1.0), (5, 0.5)):
+            es = tpredict.MODE_SUM_EARLY_STOP
+            assert torch.equal(
+                tpredict.ordered_sum_plain(vals, 1, es, freq, margin),
+                tpredict.predict_ensemble_plain(tb, Xt, T, 1, es, freq,
+                                                margin))
+    out = {}
+    for small in (False, True):
+        out[small] = torch.full((k, len(X)), 7.0, dtype=torch.float64)
+        tpk.predict_ensemble(tb, Xt, T, k, out[small], small=small)
+    assert torch.equal(out[False], out[True])
+    assert tpk.small_batch(1, 500) and tpk.small_batch(4097, 500)
+    assert not tpk.small_batch(100_000, 500)
+    assert tpk.small_batch(65_536, 500) and not tpk.small_batch(65_537, 500)
+    assert not tpk.small_batch(65_536, 513)
+
+
+def test_f32_rows_predict_their_values_as_f64(trained):
+    """Booster.predict on f32 rows walks them as f32 (the device path
+    widens each value where it compares it): bit for bit the host walk of
+    the same values as f64, and JAX's host prediction within the interop
+    tolerance; leaves and the serving path alike."""
+    jb, X = trained["nan_zero"]
+    X32 = X.astype(np.float32)
+    X64 = X32.astype(np.float64)
+    tb = tlgb.Booster(model_str=jb.model_to_string(), device="cpu")
+    g = tb._gbdt
+    seen = []
+    real = g._device_ensemble().predict_sum
+
+    def spy(X, *a, **kw):
+        seen.append(X.dtype)
+        return real(X, *a, **kw)
+    g._device_ensemble().predict_sum = spy
+    raw = tb.predict(X32, raw_score=True)
+    assert seen == [np.float32]
+    np.testing.assert_array_equal(raw, tb.predict(X64, raw_score=True,
+                                                  device=False))
+    np.testing.assert_array_equal(raw, tb.predict(X32, raw_score=True,
+                                                  device=False))
+    _assert_close(raw, jb.predict(X64, raw_score=True), 1.0)
+    np.testing.assert_array_equal(tb.predict(X32, pred_leaf=True),
+                                  tb.predict(X64, pred_leaf=True,
+                                             device=False))
+    np.testing.assert_array_equal(g.predict_bucketed(X32[:7], raw_score=True),
+                                  raw[:7])
+    # any other dtype reaches the walk as f64
+    assert g._check_features(X32.astype(np.float16), float32=True).dtype \
+        == np.float64
+    assert g._check_features(X32).dtype == np.float64
+
+
+# --------------------------------------------------------------------------- #
 # KP1's and KP2's plain versions through their wrappers
 # --------------------------------------------------------------------------- #
 def test_predict_ensemble_wrapper_checks_and_chunks(trained):
@@ -388,8 +519,14 @@ def test_predict_ensemble_wrapper_checks_and_chunks(trained):
     for a in range(0, len(X), 97):
         tpk.predict_ensemble(ens.tables, Xt[a:a + 97], 12, 1, parts, a)
     assert torch.equal(whole, parts)
+    # f32 rows compare their values widened to f64: the sums of the f64
+    # rows that hold the same values
+    x32 = Xt.float()
+    tpk.predict_ensemble(ens.tables, x32, 12, 1, parts)
+    tpk.predict_ensemble(ens.tables, x32.double(), 12, 1, whole)
+    assert torch.equal(whole, parts)
     with pytest.raises(TypeError):
-        tpk.predict_ensemble(ens.tables, Xt.float(), 12, 1, whole)
+        tpk.predict_ensemble(ens.tables, Xt.to(torch.int32), 12, 1, whole)
     with pytest.raises(ValueError):
         tpk.predict_ensemble(ens.tables, Xt, 13, 1, whole)
     with pytest.raises(ValueError):
