@@ -82,7 +82,34 @@
    ensemble's device bytes equal to the estimate; KP1's launches counted
    over the holdout's predict (row tiles) and the buckets' (small-batch
    walk);
-7. prints one JSON line of training and prediction results and one of
+7. lambdarank phase (bench.py's second headline workload,
+   MSLR-WEB30K-shaped: 18,900 queries of 120 documents, 2,268,000 rows x
+   137 f32 features from bench.py's generator, seed 11; num_leaves=63,
+   learning_rate=0.1, min_data_in_leaf=20, max_bin=255, metric=ndcg):
+   K2 f32 at G = 137 (the root and a 40k-row child) and K1 at G = 137,
+   B = 255 against their plain versions and timed beside their bounds;
+   (a) 5 rounds through lightgbm_tpu_torch.train with no validation set,
+   the fused pristine path: one graph, replayed every round after the
+   first, trees fetched only at drains, K2, K3, K1 and K4's add mode
+   launched and no other kernel; the card's lambdarank gradients of the
+   trained score within 1e-5 of the CPU's (of their largest magnitude);
+   training NDCG@10 of predict at least 0.70, printed beside the
+   constant-score value, KP1's sums bit for bit the host walk's; (b) the
+   same with 1,000 more queries (seed 12, graded by the training draw's
+   utility weights) as a validation set, eval_at
+   10 and early stopping after 2: its last evals_result ndcg within 1e-6
+   of the host prediction's NDCG@10, KP2's add mode launched; each run
+   prints its replayed round, graphs x nodes, peak memory and a profiled
+   round (wall, busy, idle), (a) also the gradients' share of the busy
+   time; the parity phase adds a 20k-row lambdarank run (167 queries),
+   an L1 run (a leaf refit a round) and a Poisson run, each on the card
+   against the CPU: equal split features and every row in the same leaf;
+8. objectives phase: regression_l1, huber, poisson and xentropy on the
+   Higgs data cut to 1M rows, 255 leaves, 5 rounds each: trees of more
+   than one leaf, a graph replay every round after the first, the fused
+   runs' fetches deferred and L1's one a round, the training metric of
+   the first 1..5 trees falling, KP1's sums bit for bit the host walk's;
+9. prints one JSON line of training and prediction results and one of
    per-kernel results, then the device line {"ok": true, "device": {...}}
    as the last line.
 
@@ -169,6 +196,9 @@ PATHS = {
 PARITY_PATHS = ("f32", "quantized", "weighted_f32", "weighted_quantized",
                 "bagged_f32", "bagged_quantized", "valid_f32", "label_f32",
                 "label_bagged_f32")
+# objectives of the parity runs on the f32 path's settings: lambdarank, a
+# leaf refit a round (L1), a log link (Poisson)
+PARITY_OBJECTIVES = ("lambdarank", "regression_l1", "poisson")
 # the kernels of the partition engine (K2-K6), none of which the label
 # engine may launch
 PARTITION_KERNELS = ("segment_histogram", "segment_histogram_i8",
@@ -311,31 +341,86 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return a.elapsed_time(b) / reps
 
 
-def kernel_only_ms(fn, reps: int):
-    """Device ms a call of fn spends in the port's kernels (torch.profiler
-    over reps calls after a warm-up): the time without the wrapper's host
-    work and without the memsets of its allocations.  None where the trace
-    holds no event of the port's kernels (the device events it held are
-    printed): a time the profiler did not record is never a number."""
+# spin kernels launched ahead of a traced run (torch.cuda._sleep): the
+# profiler's trace drops the first device events of a session, the more
+# the older the process (on an H100 with torch 2.11, about one for every
+# 12-13 s of its age, whatever pause comes first; tools/trace_drops.py),
+# so these absorb the loss
+TRACE_PAD = 1024
+PAD_KERNEL = "spin_kernel"
+
+
+def traced(work, activities, record_shapes: bool = False):
+    """(profile, work's device events, spin kernels held): work() under
+    torch.profiler after TRACE_PAD spin kernels, the card synchronized at
+    its end; the events leave the spin kernels out.  A trace whose drops
+    reached past the spin kernels into work's events is told by a count
+    its caller knows (kernel_only_ms, profile_round)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    from torch.profiler import profile
+    with profile(activities=activities, record_shapes=record_shapes) as prof:
+        for _ in range(TRACE_PAD):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        work()
         torch.cuda.synchronize()
     device = [ev for ev in prof.events()
               if ev.device_type == torch.autograd.DeviceType.CUDA]
-    ours = [ev for ev in device if kernel_label(ev.name) is not None]
-    if not ours:
+    return (prof, [ev for ev in device if PAD_KERNEL not in ev.name],
+            sum(PAD_KERNEL in ev.name for ev in device))
+
+
+def kernel_only_ms(fn, reps: int, any_kernel: bool = False):
+    """Device ms a call of fn spends in the port's kernels (torch.profiler
+    over reps calls after a warm-up, `traced`): the time without the
+    wrapper's host work and without the memsets of its allocations; with
+    any_kernel, in every device operation (the busy time of plain PyTorch
+    work).  None where the trace holds fewer such events than the calls
+    launched: one a call of a port kernel, and with any_kernel the device
+    operations of a capture of one call (a trace cut short read 1/20 of a
+    K2 root's time, below its bound); what it held is printed: a time the
+    profiler did not record is never a number."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    per_call = launches_per_call(fn) if any_kernel else 1
+    fn()
+    torch.cuda.synchronize()
+
+    def work():
+        for _ in range(reps):
+            fn()
+    _, device, pad_held = traced(work, [ProfilerActivity.CUDA])
+    ours = [ev for ev in device
+            if any_kernel or kernel_label(ev.name) is not None]
+    if len(ours) < reps * per_call:
         names = sorted({ev.name[:60] for ev in device})
-        print("kernel-only: the profiler's trace of %d calls held %d device "
-              "events, none of the port's kernels%s" % (
-                  reps, len(device), (": " + "; ".join(names[:4]))
-                  if names else ""))
+        print("kernel-only: the profiler's trace of %d calls of %d device "
+              "operations held %d device events, %d of those timed, and %d "
+              "of %d spin kernels%s" % (
+                  reps, per_call, len(device), len(ours), pad_held,
+                  TRACE_PAD, (": " + "; ".join(names[:4])) if names else ""))
         return None
     return sum(ev.time_range.elapsed_us() for ev in ours) / 1e3 / reps
+
+
+def launches_per_call(fn) -> int:
+    """Device operations one call of fn launches: the nodes of a capture
+    of one call into a CUDA graph (after a call on the capture's side
+    stream, as torch.cuda.graph asks), each a kernel, copy or memset."""
+    import torch
+    from lightgbm_tpu_torch.ops.graphs import graph_nodes
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    n = graph_nodes(graph)
+    del graph
+    torch.cuda.synchronize()
+    return n
 
 
 def bound(nbytes: float, ops: float) -> tuple:
@@ -379,6 +464,24 @@ class Failure(Exception):
 def expect(cond: bool, msg: str) -> None:
     if not cond:
         raise Failure(msg)
+
+
+def index_add_ms(a, s: int, c: int, B: int) -> float:
+    """One index_add_ of every (feature, row) of the arena's rows [s, s+c)
+    into the [G*B, 3] histogram: the library yardstick of K2 and K5."""
+    import torch
+    G = a.num_groups
+    flat = (torch.arange(G, device=a.device)[:, None] * B
+            + a.bins[:, s:s + c].long()).reshape(-1)
+    p = a.payload[:, s:s + c]
+    vdt = torch.int32 if a.quantized else torch.float32
+    vals = torch.stack([p[0].expand(G, c).reshape(-1).to(vdt),
+                        p[1].expand(G, c).reshape(-1).to(vdt),
+                        torch.ones(G * c, device=a.device, dtype=vdt)], dim=1)
+    hist0 = torch.zeros((G * B, 3), device=a.device, dtype=vdt)
+    ms = cuda_ms(lambda: hist0.index_add_(0, flat, vals), 5)
+    del flat, vals
+    return ms
 
 
 def kernel_phase(ds, dev, results, quantized: bool):
@@ -436,21 +539,6 @@ def kernel_phase(ds, dev, results, quantized: bool):
                                        "rows", "kernel_ms") if k in r},
                     bound_ms=bound(r["bytes"], r.get("ops", 0))[0])
 
-    def index_add_ms(a, s, c):
-        """One index_add_ of every (feature, row) into the [G*B, 3]
-        histogram: the library yardstick of K2 and K5."""
-        flat = (torch.arange(G, device=dev)[:, None] * B
-                + a.bins[:, s:s + c].long()).reshape(-1)
-        p = a.payload[:, s:s + c]
-        vdt = torch.int32 if quantized else torch.float32
-        vals = torch.stack([p[0].expand(G, c).reshape(-1).to(vdt),
-                            p[1].expand(G, c).reshape(-1).to(vdt),
-                            torch.ones(G * c, device=dev, dtype=vdt)], dim=1)
-        hist0 = torch.zeros((G * B, 3), device=dev, dtype=vdt)
-        ms = cuda_ms(lambda: hist0.index_add_(0, flat, vals), 5)
-        del flat, vals
-        return ms
-
     # ---- K5 (quantized root) --------------------------------------------
     if quantized:
         seg = torch.tensor([0, n], dtype=torch.int32, device=dev)
@@ -469,7 +557,7 @@ def kernel_phase(ds, dev, results, quantized: bool):
                 lambda: pk.fused_refresh_histogram(ak, fresh, seg, B), 20),
             plain_ms=cuda_ms(lambda: pk.fused_refresh_histogram_plain(
                 ap, fresh, seg, B), 3),
-            library_ms=index_add_ms(ak, 0, n),
+            library_ms=index_add_ms(ak, 0, n, B),
             bytes=pk.fused_refresh_bytes(n, G, B), ops=3 * G * n, rows=n)
         print("K5 fused_refresh_histogram: root %d rows %.4f ms, kernel-only "
               "%s (plain %.4f, index_add_ %.4f); exact"
@@ -510,7 +598,7 @@ def kernel_phase(ds, dev, results, quantized: bool):
                                      20),
             plain_ms=cuda_ms(lambda: pk.segment_histogram_plain(ak, seg, B),
                              5),
-            library_ms=index_add_ms(ak, s, c),
+            library_ms=index_add_ms(ak, s, c, B),
             bytes=pk.segment_histogram_bytes(c, G, B, quantized),
             ops=3 * G * c, rows=c, hist=got)
     print("K2 segment_histogram (%s): root %d rows %.4f ms, kernel-only "
@@ -620,7 +708,7 @@ def kernel_phase(ds, dev, results, quantized: bool):
                    10),
         plain_ms=cuda_ms(lambda: pk.partition_segment_pred_plain(
             ap, sc_p, bag, 0, B), 3),
-        library_ms=sort_ms, index_add_ms=index_add_ms(ak, work0, n_in),
+        library_ms=sort_ms, index_add_ms=index_add_ms(ak, work0, n_in, B),
         bytes=pk.partition_pred_bytes(n, G, B, quantized),
         ops=3 * G * n_in, rows=n)
     print("K3 partition_segment_pred (%s payload, hist_stream=0): root %d "
@@ -1074,17 +1162,27 @@ def ablate_phase(n: int, dev, results):
     torch.cuda.empty_cache()
 
 
-def parity_phase(dev, path: str):
+def parity_phase(dev, path: str, objective: str = None):
     """A small run on the card against the same run on the CPU, stepped
-    with update() so each tree's bag can be read."""
+    with update() so each tree's bag can be read: a path of the binary
+    runs, or with `objective` that objective on the f32 path's settings
+    (lambdarank on about 170 queries of the MSLR generator, the others on
+    the Higgs generator; none of them rides the carried arena)."""
     import lightgbm_tpu_torch as lt
     quantized = flag(path, "quantized")
-    X, y, Xh, yh = higgs_like(20_000, seed=11)
+    name = objective or path
+    group = None
+    if objective == "lambdarank":
+        X, y, group, _ = mslr_like(RANK_PARITY_QUERIES, seed=13)
+    else:
+        X, y, Xh, yh = higgs_like(20_000, seed=11)
     w = row_weights(len(y)) if flag(path, "weighted") else None
     params = path_params(path, num_leaves=31)
+    if objective is not None:
+        params["objective"] = objective
     out = {}
     for d in (dev, "cpu"):
-        ds = lt.Dataset(X, y, weight=w, device=d)
+        ds = lt.Dataset(X, y, weight=w, group=group, device=d)
         bst = lt.Booster(params, ds, device=d)
         if flag(path, "valid"):
             bst.add_valid(lt.Dataset(Xh, yh, reference=ds, device=d),
@@ -1098,23 +1196,24 @@ def parity_phase(dev, path: str):
         bst.num_trees()                 # drains the fused paths' trees
         g = bst._gbdt
         expect(g._quantized is quantized
-               and bool(g._carried_active) is carried(path),
-               "parity %s: the %s run took another path" % (path, d))
+               and bool(g._carried_active) is (carried(path)
+                                                and objective is None),
+               "parity %s: the %s run took another path" % (name, d))
         out[str(d)] = (bst, bags, evals)
     (bk, bags_k, evals_k), (bc, bags_c, evals_c) = out[str(dev)], out["cpu"]
     gb, cb = bk._gbdt.models, bc._gbdt.models
-    expect(len(gb) == len(cb) == 3, "parity %s: tree counts differ" % path)
-    moved, oob_moved = [], []
+    expect(len(gb) == len(cb) == 3, "parity %s: tree counts differ" % name)
+    moved, oob_moved, leaf_err = [], [], 0.0
     for t, (a, b) in enumerate(zip(gb, cb)):
         bag = bags_k[t]
         expect((bag is None) == (bags_c[t] is None)
                and (bag is None or np.array_equal(bag, bags_c[t])),
-               "parity %s: the bags of tree %d differ" % (path, t))
+               "parity %s: the bags of tree %d differ" % (name, t))
         k = a.num_leaves - 1
-        expect(a.num_leaves == b.num_leaves
+        expect(a.num_leaves == b.num_leaves > 1
                and np.array_equal(a.split_feature[:k], b.split_feature[:k]),
                "parity %s: card and CPU trees split on different features"
-               % path)
+               % name)
         # a threshold may move across bins that hold no row of the node's
         # bag: both thresholds then split its rows alike and their gains
         # tie up to the reassociation of the f32 sums (K2's atomics, the
@@ -1126,28 +1225,38 @@ def parity_phase(dev, path: str):
         in_bag = np.ones(len(y), bool) if bag is None else bag == 0
         expect(not differ[in_bag].any(),
                "parity %s: rows of tree %d's bag land in different leaves"
-               % (path, t))
+               % (name, t))
         oob_moved.append(int(differ.sum()))
         expect(not differ.any() or moved[-1] > 0,
                "parity %s: out-of-bag rows of tree %d land in different "
-               "leaves with no threshold moved" % (path, t))
+               "leaves with no threshold moved" % (name, t))
+        scale = float(np.abs(b.leaf_value[:k + 1]).max())
+        err = np.abs(a.leaf_value[:k + 1] - b.leaf_value[:k + 1])
+        leaf_err = max(leaf_err, float(err.max()) / max(scale, 1e-30))
         if not any(oob_moved[:-1]):
             # before any out-of-bag row took another way, the scores and
-            # so the gradients of the next tree agree as without a bag
-            expect(np.allclose(a.leaf_value[:k + 1], b.leaf_value[:k + 1],
-                               rtol=1e-4, atol=1e-6),
-                   "parity %s: leaf values differ" % path)
+            # so the gradients of the next tree agree as without a bag:
+            # binary's leaf values within rtol 1e-4, atol 1e-6; another
+            # objective's, whose gradients have another scale, within 1e-4
+            # of the tree's largest |value|
+            rtol, atol = (1e-4, 1e-6) if objective is None else (
+                0.0, 1e-4 * scale)
+            expect(np.all(err <= atol + rtol * np.abs(b.leaf_value[:k + 1])),
+                   "parity %s: leaf values differ by %.3g (largest %.3g)"
+                   % (name, float(err.max()), scale))
     pg = bk.predict(X, raw_score=True)
     pc = bc.predict(X, raw_score=True)
-    err = float(np.abs(pg - pc).max())
-    expect(np.all(np.isfinite(pg)) and (err <= 1e-4 or any(oob_moved)),
-           "parity %s: raw training predictions differ by %.3g" % (path, err))
-    msg = ("parity (%s): 20000 rows, 3 rounds, 31 leaves: card and CPU trees "
+    diff = float(np.abs(pg - pc).max())
+    expect(np.all(np.isfinite(pg)) and (diff <= 1e-4 or any(oob_moved)),
+           "parity %s: raw training predictions differ by %.3g"
+           % (name, diff))
+    msg = ("parity (%s): %d rows, 3 rounds, 31 leaves: card and CPU trees "
            "split on the same features with every %s in the same leaf "
-           "(thresholds moved across empty bins, per tree: %s); raw training "
-           "prediction max diff %.3g"
-           % (path, "row" if w is not None or not flag(path, "bagged")
-              else "row of the bag", moved, err))
+           "(thresholds moved across empty bins, per tree: %s); leaf values "
+           "within %.3g of the largest; raw training prediction max diff "
+           "%.3g"
+           % (name, len(y), "row" if w is not None or not flag(path, "bagged")
+              else "row of the bag", moved, leaf_err, diff))
     if flag(path, "bagged"):
         msg += ("; equal bags of %d rows each round; out-of-bag rows in "
                 "another leaf per tree: %s" % (int((bags_k[0] == 0).sum()),
@@ -1156,21 +1265,18 @@ def parity_phase(dev, path: str):
         vk = [e[0][2] for e in evals_k]
         vc = [e[0][2] for e in evals_c]
         expect(np.all(np.isfinite(vk)), "parity %s: holdout AUC not finite"
-               % path)
+               % name)
         msg += "; holdout AUC per round card %s, CPU %s" % (vk, vc)
     print(msg)
-    return dict(thresholds_moved=moved, oob_rows_moved=oob_moved,
-                max_raw_diff=err)
+    return dict(rows=len(y), thresholds_moved=moved, oob_rows_moved=oob_moved,
+                leaf_rel_err=leaf_err, max_raw_diff=diff)
 
 
 def training_phase(X, Xh, yh, ds_obj, valid_obj, rounds, dev, reduced, path):
-    """A main path: lightgbm_tpu_torch.train on the card, then predict on
-    the holdout.  The launch counters are zeroed just before train and read
-    just after."""
-    import torch
+    """A main path: lightgbm_tpu_torch.train on the card (train_and_check),
+    then predict on the holdout."""
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.metric import auc
-    from lightgbm_tpu_torch.ops import _cuda
 
     quantized = flag(path, "quantized")
     ds_obj.set_weight(row_weights(len(X)) if flag(path, "weighted")
@@ -1181,16 +1287,14 @@ def training_phase(X, Xh, yh, ds_obj, valid_obj, rounds, dev, reduced, path):
         kw = dict(valid_sets=[valid_obj], valid_names=["holdout"],
                   early_stopping_rounds=EARLY_STOPPING_ROUNDS,
                   evals_result=evals, verbose_eval=False)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _cuda.reset_launch_counts()
-    t0 = time.perf_counter()
-    booster = lt.train(path_params(path), ds_obj, num_boost_round=rounds,
-                       device=dev, **kw)
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    launches = dict(_cuda.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    # every round after a path's first is one graph replay; the rounds
+    # that no validation set reads (fused, bagged, label engine) fetch
+    # their trees only at drains, the valid-set ones one a round
+    must, never = path_kernels(path)
+    booster, rec = train_and_check(
+        path, path_params(path), ds_obj, dev, rounds, must, never,
+        deferred=not flag(path, "valid"), graphs=2 if carried(path) else 1,
+        **kw)
     g = booster._gbdt
     expect(g._quantized is quantized
            and bool(g._carried_active) is carried(path),
@@ -1199,13 +1303,6 @@ def training_phase(X, Xh, yh, ds_obj, valid_obj, rounds, dev, reduced, path):
     if flag(path, "bagged"):
         expect(g._bag_count == int(BAGGING["bagging_fraction"] * len(X)),
                "%s training: %s rows in the bag" % (path, g._bag_count))
-    must, never = path_kernels(path)
-    for name in must:
-        expect(launches.get(name, 0) > 0, "kernel %s was not launched on the "
-               "%s training path" % (name, path))
-    for name in never:
-        expect(launches.get(name, 0) == 0, "kernel %s was launched on the "
-               "%s training path" % (name, path))
     t = time.perf_counter()
     pred = booster.predict(Xh)
     predict_s = time.perf_counter() - t
@@ -1217,10 +1314,8 @@ def training_phase(X, Xh, yh, ds_obj, valid_obj, rounds, dev, reduced, path):
     expect(np.array_equal(raw, host), "%s: KP1's holdout sums differ from "
            "the host walk's by up to %.3g" % (path,
                                               float(np.abs(raw - host).max())))
-    leaves = [m.num_leaves for m in g.models]
+    leaves = rec["leaves"]
     trained = len(leaves)
-    expect((trained == rounds or flag(path, "valid")) and min(leaves) > 1,
-           "%s trees did not grow: leaves %s" % (path, leaves))
     if flag(path, "label"):
         # the label engine has no arena to run out of
         expect(not g._use_partition_engine and g.arena is None
@@ -1240,24 +1335,10 @@ def training_phase(X, Xh, yh, ds_obj, valid_obj, rounds, dev, reduced, path):
                % (path, last, holdout_auc))
         extra = ("; evals_result holdout AUC %s, best_iteration %d"
                  % (evals["holdout"]["auc"], booster.best_iteration))
-    # every round after a path's first is one graph replay; the rounds
-    # that no validation set reads (fused, bagged, label engine) fetch
-    # their trees only at drains, the valid-set ones one a round
-    graphs = g._graphs.stats()
+    graphs = rec["graphs"]
     replays = sum(x["replays"] for x in graphs)
-    deferred = not flag(path, "valid")
-    expect(len(graphs) == (2 if carried(path) else 1)
-           and replays == trained - 1,
-           "%s: %d graphs, %d replays in %d rounds"
-           % (path, len(graphs), replays, trained))
-    expect((g._tree_fetches, g._drains > 0) == ((0, True) if deferred
-                                                 else (trained, False)),
-           "%s: %d tree fetches, %d drains in %d rounds"
-           % (path, g._tree_fetches, g._drains, trained))
-    fetches = dict(drains=g._drains, tree_fetches=g._tree_fetches)
     replay_ms = replayed_round_ms(booster, REPLAYED_ROUNDS)
-    round_ms = train_s * 1e3 / trained
-    rate = len(X) * trained / train_s
+    rate = len(X) * trained / rec["train_s"]
     arena = "carried arena" if carried(path) else (
         "label engine, eager" if flag(path, "label") else
         "pristine arena, eager" if flag(path, "bagged") or flag(path, "valid")
@@ -1267,21 +1348,21 @@ def training_phase(X, Xh, yh, ds_obj, valid_obj, rounds, dev, reduced, path):
           "rows*rounds/s, set-up included); peak device memory %.3f GB; "
           "holdout AUC %.4f on %d rows (predict %.3f s)%s"
           % (path, arena, len(X), " (cut by --rows)" if reduced else "",
-             X.shape[1], trained, leaves, train_s, round_ms, rate,
-             peak / 1e9, holdout_auc, len(Xh), predict_s, extra))
+             X.shape[1], trained, leaves, rec["train_s"], rec["round_ms"],
+             rate, rec["peak_bytes"] / 1e9, holdout_auc, len(Xh), predict_s,
+             extra))
     print("  graphs (%s): %d captured, %d replays in training; nodes %s; "
           "capture and instantiate %s s; %d drains, %d tree fetches; "
           "%.1f ms a replayed round (%d more rounds, host clock, ending in "
           "a drain and a synchronize)"
           % (path, len(graphs), replays, [x["nodes"] for x in graphs],
-             ["%.3f" % x["capture_s"] for x in graphs], fetches["drains"],
-             fetches["tree_fetches"], replay_ms, REPLAYED_ROUNDS))
-    return booster, launches, dict(
-        train_s=train_s, round_ms=round_ms, rows_rounds_per_s=rate,
-        peak_bytes=peak, holdout_auc=holdout_auc, leaves=leaves,
-        predict_s=predict_s, rows=len(X), launches=launches,
-        evals_result=evals or None, best_iteration=booster.best_iteration,
-        graphs=graphs, replay_round_ms=replay_ms, **fetches)
+             ["%.3f" % x["capture_s"] for x in graphs], rec["drains"],
+             rec["tree_fetches"], replay_ms, REPLAYED_ROUNDS))
+    rec.update(rows_rounds_per_s=rate, holdout_auc=holdout_auc,
+               predict_s=predict_s, rows=len(X), evals_result=evals or None,
+               best_iteration=booster.best_iteration,
+               replay_round_ms=replay_ms)
+    return booster, rec["launches"], rec
 
 
 REPLAYED_ROUNDS = 3
@@ -1348,23 +1429,35 @@ def profile_round(booster, what: str, rows: int = None) -> dict:
     sync()
     torch.cuda.synchronize()
     replays = (None if graphs is None else
-               sum(x["replays"] for x in graphs.stats()))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=rows is not None and graphs is None) as prof:
+               {k: x.replays for k, x in graphs.graphs.items()})
+    wall = []
+
+    def work():
         t = time.perf_counter()
         booster.update()
         sync()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
+        wall.append((time.perf_counter() - t) * 1e3)
+    prof, device, pad_held = traced(
+        work, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+        record_shapes=rows is not None and graphs is None)
+    wall_ms = wall[0]
+    least = 0
     if graphs is not None:
-        expect(sum(x["replays"] for x in graphs.stats()) == replays + 1
+        replayed = [x for k, x in graphs.graphs.items()
+                    if x.replays == replays.get(k, -1) + 1]
+        expect(len(replayed) == 1
+               and sum(x.replays for x in graphs.graphs.values())
+               == sum(replays.values()) + 1
                and len(graphs.graphs) == (2 if g._carried_active else 1),
                "profile (%s): the profiled round did not replay its graph"
                % what)
+        # a complete trace holds an event for every node of the replayed
+        # graph (each a kernel, copy or memset), besides the drain's eager
+        # launches
+        least = replayed[0].nodes
     by_name = {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for ev in device:
         ms, cnt = by_name.get(ev.name, (0.0, 0))
         by_name[ev.name] = (ms + ev.time_range.elapsed_us() / 1e3, cnt + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
@@ -1387,16 +1480,21 @@ def profile_round(booster, what: str, rows: int = None) -> dict:
                       ", ".join("%s %d" % kv for kv in sorted(over.items()))
                       or "none"))
     out = {} if rows is None else dict(ops_over_rows=over)
-    if not by_name:
-        print("profile (%s): the profiler saw no device events; device time "
-              "not measured" % what)
-        return dict(out, wall_ms=wall_ms, device_ms=None, idle_share=None)
+    events = sum(c for _, c in by_name.values())
+    if not by_name or events < least:
+        print("profile (%s): the profiler's trace held %d device events of "
+              "the replayed graph's %d nodes, and %d of %d spin "
+              "kernels; device time not measured"
+              % (what, events, least, pad_held, TRACE_PAD))
+        return dict(out, wall_ms=wall_ms, device_ms=None, idle_share=None,
+                    device_launches=events, graph_nodes=least)
     print("profile of one %s round (%s, profiler on): wall %.1f ms, device "
-          "busy %.1f ms, idle share %.3f, %d device launches"
+          "busy %.1f ms, idle share %.3f, %d device launches (the graph's "
+          "nodes %s)"
           % (what, "eager" if graphs is None else
              "a graph replay, the drain of its tree included", wall_ms,
-             busy_ms, 1 - busy_ms / wall_ms,
-             sum(c for _, c in by_name.values())))
+             busy_ms, 1 - busy_ms / wall_ms, events,
+             least if graphs is not None else "none"))
     for name, (ms, cnt) in top:
         print("  %9.3f ms %6d x  %s" % (ms, cnt, name[:90]))
     print("  port kernels, device ms (launches): %s" % ", ".join(
@@ -1404,7 +1502,7 @@ def profile_round(booster, what: str, rows: int = None) -> dict:
         for k, v in sorted(by_kernel.items())))
     out.update(wall_ms=wall_ms, device_ms=busy_ms,
                idle_share=1 - busy_ms / wall_ms,
-               device_launches=sum(c for _, c in by_name.values()),
+               device_launches=events, graph_nodes=least,
                by_kernel=by_kernel,
                top=[dict(name=n[:90], ms=ms, count=c) for n, (ms, c) in top])
     return out
@@ -1827,6 +1925,421 @@ def kp2_phase(booster, dev, results):
     torch.cuda.empty_cache()
 
 
+# bench.py's second headline workload, lambdarank on MSLR-WEB30K's shape
+# (bench.py:192-275; the reference's experiment, docs/Experiments.rst:110,
+# 137-144): 18,900 queries of 120 documents x 137 features, 63 leaves
+RANK_QUERIES = 18_900
+RANK_DOCS = 120
+RANK_FEATURES = 137
+RANK_PARAMS = {"objective": "lambdarank", "metric": "ndcg", "num_leaves": 63,
+               "learning_rate": 0.1, "min_data_in_leaf": 20, "max_bin": 255,
+               "verbose": -1}
+# 1,000 more queries of the generator (seed 12, relevance by the training
+# draw's utility weights) as the validation set
+RANK_VALID_QUERIES = 1_000
+# training NDCG@10 after 5 rounds (constant scores: about 0.11)
+NDCG_FLOOR = 0.70
+# the parity run: about 20k rows of the generator
+RANK_PARITY_QUERIES = 167
+# the pointwise objectives on the smoke's Higgs data, cut to 1M rows
+OBJECTIVE_ROWS = 1_000_000
+OBJECTIVE_RUNS = ("regression_l1", "huber", "poisson", "xentropy")
+# the lambdarank and pointwise fused paths: the pristine root by K2, K3
+# and K1 a split, K4's add mode the score update; the refitting L1 runs
+# the eager path (K4's set mode for its leaf ids); a validation set adds
+# KP2's add mode
+TRAINING_KERNELS = ("segment_histogram", "segment_histogram_i8",
+                    "partition_segment", "partition_segment_i8",
+                    "partition_segment_pred", "partition_segment_pred_i8",
+                    "scatter_segments", "scatter_segments_add",
+                    "fused_root_histogram", "compact_carry",
+                    "compact_carry_i8", "leaf_histogram",
+                    "leaf_histogram_i8", "split_scan") + WALKS
+
+
+def pristine_kernels(k4: str, *extra) -> tuple:
+    """(kernels a pristine-root f32 run must launch, every other training
+    or prediction kernel)."""
+    must = ("segment_histogram", "partition_segment", "split_scan", k4) + extra
+    return must, tuple(k for k in TRAINING_KERNELS + PREDICT_KERNELS
+                       if k not in must)
+
+
+def mslr_like(n_query: int, seed: int = 11, w=None):
+    """Copied from bench.py:197-222 (bench_lambdarank's generator): X [n,
+    137] f32, graded relevance 0-4 from each query's ranking of a sparse
+    linear utility, and the query sizes; then the utility's weights.  With
+    `w`, more queries ranked by those weights (a draw with its own weights
+    would rank by another utility, which no model of the first can
+    learn)."""
+    docs_per_q = RANK_DOCS
+    F = RANK_FEATURES
+    n = n_query * docs_per_q
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, F).astype(np.float32)
+    w_own = np.zeros(F)
+    w_own[:10] = rng.randn(10)
+    w = w_own if w is None else w
+    util = X @ w + 0.3 * rng.randn(n)
+    labels = np.zeros(n, np.float32)
+    u2 = util.reshape(n_query, docs_per_q)
+    order = np.argsort(-u2, axis=1)
+    grades = [(2, 4), (6, 3), (15, 2), (40, 1)]   # top-k cutoffs -> grade
+    for qi in range(n_query):
+        prev = 0
+        lab_row = labels[qi * docs_per_q:(qi + 1) * docs_per_q]
+        for cut, g in grades:
+            lab_row[order[qi, prev:cut]] = g
+            prev = cut
+    group = np.full(n_query, docs_per_q)
+    return X, labels, group, w
+
+
+def ndcg_at(k: int, y, group, score) -> float:
+    """NDCG@k of a score by the port's metric (f32, on the score's device)."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.io.metadata import Metadata
+    from lightgbm_tpu_torch.metric import create_metric
+    meta = Metadata(len(y))
+    meta.set_label(y)
+    meta.set_query(group)
+    m = create_metric("ndcg", lt.Config({"eval_at": [k]}))
+    m.init(meta, len(y))
+    return m.eval(score)[0]
+
+
+def rank_kernel_phase(ds, dev, results):
+    """K2 f32 at the lambdarank widths (G = 137: five slabs, the last one
+    partial, across several feature chunks) at the root and on a 40k-row
+    child, and K1 at G = 137, B = 255 on both histograms, each against its
+    plain version on the same inputs and timed beside its bound."""
+    import torch
+    from lightgbm_tpu_torch.ops import partition_kernel as pk
+    from lightgbm_tpu_torch.ops import split_kernel as sk
+    from lightgbm_tpu_torch.ops.split import SplitParams
+
+    n, G = ds.num_data, ds.num_features
+    B = int(ds.feature_num_bins().max())
+    gen = torch.Generator(device=dev).manual_seed(17)
+    a = pk.Arena(n, G, 4, dev)
+    pk.init_pristine(a, ds.device_bins(dev).t())
+    a.payload[0, :n] = torch.randn(n, generator=gen, device=dev)
+    a.payload[1, :n] = torch.rand(n, generator=gen, device=dev) * 0.25 + 0.01
+    segs = {"root": (0, n), "child": (98_765, CHILD_ROWS)}
+    k2 = {}
+    for what, (s, c) in segs.items():
+        seg = torch.tensor([s, c], dtype=torch.int32, device=dev)
+        got = pk.segment_histogram(a, seg, B)
+        want = pk.segment_histogram_plain(a, seg, B)
+        keep = a.payload[0, s:s + c].clone()
+        a.payload[0, s:s + c] = keep.abs()
+        scale = pk.segment_histogram_plain(a, seg, B)
+        a.payload[0, s:s + c] = keep
+        expect(torch.equal(got[..., 2], want[..., 2]),
+               "K2 at G=%d %s: counts differ" % (G, what))
+        err_t = (got - want).abs()
+        rel = float((err_t / scale.clamp_min(1e-30)).max())
+        expect(rel <= 1e-5, "K2 at G=%d %s: error %.3g of the |value| sums "
+               "exceeds rtol 1e-5" % (G, what, rel))
+        nbytes = pk.segment_histogram_bytes(c, G, B)
+        k2[what] = dict(
+            max_abs_err=float(err_t.max()), rel_err=rel, hist=got, rows=c,
+            ms=cuda_ms(lambda: pk.segment_histogram(a, seg, B), 20),
+            kernel_ms=kernel_only_ms(lambda: pk.segment_histogram(a, seg, B),
+                                     20),
+            plain_ms=cuda_ms(lambda: pk.segment_histogram_plain(a, seg, B), 3),
+            library_ms=index_add_ms(a, s, c, B),
+            bound=bound(nbytes, 3 * G * c))
+    hist2 = torch.stack([k2["root"]["hist"], k2["child"]["hist"]])
+    nb = torch.as_tensor(ds.feature_num_bins(), device=dev)
+    db = torch.as_tensor(np.array([m.default_bin for m in ds.bin_mappers],
+                                  np.int32), device=dev)
+    mt = torch.as_tensor(np.array([m.missing_type for m in ds.bin_mappers],
+                                  np.int32), device=dev)
+    fvec = sk.build_feature_statics(nb, db, mt, children=2)
+    svec = sk.child_vector(hist2[:, 0, :, 0].sum(1), hist2[:, 0, :, 1].sum(1),
+                           hist2[:, 0, :, 2].sum(1))
+    pvec = sk.params_vector(SplitParams(min_data_in_leaf=20), dev)
+    rows_k, best_k = sk.split_scan(hist2, fvec, svec, pvec)
+    rows_p, best_p = sk.split_scan_plain(hist2, fvec, svec, pvec)
+    lanes = [sk._OF, sk._OT, sk._ODL]
+    valid = rows_p[:, sk._OG] > sk.NEG_GATE
+    expect(torch.equal(rows_k[valid][:, lanes], rows_p[valid][:, lanes])
+           and torch.equal(best_k[:, lanes], best_p[:, lanes]),
+           "K1 at G=%d: feature, threshold or default_left differ" % G)
+    gain_rel = float(((rows_k[:, sk._OG] - rows_p[:, sk._OG]).abs()
+                      / rows_p[:, sk._OG].abs())[valid].max())
+    expect(gain_rel <= 1e-5, "K1 at G=%d: gain rel err %.3g exceeds 1e-5"
+           % (G, gain_rel))
+    k1_bytes, k1_ops = sk.scan_bytes_and_ops(2, G, B)
+    k1 = dict(ms=cuda_ms(lambda: sk.split_scan(hist2, fvec, svec, pvec), 50),
+              kernel_ms=kernel_only_ms(
+                  lambda: sk.split_scan(hist2, fvec, svec, pvec), 50),
+              plain_ms=cuda_ms(lambda: sk.split_scan_plain(
+                  hist2, fvec, svec, pvec), 5),
+              bound=bound(k1_bytes, k1_ops))
+    r, c = k2["root"], k2["child"]
+    print("K2 segment_histogram (f32) at the lambdarank width G=%d B=%d: "
+          "root %d rows %.4f ms, kernel-only %s (bound %.4f, plain %.4f, "
+          "index_add_ %.4f); child %d rows %.4f ms, kernel-only %s (bound "
+          "%.5f, plain %.4f, index_add_ %.4f); rel err %.3g"
+          % (G, B, n, r["ms"], profiled(r["kernel_ms"]), r["bound"][0],
+             r["plain_ms"], r["library_ms"], c["rows"], c["ms"],
+             profiled(c["kernel_ms"]), c["bound"][0], c["plain_ms"],
+             c["library_ms"], max(r["rel_err"], c["rel_err"])))
+    print("K1 split_scan at CH=2 F=%d B=%d: %.4f ms, kernel-only %s (bound "
+          "%.6f, plain %.4f); gain rel err %.3g, %d valid features"
+          % (G, B, k1["ms"], profiled(k1["kernel_ms"]), k1["bound"][0],
+             k1["plain_ms"], gain_rel, int(valid.sum())))
+    base = dict(route="cuda", mode="f32", launches=0, shape_of="lambdarank")
+    results["segment_histogram_g137"] = dict(
+        base, name="segment_histogram_g137",
+        source=SRC % "segment_histogram",
+        replaces=REPLACES["segment_histogram"],
+        max_abs_err=max(r["max_abs_err"], c["max_abs_err"]),
+        tolerance="counts equal; g/h within 1e-5 of the bin's |value| sum",
+        ms=r["ms"], kernel_ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound"][0], bound_by=r["bound"][1],
+        library_ms=r["library_ms"], library="index_add_ of every (feature, "
+        "row) into the [G*B, 3] histogram", rows=n,
+        shape="root %d rows, G=%d, B=%d" % (n, G, B),
+        child=dict(rows=c["rows"], ms=c["ms"], kernel_ms=c["kernel_ms"],
+                   plain_ms=c["plain_ms"], bound_ms=c["bound"][0],
+                   library_ms=c["library_ms"]))
+    results["split_scan_g137"] = dict(
+        base, name="split_scan_g137", source=SRC % "split_scan",
+        replaces=REPLACES["split_scan"],
+        max_abs_err=float((rows_k - rows_p)[valid].abs().max()),
+        tolerance="feature, threshold, default_left equal; gain rtol 1e-5",
+        ms=k1["ms"], kernel_ms=k1["kernel_ms"], plain_ms=k1["plain_ms"],
+        bound_ms=k1["bound"][0], bound_by=k1["bound"][1], library_ms=None,
+        shape="CH=2 F=%d B=%d" % (G, B))
+    del a, hist2, k2
+    torch.cuda.empty_cache()
+
+
+def train_and_check(name, params, ds, dev, rounds, must, never, deferred,
+                    graphs: int = 1, **train_kw):
+    """lightgbm_tpu_torch.train on the card with the launch counters zeroed
+    just before and read just after: the kernels of `must` launched, those
+    of `never` not; every round trained unless early stopping ended the
+    run, each tree of more than one leaf; `graphs` graphs (the carried
+    path's two slots, else one), replayed every round after the first;
+    with `deferred` no tree fetched but at drains, else one a round."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import _cuda
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    booster = lt.train(params, ds, num_boost_round=rounds, device=dev,
+                       **train_kw)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    g = booster._gbdt
+    for k in must:
+        expect(launches.get(k, 0) > 0, "kernel %s was not launched on the "
+               "%s training path" % (k, name))
+    for k in never:
+        expect(launches.get(k, 0) == 0, "kernel %s was launched on the %s "
+               "training path" % (k, name))
+    leaves = [m.num_leaves for m in g.models]
+    trained = len(leaves)
+    expect((trained == rounds or "early_stopping_rounds" in train_kw)
+           and min(leaves) > 1, "%s trees did not grow: leaves %s"
+           % (name, leaves))
+    stats = g._graphs.stats()
+    replays = sum(x["replays"] for x in stats)
+    expect(len(stats) == graphs and replays == trained - 1,
+           "%s: %d graphs, %d replays in %d rounds"
+           % (name, len(stats), replays, trained))
+    expect((g._tree_fetches, g._drains > 0) == ((0, True) if deferred
+                                                 else (trained, False)),
+           "%s: %d tree fetches, %d drains in %d rounds"
+           % (name, g._tree_fetches, g._drains, trained))
+    return booster, dict(
+        train_s=train_s, round_ms=train_s * 1e3 / trained, peak_bytes=peak,
+        held_bytes=held, leaves=leaves, launches=launches, drains=g._drains,
+        tree_fetches=g._tree_fetches, graphs=stats)
+
+
+def rank_report(name, booster, rec) -> None:
+    """Three more replayed rounds, then a profiled one: printed and kept."""
+    rec["replay_round_ms"] = replayed_round_ms(booster, REPLAYED_ROUNDS)
+    rec["profile"] = profile_round(booster, name)
+    print("  %s: train %.3f s (%.1f ms a round, set-up included), leaves %s; "
+          "graphs x nodes %s; %d drains, %d tree fetches; %.1f ms a "
+          "replayed round (%d more rounds); peak device memory %.3f GB, "
+          "%.3f GB above the %.3f GB held before the run (the Higgs "
+          "phases' data and this phase's binned rows)"
+          % (name, rec["train_s"], rec["round_ms"], rec["leaves"],
+             ["1 x %d" % x["nodes"] for x in rec["graphs"]], rec["drains"],
+             rec["tree_fetches"], rec["replay_round_ms"], REPLAYED_ROUNDS,
+             rec["peak_bytes"] / 1e9,
+             (rec["peak_bytes"] - rec["held_bytes"]) / 1e9,
+             rec["held_bytes"] / 1e9))
+
+
+def rank_phase(dev, rounds: int, results) -> dict:
+    """Lambdarank at MSLR width through the entry points a user calls:
+    (a) lightgbm_tpu_torch.train on 2,268,000 x 137 with no validation set
+    (the fused pristine path: a graph replay every round after the first,
+    trees fetched at drains), then predict; (b) the same with 1,000 more
+    queries as a validation set (eval_at 10, early stopping after 2),
+    whose last ndcg must equal the host prediction's."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.objective import create_objective
+
+    t = time.perf_counter()
+    X, y, group, w_util = mslr_like(RANK_QUERIES)
+    ds = lt.Dataset(X, y, group=group, params=RANK_PARAMS,
+                    device=dev).construct()
+    n = len(y)
+    print("lambdarank data: %d queries x %d documents = %d rows x %d "
+          "features generated and binned in %.1f s"
+          % (RANK_QUERIES, RANK_DOCS, n, X.shape[1],
+             time.perf_counter() - t))
+    rank_kernel_phase(ds._binned, dev, results)
+
+    # (a) the fused path
+    must, never = pristine_kernels("scatter_segments_add")
+    booster, rec = train_and_check("lambdarank", RANK_PARAMS, ds, dev, rounds,
+                                   must, never, deferred=True)
+    g = booster._gbdt
+    expect(g._carried_active is False and g._use_partition_engine,
+           "lambdarank: carried %s, partition engine %s"
+           % (g._carried_active, g._use_partition_engine))
+    # the card's gradients of the trained score against the plain CPU
+    # ones of the same score
+    score = g.score.clone()
+    gk, hk = (t_.cpu() for t_ in g.objective.get_gradients(score))
+    cpu_obj = create_objective("lambdarank", g.config)
+    cpu_obj.init(ds._binned.metadata, n, "cpu")
+    gc, hc = cpu_obj.get_gradients(score.cpu())
+    grad_err = max(float((gk - gc).abs().max() / gc.abs().max()),
+                   float((hk - hc).abs().max() / hc.abs().max()))
+    expect(grad_err <= 1e-5, "lambdarank: the card's gradients differ from "
+           "the CPU's by %.3g of their largest magnitude" % grad_err)
+    grad_ms = cuda_ms(lambda: g.objective.get_gradients(score), 3)
+    grad_busy = kernel_only_ms(lambda: g.objective.get_gradients(score), 3,
+                               any_kernel=True)
+    raw = booster.predict(X, raw_score=True)
+    host = booster.predict(X, raw_score=True, device=False)
+    expect(np.array_equal(raw, host), "lambdarank: KP1's sums differ from "
+           "the host walk's by up to %.3g" % float(np.abs(raw - host).max()))
+    ndcg10 = ndcg_at(10, y, group, raw)
+    const10 = ndcg_at(10, y, group, np.zeros(n))
+    expect(ndcg10 >= NDCG_FLOOR, "lambdarank: training NDCG@10 %.4f < %.2f"
+           % (ndcg10, NDCG_FLOOR))
+    print("lambdarank (fused, pristine arena): %d rows x %d features, %d "
+          "rounds; training NDCG@10 %.4f of predict (constant scores %.4f); "
+          "KP1 sums bit for bit the host walk's; card gradients within %.3g "
+          "of the CPU's (rtol of the largest, limit 1e-5); gradients %.3f "
+          "ms a call (CUDA events), device busy %s ms"
+          % (n, X.shape[1], len(rec["leaves"]), ndcg10, const10, grad_err,
+             grad_ms, "not recorded" if grad_busy is None else
+             "%.3f" % grad_busy))
+    rank_report("lambdarank", booster, rec)
+    busy = rec["profile"].get("device_ms")
+    rec.update(ndcg10=ndcg10, constant_ndcg10=const10, grad_rel_err=grad_err,
+               gradient_ms=grad_ms, gradient_busy_ms=grad_busy,
+               gradient_share=(grad_busy / busy if grad_busy and busy
+                               else None))
+    print("  lambdarank: the gradients' share of a replayed round's busy "
+          "time %s" % ("not measured" if rec["gradient_share"] is None
+                       else "%.3f" % rec["gradient_share"]))
+    for name in ("segment_histogram_g137", "split_scan_g137"):
+        results[name]["launches"] = int(rec["launches"].get(
+            name[:-len("_g137")], 0))
+    del booster, g, score
+    torch.cuda.empty_cache()
+
+    # (b) a validation set
+    Xv, yv, gv, _ = mslr_like(RANK_VALID_QUERIES, seed=12, w=w_util)
+    dv = lt.Dataset(Xv, yv, group=gv, reference=ds, device=dev)
+    evals = {}
+    must, never = pristine_kernels("scatter_segments_add", WALK_ADD)
+    booster, vrec = train_and_check(
+        "lambdarank_valid", dict(RANK_PARAMS, eval_at=[10]), ds, dev, rounds,
+        must, never, deferred=False, valid_sets=[dv], valid_names=["valid"],
+        early_stopping_rounds=EARLY_STOPPING_ROUNDS, evals_result=evals,
+        verbose_eval=False)
+    series = evals["valid"]["ndcg"]
+    host_v = booster.predict(Xv, raw_score=True, device=False)
+    want = ndcg_at(10, yv, gv, host_v)
+    expect(len(series) == len(vrec["leaves"])
+           and abs(series[-1] - want) <= 1e-6,
+           "lambdarank valid: last evals_result NDCG@10 %.8f, host "
+           "prediction's %.8f" % (series[-1], want))
+    const_v = ndcg_at(10, yv, gv, np.zeros(len(yv)))
+    expect(want >= NDCG_FLOOR, "lambdarank valid: NDCG@10 %.4f < %.2f"
+           % (want, NDCG_FLOOR))
+    print("lambdarank (valid set, eager): %d validation rows; evals_result "
+          "NDCG@10 %s, best_iteration %d; the host prediction's %.8f "
+          "(constant scores %.4f)"
+          % (len(yv), ["%.6f" % v for v in series], booster.best_iteration,
+             want, const_v))
+    rank_report("lambdarank_valid", booster, vrec)
+    vrec.update(evals_result=series, host_ndcg10=want,
+                constant_ndcg10=const_v,
+                best_iteration=booster.best_iteration)
+    del booster, ds, dv, X
+    torch.cuda.empty_cache()
+    return {"fused": rec, "valid": vrec}
+
+
+def objectives_phase(X, y, dev, rounds: int) -> dict:
+    """regression_l1, huber, poisson and xentropy on the Higgs data cut to
+    OBJECTIVE_ROWS rows, 255 leaves: trees of more than one leaf, a graph
+    replay every round after the first, the fused runs' fetches deferred
+    and L1's one a round (its leaf refit); the training metric of the
+    first 1..rounds trees (KP1) falling; the sums bit for bit the host
+    walk's."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.metric import (create_metric,
+                                           default_metric_for_objective)
+    X1, y1 = X[:OBJECTIVE_ROWS], y[:OBJECTIVE_ROWS]
+    ds = lt.Dataset(X1, y1, params=PARAMS, device=dev).construct()
+    out = {}
+    for obj in OBJECTIVE_RUNS:
+        renew = obj == "regression_l1"
+        must, never = pristine_kernels("scatter_segments" if renew
+                                       else "scatter_segments_add")
+        params = dict(PARAMS, objective=obj)
+        booster, rec = train_and_check(obj, params, ds, dev, rounds, must,
+                                       never, deferred=not renew)
+        g = booster._gbdt
+        raw = booster.predict(X1, raw_score=True)
+        host = booster.predict(X1, raw_score=True, device=False)
+        expect(np.array_equal(raw, host), "%s: KP1's sums differ from the "
+               "host walk's" % obj)
+        m = create_metric(default_metric_for_objective(obj), g.config)
+        m.init(ds._binned.metadata, len(y1))
+        curve = [m.eval(booster.predict(X1, num_iteration=k, raw_score=True),
+                        g.objective)[0] for k in range(1, rounds + 1)]
+        expect(curve[-1] < curve[0], "%s: training %s did not fall: %s"
+               % (obj, m.name, curve))
+        print("objective %s (%s): %d rows, %d rounds, leaves %s; training "
+              "%s by trees %s; graphs x nodes %s, %d tree fetches; train "
+              "%.3f s; KP1 sums bit for bit the host walk's"
+              % (obj, "eager, a leaf refit a round" if renew else
+                 "fused, pristine arena", len(y1), rounds, rec["leaves"],
+                 m.name, ["%.6f" % v for v in curve],
+                 ["1 x %d" % x["nodes"] for x in rec["graphs"]],
+                 rec["tree_fetches"], rec["train_s"]))
+        rec.update(metric=m.name, curve=curve)
+        out[obj] = rec
+        del booster, g
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=ROWS,
@@ -1875,6 +2388,8 @@ def main(argv=None) -> int:
     leaf_kernel_phase(ds_obj._binned, dev, results)
     ablate_phase(len(X), dev, results)
     parity = {path: parity_phase(dev, path) for path in PARITY_PATHS}
+    for objective in PARITY_OBJECTIVES:
+        parity[objective] = parity_phase(dev, "f32", objective)
     train = {}
     launches = {}
     for path in PATHS:
@@ -1906,6 +2421,8 @@ def main(argv=None) -> int:
     prediction = prediction_phase(X, Xh, ds_obj, dev, args.predict_rounds,
                                   results)
     torch.cuda.empty_cache()
+    ranking = rank_phase(dev, args.rounds, results)
+    objectives = objectives_phase(X, y, dev, args.rounds)
     # launches of each kernel in the run of the path it belongs to: K3's
     # pred mode and K4's set mode in the bagged runs, the int8 modes and K5
     # in the quantized carried run, the f32 modes in the f32 carried run,
@@ -1913,6 +2430,11 @@ def main(argv=None) -> int:
     # mode) report the quantized run; launches_by_path has every path's
     # run.  The kernels of NO_PATH are on no training path and report 0
     for name, r in results.items():
+        if r.get("shape_of") == "lambdarank":
+            # counted in the lambdarank fused run (rank_phase)
+            expect(r["launches"] > 0, "kernel %s was not launched on the "
+                   "lambdarank path" % name)
+            continue
         r["launches_by_path"] = {p: int(launches[p].get(name, 0))
                                  for p in launches}
         if name in NO_PATH:
@@ -1946,6 +2468,7 @@ def main(argv=None) -> int:
         expect(r["launches"] > 0, "kernel %s was not launched on the %s "
                "training path" % (name, path))
     print(json.dumps({"card": card, "training": train, "parity": parity,
+                      "lambdarank": ranking, "objectives": objectives,
                       "prediction": prediction}))
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {

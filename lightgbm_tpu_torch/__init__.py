@@ -1,10 +1,12 @@
 """lightgbm_tpu_torch: the PyTorch/CUDA port of lightgbm_tpu.
 
-The port trains binary (and L2 regression) GBDT models with the serial
-learner on the partition (arena) engine, with f32 or quantized int8
-gradients (`tpu_quantized_grad`), on the carried arena where the JAX package
-picks it, with bagging, validation sets and early stopping; its kernels
-are written by hand for Hopper (csrc/*.cu).  It predicts on the host:
+The port trains GBDT models for every objective of the JAX package but
+multiclass (binary, the regression family, cross-entropy, lambdarank over
+a Dataset's `group=`) with the serial learner on the partition (arena) or
+the label engine, with f32 or quantized int8 gradients
+(`tpu_quantized_grad`), on the carried arena where the JAX package picks
+it, with bagging, validation sets and early stopping; its kernels are
+written by hand for Hopper (csrc/*.cu).  It predicts on the card:
 
     booster = lightgbm_tpu_torch.train(
         params, lightgbm_tpu_torch.Dataset(X, y), num_boost_round=N,

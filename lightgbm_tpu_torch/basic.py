@@ -1,7 +1,8 @@
 """Dataset and Booster: the port's public objects.
 
 Port of `Dataset` (:78) and `Booster` (:373) of lightgbm_tpu/basic.py for
-in-memory dense data, with validation sets and their evaluation
+in-memory dense data with weights and query groups, with validation sets
+and their evaluation
 (`add_valid`, `eval_train`, `eval_valid`, :450-533).  Both take an explicit
 `device`: the CUDA card unless the caller passes device="cpu"; with no
 device and no CUDA they raise.
@@ -80,7 +81,7 @@ class Dataset:
     """Lazily-constructed training dataset."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
-                 weight=None, init_score=None,
+                 weight=None, group=None, init_score=None,
                  feature_name: Union[str, Sequence[str]] = "auto",
                  categorical_feature: Union[str, Sequence] = "auto",
                  params: Optional[Dict[str, Any]] = None,
@@ -90,6 +91,7 @@ class Dataset:
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group
         self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
@@ -115,6 +117,8 @@ class Dataset:
             meta.set_label(np.asarray(self.label))
         if self.weight is not None:
             meta.set_weights(np.asarray(self.weight))
+        if self.group is not None:
+            meta.set_query(np.asarray(self.group))
         if self.init_score is not None:
             meta.set_init_score(np.asarray(self.init_score))
         # category columns and names as lightgbm_tpu/basic.py:199-211 reads
@@ -148,6 +152,22 @@ class Dataset:
             self._binned.metadata.set_weights(
                 np.asarray(weight) if weight is not None else None)
         return self
+
+    def set_group(self, group) -> "Dataset":
+        """Set the query sizes (lightgbm_tpu/basic.py:312-315): group[i]
+        rows of query i, in row order; a constructed dataset keeps its
+        bins."""
+        self.group = group
+        if self._binned is not None and group is not None:
+            self._binned.metadata.set_query(np.asarray(group))
+        return self
+
+    def get_group(self) -> Optional[np.ndarray]:
+        """The query sizes, or None without queries
+        (lightgbm_tpu/basic.py:332)."""
+        self.construct()
+        b = self._binned.metadata.query_boundaries
+        return None if b is None else np.diff(b)
 
 
 class Booster:

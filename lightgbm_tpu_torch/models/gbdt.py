@@ -35,7 +35,9 @@ Which path an iteration runs follows the JAX rule (:518-550):
   - non-carried (`_build_fused_iter`, :719-836): the tree roots at the
     pristine block, for weighted objectives and the other configurations
     `_carried_ok` refuses;
-- otherwise the eager path (:593-687): the bag is drawn (`_bagging`,
+- otherwise the eager path (:593-687), which every round of L1, quantile
+  and MAPE takes (their leaves are refit to percentiles of the residuals
+  in the round, :519-524, :1568-1589): the bag is drawn (`_bagging`,
   :419-433), the tree grows with per-row leaf ids (the partition engine at
   the pristine root, bagged by K3 in pred mode, quantized under the
   iteration's key unfolded, :1385-1387; or the label engine over the bag
@@ -95,6 +97,7 @@ from ..ops import quantize as qz
 from ..ops import threefry
 from ..ops.graphs import RoundGraphs
 from ..ops.predict import DeviceEnsemble
+from ..ops.quantile import renew_leaf_percentiles
 from ..ops.predict_kernel import walk_binned
 from ..ops.grow_partition import grow_tree_partition
 from ..ops.partition_kernel import (TILE, Arena, arena_bytes, init_pristine,
@@ -220,8 +223,8 @@ class GBDT:
         check_supported(cfg)
         if self.objective is None:
             raise NotImplementedError(
-                "custom objectives are not ported yet (ROADMAP.md queue 1, "
-                "item 11)")
+                "custom objectives (objective=none with fobj) are not ported "
+                "yet (ROADMAP.md queue 1, item 7b)")
         if ds.num_features == 0:
             raise ValueError("the dataset has no feature with more than one "
                              "bin")
@@ -286,6 +289,10 @@ class GBDT:
                 "the port's int32 histograms stay exact, the JAX package's "
                 "may round if one bin captures more than that", n,
                 qz.exact_rows(cfg.tpu_quantized_bits))
+        if self.objective.is_renew_tree_output():
+            # the residuals' raw label of the leaf refits (gbdt.py:1568-1589)
+            self._renew_label = torch.as_tensor(
+                np.asarray(ds.metadata.label, np.float32), device=dev)
         if self._use_partition_engine:
             # pristine layout (gbdt.py:1281-1282): factor >= 4 covers the
             # pristine block, the redirected root copy and the bump region
@@ -399,6 +406,9 @@ class GBDT:
         return arrays
 
     def _boost_from_average(self) -> float:
+        """gbdt.py:1545-1566: the objective's init score (a percentile of
+        the labels for L1, quantile and MAPE) added to every score before
+        the first tree."""
         if self.models or self.train_set.metadata.init_score is not None:
             return 0.0
         if self.config.boost_from_average:
@@ -407,7 +417,23 @@ class GBDT:
                 self._add_constant(init_score)
                 log.info("Start training from score %f", init_score)
                 return init_score
+        elif self.objective.is_renew_tree_output():
+            log.warning("Disabling boost_from_average in %s may cause the slow "
+                        "convergence", self.objective.name)
         return 0.0
+
+    def _renew_tree_output(self, tree: Tree, leaf_ids: torch.Tensor) -> None:
+        """The percentile leaf refits of L1, quantile and MAPE (gbdt.py:
+        1568-1589, serial_tree_learner.cpp:850-928): each leaf's value
+        becomes the (weighted) percentile of its rows' residuals against
+        the score before this tree, all leaves in one pass on the device
+        (ops/quantile.py); rows out of the bag (leaf id -1) take no part."""
+        residual = self._renew_label - self.score
+        vals = renew_leaf_percentiles(
+            residual, leaf_ids, self.objective.renew_alpha(),
+            self.max_leaves, self.objective.renew_weights())
+        nl = tree.num_leaves
+        tree.leaf_value[:nl] = vals[:nl].double().cpu().numpy()
 
     def _add_constant(self, val: float) -> None:
         """Add val to the training score and every validation score."""
@@ -463,8 +489,10 @@ class GBDT:
             self.iter += 1
             return False
         # gbdt.py:518-533: the fused paths need every row in the bag and no
-        # host tree within the iteration (no validation set or metric)
-        deferred_ok = not self.valid_states and not self.train_metrics
+        # host tree within the iteration (no validation set or metric, no
+        # leaf refit)
+        deferred_ok = (not self.valid_states and not self.train_metrics
+                       and not self.objective.is_renew_tree_output())
         fused_ok = (deferred_ok and self._use_partition_engine
                     and (cfg.bagging_freq <= 0
                          or cfg.bagging_fraction >= 1.0))
@@ -604,14 +632,17 @@ class GBDT:
         bag, the leaves' segments.  With deferred_ok (a bag or the label
         engine, no validation set, no training metric) the round updates
         the score from the device tree and its fetch is deferred
-        (:623-641).  Otherwise the tree is fetched in its round and the
+        (:623-641).  Otherwise the tree is fetched in its round, its leaves
+        refit for L1, quantile and MAPE (over row-order leaf ids, which the
+        partition engine then emits in place of its segments), and the
         scores add its host leaf values (:1616-1630): the training score by
         K4's add mode over the segments (ROADMAP queue 1, item 7c), KP2's
         masked add over a bag, or a gather; each validation set's by KP2's
         add mode on the round's device tree."""
         in_bag = self._bagging(self.iter)
         bagged = in_bag is not None
-        segments = self._use_partition_engine and not bagged
+        renew = self.objective.is_renew_tree_output()
+        segments = self._use_partition_engine and not bagged and not renew
         packed, out, arrays = self._run_round(
             None, "segments" if segments else "leaf_ids", bagged,
             update=deferred_ok)
@@ -626,6 +657,8 @@ class GBDT:
         if nl <= 1:
             return self._degenerate(init_score)
         new_tree = Tree.from_arrays(host_arrays, self.train_set)
+        if renew:
+            self._renew_tree_output(new_tree, out)
         new_tree.shrink(self.shrinkage_rate)
         # gbdt.py:1623: the host tree's f64-shrunk values, cast to f32
         host_lv = np.zeros(self.max_leaves, np.float32)
@@ -758,8 +791,14 @@ class GBDT:
         out = {}
         if not metrics:
             return out
-        flat = score.cpu().numpy().astype(np.float64)
+        flat = None
         for m in metrics:
+            # NDCG runs on the score's device; the rest on a host copy
+            if getattr(m, "takes_tensor", False):
+                out[m.name] = m.eval(score, self.objective)
+                continue
+            if flat is None:
+                flat = score.cpu().numpy().astype(np.float64)
             out[m.name] = m.eval(flat, self.objective)
         return out
 

@@ -101,7 +101,16 @@ Tolerances, per kernel:
   rounds' launch counts equal the graphs' captured counts times their
   replays, and the eager twin's; RoundGraphs on a plain function: eager
   warm-up, capture, replays that read a rewritten input, launch counts,
-  and a capture that reads a host value raising.
+  and a capture that reads a host value raising;
+- the lambdarank widths: K2 f32 at G = 137 (a root of 300k rows and a 40k
+  child) and K1 at F = 137, B = 255, tolerances as above; lambdarank
+  gradients of one score on the card and the CPU within 1e-5 of each
+  vector's largest magnitude; the L1 leaf refit exact unweighted and, for
+  weights, within 4 f32 ulps of the total weight over the least weight
+  times the residuals' step; lambdarank (fused), L1 (eager, a refit and a
+  fetch a round) and Poisson (fused) through their round graphs against
+  an eager twin, bit for bit on bounded dyadic gradients, with the
+  kernels each path launches.
 """
 import os
 
@@ -1771,3 +1780,168 @@ def test_round_graphs_capture_replay_and_fault(dev):
     assert "bad" not in graphs.graphs
     torch.cuda.synchronize()
     assert float((x * 2).sum()) == 6000.0
+
+
+# --------------------------------------------------------------------------- #
+# lambdarank at MSLR width and the pointwise objectives on the card
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("start,cnt", [(0, 300_000), (12_345, 40_000)])
+def test_segment_histogram_mslr_width(start, cnt, dev):
+    """K2 f32 at G = 137 (five slabs, the last one partial, over several
+    feature chunks at B = 255): counts equal, g/h within 1e-5 of each
+    bin's |value| sum."""
+    a = _segment_arena(dev, 300_000, 137, False, False, seed=137)
+    seg = torch.tensor([start, cnt], dtype=torch.int32, device=dev)
+    got = pk.segment_histogram(a, seg, 255)
+    torch.cuda.synchronize()
+    want = pk.segment_histogram_plain(a, seg, 255)
+    assert torch.equal(got[..., 2], want[..., 2])
+    a.payload[0].abs_()
+    scale = pk.segment_histogram_plain(a, seg, 255)
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+
+
+@pytest.mark.parametrize("CH", [1, 2])
+def test_split_scan_mslr_width(CH, dev):
+    """K1 at F = 137, B = 255: feature, threshold and default_left equal,
+    gains and the selected rows rtol 1e-5."""
+    hist, fvec, svec, pvec = _scan_inputs(dev, CH, 137, 255, 137 + CH)
+    rows_k, best_k = sk.split_scan(hist, fvec, svec, pvec)
+    torch.cuda.synchronize()
+    rows_p, best_p = sk.split_scan_plain(hist, fvec, svec, pvec)
+    lanes = [sk._OF, sk._OT, sk._ODL]
+    valid = rows_p[:, sk._OG] > sk.NEG_GATE
+    assert torch.equal(rows_k[valid][:, lanes], rows_p[valid][:, lanes])
+    assert torch.equal(best_k[:, lanes], best_p[:, lanes])
+    torch.testing.assert_close(best_k, best_p, rtol=1e-5, atol=1e-5)
+
+
+def _rank_case(sizes, seed=11, F=8):
+    """Queries of the given sizes graded 0-4 by a noisy linear utility
+    (chip_smoke.py's MSLR-shaped generator on fewer features)."""
+    rng = np.random.RandomState(seed)
+    sizes = np.asarray(sizes)
+    n = int(sizes.sum())
+    X = rng.randn(n, F).astype(np.float32)
+    util = X[:, :4] @ rng.randn(4) + 0.3 * rng.randn(n)
+    y = np.zeros(n, np.float32)
+    start = 0
+    for sz in sizes:
+        order = np.argsort(-util[start:start + sz])
+        for lo, hi, grade in ((0, 2, 4), (2, 6, 3), (6, 15, 2), (15, 40, 1)):
+            y[start + order[lo * sz // 120:hi * sz // 120]] = grade
+        start += sz
+    return X, y, sizes
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_lambdarank_gradients_card_vs_cpu(weighted, dev):
+    """The lambdarank gradients of one score on the card and on the CPU:
+    queries of 1 to 128 documents (buckets of 8 to 128 slots) and 300 of
+    120, tied scores and zeros of both signs: within 1e-5 of each vector's
+    largest magnitude (f32 pair sums reduced in each device's order, one
+    ulp of exp())."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.metadata import Metadata
+    from lightgbm_tpu_torch.objective import create_objective
+    X, y, g = _rank_case([1, 3, 8, 9, 17, 33, 70, 128] * 4 + [120] * 300)
+    meta = Metadata(len(y))
+    meta.set_label(y)
+    if weighted:
+        meta.set_weights(np.random.RandomState(2).rand(len(y)) + 0.5)
+    meta.set_query(g)
+    score = np.round(np.random.RandomState(3).randn(len(y)) * 2) / 2
+    score[::11] = -0.0
+    score = torch.from_numpy(score.astype(np.float32))
+    out = []
+    for d in (dev, torch.device("cpu")):
+        obj = create_objective("lambdarank", Config({}))
+        obj.init(meta, len(y), d)
+        out.append([t.cpu() for t in obj.get_gradients(score.to(d))])
+    for got, want in zip(*out):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+def test_renew_leaf_percentiles_card_vs_cpu(dev):
+    """The leaf refit of L1/quantile on the card and the CPU: plain
+    (exact: sorts and gathers) and weighted (the CDF's f32 cumulative sum
+    in each device's order: within 4 ulps of the total weight over the
+    least row weight, times the residuals' 0.1 step)."""
+    from lightgbm_tpu_torch.ops.quantile import renew_leaf_percentiles
+    rng = np.random.RandomState(9)
+    n, L = 200_000, 255
+    res = torch.from_numpy(np.round(rng.randn(n) * 3, 1).astype(np.float32))
+    lids = torch.from_numpy(rng.randint(-1, L - 3, n).astype(np.int32))
+    w = torch.from_numpy((rng.rand(n) + 0.2).astype(np.float32))
+    for alpha in (0.5, 0.9):
+        got = renew_leaf_percentiles(res.to(dev), lids.to(dev), alpha, L)
+        want = renew_leaf_percentiles(res, lids, alpha, L)
+        assert torch.equal(got.cpu(), want)
+        got = renew_leaf_percentiles(res.to(dev), lids.to(dev), alpha, L,
+                                     w.to(dev))
+        want = renew_leaf_percentiles(res, lids, alpha, L, w)
+        atol = 4 * 1.2e-7 * float(w.sum()) / float(w.min()) * 0.1
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=atol)
+
+
+def _dyadic_bounded(g):
+    """The booster's f32 gradients rounded to multiples of 1/256 in
+    [-2, 2] and its hessians to multiples of 1/256 in [1/256, 2]: every
+    histogram sum of 18k rows (below 2^15.2, in steps of 2^-8) is then
+    exact in f32, whatever order the atomics add in."""
+    real = g.objective.get_gradients
+
+    def get(score):
+        grad, hess = real(score)
+        return (torch.clamp(torch.round(grad * 256), -512, 512) / 256,
+                torch.clamp(torch.round(hess * 256), 1, 512) / 256)
+    g.objective.get_gradients = get
+
+
+@pytest.mark.parametrize("objective", ["lambdarank", "regression_l1",
+                                       "poisson"])
+def test_objective_graph_rounds_match_eager(objective, dev):
+    """Five rounds of a 31-leaf booster through its CUDA graphs against
+    its twin run eagerly, dyadic gradients (`_dyadic_bounded`): lambdarank on
+    the fused pristine path (300 queries of 60 documents), L1 on the
+    eager path with a refit and a fetch a round, Poisson fused: the
+    score and every tree bit for bit, one graph replayed every round
+    after the first; lambdarank and Poisson launch K2, K3, K1 and K4's add
+    mode and no other training kernel, L1 K4's set mode for its leaf ids."""
+    import lightgbm_tpu_torch as lt
+    if objective == "lambdarank":
+        X, y, g = _rank_case([60] * 300, F=12)
+    else:
+        X, y = _higgs_like(18_000, seed=25)
+        g = None
+        if objective == "poisson":
+            y = np.random.RandomState(4).poisson(1.0 + y).astype(np.float32)
+    params = {"objective": objective, "num_leaves": 31, "learning_rate": 0.1,
+              "max_bin": 63, "min_data_in_leaf": 20, "verbose": -1}
+    boosters = []
+    for _ in range(2):
+        bst = lt.Booster(params, lt.Dataset(X, y, group=g, device=dev),
+                         device=dev)
+        _dyadic_bounded(bst._gbdt)
+        boosters.append(bst)
+    a, b = boosters
+    b._gbdt._graphs = _EagerRounds()
+    _cuda.reset_launch_counts()
+    for r in range(5):
+        a.update()
+        b.update()
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(a._gbdt.score), _bits(b._gbdt.score)), r
+    assert a.model_to_string() == b.model_to_string()
+    stats = a._gbdt._graphs.stats()
+    assert len(stats) == 1 and stats[0]["replays"] == 4
+    renew = objective == "regression_l1"
+    assert a._gbdt._tree_fetches == (5 if renew else 0)
+    counts = dict(_cuda.LAUNCHES)
+    k4 = "scatter_segments" if renew else "scatter_segments_add"
+    for name in ("segment_histogram", "partition_segment", "split_scan", k4):
+        assert counts.get(name, 0) > 0, name
+    others = set(counts) - {"segment_histogram", "partition_segment",
+                            "split_scan", k4}
+    assert not others, others

@@ -257,7 +257,7 @@ def _body(path):
 
 @pytest.mark.parametrize("path", ["utils/log.py", "io/bin_mapper.py",
                                   "io/metadata.py", "models/tree.py",
-                                  "models/shap.py"])
+                                  "models/shap.py", "metric_xentropy.py"])
 def test_copied_modules_are_verbatim(path):
     port = _body("lightgbm_tpu_torch/" + path)
     assert port[0] == "# Copied from lightgbm_tpu/%s; kept in step with it " \
