@@ -109,7 +109,34 @@
    than one leaf, a graph replay every round after the first, the fused
    runs' fetches deferred and L1's one a round, the training metric of
    the first 1..5 trees falling, KP1's sums bit for bit the host walk's;
-9. prints one JSON line of training and prediction results and one of
+9. multiclass phase (the UCI Covertype dataset's shape: 581,012 rows x 54
+   dense f32 features from a generator with Covertype's 7 class counts,
+   a 58,101-row holdout; PARAMS with objective=multiclass, num_class=7):
+   a 20k-row, 3-round, 31-leaf softmax parity run (21 trees, both runs
+   grown from the CPU's gradients rounded to 1/256, every row in the same
+   leaf of each, raw predictions within 5e-6 of their scale, and the
+   card's own softmax gradients of the CPU's score within 2e-6 of the
+   CPU's);
+   K2 f32 at G = 54 (root and a 40k-row child) against its plain version,
+   timed beside its bound and index_add_; 5 rounds (35 trees) through
+   lightgbm_tpu_torch.train: softmax f32 and quantized on the fused
+   pristine path (one graph a class, one for the gradients of every class
+   from the round's starting score), softmax with the holdout as a
+   validation set (multi_logloss and multi_error, early stopping after 2;
+   the eager path, KP2's add mode) and one-vs-all f32, each with its
+   kernels launched and K6 and K7 not, every class growing a tree in
+   round 1, the holdout's multi_logloss below the constant prior's (the
+   quantized run's within 0.01 of the f32 run's; the valid-set run's last
+   evals_result equal to the host prediction's within 1e-6), its replayed
+   round, graphs x nodes, drains and fetches, peak memory and a profiled
+   round; on the f32 run's model KP1's sums over the holdout (small-batch
+   walk) and 100k training rows (row tiles), its leaves and its early
+   stop (every 14 trees, at the holdout's median top-two gap after 2
+   iterations; holdout, tiles and the serving buckets of 1, 7 and 1000
+   rows) bit for bit the host walk's, KP1's k = 7 early stop by both walks
+   bit for bit its plain version on the card, softmax rows summing to 1
+   within 1e-12;
+10. prints one JSON line of training and prediction results and one of
    per-kernel results, then the device line {"ok": true, "device": {...}}
    as the last line.
 
@@ -123,6 +150,7 @@ import json
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -350,12 +378,22 @@ TRACE_PAD = 1024
 PAD_KERNEL = "spin_kernel"
 
 
+class DeviceEvent(NamedTuple):
+    """A device operation of a trace (kernel, copy or memset): its name
+    and its ms."""
+    name: str
+    ms: float
+
+
 def traced(work, activities, record_shapes: bool = False):
     """(profile, work's device events, spin kernels held): work() under
     torch.profiler after TRACE_PAD spin kernels, the card synchronized at
     its end; the events leave the spin kernels out.  A trace whose drops
     reached past the spin kernels into work's events is told by a count
-    its caller knows (kernel_only_ms, profile_round)."""
+    its caller knows (kernel_only_ms, profile_round).  The device events
+    come from the profiler's raw results: `prof.events()` builds a tree of
+    every event on the host, which took most of the multiclass phase's
+    time (a 7-class round is 250k device operations)."""
     import torch
     from torch.profiler import profile
     with profile(activities=activities, record_shapes=record_shapes) as prof:
@@ -364,8 +402,9 @@ def traced(work, activities, record_shapes: bool = False):
         torch.cuda.synchronize()
         work()
         torch.cuda.synchronize()
-    device = [ev for ev in prof.events()
-              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    device = [DeviceEvent(ev.name(), ev.duration_ns() / 1e6)
+              for ev in prof.profiler.kineto_results.events()
+              if ev.device_type() == torch.autograd.DeviceType.CUDA]
     return (prof, [ev for ev in device if PAD_KERNEL not in ev.name],
             sum(PAD_KERNEL in ev.name for ev in device))
 
@@ -400,7 +439,7 @@ def kernel_only_ms(fn, reps: int, any_kernel: bool = False):
                   reps, per_call, len(device), len(ours), pad_held,
                   TRACE_PAD, (": " + "; ".join(names[:4])) if names else ""))
         return None
-    return sum(ev.time_range.elapsed_us() for ev in ours) / 1e3 / reps
+    return sum(ev.ms for ev in ours) / reps
 
 
 def launches_per_call(fn) -> int:
@@ -1166,48 +1205,77 @@ def parity_phase(dev, path: str, objective: str = None):
     """A small run on the card against the same run on the CPU, stepped
     with update() so each tree's bag can be read: a path of the binary
     runs, or with `objective` that objective on the f32 path's settings
-    (lambdarank on about 170 queries of the MSLR generator, the others on
-    the Higgs generator; none of them rides the carried arena)."""
+    (lambdarank on about 170 queries of the MSLR generator, multiclass on
+    20k rows of the Covertype generator, its 7 classes a tree each a
+    round, the others on the Higgs generator; none of them rides the
+    carried arena).  Multiclass grows both runs' trees from the same
+    gradients (`share_gradients`), and holds the card's own gradients to
+    the CPU's apart."""
     import lightgbm_tpu_torch as lt
     quantized = flag(path, "quantized")
     name = objective or path
     group = None
     if objective == "lambdarank":
         X, y, group, _ = mslr_like(RANK_PARITY_QUERIES, seed=13)
+    elif objective == "multiclass":
+        X, y, _ = covertype_like(20_000, seed=23)
     else:
         X, y, Xh, yh = higgs_like(20_000, seed=11)
     w = row_weights(len(y)) if flag(path, "weighted") else None
     params = path_params(path, num_leaves=31)
     if objective is not None:
         params["objective"] = objective
+    kc = COVTYPE_K if objective == "multiclass" else 1
+    if kc > 1:
+        params["num_class"] = kc
     out = {}
-    for d in (dev, "cpu"):
+    for role, d in (("card", dev), ("cpu", "cpu")):
         ds = lt.Dataset(X, y, weight=w, group=group, device=d)
         bst = lt.Booster(params, ds, device=d)
         if flag(path, "valid"):
             bst.add_valid(lt.Dataset(Xh, yh, reference=ds, device=d),
                           "holdout")
-        bags, evals = [], []
-        for _ in range(3):
+        out[role] = (bst, [], [])
+    (bk, bags_k, evals_k), (bc, bags_c, evals_c) = out["card"], out["cpu"]
+    shared = share_gradients(bk, bc) if kc > 1 else None
+    for _ in range(3):
+        # the CPU first: a multiclass round's gradients feed the card's
+        for role in ("cpu", "card"):
+            bst, bags, evals = out[role]
+            if shared is not None and role == "card":
+                shared()
             bst.update()
             mask = bst._gbdt._bag_mask
             bags.append(None if mask is None else mask.copy())
             evals.append(bst.eval_valid())
+    for role in ("card", "cpu"):
+        bst = out[role][0]
         bst.num_trees()                 # drains the fused paths' trees
         g = bst._gbdt
         expect(g._quantized is quantized
                and bool(g._carried_active) is (carried(path)
                                                 and objective is None),
-               "parity %s: the %s run took another path" % (name, d))
-        out[str(d)] = (bst, bags, evals)
-    (bk, bags_k, evals_k), (bc, bags_c, evals_c) = out[str(dev)], out["cpu"]
+               "parity %s: the %s run took another path" % (name, role))
+    grad_err = None
+    if kc > 1:
+        # the card's own gradients of the CPU's score against the CPU's
+        sc = bc._gbdt.scores
+        gk, hk = bk._gbdt.objective.__class__.get_gradients(
+            bk._gbdt.objective, sc.to(dev))
+        gc, hc = bc._gbdt.objective.__class__.get_gradients(
+            bc._gbdt.objective, sc)
+        grad_err = max(float((gk.cpu() - gc).abs().max()),
+                       float((hk.cpu() - hc).abs().max()))
+        expect(grad_err <= 2e-6, "parity %s: the card's gradients differ "
+               "from the CPU's by %.3g" % (name, grad_err))
     gb, cb = bk._gbdt.models, bc._gbdt.models
-    expect(len(gb) == len(cb) == 3, "parity %s: tree counts differ" % name)
+    expect(len(gb) == len(cb) == 3 * kc, "parity %s: tree counts differ"
+           % name)
     moved, oob_moved, leaf_err = [], [], 0.0
     for t, (a, b) in enumerate(zip(gb, cb)):
-        bag = bags_k[t]
-        expect((bag is None) == (bags_c[t] is None)
-               and (bag is None or np.array_equal(bag, bags_c[t])),
+        bag = bags_k[t // kc]
+        expect((bag is None) == (bags_c[t // kc] is None)
+               and (bag is None or np.array_equal(bag, bags_c[t // kc])),
                "parity %s: the bags of tree %d differ" % (name, t))
         k = a.num_leaves - 1
         expect(a.num_leaves == b.num_leaves > 1
@@ -1247,16 +1315,24 @@ def parity_phase(dev, path: str, objective: str = None):
     pg = bk.predict(X, raw_score=True)
     pc = bc.predict(X, raw_score=True)
     diff = float(np.abs(pg - pc).max())
-    expect(np.all(np.isfinite(pg)) and (diff <= 1e-4 or any(oob_moved)),
-           "parity %s: raw training predictions differ by %.3g"
-           % (name, diff))
-    msg = ("parity (%s): %d rows, 3 rounds, 31 leaves: card and CPU trees "
+    # multiclass, grown from the same gradients: within 5e-6 of the
+    # scores' scale
+    limit = 1e-4 if kc == 1 else 5e-6 * max(1.0, float(np.abs(pc).max()))
+    expect(np.all(np.isfinite(pg)) and (diff <= limit or any(oob_moved)),
+           "parity %s: raw training predictions differ by %.3g (limit %.3g)"
+           % (name, diff, limit))
+    msg = ("parity (%s): %d rows, 3 rounds%s, 31 leaves: card and CPU trees "
            "split on the same features with every %s in the same leaf "
            "(thresholds moved across empty bins, per tree: %s); leaf values "
            "within %.3g of the largest; raw training prediction max diff "
            "%.3g"
-           % (name, len(y), "row" if w is not None or not flag(path, "bagged")
+           % (name, len(y), "" if kc == 1 else " of %d trees" % kc,
+              "row" if w is not None or not flag(path, "bagged")
               else "row of the bag", moved, leaf_err, diff))
+    if grad_err is not None:
+        msg += ("; both grown from the CPU's gradients rounded to 1/256; "
+                "the card's own gradients of the CPU's score within %.3g "
+                "of the CPU's" % grad_err)
     if flag(path, "bagged"):
         msg += ("; equal bags of %d rows each round; out-of-bag rows in "
                 "another leaf per tree: %s" % (int((bags_k[0] == 0).sum()),
@@ -1269,7 +1345,41 @@ def parity_phase(dev, path: str, objective: str = None):
         msg += "; holdout AUC per round card %s, CPU %s" % (vk, vc)
     print(msg)
     return dict(rows=len(y), thresholds_moved=moved, oob_rows_moved=oob_moved,
-                leaf_rel_err=leaf_err, max_raw_diff=diff)
+                leaf_rel_err=leaf_err, max_raw_diff=diff,
+                card_grad_err=grad_err)
+
+
+def share_gradients(card, cpu):
+    """Grow a card booster's trees from a CPU twin's gradients: the CPU's
+    objective rounds its gradients to multiples of 1/256 (hessians in
+    [1/256, 2]), so that every histogram sum is exact on both devices
+    whatever order the card's atomics add in, and keeps them; the card's
+    objective returns two static device buffers (its round graphs capture
+    them as inputs), which the returned hook fills from the CPU's last
+    gradients before each card round.  Each device's own softmax
+    gradients round exp() differently, and a near tie of two gains then
+    takes another feature on one of them."""
+    import torch
+    cpu_obj, card_obj = cpu._gbdt.objective, card._gbdt.objective
+    real = cpu_obj.get_gradients
+    last = []
+    bufs = []
+
+    def cpu_gradients(score):
+        grad, hess = real(score)
+        last[:] = (torch.clamp(torch.round(grad * 256), -512, 512) / 256,
+                   torch.clamp(torch.round(hess * 256), 1, 512) / 256)
+        return tuple(last)
+
+    def hook():
+        if not bufs:
+            bufs.extend(t.to(card._gbdt.device) for t in last)
+        for buf, t in zip(bufs, last):
+            buf.copy_(t)
+
+    cpu_obj.get_gradients = cpu_gradients
+    card_obj.get_gradients = lambda score: tuple(bufs)
+    return hook
 
 
 def training_phase(X, Xh, yh, ds_obj, valid_obj, rounds, dev, reduced, path):
@@ -1368,9 +1478,16 @@ def training_phase(X, Xh, yh, ds_obj, valid_obj, rounds, dev, reduced, path):
 REPLAYED_ROUNDS = 3
 
 
+def graphs_a_round(g) -> int:
+    """The graphs a round of the booster's replays: one, or k > 1 classes'
+    and the gradients'."""
+    k = g.num_tree_per_iteration
+    return 1 if k == 1 else k + 1
+
+
 def replayed_round_ms(booster, rounds: int) -> float:
     """Host ms a round over `rounds` more rounds of a trained booster, every
-    one a graph replay, from a synchronized card to the drain and
+    one graph replays, from a synchronized card to the drain and
     synchronize after the last."""
     import torch
     g = booster._gbdt
@@ -1383,8 +1500,9 @@ def replayed_round_ms(booster, rounds: int) -> float:
     g._sync_model()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t) * 1e3 / rounds
-    expect(sum(x["replays"] for x in g._graphs.stats()) == before + rounds,
-           "a timed round did not replay its graph")
+    expect(sum(x["replays"] for x in g._graphs.stats())
+           == before + rounds * graphs_a_round(g),
+           "a timed round did not replay its graphs")
     return ms
 
 
@@ -1444,22 +1562,24 @@ def profile_round(booster, what: str, rows: int = None) -> dict:
     wall_ms = wall[0]
     least = 0
     if graphs is not None:
+        per_round = graphs_a_round(g)
         replayed = [x for k, x in graphs.graphs.items()
                     if x.replays == replays.get(k, -1) + 1]
-        expect(len(replayed) == 1
+        expect(len(replayed) == per_round
                and sum(x.replays for x in graphs.graphs.values())
-               == sum(replays.values()) + 1
-               and len(graphs.graphs) == (2 if g._carried_active else 1),
-               "profile (%s): the profiled round did not replay its graph"
+               == sum(replays.values()) + per_round
+               and len(graphs.graphs) == (2 if g._carried_active
+                                          else per_round),
+               "profile (%s): the profiled round did not replay its graphs"
                % what)
         # a complete trace holds an event for every node of the replayed
-        # graph (each a kernel, copy or memset), besides the drain's eager
-        # launches
-        least = replayed[0].nodes
+        # graphs (each a kernel, copy or memset), besides the drain's
+        # eager launches
+        least = sum(x.nodes for x in replayed)
     by_name = {}
     for ev in device:
         ms, cnt = by_name.get(ev.name, (0.0, 0))
-        by_name[ev.name] = (ms + ev.time_range.elapsed_us() / 1e3, cnt + 1)
+        by_name[ev.name] = (ms + ev.ms, cnt + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     # the twelve longest, and every kernel of the port's own sources
@@ -2008,15 +2128,14 @@ def ndcg_at(k: int, y, group, score) -> float:
     return m.eval(score)[0]
 
 
-def rank_kernel_phase(ds, dev, results):
-    """K2 f32 at the lambdarank widths (G = 137: five slabs, the last one
-    partial, across several feature chunks) at the root and on a 40k-row
-    child, and K1 at G = 137, B = 255 on both histograms, each against its
-    plain version on the same inputs and timed beside its bound."""
+def k2_width_phase(ds, dev, results, shape_of: str):
+    """K2 f32 at a dataset's width at the root and on a 40k-row child,
+    against its plain version on the same inputs and timed beside its
+    bound and index_add_; its entry goes to the kernels line as
+    segment_histogram_g<G>, its launches counted later in the `shape_of`
+    run.  Returns the two histograms' results."""
     import torch
     from lightgbm_tpu_torch.ops import partition_kernel as pk
-    from lightgbm_tpu_torch.ops import split_kernel as sk
-    from lightgbm_tpu_torch.ops.split import SplitParams
 
     n, G = ds.num_data, ds.num_features
     B = int(ds.feature_num_bins().max())
@@ -2050,6 +2169,48 @@ def rank_kernel_phase(ds, dev, results):
             plain_ms=cuda_ms(lambda: pk.segment_histogram_plain(a, seg, B), 3),
             library_ms=index_add_ms(a, s, c, B),
             bound=bound(nbytes, 3 * G * c))
+    r, c = k2["root"], k2["child"]
+    print("K2 segment_histogram (f32) at the %s width G=%d B=%d: "
+          "root %d rows %.4f ms, kernel-only %s (bound %.4f, plain %.4f, "
+          "index_add_ %.4f); child %d rows %.4f ms, kernel-only %s (bound "
+          "%.5f, plain %.4f, index_add_ %.4f); rel err %.3g"
+          % (shape_of, G, B, n, r["ms"], profiled(r["kernel_ms"]),
+             r["bound"][0], r["plain_ms"], r["library_ms"], c["rows"],
+             c["ms"], profiled(c["kernel_ms"]), c["bound"][0], c["plain_ms"],
+             c["library_ms"], max(r["rel_err"], c["rel_err"])))
+    name = "segment_histogram_g%d" % G
+    results[name] = dict(
+        route="cuda", mode="f32", launches=0, shape_of=shape_of, name=name,
+        source=SRC % "segment_histogram",
+        replaces=REPLACES["segment_histogram"],
+        max_abs_err=max(r["max_abs_err"], c["max_abs_err"]),
+        tolerance="counts equal; g/h within 1e-5 of the bin's |value| sum",
+        ms=r["ms"], kernel_ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound"][0], bound_by=r["bound"][1],
+        library_ms=r["library_ms"], library="index_add_ of every (feature, "
+        "row) into the [G*B, 3] histogram", rows=n,
+        shape="root %d rows, G=%d, B=%d" % (n, G, B),
+        child=dict(rows=c["rows"], ms=c["ms"], kernel_ms=c["kernel_ms"],
+                   plain_ms=c["plain_ms"], bound_ms=c["bound"][0],
+                   library_ms=c["library_ms"]))
+    del a
+    torch.cuda.empty_cache()
+    return k2
+
+
+def rank_kernel_phase(ds, dev, results):
+    """K2 f32 at the lambdarank widths (G = 137: five slabs, the last one
+    partial, across several feature chunks) at the root and on a 40k-row
+    child (k2_width_phase), and K1 at G = 137, B = 255 on both histograms,
+    against its plain version on the same inputs and timed beside its
+    bound."""
+    import torch
+    from lightgbm_tpu_torch.ops import split_kernel as sk
+    from lightgbm_tpu_torch.ops.split import SplitParams
+
+    G = ds.num_features
+    B = int(ds.feature_num_bins().max())
+    k2 = k2_width_phase(ds, dev, results, "lambdarank")
     hist2 = torch.stack([k2["root"]["hist"], k2["child"]["hist"]])
     nb = torch.as_tensor(ds.feature_num_bins(), device=dev)
     db = torch.as_tensor(np.array([m.default_bin for m in ds.bin_mappers],
@@ -2078,43 +2239,20 @@ def rank_kernel_phase(ds, dev, results):
               plain_ms=cuda_ms(lambda: sk.split_scan_plain(
                   hist2, fvec, svec, pvec), 5),
               bound=bound(k1_bytes, k1_ops))
-    r, c = k2["root"], k2["child"]
-    print("K2 segment_histogram (f32) at the lambdarank width G=%d B=%d: "
-          "root %d rows %.4f ms, kernel-only %s (bound %.4f, plain %.4f, "
-          "index_add_ %.4f); child %d rows %.4f ms, kernel-only %s (bound "
-          "%.5f, plain %.4f, index_add_ %.4f); rel err %.3g"
-          % (G, B, n, r["ms"], profiled(r["kernel_ms"]), r["bound"][0],
-             r["plain_ms"], r["library_ms"], c["rows"], c["ms"],
-             profiled(c["kernel_ms"]), c["bound"][0], c["plain_ms"],
-             c["library_ms"], max(r["rel_err"], c["rel_err"])))
     print("K1 split_scan at CH=2 F=%d B=%d: %.4f ms, kernel-only %s (bound "
           "%.6f, plain %.4f); gain rel err %.3g, %d valid features"
           % (G, B, k1["ms"], profiled(k1["kernel_ms"]), k1["bound"][0],
              k1["plain_ms"], gain_rel, int(valid.sum())))
-    base = dict(route="cuda", mode="f32", launches=0, shape_of="lambdarank")
-    results["segment_histogram_g137"] = dict(
-        base, name="segment_histogram_g137",
-        source=SRC % "segment_histogram",
-        replaces=REPLACES["segment_histogram"],
-        max_abs_err=max(r["max_abs_err"], c["max_abs_err"]),
-        tolerance="counts equal; g/h within 1e-5 of the bin's |value| sum",
-        ms=r["ms"], kernel_ms=r["kernel_ms"], plain_ms=r["plain_ms"],
-        bound_ms=r["bound"][0], bound_by=r["bound"][1],
-        library_ms=r["library_ms"], library="index_add_ of every (feature, "
-        "row) into the [G*B, 3] histogram", rows=n,
-        shape="root %d rows, G=%d, B=%d" % (n, G, B),
-        child=dict(rows=c["rows"], ms=c["ms"], kernel_ms=c["kernel_ms"],
-                   plain_ms=c["plain_ms"], bound_ms=c["bound"][0],
-                   library_ms=c["library_ms"]))
     results["split_scan_g137"] = dict(
-        base, name="split_scan_g137", source=SRC % "split_scan",
+        route="cuda", mode="f32", launches=0, shape_of="lambdarank",
+        name="split_scan_g137", source=SRC % "split_scan",
         replaces=REPLACES["split_scan"],
         max_abs_err=float((rows_k - rows_p)[valid].abs().max()),
         tolerance="feature, threshold, default_left equal; gain rtol 1e-5",
         ms=k1["ms"], kernel_ms=k1["kernel_ms"], plain_ms=k1["plain_ms"],
         bound_ms=k1["bound"][0], bound_by=k1["bound"][1], library_ms=None,
         shape="CH=2 F=%d B=%d" % (G, B))
-    del a, hist2, k2
+    del hist2, k2
     torch.cuda.empty_cache()
 
 
@@ -2123,9 +2261,12 @@ def train_and_check(name, params, ds, dev, rounds, must, never, deferred,
     """lightgbm_tpu_torch.train on the card with the launch counters zeroed
     just before and read just after: the kernels of `must` launched, those
     of `never` not; every round trained unless early stopping ended the
-    run, each tree of more than one leaf; `graphs` graphs (the carried
-    path's two slots, else one), replayed every round after the first;
-    with `deferred` no tree fetched but at drains, else one a round."""
+    run, each of its k trees (k classes, else one) of more than one leaf;
+    `graphs` graphs (the carried path's two slots, else one; k > 1: one a
+    class and the gradients'), each replayed at every round after its
+    first call (the first class's and the gradients' first calls run
+    eagerly, the other classes' capture in round 1); with `deferred` no
+    tree fetched but at drains, else one a tree."""
     import torch
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.ops import _cuda
@@ -2148,17 +2289,19 @@ def train_and_check(name, params, ds, dev, rounds, must, never, deferred,
         expect(launches.get(k, 0) == 0, "kernel %s was launched on the %s "
                "training path" % (k, name))
     leaves = [m.num_leaves for m in g.models]
-    trained = len(leaves)
+    k = booster.num_model_per_iteration()
+    trained = len(leaves) // k
     expect((trained == rounds or "early_stopping_rounds" in train_kw)
            and min(leaves) > 1, "%s trees did not grow: leaves %s"
            % (name, leaves))
     stats = g._graphs.stats()
     replays = sum(x["replays"] for x in stats)
-    expect(len(stats) == graphs and replays == trained - 1,
+    want = trained - 1 if k == 1 else (k * trained - 1) + (trained - 1)
+    expect(len(stats) == graphs and replays == want,
            "%s: %d graphs, %d replays in %d rounds"
            % (name, len(stats), replays, trained))
     expect((g._tree_fetches, g._drains > 0) == ((0, True) if deferred
-                                                 else (trained, False)),
+                                                 else (len(leaves), False)),
            "%s: %d tree fetches, %d drains in %d rounds"
            % (name, g._tree_fetches, g._drains, trained))
     return booster, dict(
@@ -2340,6 +2483,316 @@ def objectives_phase(X, y, dev, rounds: int) -> dict:
     return out
 
 
+# the UCI Covertype dataset's shape (Blackard & Dean; the multiclass
+# workload of XGBoost's GPU demo, demo/gpu_acceleration/cover_type.py):
+# 581,012 rows x 54 features, 7 classes of these counts; a holdout of a
+# tenth from another seed.  Its 44 one-hot columns would form multi-feature
+# EFB bundles, which the port does not run yet (ROADMAP queue 1, item 11),
+# so the generator's 54 columns are dense
+COVTYPE_ROWS = 581_012
+COVTYPE_FEATURES = 54
+COVTYPE_COUNTS = (211_840, 283_301, 35_754, 2_747, 9_493, 17_367, 20_510)
+COVTYPE_K = len(COVTYPE_COUNTS)
+COVTYPE_HOLDOUT = 58_101
+MC_PARAMS = dict(PARAMS, objective="multiclass", num_class=COVTYPE_K)
+# the runs of the multiclass phase: name -> (objective, quantized, a
+# validation set)
+MC_RUNS = {"multiclass_f32": ("multiclass", False, False),
+           "multiclass_quantized": ("multiclass", True, False),
+           "multiclass_valid": ("multiclass", False, True),
+           "multiclassova_f32": ("multiclassova", False, False)}
+# the quantized run's holdout multi_logloss within this of the f32 run's
+MC_LOGLOSS_GAP = 0.01
+# prediction early stop on the f32 run's model: tested every 2 iterations
+# (14 trees), at the median top-two gap of the holdout's first 2
+# iterations, so that about half of the rows stop there
+MC_ES_FREQ = 2 * COVTYPE_K
+MC_TILE_ROWS = 100_000      # rows that KP1 walks by row tiles
+MC_BUCKETS = (1, 7, 1000)
+
+
+def class_counts(n: int) -> np.ndarray:
+    """Covertype's class counts scaled to n rows (exactly them at 581,012
+    rows), the largest remainders rounded up."""
+    c = np.asarray(COVTYPE_COUNTS, np.float64) * n / COVTYPE_ROWS
+    out = np.floor(c).astype(np.int64)
+    out[np.argsort(-(c - out))[:n - int(out.sum())]] += 1
+    return out
+
+
+def covertype_like(n: int, seed: int = 21, means=None):
+    """X [n, 54] f32 and labels 0-6 with Covertype's class counts scaled to
+    n (class_counts): the labels a shuffled vector of those counts, each
+    row a standard normal draw shifted by its class's mean vector, so that
+    its class depends on every feature (means [7, 54]: drawn from the seed,
+    0.6 standard deviations on the first 12 features, 0.15 on the others,
+    unless given: a holdout takes the training draw's).  Returns (X, y,
+    means)."""
+    rng = np.random.RandomState(seed)
+    if means is None:
+        scale = np.where(np.arange(COVTYPE_FEATURES) < 12, 0.6, 0.15)
+        means = rng.randn(COVTYPE_K, COVTYPE_FEATURES) * scale
+    y = np.repeat(np.arange(COVTYPE_K), class_counts(n))
+    rng.shuffle(y)
+    X = (rng.randn(n, COVTYPE_FEATURES) + means[y]).astype(np.float32)
+    return X, y.astype(np.float32), means
+
+
+def multiclass_kernels(quantized: bool, valid: bool) -> tuple:
+    """(kernels a multiclass run must launch, every other training or
+    prediction kernel): the pristine root of every class's tree (K5 and
+    K2 int8 quantized), K3 and K1 a split, K4's add mode (on the fused
+    runs in the grower, on the valid-set run over the fetched tree's
+    segments with shrink 1), KP2's add mode for a validation set; never K6
+    (the carried arena needs one tree an iteration) nor K7."""
+    sfx = "_i8" if quantized else ""
+    must = ("segment_histogram" + sfx, "partition_segment" + sfx,
+            "split_scan", "scatter_segments_add")
+    if quantized:
+        must += ("fused_root_histogram",)
+    if valid:
+        must += (WALK_ADD,)
+    return must, tuple(k for k in TRAINING_KERNELS + PREDICT_KERNELS
+                       if k not in must)
+
+
+def multi_metrics(y, raw, objective) -> dict:
+    """multi_logloss and multi_error of [n, k] raw scores by the port's
+    metrics, through the objective's link."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.io.metadata import Metadata
+    from lightgbm_tpu_torch.metric import create_metric
+    meta = Metadata(len(y))
+    meta.set_label(y)
+    out = {}
+    for name in ("multi_logloss", "multi_error"):
+        m = create_metric(name, lt.Config({"num_class": COVTYPE_K}))
+        m.init(meta, len(y))
+        out[name] = m.eval(np.ascontiguousarray(raw.T).reshape(-1),
+                           objective)[0]
+    return out
+
+
+def multiclass_predict_phase(booster, X, Xh, dev, results) -> dict:
+    """KP1 on the f32 run's 35 trees (k = 7): the holdout's sums (the
+    small-batch walk) and MC_TILE_ROWS training rows' (row tiles) bit for
+    bit the host walk's; the leaves the host walk's; softmax rows summing
+    to 1 within 1e-12; early stop every MC_ES_FREQ trees at a margin that
+    stops about half the rows, through predict on the holdout, the tile
+    rows and the serving buckets, bit for bit the host walk's, the
+    launches of both walks counted; and KP1's early stop by both walks
+    against its plain version on the card, timed."""
+    import torch
+    from lightgbm_tpu_torch.ops import _cuda
+    from lightgbm_tpu_torch.ops import predict as pr
+    from lightgbm_tpu_torch.ops.predict_kernel import predict_ensemble
+
+    g = booster._gbdt
+    k, T = COVTYPE_K, len(g.models)
+    Xt = X[:MC_TILE_ROWS]
+    sums = {}
+    for what, Xs in (("holdout", Xh), ("tiles", Xt)):
+        raw = booster.predict(Xs, raw_score=True)
+        host = booster.predict(Xs, raw_score=True, device=False)
+        expect(raw.shape == (len(Xs), k) and np.array_equal(raw, host),
+               "multiclass KP1 %s: sums differ from the host walk's by up "
+               "to %.3g" % (what, float(np.abs(raw - host).max())))
+        sums[what] = raw
+    prob = booster.predict(Xh)
+    row_err = float(np.abs(prob.sum(axis=1) - 1.0).max())
+    expect(row_err <= 1e-12, "multiclass: softmax rows sum to 1 within %.3g"
+           % row_err)
+    leaf = booster.predict(Xh, pred_leaf=True)
+    expect(leaf.shape == (len(Xh), T) and np.array_equal(
+        leaf, booster.predict(Xh, pred_leaf=True, device=False)),
+        "multiclass KP1 leaf mode: leaves differ from the host walk's")
+    # the margin: the median top-two gap of the first 2 iterations
+    two = np.sort(booster.predict(Xh, num_iteration=2, raw_score=True,
+                                  device=False), axis=1)
+    margin = float(np.median(two[:, -1] - two[:, -2]))
+    kw = dict(raw_score=True, pred_early_stop=True,
+              pred_early_stop_freq=MC_ES_FREQ, pred_early_stop_margin=margin)
+    _cuda.reset_launch_counts()
+    es = {"holdout": booster.predict(Xh, **kw),
+          "tiles": booster.predict(Xt, **kw)}
+    for n in MC_BUCKETS:
+        es["bucket_%d" % n] = booster.predict(Xh[:n], **kw)
+    launches = dict(_cuda.LAUNCHES)
+    expect(launches.get("predict_ensemble", 0) > 0
+           and launches.get("predict_ensemble_small", 0) > 0,
+           "multiclass early stop: KP1's walks launched %s" % launches)
+    share = {}
+    for what, got in es.items():
+        Xs = {"holdout": Xh, "tiles": Xt}.get(what, Xh[:len(got)])
+        host = booster.predict(Xs, device=False, **kw)
+        expect(np.array_equal(got, host), "multiclass early stop (%s): sums "
+               "differ from the host walk's" % what)
+        full = sums["tiles" if what == "tiles" else "holdout"][:len(got)]
+        share[what] = float(np.mean((got != full).any(axis=1)))
+    expect(0.05 <= share["holdout"] <= 0.95, "multiclass early stop stopped "
+           "%.3f of the holdout's rows" % share["holdout"])
+    # KP1's early stop on the card against its plain version, both walks
+    tb = g._device_ensemble().tables
+    Xd = torch.from_numpy(np.ascontiguousarray(Xh)).to(dev)
+    es_kw = dict(mode=pr.MODE_SUM_EARLY_STOP, freq=MC_ES_FREQ, margin=margin)
+    plain = pr.predict_ensemble_plain(tb, Xd, T, k, **es_kw)
+    out = torch.empty((k, len(Xh)), dtype=torch.float64, device=dev)
+    walk_ms = {}
+    for small in (False, True):
+        def run():
+            predict_ensemble(tb, Xd, T, k, out, small=small, **es_kw)
+        run()
+        expect(torch.equal(out, plain), "KP1 early stop k=%d (%s): sums "
+               "differ from the plain version's" % (k, "small" if small
+                                                    else "tiles"))
+        walk_ms["small" if small else "tiles"] = cuda_ms(run, 10)
+    plain_ms = cuda_ms(lambda: pr.predict_ensemble_plain(tb, Xd, T, k,
+                                                         **es_kw), 1,
+                       warmup=0)
+    print("multiclass prediction (KP1, k=%d, %d trees): holdout %d rows "
+          "(small-batch walk) and %d training rows (row tiles) bit for bit "
+          "the host walk's; leaves equal; softmax rows sum to 1 within "
+          "%.3g; early stop every %d trees at margin %.6f (the holdout's "
+          "median top-two gap after 2 iterations) equal to the host walk's, "
+          "rows stopped: %s; launches %s; KP1 early stop on the holdout "
+          "against its plain version, exact: row tiles %.4f ms, small-batch "
+          "walk %.4f ms, plain %.1f ms"
+          % (k, T, len(Xh), len(Xt), row_err, MC_ES_FREQ, margin,
+             ", ".join("%s %.3f" % kv for kv in share.items()),
+             {n: launches.get(n, 0) for n in PREDICT_KERNELS},
+             walk_ms["tiles"], walk_ms["small"], plain_ms))
+    results["predict_ensemble"]["multiclass_early_stop"] = dict(
+        k=k, trees=T, rows=len(Xh), freq=MC_ES_FREQ, margin=margin,
+        stopped_share=share, tiles_ms=walk_ms["tiles"],
+        small_ms=walk_ms["small"], plain_ms=plain_ms, max_abs_err=0.0,
+        launches={n: launches.get(n, 0) for n in PREDICT_KERNELS})
+    del Xd, out, plain
+    torch.cuda.empty_cache()
+    return dict(es_margin=margin, es_stopped_share=share,
+                softmax_row_err=row_err, es_tiles_ms=walk_ms["tiles"],
+                es_small_ms=walk_ms["small"], es_plain_ms=plain_ms)
+
+
+def multiclass_phase(dev, rounds: int, results) -> tuple:
+    """Multiclass at Covertype width through the entry points a user calls:
+    lightgbm_tpu_torch.train with num_class 7 on 581,012 x 54, each run
+    through train_and_check (5 rounds of 7 trees, every class growing a
+    tree in round 1): softmax f32 and quantized on the fused pristine path
+    (one graph a class and one for the gradients, replayed every round),
+    softmax with the holdout as a validation set (multi_logloss and
+    multi_error, early stopping after 2; the eager path, a fetch a tree),
+    and one-vs-all f32; the holdout's metrics against the constant prior's;
+    then KP1 on the f32 run's model (multiclass_predict_phase), and K2 f32
+    at G = 54.  Returns (records by run, launches by run)."""
+    import torch
+    import lightgbm_tpu_torch as lt
+
+    t = time.perf_counter()
+    X, y, means = covertype_like(COVTYPE_ROWS)
+    Xh, yh, _ = covertype_like(COVTYPE_HOLDOUT, seed=22, means=means)
+    ds = lt.Dataset(X, y, params=MC_PARAMS, device=dev).construct()
+    dv = lt.Dataset(Xh, yh, reference=ds, device=dev)
+    print("multiclass data (Covertype's shape): %d rows x %d features, "
+          "classes %s, holdout %d rows; generated and binned in %.1f s"
+          % (len(y), X.shape[1], class_counts(len(y)).tolist(), len(yh),
+             time.perf_counter() - t))
+    k2_width_phase(ds._binned, dev, results, "multiclass")
+    recs, launches = {}, {}
+    for name, (objective, quantized, valid) in MC_RUNS.items():
+        params = dict(MC_PARAMS, objective=objective,
+                      tpu_quantized_grad=quantized)
+        kw = {}
+        evals = {}
+        if valid:
+            params["metric"] = ["multi_logloss", "multi_error"]
+            kw = dict(valid_sets=[dv], valid_names=["holdout"],
+                      early_stopping_rounds=EARLY_STOPPING_ROUNDS,
+                      evals_result=evals, verbose_eval=False)
+        must, never = multiclass_kernels(quantized, valid)
+        booster, rec = train_and_check(
+            name, params, ds, dev, rounds, must, never, deferred=not valid,
+            graphs=COVTYPE_K + 1, **kw)
+        g = booster._gbdt
+        expect(g.num_tree_per_iteration == COVTYPE_K
+               and g._quantized is quantized
+               and g._carried_active is (None if valid else False)
+               and g._use_partition_engine,
+               "%s: k %d, quantized %s, carried %s" % (
+                   name, g.num_tree_per_iteration, g._quantized,
+                   g._carried_active))
+        first = rec["leaves"][:COVTYPE_K]
+        expect(min(first) > 1, "%s: a class grew no tree in round 1: %s"
+               % (name, first))
+        raw = booster.predict(Xh, raw_score=True)
+        got = multi_metrics(yh, raw, g.objective)
+        # the constant scores of the objective's init: every class's prior
+        prior = [g.objective.boost_from_score(c) for c in range(COVTYPE_K)]
+        const = multi_metrics(yh, np.tile(prior, (len(yh), 1)), g.objective)
+        expect(got["multi_logloss"] < const["multi_logloss"],
+               "%s: holdout multi_logloss %.6f, the prior's %.6f"
+               % (name, got["multi_logloss"], const["multi_logloss"]))
+        extra = ""
+        if valid:
+            last = evals["holdout"]["multi_logloss"][-1]
+            expect(abs(last - got["multi_logloss"]) <= 1e-6,
+                   "%s: last evals_result multi_logloss %.8f, host "
+                   "predict's %.8f" % (name, last, got["multi_logloss"]))
+            extra = "; evals_result multi_logloss %s, multi_error %s" % (
+                ["%.6f" % v for v in evals["holdout"]["multi_logloss"]],
+                ["%.6f" % v for v in evals["holdout"]["multi_error"]])
+        if name == "multiclass_f32":
+            rec["predict"] = multiclass_predict_phase(booster, X, Xh, dev,
+                                                      results)
+        rec["replay_round_ms"] = replayed_round_ms(booster, REPLAYED_ROUNDS)
+        rec["profile"] = profile_round(booster, name)
+        # the gradients of every class, one call's device time against the
+        # replayed round's busy time
+        rec["gradient_busy_ms"] = kernel_only_ms(
+            lambda: g.objective.get_gradients(g.score), 3, any_kernel=True)
+        busy = rec["profile"].get("device_ms")
+        rec["gradient_share"] = (rec["gradient_busy_ms"] / busy
+                                 if rec["gradient_busy_ms"] and busy
+                                 else None)
+        rec.update(holdout=got, prior=const, evals_result=evals or None)
+        print("multiclass (%s): %d rows x %d features, %d classes, %d "
+              "rounds, leaves %s; train %.3f s (%.1f ms a round, set-up "
+              "included); holdout multi_logloss %.6f (prior %.6f), "
+              "multi_error %.6f (prior %.6f)%s; the gradients %s ms of "
+              "device time a call, a share %s of the round's busy time; "
+              "graphs x nodes %s, capture "
+              "and instantiate %s s; %d drains, %d tree fetches; %.1f ms a "
+              "replayed round (%d more rounds); peak device memory %.3f GB, "
+              "%.3f GB above the %.3f GB held before the run"
+              % (name, len(y), X.shape[1], COVTYPE_K,
+                 len(rec["leaves"]) // COVTYPE_K, rec["leaves"],
+                 rec["train_s"], rec["round_ms"], got["multi_logloss"],
+                 const["multi_logloss"], got["multi_error"],
+                 const["multi_error"], extra,
+                 profiled(rec["gradient_busy_ms"]),
+                 "not measured" if rec["gradient_share"] is None
+                 else "%.4f" % rec["gradient_share"],
+                 ["1 x %d" % x["nodes"] for x in rec["graphs"]],
+                 ["%.3f" % x["capture_s"] for x in rec["graphs"]],
+                 rec["drains"], rec["tree_fetches"], rec["replay_round_ms"],
+                 REPLAYED_ROUNDS, rec["peak_bytes"] / 1e9,
+                 (rec["peak_bytes"] - rec["held_bytes"]) / 1e9,
+                 rec["held_bytes"] / 1e9))
+        recs[name] = rec
+        launches[name] = rec["launches"]
+        del booster, g
+        torch.cuda.empty_cache()
+    gap = abs(recs["multiclass_quantized"]["holdout"]["multi_logloss"]
+              - recs["multiclass_f32"]["holdout"]["multi_logloss"])
+    expect(gap <= MC_LOGLOSS_GAP, "multiclass_quantized holdout "
+           "multi_logloss is %.6f from the f32 run's (limit %.2f)"
+           % (gap, MC_LOGLOSS_GAP))
+    results["segment_histogram_g54"]["launches"] = int(
+        launches["multiclass_f32"].get("segment_histogram", 0))
+    del ds, dv, X
+    torch.cuda.empty_cache()
+    return recs, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=ROWS,
@@ -2383,13 +2836,19 @@ def main(argv=None) -> int:
 
     valid_obj = lt.Dataset(Xh, yh, reference=ds_obj, device=dev).construct()
     results = {}
+    phase_s = {}
+    t = time.perf_counter()
     for quantized in (False, True):
         kernel_phase(ds_obj._binned, dev, results, quantized)
     leaf_kernel_phase(ds_obj._binned, dev, results)
     ablate_phase(len(X), dev, results)
+    phase_s["kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
     parity = {path: parity_phase(dev, path) for path in PARITY_PATHS}
     for objective in PARITY_OBJECTIVES:
         parity[objective] = parity_phase(dev, "f32", objective)
+    phase_s["parity"] = time.perf_counter() - t
+    t = time.perf_counter()
     train = {}
     launches = {}
     for path in PATHS:
@@ -2418,11 +2877,27 @@ def main(argv=None) -> int:
         gap = abs(train[path]["holdout_auc"] - train["valid_f32"]["holdout_auc"])
         expect(gap <= AUC_GAP, "%s holdout AUC is %.4f from the valid_f32 "
                "run's (limit %.2f)" % (path, gap, AUC_GAP))
+    phase_s["training"] = time.perf_counter() - t
+    t = time.perf_counter()
     prediction = prediction_phase(X, Xh, ds_obj, dev, args.predict_rounds,
                                   results)
     torch.cuda.empty_cache()
+    phase_s["prediction"] = time.perf_counter() - t
+    t = time.perf_counter()
     ranking = rank_phase(dev, args.rounds, results)
+    phase_s["lambdarank"] = time.perf_counter() - t
+    t = time.perf_counter()
     objectives = objectives_phase(X, y, dev, args.rounds)
+    phase_s["objectives"] = time.perf_counter() - t
+    del X, y, Xh, yh, ds_obj, valid_obj
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    parity["multiclass"] = parity_phase(dev, "f32", "multiclass")
+    multiclass, mc_launches = multiclass_phase(dev, args.rounds, results)
+    phase_s["multiclass"] = time.perf_counter() - t
+    print("phases, s: %s" % ", ".join("%s %.1f" % kv
+                                      for kv in phase_s.items()))
+    launches.update(mc_launches)
     # launches of each kernel in the run of the path it belongs to: K3's
     # pred mode and K4's set mode in the bagged runs, the int8 modes and K5
     # in the quantized carried run, the f32 modes in the f32 carried run,
@@ -2430,10 +2905,11 @@ def main(argv=None) -> int:
     # mode) report the quantized run; launches_by_path has every path's
     # run.  The kernels of NO_PATH are on no training path and report 0
     for name, r in results.items():
-        if r.get("shape_of") == "lambdarank":
-            # counted in the lambdarank fused run (rank_phase)
+        if r.get("shape_of") in ("lambdarank", "multiclass"):
+            # counted in the lambdarank fused run (rank_phase) or the
+            # multiclass f32 run (multiclass_phase)
             expect(r["launches"] > 0, "kernel %s was not launched on the "
-                   "lambdarank path" % name)
+                   "%s path" % (name, r["shape_of"]))
             continue
         r["launches_by_path"] = {p: int(launches[p].get(name, 0))
                                  for p in launches}
@@ -2469,7 +2945,8 @@ def main(argv=None) -> int:
                "training path" % (name, path))
     print(json.dumps({"card": card, "training": train, "parity": parity,
                       "lambdarank": ranking, "objectives": objectives,
-                      "prediction": prediction}))
+                      "multiclass": multiclass, "prediction": prediction,
+                      "phase_s": phase_s}))
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """lightgbm_tpu_torch: the PyTorch/CUDA port of lightgbm_tpu.
 
-The port trains GBDT models for every objective of the JAX package but
-multiclass (binary, the regression family, cross-entropy, lambdarank over
-a Dataset's `group=`) with the serial learner on the partition (arena) or
+The port trains GBDT models for every objective of the JAX package
+(binary, the regression family, cross-entropy, lambdarank over a
+Dataset's `group=`, multiclass softmax and one-vs-all with k trees an
+iteration) with the serial learner on the partition (arena) or
 the label engine, with f32 or quantized int8 gradients
 (`tpu_quantized_grad`), on the carried arena where the JAX package picks
 it, with bagging, validation sets and early stopping; its kernels are

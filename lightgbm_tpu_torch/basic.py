@@ -236,6 +236,10 @@ class Booster:
     def num_trees(self) -> int:
         return self._gbdt.num_trees()
 
+    def num_model_per_iteration(self) -> int:
+        """Trees an iteration: num_class for multiclass, else one."""
+        return self._gbdt.num_tree_per_iteration
+
     def eval_train(self) -> List[tuple]:
         """(dataset name, metric name, value, bigger_is_better) of each
         training metric."""

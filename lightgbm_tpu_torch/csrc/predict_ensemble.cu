@@ -26,9 +26,14 @@
 // - sum: out[c * ld + row] adds leaf values of the trees t with t % k == c
 //   in tree order, one f64 add a tree (no multiply, so nothing to fuse);
 //   k = 1 keeps the sum in a register;
-// - sum with early stop (k = 1): before tree t, for t a positive multiple
-//   of freq, the row stops once 2|sum| < margin fails (the host loop of
-//   lightgbm_tpu/models/gbdt.py:1721-1747, NaN included);
+// - sum with early stop: before the first tree t = it * k of iteration
+//   it > 0, it a multiple of period = ceil(freq / k) iterations, the row
+//   stops once its margin < margin fails (the host loop of
+//   lightgbm_tpu/models/gbdt.py:1721-1747, whose counter advances k an
+//   iteration and resets at each test; NaN included): the margin is
+//   2|sum| for k = 1, and for k > 1 the row's largest class sum less its
+//   second largest (a tie gives 0), read back from out, which the row's
+//   thread alone writes;
 // - leaf: leaf[row * T + t], int32.
 //
 // The tables (ops/predict.py build_tables): every tree in preorder, one
@@ -190,7 +195,35 @@ struct Args {
   double* out;
   long long ld;
   int* leaf;
+  int period;                // early stop: iterations between tests
 };
+
+// Early stop: whether the row's margin is tested before tree t.
+__device__ __forceinline__ bool stop_test(const Args& a, int t) {
+  return t > 0 && t % a.k == 0 && (t / a.k) % a.period == 0;
+}
+
+// Early stop: whether the row walks on, its margin below a.margin; acc is
+// its sum for k = 1, for k > 1 its sums are out[c * ld + row].
+__device__ __forceinline__ bool walks_on(const Args& a, double acc,
+                                         long long row) {
+  if (a.k == 1) return 2.0 * fabs(acc) < a.margin;
+  double top1 = a.out[row], top2 = a.out[a.ld + row];
+  if (top2 > top1) {
+    top2 = top1;
+    top1 = a.out[a.ld + row];
+  }
+  for (int c = 2; c < a.k; ++c) {
+    const double v = a.out[c * a.ld + row];
+    if (v > top1) {
+      top2 = top1;
+      top1 = v;
+    } else if (v > top2) {
+      top2 = v;
+    }
+  }
+  return top1 - top2 < a.margin;
+}
 
 // The walks of trees t0 .. t0+TPS-1 (those below te) for the RPT rows of
 // this thread, tree t0+i's items at src + off[i] (a stage in shared memory
@@ -382,8 +415,8 @@ predict_ensemble_kernel(Args a, int stages) {
             a.leaf[row[j] * a.T + t] = w[j][i].z & FEATURE_MASK;
             continue;
           }
-          if (a.mode == MODE_SUM_EARLY_STOP && t > 0 && t % a.freq == 0 &&
-              !(2.0 * fabs(acc[j]) < a.margin)) {
+          if (a.mode == MODE_SUM_EARLY_STOP && stop_test(a, t) &&
+              !walks_on(a, acc[j], row[j])) {
             live[j] = false;
             break;
           }
@@ -434,27 +467,41 @@ predict_small_kernel(Args a, double* __restrict__ vals) {
 }
 
 // The small batch's sums: thread (c, row) adds vals[t * n + row] over the
-// trees t with t % k == c in tree order, with the early stop.
+// trees t with t % k == c in tree order; with early stop, whose test reads
+// every class's sum, thread row adds all k classes' in tree order.
 __global__ void __launch_bounds__(SMALL_THREADS)
 predict_small_sum_kernel(Args a, const double* __restrict__ vals) {
   const long long idx = (long long)blockIdx.x * SMALL_THREADS + threadIdx.x;
+  if (a.mode == MODE_SUM_EARLY_STOP) {
+    if (idx >= a.n) return;
+    for (int c = 0; c < a.k; ++c) a.out[c * a.ld + idx] = 0.0;
+    double acc = 0.0;
+    for (int t = 0; t < a.T; ++t) {
+      if (stop_test(a, t) && !walks_on(a, acc, idx)) break;
+      const double v = vals[(long long)t * a.n + idx];
+      if (a.k == 1) {
+        acc = __dadd_rn(acc, v);
+      } else {
+        double* o = a.out + (t % a.k) * a.ld + idx;
+        *o = __dadd_rn(*o, v);
+      }
+    }
+    if (a.k == 1) a.out[idx] = acc;
+    return;
+  }
   if (idx >= (long long)a.k * a.n) return;
   const int c = (int)(idx / a.n);
   const long long row = idx - (long long)c * a.n;
   double acc = 0.0;
-  for (int t = c; t < a.T; t += a.k) {
-    if (a.mode == MODE_SUM_EARLY_STOP && t > 0 && t % a.freq == 0 &&
-        !(2.0 * fabs(acc) < a.margin))
-      break;
+  for (int t = c; t < a.T; t += a.k)
     acc = __dadd_rn(acc, vals[(long long)t * a.n + row]);
-  }
   a.out[c * a.ld + row] = acc;
 }
 
 int check_args(const Args& a) {
   if (a.n <= 0 || a.T < 0 || a.k < 1 || a.F < 0 || a.F_need < 0 ||
       a.F_need > a.F || a.mode < MODE_SUM || a.mode > MODE_LEAF ||
-      (a.mode == MODE_SUM_EARLY_STOP && (a.k != 1 || a.freq < 1)) ||
+      (a.mode == MODE_SUM_EARLY_STOP && a.freq < 1) ||
       a.stage_items < 0 ||
       16 * MAX_STAGES + 2 * 16 * (long long)a.stage_items > SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
@@ -526,7 +573,7 @@ int small(const Args& a, double* vals, cudaStream_t stream) {
     if (rc) return rc;
   }
   if (a.mode == MODE_LEAF) return 0;
-  const long long sums = (long long)a.k * a.n;
+  const long long sums = (a.mode == MODE_SUM_EARLY_STOP ? 1 : a.k) * a.n;
   predict_small_sum_kernel<<<(unsigned)((sums + SMALL_THREADS - 1) /
                                         SMALL_THREADS),
                              SMALL_THREADS, 0, stream>>>(a, vals);
@@ -548,7 +595,7 @@ LGBT_API int lgbt_predict_ensemble(
     long long ld, int* leaf, cudaStream_t stream) {
   Args a{Ensemble{items, tree_off, group_off, cat_off, cat_bound, cat_words},
          X, n, F, F_need, T, k, mode, freq, stage_items, margin, out, ld,
-         leaf};
+         leaf, k > 0 ? (freq + k - 1) / k : 1};
   const int bad = check_args(a);
   if (bad) return bad;
   return x_f32 ? tiled<float>(a, stream) : tiled<double>(a, stream);
@@ -564,7 +611,7 @@ LGBT_API int lgbt_predict_ensemble_small(
     long long ld, int* leaf, double* vals, cudaStream_t stream) {
   Args a{Ensemble{items, tree_off, group_off, cat_off, cat_bound, cat_words},
          X, n, F, F_need, T, k, mode, freq, stage_items, margin, out, ld,
-         leaf};
+         leaf, k > 0 ? (freq + k - 1) / k : 1};
   const int bad = check_args(a);
   if (bad) return bad;
   if (mode != MODE_LEAF && vals == nullptr)

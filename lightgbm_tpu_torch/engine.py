@@ -124,7 +124,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
     # 257-267): a drain may still trim trailing degenerate rounds
     booster._gbdt._sync_model()
     if booster.best_iteration <= 0:
-        booster.best_iteration = booster.num_trees()
+        booster.best_iteration = (booster.num_trees()
+                                  // booster.num_model_per_iteration())
     return booster
 
 

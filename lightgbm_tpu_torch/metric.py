@@ -2,7 +2,8 @@
 
 Port of lightgbm_tpu/metric.py (src/metric/, factory metric.cpp:11-56):
 the regression and binary metrics, `is_bigger_better` over every family and
-the factory's dispatch to metric_rank.py and metric_xentropy.py; plus
+the factory's dispatch to metric_rank.py, metric_xentropy.py and
+metric_multiclass.py; plus
 `metrics_from_config` (lightgbm_tpu/basic.py:631 `_metrics_from_config`)
 and an `auc` helper.  Metrics consume raw scores and route through the
 objective's ConvertOutput where the reference does (metric.h:20-40);
@@ -249,9 +250,8 @@ def create_metric(name: str, config) -> Optional[Metric]:
         return None
     if name in ("multi_logloss", "multiclass", "softmax", "multiclassova",
                 "multi_error", "multiclass_ova", "ova", "ovr"):
-        raise NotImplementedError(
-            "multiclass metrics are not ported yet (ROADMAP.md queue 1, "
-            "item 11)")
+        from .metric_multiclass import create_multiclass_metric
+        return create_multiclass_metric(name, config)
     if name in ("ndcg", "lambdarank", "map", "mean_average_precision"):
         from .metric_rank import create_rank_metric
         return create_rank_metric(name, config)

@@ -6,8 +6,8 @@ family (L2 :172, L1 :228, Huber :252, Fair :271, Poisson :294, Quantile
 percentile helpers (:29-66) and the factory with its aliases (:534-578).
 Gradients are computed in f32 on the score's device with the same
 elementwise formulas; init scores (`boost_from_score`) are computed on the
-host in f64.  Ranking and cross-entropy live in objective_rank.py and
-objective_xentropy.py, as in the JAX package.
+host in f64.  Ranking, cross-entropy and multiclass live in objective_rank.py,
+objective_xentropy.py and objective_multiclass.py, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -122,6 +122,11 @@ class ObjectiveFunction:
 
     def class_need_train(self, class_id: int) -> bool:
         return True
+
+    @property
+    def num_model_per_iteration(self) -> int:
+        """Trees an iteration grows: one, k for the multiclass objectives."""
+        return 1
 
     def to_string(self) -> str:
         return self.name
@@ -425,16 +430,15 @@ _register(BinaryLogloss)
 
 def create_objective(name: str, config) -> Optional[ObjectiveFunction]:
     """Objective by (aliased) name (lightgbm_tpu/objective.py:548-575);
-    None for "none" (a custom objective); an unknown name is fatal;
-    multiclass raises NotImplementedError until it is ported."""
+    None for "none" (a custom objective); an unknown name is fatal."""
     key = name.strip().lower()
     if key in ("none", "null", "custom", "na", ""):
         return None
     if key in ("multiclass", "softmax", "multiclassova", "multiclass_ova",
                "ova", "ovr"):
-        raise NotImplementedError(
-            "multiclass objectives are not ported yet (ROADMAP.md queue 1, "
-            "item 11)")
+        from .objective_multiclass import MulticlassOVA, MulticlassSoftmax
+        return (MulticlassSoftmax if key in ("multiclass", "softmax")
+                else MulticlassOVA)(config)
     if key in ("lambdarank", "rank"):
         from .objective_rank import LambdarankNDCG
         return LambdarankNDCG(config)

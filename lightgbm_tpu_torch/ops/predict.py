@@ -305,15 +305,33 @@ def _offsets(tb: EnsembleTables) -> tuple:
     return tb.tree_off.tolist(), tb.cat_off.tolist()
 
 
+def early_stop_test(t: int, k: int, freq: int) -> bool:
+    """Whether early stop tests a row's margin before tree t: the first
+    tree of an iteration it > 0 that is a multiple of ceil(freq / k)
+    iterations (the host loop's counter, which advances k an iteration and
+    resets at each test, lightgbm_tpu/models/gbdt.py:1721-1747)."""
+    return t > 0 and t % k == 0 and (t // k) % -(-freq // k) == 0
+
+
+def walks_on(out: torch.Tensor, margin: float) -> torch.Tensor:
+    """The rows of the [k, m] f64 sums whose margin is below `margin`:
+    2|sum| for k = 1, the largest class sum less the second largest for
+    k > 1."""
+    if out.shape[0] == 1:
+        return 2.0 * out[0].abs() < margin
+    top = out.topk(2, dim=0).values
+    return top[0] - top[1] < margin
+
+
 def predict_ensemble_plain(tb: EnsembleTables, X: torch.Tensor, T: int,
                            k: int, mode: int = MODE_SUM, freq: int = 0,
                            margin: float = 0.0) -> torch.Tensor:
     """KP1 in plain PyTorch: the trees t < T walked over every row of X
     [m, F] (f32 or f64, each value compared in f64), one tree at a time.
     Sum modes return [k, m] f64, each row's leaf values added in tree
-    order in f64 (tree t to class t % k); with early stop (k = 1) a row
-    stops before tree t, t a positive multiple of freq, once 2|sum| <
-    margin fails.  Leaf mode returns [m, T] int32."""
+    order in f64 (tree t to class t % k); with early stop a row stops
+    before tree t where `early_stop_test` holds, once its margin below
+    `margin` fails (`walks_on`).  Leaf mode returns [m, T] int32."""
     offs = _offsets(tb)
     m = X.shape[0]
     if mode == MODE_LEAF:
@@ -326,8 +344,8 @@ def predict_ensemble_plain(tb: EnsembleTables, X: torch.Tensor, T: int,
     out = torch.zeros((k, m), dtype=torch.float64, device=X.device)
     active = torch.ones(m, dtype=torch.bool, device=X.device)
     for t in range(T):
-        if mode == MODE_SUM_EARLY_STOP and t > 0 and t % freq == 0:
-            active &= 2.0 * out[0].abs() < margin
+        if mode == MODE_SUM_EARLY_STOP and early_stop_test(t, k, freq):
+            active &= walks_on(out, margin)
         v = value[_tree_leaf_item(tb, offs, X, t)]
         c = t % k
         out[c] = torch.where(active, out[c] + v, out[c])
@@ -350,13 +368,13 @@ def ordered_sum_plain(vals: torch.Tensor, k: int, mode: int = MODE_SUM,
                       freq: int = 0, margin: float = 0.0) -> torch.Tensor:
     """The small batch's second pass in plain PyTorch: [k, m] f64, each
     row's values vals[t, row] of the trees t % k == c added in tree order
-    from 0.0, with the early stop of predict_ensemble_plain (k = 1)."""
+    from 0.0, with the early stop of predict_ensemble_plain."""
     T, m = vals.shape
     out = torch.zeros((k, m), dtype=torch.float64, device=vals.device)
     active = torch.ones(m, dtype=torch.bool, device=vals.device)
     for t in range(T):
-        if mode == MODE_SUM_EARLY_STOP and t > 0 and t % freq == 0:
-            active &= 2.0 * out[0].abs() < margin
+        if mode == MODE_SUM_EARLY_STOP and early_stop_test(t, k, freq):
+            active &= walks_on(out, margin)
         c = t % k
         out[c] = torch.where(active, out[c] + vals[t], out[c])
     return out
@@ -388,13 +406,10 @@ class DeviceEnsemble:
                     early_stop_freq: int = 0,
                     early_stop_margin: float = 0.0) -> np.ndarray:
         """[k, n] f64 summed raw scores over the first num_iteration*k
-        trees; early_stop_freq > 0 (k = 1) stops a row once its margin
-        reaches early_stop_margin, checked every early_stop_freq trees."""
+        trees; early_stop_freq > 0 stops a row once its margin reaches
+        early_stop_margin, tested at the first iteration after every
+        early_stop_freq trees (predict_ensemble_plain)."""
         from .predict_kernel import predict_ensemble
-        if early_stop_freq > 0 and self.k != 1:
-            raise NotImplementedError(
-                "prediction early stop of a multiclass ensemble is not "
-                "ported yet (ROADMAP.md queue 1, item 11)")
         mode = MODE_SUM_EARLY_STOP if early_stop_freq > 0 else MODE_SUM
         T = self._trees(num_iteration)
         out = torch.zeros((self.k, X.shape[0]), dtype=torch.float64,

@@ -58,16 +58,16 @@ def predict_ensemble(tb: EnsembleTables, X: torch.Tensor, T: int, k: int,
     """KP1 over the m rows of X [m, F] (f32 or f64, each value compared in
     f64), which are rows row0.. of out: sum modes write out[:, row0:row0+m]
     ([k, n] f64), leaf mode out[row0:row0+m] ([n, T] int32).  T trees
-    t < T are walked; early stop (mode MODE_SUM_EARLY_STOP) needs k = 1
-    and freq >= 1.  small: the small-batch walk (True) or the row tiles
+    t < T are walked; early stop (mode MODE_SUM_EARLY_STOP) needs
+    freq >= 1.  small: the small-batch walk (True) or the row tiles
     (False); by default small_batch(m, T) decides.  Counted as
     `predict_ensemble` (row tiles) and `predict_ensemble_small`."""
     dev = X.device
     m, F = X.shape
     if mode not in (MODE_SUM, MODE_SUM_EARLY_STOP, MODE_LEAF):
         raise ValueError("unknown mode %r" % mode)
-    if mode == MODE_SUM_EARLY_STOP and (k != 1 or freq < 1):
-        raise ValueError("early stop needs k = 1 and freq >= 1")
+    if mode == MODE_SUM_EARLY_STOP and freq < 1:
+        raise ValueError("early stop needs freq >= 1")
     ntrees = tb.tree_off.shape[0] - 1
     if not 0 <= T <= ntrees:
         raise ValueError("T=%d outside the ensemble's %d trees" % (T, ntrees))

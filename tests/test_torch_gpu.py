@@ -32,7 +32,8 @@ Tolerances, per kernel:
   (multi-word categorical bitsets) and mc50 as k = 3 and k = 5, on rows
   with NaNs, zeros, values below 1e-35, negative and out-of-range
   categories, at 1, 7, 255, 257, 1000 and 100,003 rows; sums of all trees
-  and of a third, early stop at freqs that do not line up with a group,
+  and of a third, early stop (k = 1, 3 and 5: the margin 2|sum| or the
+  top two class sums' gap) at freqs that do not line up with a group,
   leaf indices, rows written at an offset, the launch counts of each
   path; a synthetic forest with a tree larger than a shared-memory stage
   (walked from global memory) at 28 and 100 features (the rows' features
@@ -110,7 +111,16 @@ Tolerances, per kernel:
   times the residuals' step; lambdarank (fused), L1 (eager, a refit and a
   fetch a round) and Poisson (fused) through their round graphs against
   an eager twin, bit for bit on bounded dyadic gradients, with the
-  kernels each path launches.
+  kernels each path launches;
+- multiclass (7 classes, 31 leaves, 18k rows): softmax f32 and quantized
+  and one-vs-all f32 through their graphs (the gradients' and one a
+  class) against an eager twin, bit for bit on bounded dyadic gradients
+  (f32) over five rounds, the graphs' replays and the kernels launched;
+  and three 7-class rounds on the card against the CPU, softmax and
+  one-vs-all, each round's trees grown on both from the CPU's bounded
+  dyadic gradients: the same splits and leaf of every row in each of the
+  21 trees, leaf values rtol 1e-5, scores and raw predictions within
+  5e-6 of their scale.
 """
 import os
 
@@ -849,9 +859,10 @@ def test_predict_ensemble_matches_plain(case, rows, dtype, dev):
     """KP1 on the card against its plain version on the same card, every
     mode, by row tiles and by the small-batch walk, bit for bit, on f64
     rows and on f32 rows (compared widened to f64): sums (all trees and a
-    third of them, which ends inside a group), early stop (k = 1: every 3
-    trees at margin 1, every 10 at margin 4; neither lines up with a
-    group of 4 trees), leaf indices; and the wrapper's chunked entry (rows
+    third of them, which ends inside a group), early stop (every 3 trees
+    at margin 1, every 10 at margin 4, tested at the iteration boundaries
+    of k trees; neither lines up with a group of 4 trees), leaf indices;
+    and the wrapper's chunked entry (rows
     written at an offset) with the path the row count picks."""
     from lightgbm_tpu_torch.ops import predict as pr
     from lightgbm_tpu_torch.ops.predict_kernel import (predict_ensemble,
@@ -867,12 +878,11 @@ def test_predict_ensemble_matches_plain(case, rows, dtype, dev):
     for t_used in (T, T // 3):
         _kp1_both_paths(tb, X, t_used, k,
                         pr.predict_ensemble_plain(tb, X, t_used, k))
-    if k == 1:
-        for freq, margin in ((3, 1.0), (10, 4.0)):
-            want = pr.predict_ensemble_plain(
-                tb, X, T, 1, pr.MODE_SUM_EARLY_STOP, freq, margin)
-            _kp1_both_paths(tb, X, T, 1, want, mode=pr.MODE_SUM_EARLY_STOP,
-                            freq=freq, margin=margin)
+    for freq, margin in ((3, 1.0), (10, 4.0)):
+        want = pr.predict_ensemble_plain(
+            tb, X, T, k, pr.MODE_SUM_EARLY_STOP, freq, margin)
+        _kp1_both_paths(tb, X, T, k, want, mode=pr.MODE_SUM_EARLY_STOP,
+                        freq=freq, margin=margin)
     _kp1_both_paths(tb, X, T, k,
                     pr.predict_ensemble_plain(tb, X, T, k, pr.MODE_LEAF),
                     mode=pr.MODE_LEAF)
@@ -880,7 +890,7 @@ def test_predict_ensemble_matches_plain(case, rows, dtype, dev):
     big = torch.zeros((k, rows + 1), dtype=torch.float64, device=dev)
     predict_ensemble(tb, X, T, k, big, 1)
     assert torch.equal(big[:, 1:], pr.predict_ensemble_plain(tb, X, T, k))
-    calls = 5 if k == 1 else 3
+    calls = 5
     small = small_batch(rows, T)
     assert dict(_cuda.LAUNCHES) == {
         "predict_ensemble": calls + (not small),
@@ -943,10 +953,11 @@ def test_predict_ensemble_large_tree_and_wide_rows(F, dtype, dev):
         _kp1_both_paths(tb, Xd, t_used, 1,
                         pr.predict_ensemble_plain(tb, Xd, t_used, 1))
     _kp1_both_paths(tb, Xd, T, 3, pr.predict_ensemble_plain(tb, Xd, T, 3))
-    want = pr.predict_ensemble_plain(tb, Xd, T, 1, pr.MODE_SUM_EARLY_STOP,
-                                     3, 0.3)
-    _kp1_both_paths(tb, Xd, T, 1, want, mode=pr.MODE_SUM_EARLY_STOP, freq=3,
-                    margin=0.3)
+    for k in (1, 3):
+        want = pr.predict_ensemble_plain(tb, Xd, T, k,
+                                         pr.MODE_SUM_EARLY_STOP, 3, 0.3)
+        _kp1_both_paths(tb, Xd, T, k, want, mode=pr.MODE_SUM_EARLY_STOP,
+                        freq=3, margin=0.3)
     _kp1_both_paths(tb, Xd, T, 1,
                     pr.predict_ensemble_plain(tb, Xd, T, 1, pr.MODE_LEAF),
                     mode=pr.MODE_LEAF)
@@ -1945,3 +1956,121 @@ def test_objective_graph_rounds_match_eager(objective, dev):
     others = set(counts) - {"segment_histogram", "partition_segment",
                             "split_scan", k4}
     assert not others, others
+
+
+def _covertype_like(n, seed, k=7, F=54):
+    """chip_smoke.py's Covertype-shaped generator, cut to n rows: labels a
+    shuffled vector of the 7 classes' scaled counts, each row a normal
+    draw shifted by its class's mean vector."""
+    counts = np.array([211_840, 283_301, 35_754, 2_747, 9_493, 17_367,
+                       20_510], np.float64) * n / 581_012
+    c = np.floor(counts).astype(np.int64)
+    c[np.argsort(-(counts - c))[:n - int(c.sum())]] += 1
+    rng = np.random.RandomState(seed)
+    means = rng.randn(k, F) * np.where(np.arange(F) < 12, 0.6, 0.15)
+    y = np.repeat(np.arange(k), c)
+    rng.shuffle(y)
+    return (rng.randn(n, F) + means[y]).astype(np.float32), \
+        y.astype(np.float32)
+
+
+MC_PARAMS = {"num_class": 7, "num_leaves": 31, "learning_rate": 0.1,
+             "max_bin": 63, "min_data_in_leaf": 20, "verbose": -1}
+
+
+@pytest.mark.parametrize("objective,quantized", [
+    ("multiclass", False), ("multiclass", True), ("multiclassova", False)])
+def test_multiclass_graph_rounds_match_eager(objective, quantized, dev):
+    """Five rounds of a 7-class, 31-leaf booster at 18k rows through its
+    graphs (the gradients' graph and one a class; class 0's and the
+    gradients' first calls eager, the other classes capturing in round 1)
+    against its twin run eagerly: the [7, n] score and every tree bit for
+    bit (f32: bounded dyadic gradients); the replays; K2, K3, K1 and K4's
+    add mode launched (quantized: their int8 modes and K5), no other
+    training kernel, K6 and K7 among them."""
+    import lightgbm_tpu_torch as lt
+    X, y = _covertype_like(18_000, seed=5)
+    params = dict(MC_PARAMS, objective=objective,
+                  tpu_quantized_grad=quantized)
+    boosters = []
+    for _ in range(2):
+        bst = lt.Booster(params, lt.Dataset(X, y, device=dev), device=dev)
+        if not quantized:
+            _dyadic_bounded(bst._gbdt)
+        boosters.append(bst)
+    a, b = boosters
+    b._gbdt._graphs = _EagerRounds()
+    _cuda.reset_launch_counts()
+    for r in range(5):
+        a.update()
+        b.update()
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(a._gbdt.score), _bits(b._gbdt.score)), r
+    assert a.model_to_string() == b.model_to_string()
+    g = a._gbdt
+    assert g.num_tree_per_iteration == 7 and g._carried_active is False
+    stats = g._graphs.stats()
+    assert len(stats) == 8
+    assert sum(x["replays"] for x in stats) == (7 * 5 - 1) + (5 - 1)
+    assert g._tree_fetches == 0
+    sfx = "_i8" if quantized else ""
+    must = {"segment_histogram" + sfx, "partition_segment" + sfx,
+            "split_scan", "scatter_segments_add"}
+    if quantized:
+        must.add("fused_root_histogram")
+    counts = dict(_cuda.LAUNCHES)
+    assert must <= set(counts) and not set(counts) - must, counts
+
+
+@pytest.mark.parametrize("objective", ["multiclass", "multiclassova"])
+def test_multiclass_round_card_vs_cpu(objective, dev):
+    """Three 7-class rounds of a 31-leaf booster at 18k rows on the card
+    (its rounds run eagerly) and on the CPU, every round's trees grown on
+    both from the same gradients: the CPU booster's of its own score,
+    rounded to bounded dyadic values, so that every histogram sum is exact
+    on both whatever order the card's atomics add in (each device's own
+    gradients round exp() differently, and a near tie of two gains can
+    then take another feature).  Every tree with the same split features,
+    thresholds and leaf of every row, leaf values rtol 1e-5 (K1's leaf
+    output against the plain version's), the [7, n] scores and raw
+    predictions within 5e-6 of their scale."""
+    import lightgbm_tpu_torch as lt
+    X, y = _covertype_like(18_000, seed=9)
+    params = dict(MC_PARAMS, objective=objective)
+    a = lt.Booster(params, lt.Dataset(X, y, device=dev), device=dev)
+    b = lt.Booster(params, lt.Dataset(X, y, device="cpu"), device="cpu")
+    _dyadic_bounded(b._gbdt)
+    cpu_get = b._gbdt.objective.get_gradients
+    last = []
+
+    def cpu_gradients(score):
+        out = cpu_get(score)
+        last[:] = out
+        return out
+
+    b._gbdt.objective.get_gradients = cpu_gradients
+    a._gbdt.objective.get_gradients = lambda score: tuple(
+        t.to(dev) for t in last)
+    a._gbdt._graphs = _EagerRounds()
+    for _ in range(3):
+        b.update()
+        a.update()
+    assert a.num_trees() == b.num_trees() == 21      # drained
+    ta, tb = a._gbdt.models, b._gbdt.models
+    for s, t in zip(ta, tb):
+        n = s.num_leaves - 1
+        assert s.num_leaves == t.num_leaves > 1
+        np.testing.assert_array_equal(s.split_feature[:n], t.split_feature[:n])
+        np.testing.assert_array_equal(s.threshold_in_bin[:n],
+                                      t.threshold_in_bin[:n])
+        np.testing.assert_array_equal(s.predict_leaf_index(X),
+                                      t.predict_leaf_index(X))
+        np.testing.assert_allclose(s.leaf_value[:n + 1], t.leaf_value[:n + 1],
+                                   rtol=1e-5, atol=1e-9)
+    want = b._gbdt.score.numpy()
+    scale = 5e-6 * max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(a._gbdt.score.cpu().numpy(), want, rtol=0,
+                               atol=scale)
+    np.testing.assert_allclose(a.predict(X, raw_score=True),
+                               b.predict(X, raw_score=True), rtol=0,
+                               atol=scale)

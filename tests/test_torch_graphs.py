@@ -93,15 +93,15 @@ def test_round_inputs_are_staged():
                       "feature_fraction": 0.5, "tpu_quantized_grad": True},
                      lt.Dataset(X, y, device="cpu"), device="cpu")
     g = bst._gbdt
-    assert g._slot(0) is None and g._ring == []
+    assert g._slot() is None and g._ring == []
     key = threefry.fold_in(qz.quantize_key(7, 3), 0)
-    g._stage_inputs(None, key)
+    g._stage_inputs(None, [0], [key])
     inp = g._round_inp
-    assert inp.dtype == torch.int64 and inp.shape == (2 + X.shape[1],)
-    assert tuple(inp[:2].tolist()) == key
-    assert int(inp[2:].sum()) == 3 and set(inp[2:].tolist()) <= {0, 1}
-    g._stage_inputs(None, None)
-    assert inp[:2].tolist() == [0, 0]
+    assert inp.dtype == torch.int64 and inp.shape == (1, 2 + X.shape[1])
+    assert tuple(inp[0, :2].tolist()) == key
+    assert int(inp[0, 2:].sum()) == 3 and set(inp[0, 2:].tolist()) <= {0, 1}
+    g._stage_inputs(None, [0], [None])
+    assert inp[0, :2].tolist() == [0, 0]
 
 
 def test_valid_set_score_by_add_mode_matches_the_replaced_formula(

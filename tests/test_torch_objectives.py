@@ -130,8 +130,11 @@ def test_aliases_reach_the_same_objectives():
             type(jobjective.create_objective(name, jconfig.Config({}))
                  ).__name__
     assert tobjective.create_objective("none", cfg) is None
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tobjective.create_objective("multiclass", cfg)
+    mc = tconfig.Config({"num_class": 3})
+    for name in ("multiclass", "softmax", "multiclassova", "ova"):
+        assert type(tobjective.create_objective(name, mc)).__name__ == \
+            type(jobjective.create_objective(
+                name, jconfig.Config({"num_class": 3}))).__name__
     with pytest.raises(LightGBMError):
         tobjective.create_objective("no_such_objective", cfg)
 
@@ -258,12 +261,11 @@ def test_metric_directions_and_defaults():
             "multiclassova", "ova", "unknown"]:
         assert tmetric.default_metric_for_objective(obj) == \
             jmetric.default_metric_for_objective(obj), obj
-    for name in ("xentropy", "xentlambda", "kldiv", "ndcg", "map"):
+    for name in ("xentropy", "xentlambda", "kldiv", "ndcg", "map",
+                 "multi_logloss", "multi_error", "multiclass", "ova"):
         assert type(tmetric.create_metric(name, tconfig.Config({}))
                     ).__name__ == type(jmetric.create_metric(
                         name, jconfig.Config({}))).__name__
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tmetric.create_metric("multi_logloss", tconfig.Config({}))
 
 
 # --------------------------------------------------------------------------- #

@@ -2,7 +2,7 @@
 against the JAX package and the reference's interop fixtures, on the CPU.
 
 - models of the reference CLI and of the JAX package
-  (`tests/fixtures/interop/{ref50,reg50,cat50}.txt` and `repo_*.txt`)
+  (`tests/fixtures/interop/{ref50,reg50,cat50,mc50}.txt` and `repo_*.txt`)
   loaded into the port predict their recorded predictions within
   INTEROP_ATOL x scale (5e-6, tests/test_engine.py:155), and the device
   path equals the port's host walk bit for bit;
@@ -12,7 +12,8 @@ against the JAX package and the reference's interop fixtures, on the CPU.
   zeros, the same with zero_as_missing and with use_missing off, cat50
   (multi-word bitsets), and mc50's 250 trees as a k=5 and a k=3 ensemble;
   each row's leaf equals JAX's host `predict_leaf_index`;
-- early stop (k = 1) equals JAX's host early stop bit for bit;
+- early stop (k = 1) equals JAX's host early stop bit for bit (k > 1:
+  tests/test_torch_multiclass.py);
 - pred_leaf exactly and pred_contrib within 1e-10 equal JAX's
   `Booster.predict`, on a numpy array, a DataFrame and a CSR matrix;
 - `predict_bucketed`, `pow2_buckets` and `bucket_rows` equal JAX's;
@@ -65,8 +66,7 @@ def _text(name):
 
 def _port_trees(text):
     """The trees of a model text, parsed by the port's Tree.from_string as
-    its loader splits them (multiclass models load nowhere else in the
-    port yet)."""
+    its loader splits them."""
     trees = []
     for blk in text.split("Tree=")[1:]:
         body = blk.split("\n\n")[0]
@@ -86,6 +86,7 @@ def _assert_close(got, want, scale):
 # --------------------------------------------------------------------------- #
 @pytest.mark.parametrize("model,pred", [
     ("ref50", "ref50_pred"), ("reg50", "reg50_pred"), ("cat50", "cat50_pred"),
+    ("mc50", "mc50_pred"), ("repo_mc50", "repo_mc50_ref_pred"),
     ("repo_ref50", "repo_ref50_ref_pred"),
     ("repo_reg50", "repo_reg50_ref_pred"),
     ("repo_cat50", "repo_cat50_ref_pred")])
@@ -230,14 +231,6 @@ def test_early_stop_matches_jax_host(freq, margin, trained):
     full = tb.predict(X, raw_score=True)
     stopped = got != full
     assert stopped.any() or margin >= 10.0
-
-
-def test_early_stop_of_a_multiclass_ensemble_is_not_ported():
-    ens = tpredict.DeviceEnsemble(_port_trees(_text("mc50")), 5,
-                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ens.predict_sum(np.zeros((2, 28)), 10, early_stop_freq=2,
-                        early_stop_margin=1.0)
 
 
 # --------------------------------------------------------------------------- #

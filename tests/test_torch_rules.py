@@ -132,7 +132,6 @@ UNSUPPORTED = {
     "reset_parameter_callback": ({}, {}, {"callbacks": [_schedule]}),
     "fobj": ({}, {}, {"fobj": lambda preds, data: (preds, preds)}),
     "init_model": ({}, {}, {"init_model": "model.txt"}),
-    "multiclass": ({"objective": "multiclass", "num_class": 3}, {}),
     "dart": ({"boosting": "dart"}, {}),
     "forced_splits": ({"forcedsplits_filename": "forced.json"}, {}),
     "histogram_pool": ({"histogram_pool_size": 64.0}, {}),
@@ -163,8 +162,6 @@ def test_unsupported_config_raises(name):
     params, ds_kw, train_kw = (UNSUPPORTED[name] + ({},))[:3]
     ds_kw = dict(ds_kw)
     X, y = _sparse_data() if ds_kw.pop("sparse", False) else _data()
-    if params.get("objective") == "multiclass":
-        y = np.arange(len(y)) % 3
     params = dict({"objective": "binary", "verbose": -1}, **params)
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
         tlgb.train(params, tlgb.Dataset(X, y, device="cpu", **ds_kw),

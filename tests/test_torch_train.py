@@ -32,6 +32,8 @@ from lightgbm_tpu_torch import objective as tobjective
 from lightgbm_tpu_torch.io import dataset as tdataset
 from lightgbm_tpu_torch.io import metadata as tmetadata
 
+from test_torch_inflight import assert_texts_match
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -210,6 +212,27 @@ def test_training_matches_jax(task, extra):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("label", [0.0, 1.0])
+def test_binary_with_one_class_stops_after_its_constant_tree(label):
+    """Labels of one class: the objective needs no training, so the first
+    round keeps the prior as a constant tree and training stops there, as
+    in JAX (no constant tree a round after it)."""
+    X, _ = _data(7)
+    y = np.full(len(X), label)
+    jb = jlgb.train(dict(PARAMS, objective="binary"), jlgb.Dataset(X, y),
+                    num_boost_round=5)
+    tb = tlgb.train(dict(PARAMS, objective="binary"),
+                    tlgb.Dataset(X, y, device="cpu"), num_boost_round=5,
+                    device="cpu")
+    assert tb.num_trees() == jb.num_trees() == 1
+    assert tb._gbdt.models[0].num_leaves == 1
+    assert_texts_match(tb.model_to_string(), jb.model_to_string())
+    assert tb.update() is True and jb.update() is True
+    assert tb.num_trees() == jb.num_trees() == 1
+    np.testing.assert_allclose(tb.predict(X, raw_score=True),
+                               jb.predict(X, raw_score=True), rtol=1e-12)
+
+
 def test_model_text_round_trip_and_interop():
     X, jb, tb = _train_both("binary")
     # a JAX model carried into the port predicts the same raw scores
@@ -257,7 +280,8 @@ def _body(path):
 
 @pytest.mark.parametrize("path", ["utils/log.py", "io/bin_mapper.py",
                                   "io/metadata.py", "models/tree.py",
-                                  "models/shap.py", "metric_xentropy.py"])
+                                  "models/shap.py", "metric_xentropy.py",
+                                  "metric_multiclass.py"])
 def test_copied_modules_are_verbatim(path):
     port = _body("lightgbm_tpu_torch/" + path)
     assert port[0] == "# Copied from lightgbm_tpu/%s; kept in step with it " \
