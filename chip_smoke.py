@@ -70,7 +70,8 @@
    --predict-rounds rounds (500, the reference's Higgs experiment) at the
    full row count, each drain timed; KP1 on the model over the holdout
    and 1M training rows, as f32 rows (as the data comes) and as f64 rows,
-   bit for bit its plain version on the card and (holdout) the host walk,
+   bit for bit its plain version on the card and (the holdout) the host
+   walk, its rows shared among 8 processes (host_walks),
    timed by CUDA events, kernel-only (torch.profiler), from numpy and by
    the host walk, with the bound (X at its own width), the node visits
    (the depths of the leaves reached) and ns a visit, and predict's host
@@ -135,8 +136,34 @@
    iterations; holdout, tiles and the serving buckets of 1, 7 and 1000
    rows) bit for bit the host walk's, KP1's k = 7 early stop by both walks
    bit for bit its plain version on the card, softmax rows summing to 1
-   within 1e-12;
-10. prints one JSON line of training and prediction results and one of
+   within 1e-12; then EFB at Covertype's own layout (10 numbers, 4
+   wilderness-area and 40 soil-type one-hot columns, `covertype_onehot`,
+   seed 51, holdout seed 52, enable_bundle at its default: 12 groups): a
+   20k-row softmax parity run, K2 f32 at G = 12 against its plain version,
+   and softmax f32 on the partition engine (fused pristine, K1 after
+   unbundling) and on the label engine, each through train_and_check,
+   holdout multi_logloss below the prior's 1.2052;
+10. categorical phase (the airline data of szilard's benchm-ml and
+   GBM-perf benchmarks at train-10m's width: 10,000,000 rows x 8 columns,
+   Month, DayofMonth, DayOfWeek, UniqueCarrier, Origin and Dest
+   categorical with 12, 31, 7, 22, 255 and 255 categories (the airports
+   cut from train-10m's ~300 to what uint8 bins hold), airports
+   Zipf-skewed to ATL's share of departures, `airline_like` seed 31, a
+   100k-row holdout of seed 32;
+   PARAMS, the categorical knobs at their defaults): a 20k-row weighted
+   parity run (trees that take a bin set's complement must put the rows
+   in the same leaves, relabelled); K2 f32 at G = 8; five runs through
+   train_and_check, f32 and quantized on the carried arena, f32 with the
+   holdout as a validation set (KP2's add mode over categorical nodes),
+   the label engine, and an f32 twin given the six columns as numbers,
+   K1 launched by the twin only; every holdout AUC at least 0.75, the
+   categorical f32 run's above the twin's, the quantized within 0.02 of
+   f32, the valid-set run's last evals_result equal to the host
+   prediction's within 1e-6, KP1's holdout sums bit for bit the host
+   walk's; KP2 over the valid-set run's categorical tree at 10M rows
+   against its plain version, bit for bit, timed beside its bound; one
+   split's categorical scan captured for its node count;
+11. prints one JSON line of training and prediction results and one of
    per-kernel results, then the device line {"ok": true, "device": {...}}
    as the last line.
 
@@ -367,6 +394,19 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def cuda_call_ms(fn):
+    """(fn(), its one call's ms between two CUDA events): a slow plain
+    version timed on the very call that checks the kernel against it."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
 
 
 # spin kernels launched ahead of a traced run (torch.cuda._sleep): the
@@ -1201,7 +1241,7 @@ def ablate_phase(n: int, dev, results):
     torch.cuda.empty_cache()
 
 
-def parity_phase(dev, path: str, objective: str = None):
+def parity_phase(dev, path: str, objective: str = None, data: str = None):
     """A small run on the card against the same run on the CPU, stepped
     with update() so each tree's bag can be read: a path of the binary
     runs, or with `objective` that objective on the f32 path's settings
@@ -1210,12 +1250,24 @@ def parity_phase(dev, path: str, objective: str = None):
     round, the others on the Higgs generator; none of them rides the
     carried arena).  Multiclass grows both runs' trees from the same
     gradients (`share_gradients`), and holds the card's own gradients to
-    the CPU's apart."""
+    the CPU's apart.  data="airline": 20k rows of the airline generator
+    with its six category columns categorical; data="onehot": the
+    Covertype generator at its one-hot layout, EFB bundling it.  On
+    categorical data a tree may take a bin set's complement where both
+    walks of the sorted scan reach it with gains equal but for the f32
+    sums' order (ROADMAP.md queue 3): it must then split the rows into
+    the same leaves, its children swapped."""
     import lightgbm_tpu_torch as lt
     quantized = flag(path, "quantized")
-    name = objective or path
+    name = "_".join(x for x in (objective or path, data) if x)
     group = None
-    if objective == "lambdarank":
+    cat_kw = {}
+    if data == "airline":
+        X, y, _ = airline_like(20_000, seed=41)
+        cat_kw = dict(categorical_feature=list(AIRLINE_CATS))
+    elif data == "onehot":
+        X, y, _ = covertype_onehot(20_000, seed=43)
+    elif objective == "lambdarank":
         X, y, group, _ = mslr_like(RANK_PARITY_QUERIES, seed=13)
     elif objective == "multiclass":
         X, y, _ = covertype_like(20_000, seed=23)
@@ -1230,7 +1282,7 @@ def parity_phase(dev, path: str, objective: str = None):
         params["num_class"] = kc
     out = {}
     for role, d in (("card", dev), ("cpu", "cpu")):
-        ds = lt.Dataset(X, y, weight=w, group=group, device=d)
+        ds = lt.Dataset(X, y, weight=w, group=group, device=d, **cat_kw)
         bst = lt.Booster(params, ds, device=d)
         if flag(path, "valid"):
             bst.add_valid(lt.Dataset(Xh, yh, reference=ds, device=d),
@@ -1256,6 +1308,11 @@ def parity_phase(dev, path: str, objective: str = None):
                and bool(g._carried_active) is (carried(path)
                                                 and objective is None),
                "parity %s: the %s run took another path" % (name, role))
+        expect((g.is_categorical is not None) is (data == "airline")
+               and (g.bundle is not None) is (data == "onehot"),
+               "parity %s: the %s run has categorical features %s, bundles "
+               "%s" % (name, role, g.is_categorical is not None,
+                       g.bundle is not None))
     grad_err = None
     if kc > 1:
         # the card's own gradients of the CPU's score against the CPU's
@@ -1271,7 +1328,7 @@ def parity_phase(dev, path: str, objective: str = None):
     gb, cb = bk._gbdt.models, bc._gbdt.models
     expect(len(gb) == len(cb) == 3 * kc, "parity %s: tree counts differ"
            % name)
-    moved, oob_moved, leaf_err = [], [], 0.0
+    moved, oob_moved, leaf_err, mirrored = [], [], 0.0, 0
     for t, (a, b) in enumerate(zip(gb, cb)):
         bag = bags_k[t // kc]
         expect((bag is None) == (bags_c[t // kc] is None)
@@ -1289,7 +1346,19 @@ def parity_phase(dev, path: str, objective: str = None):
         # way, in that tree only
         moved.append(int((a.threshold_in_bin[:k]
                           != b.threshold_in_bin[:k]).sum()))
-        differ = a.predict_leaf_index(X) != b.predict_leaf_index(X)
+        la, lb = a.predict_leaf_index(X), b.predict_leaf_index(X)
+        if data == "airline" and not np.array_equal(la, lb) and len(
+                set(zip(la, lb))) == len(set(la)) == len(set(lb)):
+            # a bin set and its complement: the same leaves, relabelled
+            mirrored += 1
+            expect(np.allclose(a.leaf_value[la], b.leaf_value[lb],
+                               rtol=1e-4, atol=1e-6),
+                   "parity %s: tree %d's swapped leaves differ in value"
+                   % (name, t))
+            moved.append(0)
+            oob_moved.append(0)
+            continue
+        differ = la != lb
         in_bag = np.ones(len(y), bool) if bag is None else bag == 0
         expect(not differ[in_bag].any(),
                "parity %s: rows of tree %d's bag land in different leaves"
@@ -1315,9 +1384,10 @@ def parity_phase(dev, path: str, objective: str = None):
     pg = bk.predict(X, raw_score=True)
     pc = bc.predict(X, raw_score=True)
     diff = float(np.abs(pg - pc).max())
-    # multiclass, grown from the same gradients: within 5e-6 of the
-    # scores' scale
-    limit = 1e-4 if kc == 1 else 5e-6 * max(1.0, float(np.abs(pc).max()))
+    # multiclass, grown from the same gradients, and the categorical and
+    # bundled runs: within 5e-6 of the scores' scale
+    limit = (1e-4 if kc == 1 and data is None
+             else 5e-6 * max(1.0, float(np.abs(pc).max())))
     expect(np.all(np.isfinite(pg)) and (diff <= limit or any(oob_moved)),
            "parity %s: raw training predictions differ by %.3g (limit %.3g)"
            % (name, diff, limit))
@@ -1329,6 +1399,9 @@ def parity_phase(dev, path: str, objective: str = None):
            % (name, len(y), "" if kc == 1 else " of %d trees" % kc,
               "row" if w is not None or not flag(path, "bagged")
               else "row of the bag", moved, leaf_err, diff))
+    if data == "airline":
+        msg += ("; %d of %d trees took a bin set's complement, the same "
+                "leaves relabelled" % (mirrored, len(gb)))
     if grad_err is not None:
         msg += ("; both grown from the CPU's gradients rounded to 1/256; "
                 "the card's own gradients of the CPU's score within %.3g "
@@ -1346,7 +1419,7 @@ def parity_phase(dev, path: str, objective: str = None):
     print(msg)
     return dict(rows=len(y), thresholds_moved=moved, oob_rows_moved=oob_moved,
                 leaf_rel_err=leaf_err, max_raw_diff=diff,
-                card_grad_err=grad_err)
+                card_grad_err=grad_err, mirrored_trees=mirrored)
 
 
 def share_gradients(card, cpu):
@@ -1647,8 +1720,58 @@ def ops_over_rows(prof, rows: int) -> dict:
 
 PREDICT_ROUNDS = 500        # the reference's Higgs experiment
 TRAIN_ROWS_PREDICTED = 1_000_000
+# processes that share the host walks of the prediction phase's checks: a
+# host walk of the 100k holdout rows through the 500 trees takes ~45 s in
+# one process, and each row's walk (its early stop too) depends on no
+# other row, so the rows are split among processes, each of which loads
+# the model from its text, and the parts put together are one process's
+# walk
+HOST_WALK_PROCS = 8
 EARLY_STOPS = ((10, 4.0), (10, 10.0))
 BUCKETS = (1, 7, 1000, 4097)
+
+
+_HOST_BOOSTER = None
+
+
+def _host_walk_init(model: str) -> None:
+    global _HOST_BOOSTER
+    import torch
+    import lightgbm_tpu_torch as lt
+    torch.set_num_threads(1)
+    _HOST_BOOSTER = lt.Booster(model_str=model, device="cpu")
+
+
+def _host_walk_part(job):
+    """One process's part of a host walk: (rows, predict's keywords) ->
+    (the walk's output, its seconds)."""
+    X, kw = job
+    t = time.perf_counter()
+    out = _HOST_BOOSTER.predict(X, device=False, **kw)
+    return out, time.perf_counter() - t
+
+
+def host_walks(bst, X, checks: dict) -> dict:
+    """The host walk (predict with device=False) of each check over all of
+    X, {name: predict's keywords}, its rows split among HOST_WALK_PROCS
+    spawned processes that load bst's model text: {name: (output, seconds
+    of the walk summed over the parts, as one process spends them)}.  The
+    processes end before it returns."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    parts = np.array_split(np.arange(len(X)), HOST_WALK_PROCS)
+    jobs = [(X[p], kw) for kw in checks.values() for p in parts]
+    with ProcessPoolExecutor(
+            HOST_WALK_PROCS, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_host_walk_init,
+            initargs=(bst.model_to_string(),)) as pool:
+        outs = list(pool.map(_host_walk_part, jobs))
+    walks = {}
+    for i, name in enumerate(checks):
+        mine = outs[i * len(parts):(i + 1) * len(parts)]
+        walks[name] = (np.concatenate([o for o, _ in mine]),
+                       sum(sec for _, sec in mine))
+    return walks
 
 
 def prediction_phase(X, Xh, ds_obj, dev, rounds, results):
@@ -1656,9 +1779,9 @@ def prediction_phase(X, Xh, ds_obj, dev, rounds, results):
     dataset's rows (the entry a user calls: Booster.update, then predict),
     each drain timed; then KP1 on the model: the holdout and 1M training
     rows against its plain version on the card and the holdout against the
-    host walk, bit for bit; timed kernel-only (CUDA events, X on the
-    card), from numpy (the wall of predict, the copy of X included) and
-    by the host walk; leaf indices, early stop and the serving buckets
+    host walk (host_walks), bit for bit; timed kernel-only (CUDA events, X
+    on the card), from numpy (the wall of predict, the copy of X included)
+    and by the host walk; leaf indices, early stop and the serving buckets
     against the host and the full sums; the ensemble's device bytes
     against the estimate.  The launch counters are zeroed just before the
     holdout's predict and read just after."""
@@ -1722,9 +1845,17 @@ def prediction_phase(X, Xh, ds_obj, dev, rounds, results):
     wall_h = (time.perf_counter() - t) * 1e3
     launches = int(_cuda.LAUNCHES["predict_ensemble"])
     expect(launches > 0, "predict did not launch KP1")
+    checks = {"sums": dict(raw_score=True),
+              "leaves": dict(pred_leaf=True)}
+    for freq, margin in EARLY_STOPS:
+        checks["freq%d_margin%g" % (freq, margin)] = dict(
+            raw_score=True, pred_early_stop=True,
+            pred_early_stop_freq=freq, pred_early_stop_margin=margin)
     t = time.perf_counter()
-    host_h = bst.predict(Xh, raw_score=True, device=False)
-    host_ms = (time.perf_counter() - t) * 1e3
+    walks = host_walks(bst, Xh, checks)
+    walks_s = time.perf_counter() - t
+    host_h, host_s = walks["sums"]
+    host_ms = host_s * 1e3
     expect(np.array_equal(raw_h, host_h), "KP1: holdout sums differ from "
            "the host walk's by up to %.3g" % float(np.abs(raw_h - host_h)
                                                   .max()))
@@ -1739,7 +1870,8 @@ def prediction_phase(X, Xh, ds_obj, dev, rounds, results):
             Xd = torch.from_numpy(Xn).to(dev)
             out = torch.empty((1, n), dtype=torch.float64, device=dev)
             predict_ensemble(tb, Xd, T, 1, out)
-            plain = pr.predict_ensemble_plain(tb, Xd, T, 1)
+            plain, plain_ms = cuda_call_ms(
+                lambda: pr.predict_ensemble_plain(tb, Xd, T, 1))
             expect(torch.equal(out, plain), "KP1 %s %s: sums differ from "
                    "the plain version's by up to %.3g" % (
                        what, np.dtype(dt).name,
@@ -1748,8 +1880,6 @@ def prediction_phase(X, Xh, ds_obj, dev, rounds, results):
                                 5)
             ko_ms = kernel_only_ms(lambda: predict_ensemble(tb, Xd, T, 1,
                                                             out), 5)
-            plain_ms = cuda_ms(lambda: pr.predict_ensemble_plain(
-                tb, Xd, T, 1), 1, warmup=0)
             bst.predict(Xn, raw_score=True)     # the staging, as above
             t = time.perf_counter()
             got = bst.predict(Xn, raw_score=True)
@@ -1792,7 +1922,7 @@ def prediction_phase(X, Xh, ds_obj, dev, rounds, results):
     t = time.perf_counter()
     leaf = bst.predict(Xh, pred_leaf=True)
     leaf_ms = (time.perf_counter() - t) * 1e3
-    leaf_host = bst.predict(Xh, pred_leaf=True, device=False)
+    leaf_host = walks["leaves"][0]
     expect(leaf.shape == (len(Xh), T) and np.array_equal(leaf, leaf_host),
            "KP1 leaf mode: leaves differ from the host walk's")
     # early stop
@@ -1803,7 +1933,7 @@ def prediction_phase(X, Xh, ds_obj, dev, rounds, results):
         t = time.perf_counter()
         es = bst.predict(Xh, **kw)
         es_ms = (time.perf_counter() - t) * 1e3
-        es_host = bst.predict(Xh, device=False, **kw)
+        es_host = walks["freq%d_margin%g" % (freq, margin)][0]
         expect(np.array_equal(es, es_host), "KP1 early stop (%d, %g): sums "
                "differ from the host's" % (freq, margin))
         stops["freq%d_margin%g" % (freq, margin)] = dict(
@@ -1829,14 +1959,16 @@ def prediction_phase(X, Xh, ds_obj, dev, rounds, results):
         bucket_ms[n] = min(ms)
     small = small_phase(tb, T, F, Xh, ens.device_bytes(), dev)
     print("KP1 leaf mode: %d x %d leaves equal to the host walk's (%.1f ms "
-          "from numpy); early stop equal to the host's: %s; buckets %s "
+          "from numpy); early stop equal to the host's: %s; the host walks "
+          "of the four checks %.1f s in %d processes; buckets %s "
           "equal to predict, %d small-batch launches, ms (best of 5, host "
           "clock): %s; device bytes %d equal to the estimate"
           % (len(Xh), T, leaf_ms, ", ".join(
               "freq %s: %.1f ms, %.3f of the rows stopped" % (
                   k.replace("freq", "").replace("_margin", ", margin "),
                   v["wall_ms"], v["stopped_share"])
-              for k, v in stops.items()), list(BUCKETS), small_launches,
+              for k, v in stops.items()), walks_s, HOST_WALK_PROCS,
+             list(BUCKETS), small_launches,
              ", ".join("%d rows %.3f" % kv for kv in bucket_ms.items()),
              ens.device_bytes()))
     print("KP1 predict_ensemble_small (%d rows, %d trees): kernel %.4f ms "
@@ -1956,14 +2088,13 @@ def small_phase(tb, T: int, F: int, Xh, table_bytes: int, dev) -> dict:
     def run():
         predict_ensemble(tb, Xd, T, 1, out, small=True)
     run()
-    plain = pr.ordered_sum_plain(pr.tree_values_plain(tb, Xd, T), 1)
+    plain, plain_ms = cuda_call_ms(lambda: pr.ordered_sum_plain(
+        pr.tree_values_plain(tb, Xd, T), 1))
     expect(torch.equal(out, plain), "KP1 small-batch walk: sums differ from "
            "the plain version's")
     nbytes = ensemble_bytes(n, F, 4, table_bytes)
     return dict(rows=n, ms=cuda_ms(run, 20),
-                kernel_only_ms=kernel_only_ms(run, 20),
-                plain_ms=cuda_ms(lambda: pr.ordered_sum_plain(
-                    pr.tree_values_plain(tb, Xd, T), 1), 1, warmup=0),
+                kernel_only_ms=kernel_only_ms(run, 20), plain_ms=plain_ms,
                 bytes=nbytes, bound_ms=bound(nbytes, 0)[0])
 
 
@@ -2129,7 +2260,8 @@ def ndcg_at(k: int, y, group, score) -> float:
 
 
 def k2_width_phase(ds, dev, results, shape_of: str):
-    """K2 f32 at a dataset's width at the root and on a 40k-row child,
+    """K2 f32 at a dataset's width (its G columns: a feature each, or
+    EFB groups) at the root and on a 40k-row child,
     against its plain version on the same inputs and timed beside its
     bound and index_add_; its entry goes to the kernels line as
     segment_histogram_g<G>, its launches counted later in the `shape_of`
@@ -2137,8 +2269,8 @@ def k2_width_phase(ds, dev, results, shape_of: str):
     import torch
     from lightgbm_tpu_torch.ops import partition_kernel as pk
 
-    n, G = ds.num_data, ds.num_features
-    B = int(ds.feature_num_bins().max())
+    n, G = ds.num_data, ds.num_groups
+    B = ds.hist_max_bin()
     gen = torch.Generator(device=dev).manual_seed(17)
     a = pk.Arena(n, G, 4, dev)
     pk.init_pristine(a, ds.device_bins(dev).t())
@@ -2792,6 +2924,440 @@ def multiclass_phase(dev, rounds: int, results) -> tuple:
     torch.cuda.empty_cache()
     return recs, launches
 
+# the airline on-time data of szilard's benchm-ml and GBM-perf benchmarks,
+# their 10M-row training set train-10m: Month, DayofMonth, DayOfWeek,
+# DepTime, UniqueCarrier, Origin, Dest, Distance, six of them categories,
+# the label dep_delayed_15min
+AIRLINE_ROWS = 10_000_000
+AIRLINE_HOLDOUT = 100_000
+# the airports each way: train-10m has about 300, but 300 skewed to the
+# same top share (exponent 0.661) leave a categorical bin mapper 292 of
+# them, past the 256 bins of a uint8 column, and uint16 bins are not ported (ROADMAP.md queue 1, item 11): cut
+# to the 255 that max_bin 255 keeps
+AIRLINE_AIRPORTS = 255
+AIRLINE_CARDS = {0: 12, 1: 31, 2: 7, 4: 22, 5: AIRLINE_AIRPORTS,
+                 6: AIRLINE_AIRPORTS}
+AIRLINE_CATS = tuple(sorted(AIRLINE_CARDS))
+# the airports' Zipf exponent, set so that the busiest airport has ATL's
+# share of departures in the BTS on-time data that train-10m samples
+# (413,851 of the 7,453,215 flights of 2007 in the ASA Data Expo 2009
+# extract, 5.55%); a one-parameter skew, matched at the top only
+AIRPORT_SKEW = 0.6431
+# the categorical runs: name -> (path of PATHS, categories as numbers)
+CAT_RUNS = {"cat_f32": ("f32", False), "cat_quantized": ("quantized", False),
+            "cat_valid_f32": ("valid_f32", False),
+            "cat_label_f32": ("label_f32", False),
+            "cat_numeric_f32": ("f32", True)}
+# Covertype at its own layout: 10 numbers, then 4 wilderness-area and 40
+# soil-type one-hot columns, which EFB bundles
+COVTYPE_NUMERIC, COVTYPE_AREAS, COVTYPE_SOILS = 10, 4, 40
+EFB_RUNS = {"efb_multiclass_f32": False, "efb_multiclass_label_f32": True}
+# multi_logloss of Covertype's class prior (the constant score of
+# boost_from_average), which an EFB run's holdout must beat
+COVTYPE_PRIOR_LOGLOSS = 1.2052
+
+
+def airline_like(n: int, seed: int = 31, effects=None):
+    """X [n, 8] f32 in the airline layout, categories as integer codes
+    (months, days, weekdays, 22 carriers, AIRLINE_AIRPORTS airports each
+    way drawn with a Zipf skew of AIRPORT_SKEW), DepTime as hhmm, Distance in miles; the
+    label a logistic draw from per-category effects (no order of the codes
+    carries them), a route effect of each (Origin, Dest) pair, the hour of
+    departure and noise, about a fifth of the rows delayed.  effects: a
+    holdout takes the training draw's.  Returns (X, y, effects)."""
+    rng = np.random.RandomState(seed)
+    if effects is None:
+        er = np.random.RandomState(seed + 1000)
+        scale = {0: 0.35, 1: 0.15, 2: 0.2, 4: 0.5, 5: 0.7, 6: 0.7}
+        effects = {j: er.randn(c).astype(np.float32) * scale[j]
+                   for j, c in AIRLINE_CARDS.items()}
+        A = AIRLINE_AIRPORTS
+        effects["route"] = er.randn(A, A).astype(np.float32) * 0.4
+        effects["miles"] = er.gamma(2.0, 450.0, (A, A)).astype(
+            np.float32)
+    X = np.empty((n, 8), np.float32)
+    score = np.zeros(n, np.float32)
+    zipf = 1.0 / np.arange(1, AIRLINE_AIRPORTS + 1) ** AIRPORT_SKEW
+    zipf /= zipf.sum()
+    codes = {}
+    for j, card in AIRLINE_CARDS.items():
+        c = (rng.choice(card, n, p=zipf) if card == AIRLINE_AIRPORTS else
+             rng.randint(0, card, n))
+        codes[j] = c
+        X[:, j] = c
+        score += effects[j][c]
+    hour = rng.randint(5, 24, n)
+    X[:, 3] = hour * 100 + rng.randint(0, 60, n)
+    X[:, 7] = np.round(effects["miles"][codes[5], codes[6]])
+    score += effects["route"][codes[5], codes[6]] + 0.09 * (hour - 14)
+    score += rng.logistic(size=n).astype(np.float32) * 0.6
+    y = (score > np.quantile(score, 0.8)).astype(np.float32)
+    return X, y, effects
+
+
+def covertype_onehot(n: int, seed: int = 51, means=None):
+    """X [n, 54] f32 at Covertype's layout: 10 numbers (a standard normal
+    draw shifted by the class's means), then the row's wilderness area
+    and soil type as 4 and 40 one-hot columns, each drawn from its
+    class's own distribution over the areas and soils; labels with
+    Covertype's class counts scaled to n (class_counts).  means: a holdout
+    takes the training draw's.  Returns (X, y, means)."""
+    rng = np.random.RandomState(seed)
+    if means is None:
+        mr = np.random.RandomState(seed + 1000)
+        means = dict(
+            num=mr.randn(COVTYPE_K, COVTYPE_NUMERIC) * 0.5,
+            area=mr.dirichlet(np.ones(COVTYPE_AREAS), COVTYPE_K),
+            soil=mr.dirichlet(np.full(COVTYPE_SOILS, 0.3), COVTYPE_K))
+    y = np.repeat(np.arange(COVTYPE_K), class_counts(n))
+    rng.shuffle(y)
+    X = np.zeros((n, COVTYPE_FEATURES), np.float32)
+    X[:, :COVTYPE_NUMERIC] = rng.randn(n, COVTYPE_NUMERIC) + means["num"][y]
+    for key, off, width in (("area", COVTYPE_NUMERIC, COVTYPE_AREAS),
+                            ("soil", COVTYPE_NUMERIC + COVTYPE_AREAS,
+                             COVTYPE_SOILS)):
+        cum = np.cumsum(means[key], axis=1)[y]
+        pick = (rng.rand(n, 1) > cum).sum(axis=1).clip(0, width - 1)
+        X[np.arange(n), off + pick] = 1.0
+    return X, y.astype(np.float32), means
+
+
+def cat_kernels(path: str, numeric: bool) -> tuple:
+    """(must, never) of a categorical run: its path's kernels, but K1
+    never where a feature is categorical (the JAX rule,
+    lightgbm_tpu/ops/grow_partition.py:343, ops/grow.py:346: every scan of
+    a categorical dataset is the XLA route's, plain PyTorch here)."""
+    must, never = path_kernels(path)
+    if numeric:
+        return must, never
+    return (tuple(k for k in must if k != "split_scan"),
+            never + ("split_scan",))
+
+
+def kp2_categorical(booster, X, dev, results) -> dict:
+    """KP2 over the categorical valid-set run's last tree: its device form
+    (gbdt._tree_to_device, the bin sets as [N, B] masks) over the 10M
+    training rows' bins, leaf mode and add mode against the plain walk,
+    bit for bit, and the leaves against the host walk of the raw rows;
+    timed beside the bytes each mode must move.  Its entry goes to the
+    kernels line as walk_binned_cat, its launches those of the valid-set
+    run."""
+    import torch
+    from lightgbm_tpu_torch.models.gbdt import _tree_to_device
+    from lightgbm_tpu_torch.ops.predict_kernel import (walk_binned,
+                                                       walk_binned_plain)
+    g = booster._gbdt
+    tree = g.models[-1]
+    dt = _tree_to_device(tree, dev, g.max_bin)
+    ncat = int(dt.is_cat.sum())
+    expect(ncat > 0, "KP2 categorical: the tree has no categorical node")
+    bins = g.train_set.device_bins(dev)
+    n, G = bins.shape
+    nb, db = g.num_bins, g.default_bins
+    got = walk_binned(bins, dt, nb, db)
+    want = walk_binned_plain(bins, dt, nb, db)
+    expect(torch.equal(got, want), "KP2 categorical leaf mode: leaves "
+           "differ from the plain walk's")
+    rows = slice(0, 200_000)
+    host = tree.predict_leaf_index(X[rows])
+    expect(np.array_equal(got[rows].cpu().numpy(), host),
+           "KP2 categorical: leaves differ from the host walk's")
+    lv = torch.as_tensor(tree.leaf_value[:tree.num_leaves].astype(np.float32),
+                         device=dev)
+    score0 = torch.randn(n, generator=torch.Generator(device=dev)
+                         .manual_seed(9), device=dev)
+    sk_, sp_ = score0.clone(), score0.clone()
+    walk_binned(bins, dt, nb, db, lv=lv, score=sk_)
+    walk_binned_plain(bins, dt, nb, db, lv=lv, score=sp_)
+    expect(torch.equal(sk_.view(torch.int32), sp_.view(torch.int32)),
+           "KP2 categorical add: scores differ")
+    r = {}
+    for mode in ("add", "leaf"):
+        if mode == "add":
+            def run():
+                walk_binned(bins, dt, nb, db, lv=lv, score=sk_)
+
+            def plain():
+                walk_binned_plain(bins, dt, nb, db, lv=lv, score=sp_)
+        else:
+            def run():
+                walk_binned(bins, dt, nb, db)
+
+            def plain():
+                walk_binned_plain(bins, dt, nb, db)
+        walked = torch.ones(n, dtype=torch.bool, device=dev)
+        # the tables: 21 bytes a node, 32 of bin set a categorical one
+        nbytes = walk_binned_bytes(walked, G, dt.split_feature.shape[0],
+                                   tree.num_leaves, mode) + 32 * ncat
+        r[mode] = dict(ms=cuda_ms(run, 10), kernel_ms=kernel_only_ms(run, 10),
+                       plain_ms=cuda_ms(plain, 1, warmup=0), bytes=nbytes,
+                       bound_ms=bound(nbytes, 0)[0])
+    print("KP2 walk_binned over categorical nodes: %d rows x %d columns, "
+          "the valid-set run's last tree (%d leaves, %d categorical nodes); "
+          "%s; exact, leaves the host walk's"
+          % (n, G, tree.num_leaves, ncat, "; ".join(
+              "%s %.4f ms, kernel-only %s (bound %.4f, plain %.3f)" % (
+                  m, v["ms"], profiled(v["kernel_ms"]), v["bound_ms"],
+                  v["plain_ms"]) for m, v in r.items())))
+    v = r["add"]
+    results["walk_binned_cat"] = dict(
+        name="walk_binned_cat", route="cuda", source=SRC % "walk_binned",
+        replaces=REPLACES["walk_binned"], port_only=True, mode="add",
+        launches=0, shape_of="categorical", max_abs_err=0.0,
+        tolerance="bit for bit", ms=v["ms"], kernel_ms=v["kernel_ms"],
+        plain_ms=v["plain_ms"], bound_ms=v["bound_ms"], bound_by="bytes",
+        library_ms=None, library="none: no single PyTorch call walks a "
+        "tree", rows=n, leaves=tree.num_leaves, categorical_nodes=ncat,
+        leaf_mode=r["leaf"])
+    return r
+
+
+def categorical_phase(dev, rounds: int, results) -> tuple:
+    """The airline data at its width (AIRLINE_ROWS x 8, six columns
+    categorical, a 100k-row holdout of a second seed) through
+    lightgbm_tpu_torch.train with PARAMS (255 leaves, max_bin 255, the
+    categorical knobs at their defaults): f32 and quantized on the carried
+    arena, f32 with the holdout as a validation set (the eager path, KP2's
+    add mode over categorical nodes, early stopping after 2), f32 on the
+    label engine, and an f32 carried twin given the six columns as
+    numbers; each through train_and_check with K1 launched only by the
+    twin, KP1's holdout sums bit for bit the host walk's, the holdout AUC
+    at least AUC_FLOOR, the replayed round and a profiled round; the
+    categorical f32 run's AUC above the twin's, the quantized run's within
+    AUC_GAP of it, the valid-set run's last evals_result equal to the host
+    prediction's within 1e-6; K2 f32 at the dataset's G against its plain
+    version; KP2 over the valid-set run's categorical tree
+    (kp2_categorical); and the node count of one categorical split's
+    scan (ops/grow.scan_rows of two children), counted from a capture.
+    Returns (records by run, launches by run)."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.metric import auc
+
+    t = time.perf_counter()
+    X, y, eff = airline_like(AIRLINE_ROWS)
+    Xh, yh, _ = airline_like(AIRLINE_HOLDOUT, seed=32, effects=eff)
+    cat = dict(categorical_feature=list(AIRLINE_CATS))
+    ds = lt.Dataset(X, y, params=PARAMS, device=dev, **cat).construct()
+    dv = lt.Dataset(Xh, yh, reference=ds, device=dev)
+    ds_num = lt.Dataset(X, y, params=PARAMS, device=dev,
+                        categorical_feature=[]).construct()
+    b = ds._binned
+    print("categorical data (the airline layout): %d rows x %d columns, "
+          "categories %s in columns %s (bins %s), %.3f delayed; holdout %d "
+          "rows; EFB groups %s; generated and binned (twice) in %.1f s"
+          % (len(y), X.shape[1], list(AIRLINE_CARDS.values()),
+             list(AIRLINE_CATS), b.feature_num_bins().tolist(),
+             float(y.mean()), len(yh), b.num_groups,
+             time.perf_counter() - t))
+    expect(int(b.is_categorical.sum()) == len(AIRLINE_CATS),
+           "airline: %d categorical features" % int(b.is_categorical.sum()))
+    k2_width_phase(b, dev, results, "categorical")
+    recs, launches = {}, {}
+    for name, (path, numeric) in CAT_RUNS.items():
+        dset = ds_num if numeric else ds
+        kw, evals = {}, {}
+        if flag(path, "valid"):
+            kw = dict(valid_sets=[dv], valid_names=["holdout"],
+                      early_stopping_rounds=EARLY_STOPPING_ROUNDS,
+                      evals_result=evals, verbose_eval=False)
+        must, never = cat_kernels(path, numeric)
+        booster, rec = train_and_check(
+            name, path_params(path), dset, dev, rounds, must, never,
+            deferred=not flag(path, "valid"),
+            graphs=2 if carried(path) else 1, **kw)
+        g = booster._gbdt
+        expect((g.is_categorical is None) is numeric
+               and bool(g._carried_active) is carried(path)
+               and g._quantized is flag(path, "quantized"),
+               "%s: categorical %s, carried %s, quantized %s"
+               % (name, g.is_categorical is not None, g._carried_active,
+                  g._quantized))
+        cats = sum(m.num_cat for m in g.models)
+        expect(numeric or cats > 0, "%s: no categorical split" % name)
+        raw = booster.predict(Xh, raw_score=True)
+        host = booster.predict(Xh, raw_score=True, device=False)
+        expect(np.array_equal(raw, host), "%s: KP1's holdout sums differ "
+               "from the host walk's by up to %.3g"
+               % (name, float(np.abs(raw - host).max())))
+        pred = booster.predict(Xh)
+        holdout_auc = auc(yh, pred)
+        expect(holdout_auc >= AUC_FLOOR, "%s holdout AUC %.4f < %.2f"
+               % (name, holdout_auc, AUC_FLOOR))
+        extra = ""
+        if flag(path, "valid"):
+            last = evals["holdout"]["auc"][-1]
+            expect(abs(last - holdout_auc) <= 1e-6, "%s: last evals_result "
+                   "AUC %.8f, host predict AUC %.8f"
+                   % (name, last, holdout_auc))
+            expect(rec["launches"].get(WALK_ADD, 0) > 0, "%s: KP2's add "
+                   "mode did not run over categorical nodes" % name)
+            extra = "; evals_result holdout AUC %s" % evals["holdout"]["auc"]
+            rec["kp2"] = kp2_categorical(booster, X, dev, results)
+        rec["replay_round_ms"] = replayed_round_ms(booster, REPLAYED_ROUNDS)
+        rec["profile"] = profile_round(booster, name)
+        rec.update(holdout_auc=holdout_auc, categorical_splits=cats,
+                   evals_result=evals or None)
+        print("categorical (%s, %s%s): %d rows, %d rounds, leaves %s, %d "
+              "categorical splits; train %.3f s (%.1f ms a round, set-up "
+              "included); holdout AUC %.4f%s; graphs x nodes %s, capture "
+              "and instantiate %s s; %d drains, %d tree fetches; %.1f ms a "
+              "replayed round (%d more rounds); peak device memory %.3f GB, "
+              "%.3f GB above the %.3f GB held before the run"
+              % (name, path, ", the six columns as numbers" if numeric else
+                 "", len(y), len(rec["leaves"]), rec["leaves"], cats,
+                 rec["train_s"], rec["round_ms"], holdout_auc, extra,
+                 ["1 x %d" % x["nodes"] for x in rec["graphs"]],
+                 ["%.3f" % x["capture_s"] for x in rec["graphs"]],
+                 rec["drains"], rec["tree_fetches"], rec["replay_round_ms"],
+                 REPLAYED_ROUNDS, rec["peak_bytes"] / 1e9,
+                 (rec["peak_bytes"] - rec["held_bytes"]) / 1e9,
+                 rec["held_bytes"] / 1e9))
+        recs[name] = rec
+        launches[name] = rec["launches"]
+        del booster, g
+        torch.cuda.empty_cache()
+    f32, twin = recs["cat_f32"]["holdout_auc"], \
+        recs["cat_numeric_f32"]["holdout_auc"]
+    expect(f32 > twin, "categorical f32 holdout AUC %.4f is not above its "
+           "numeric-coded twin's %.4f" % (f32, twin))
+    gap = abs(recs["cat_quantized"]["holdout_auc"] - f32)
+    expect(gap <= AUC_GAP, "cat_quantized holdout AUC is %.4f from the "
+           "cat_f32 run's (limit %.2f)" % (gap, AUC_GAP))
+    recs["scan_nodes"] = categorical_scan_nodes(b, dev)
+    results["segment_histogram_g%d" % b.num_groups]["launches"] = int(
+        launches["cat_f32"].get("segment_histogram", 0))
+    results["walk_binned_cat"]["launches"] = int(
+        launches["cat_valid_f32"].get(WALK_ADD, 0))
+    del ds, dv, ds_num, X
+    torch.cuda.empty_cache()
+    return recs, launches
+
+
+def categorical_scan_nodes(ds, dev) -> dict:
+    """The device nodes of one categorical split's scan of both children
+    (ops/grow.scan_rows over the airline dataset's features, random
+    histograms at its widths), counted from a CUDA graph capture of it."""
+    import torch
+    from lightgbm_tpu_torch.ops.grow import scan_rows
+    from lightgbm_tpu_torch.ops.split import SplitParams
+    F, B = ds.num_features, ds.hist_max_bin()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    hists = torch.rand((2, F, B, 3), generator=gen, device=dev)
+    hists[..., 2] = torch.floor(hists[..., 2] * 1000)
+    sums = hists[:, 0, :, :2].sum(dim=1)
+    counts = hists[:, 0, :, 2].sum(dim=1).long()
+    inf = torch.full((2,), torch.inf, device=dev)
+    statics = [torch.as_tensor(v, device=dev) for v in (
+        ds.feature_num_bins(),
+        np.array([m.default_bin for m in ds.bin_mappers], np.int32),
+        np.array([m.missing_type for m in ds.bin_mappers], np.int32),
+        ds.is_categorical)]
+    mask = torch.ones(F, dtype=torch.bool, device=dev)
+
+    def scan():
+        return scan_rows(hists, sums, counts, -inf, inf, *statics[:3],
+                         SplitParams(), feature_mask=mask,
+                         is_categorical=statics[3])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        scan()
+    torch.cuda.current_stream().wait_stream(side)
+    from lightgbm_tpu_torch.ops.graphs import graph_nodes
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        scan()
+    nodes = graph_nodes(graph)
+    graph.instantiate()
+    t = time.perf_counter()
+    for _ in range(20):
+        graph.replay()
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t) * 1e3 / 20
+    print("categorical scan of one split (both children, F=%d, B=%d): %d "
+          "graph nodes, %.3f ms a replay (host clock)"
+          % (F, B, nodes, replay_ms))
+    return dict(nodes=nodes, replay_ms=replay_ms, F=F, B=B)
+
+
+def efb_runs(dev, rounds: int, results) -> tuple:
+    """Multiclass softmax f32 at Covertype's one-hot layout (581,012 x 54,
+    enable_bundle at its default): EFB groups the 54 columns, K2 f32 at
+    the groups' G against its plain version; the partition engine (fused
+    pristine; K1 after unbundling) and the label engine, each through
+    train_and_check, its holdout multi_logloss below the prior's 1.2052,
+    KP1's holdout sums bit for bit the host walk's, the replayed and a
+    profiled round.  Returns (records by run, launches by run)."""
+    import torch
+    import lightgbm_tpu_torch as lt
+
+    t = time.perf_counter()
+    X, y, means = covertype_onehot(COVTYPE_ROWS)
+    Xh, yh, _ = covertype_onehot(COVTYPE_HOLDOUT, seed=52, means=means)
+    ds = lt.Dataset(X, y, params=MC_PARAMS, device=dev).construct()
+    b = ds._binned
+    expect(b.bundle is not None and b.bundle.any_bundled,
+           "Covertype one-hot: EFB bundled nothing")
+    print("EFB data (Covertype's one-hot layout): %d rows x %d columns (%d "
+          "numbers, %d areas, %d soils), EFB groups %d (bins %s); "
+          "generated and binned in %.1f s"
+          % (len(y), X.shape[1], COVTYPE_NUMERIC, COVTYPE_AREAS,
+             COVTYPE_SOILS, b.num_groups, b.bundle.group_num_bins.tolist(),
+             time.perf_counter() - t))
+    k2_width_phase(b, dev, results, "efb")
+    recs, launches = {}, {}
+    for name, label in EFB_RUNS.items():
+        params = dict(MC_PARAMS)
+        if label:
+            params.update(tpu_tree_engine="label",
+                          tpu_histogram_impl="pallas")
+            must = ("leaf_histogram", "split_scan")
+            never = PARTITION_KERNELS + PREDICT_KERNELS + WALKS
+        else:
+            must, never = multiclass_kernels(False, False)
+        booster, rec = train_and_check(
+            name, params, ds, dev, rounds, must, never, deferred=True,
+            graphs=COVTYPE_K + 1)
+        g = booster._gbdt
+        expect(g.bundle is not None and g._use_partition_engine is not label,
+               "%s: bundle %s, partition engine %s"
+               % (name, g.bundle is not None, g._use_partition_engine))
+        raw = booster.predict(Xh, raw_score=True)
+        host = booster.predict(Xh, raw_score=True, device=False)
+        expect(np.array_equal(raw, host), "%s: KP1's holdout sums differ "
+               "from the host walk's" % name)
+        got = multi_metrics(yh, raw, g.objective)
+        expect(got["multi_logloss"] < COVTYPE_PRIOR_LOGLOSS,
+               "%s: holdout multi_logloss %.6f, the prior's %.4f"
+               % (name, got["multi_logloss"], COVTYPE_PRIOR_LOGLOSS))
+        rec["replay_round_ms"] = replayed_round_ms(booster, REPLAYED_ROUNDS)
+        rec["profile"] = profile_round(booster, name)
+        rec.update(holdout=got, groups=b.num_groups)
+        print("EFB (%s, %s engine): %d rows, %d groups, %d rounds of %d "
+              "trees, leaves %s; train %.3f s (%.1f ms a round, set-up "
+              "included); holdout multi_logloss %.6f (prior %.4f), "
+              "multi_error %.6f; graphs x nodes %s; %d drains, %d tree "
+              "fetches; %.1f ms a replayed round; peak device memory %.3f "
+              "GB"
+              % (name, "label" if label else "partition", len(y),
+                 b.num_groups, len(rec["leaves"]) // COVTYPE_K, COVTYPE_K,
+                 rec["leaves"], rec["train_s"], rec["round_ms"],
+                 got["multi_logloss"], COVTYPE_PRIOR_LOGLOSS,
+                 got["multi_error"],
+                 ["1 x %d" % x["nodes"] for x in rec["graphs"]],
+                 rec["drains"], rec["tree_fetches"], rec["replay_round_ms"],
+                 rec["peak_bytes"] / 1e9))
+        recs[name] = rec
+        launches[name] = rec["launches"]
+        del booster, g
+        torch.cuda.empty_cache()
+    results["segment_histogram_g%d" % b.num_groups]["launches"] = int(
+        launches["efb_multiclass_f32"].get("segment_histogram", 0))
+    del ds, X
+    torch.cuda.empty_cache()
+    return recs, launches
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2894,7 +3460,17 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     parity["multiclass"] = parity_phase(dev, "f32", "multiclass")
     multiclass, mc_launches = multiclass_phase(dev, args.rounds, results)
+    parity["multiclass_onehot"] = parity_phase(dev, "f32", "multiclass",
+                                               data="onehot")
+    efb, efb_launches = efb_runs(dev, args.rounds, results)
+    mc_launches.update(efb_launches)
     phase_s["multiclass"] = time.perf_counter() - t
+    t = time.perf_counter()
+    parity["weighted_f32_airline"] = parity_phase(dev, "weighted_f32",
+                                                  data="airline")
+    categorical, cat_launches = categorical_phase(dev, args.rounds, results)
+    mc_launches.update(cat_launches)
+    phase_s["categorical"] = time.perf_counter() - t
     print("phases, s: %s" % ", ".join("%s %.1f" % kv
                                       for kv in phase_s.items()))
     launches.update(mc_launches)
@@ -2905,9 +3481,12 @@ def main(argv=None) -> int:
     # mode) report the quantized run; launches_by_path has every path's
     # run.  The kernels of NO_PATH are on no training path and report 0
     for name, r in results.items():
-        if r.get("shape_of") in ("lambdarank", "multiclass"):
-            # counted in the lambdarank fused run (rank_phase) or the
-            # multiclass f32 run (multiclass_phase)
+        if r.get("shape_of") in ("lambdarank", "multiclass", "efb",
+                                 "categorical"):
+            # counted in the lambdarank fused run (rank_phase), the
+            # multiclass f32 run (multiclass_phase), the EFB partition run
+            # (efb_runs) or the categorical f32 and valid-set runs
+            # (categorical_phase)
             expect(r["launches"] > 0, "kernel %s was not launched on the "
                    "%s path" % (name, r["shape_of"]))
             continue
@@ -2945,8 +3524,9 @@ def main(argv=None) -> int:
                "training path" % (name, path))
     print(json.dumps({"card": card, "training": train, "parity": parity,
                       "lambdarank": ranking, "objectives": objectives,
-                      "multiclass": multiclass, "prediction": prediction,
-                      "phase_s": phase_s}))
+                      "multiclass": multiclass, "efb": efb,
+                      "categorical": categorical, "prediction": prediction,
+                      "phase_s": phase_s}, default=str))
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

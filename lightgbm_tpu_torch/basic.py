@@ -121,9 +121,9 @@ class Dataset:
             meta.set_query(np.asarray(self.group))
         if self.init_score is not None:
             meta.set_init_score(np.asarray(self.init_score))
-        # category columns and names as lightgbm_tpu/basic.py:199-211 reads
-        # them: a category column reaches the binner, which raises until
-        # categorical features are ported
+        # category columns and names as lightgbm_tpu/basic.py:187-219 reads
+        # them: a category column (its codes) reaches the binner as a
+        # categorical feature
         categorical = []
         if self.categorical_feature == "auto":
             categorical = _pandas_categorical_columns(self.data)

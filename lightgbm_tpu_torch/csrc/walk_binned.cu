@@ -13,7 +13,16 @@
 // of the node's inner feature is missing when the missing type is Zero and
 // it is the feature's default bin, or NaN and it is the feature's last
 // bin; a missing bin goes to the default side, any other bin left when
-// bin <= threshold_bin.  A tree of one leaf puts every row in leaf 0.
+// bin <= threshold_bin.  A categorical node (CategoricalDecision,
+// tree.h:259-273) sends the row left when its bin's bit is set in the
+// node's 256-bit set over bins (32 bytes a node), whatever the missing
+// type.  With EFB bundles the bins are group columns: the node's feature
+// reads its group's column, and a value outside the feature's [lo, hi)
+// range decodes to the feature's default bin, any other to value - shift
+// (lightgbm_tpu/ops/grow.py:95-106).  Both are template flags, uniform
+// across a launch, so a numerical tree over one column a feature runs the
+// same code as before they existed.  A tree of one leaf puts every row in
+// leaf 0.
 // Modes:
 // - leaf: leaf[row] = the row's leaf;
 // - masked add: rows with leaf_ids[row] >= 0 (a bagged round's rows in
@@ -35,6 +44,8 @@ namespace {
 constexpr int WALK_THREADS = 256;
 enum : int { MODE_LEAF = 0, MODE_MASKED_ADD = 1, MODE_ADD = 2 };
 
+constexpr int CAT_BYTES = 32;   // a categorical node's 256-bit bin set
+
 struct TreeT {
   const int* feature;          // [N] inner feature
   const int* threshold_bin;    // [N]
@@ -44,9 +55,20 @@ struct TreeT {
   const int* right;            // [N] right child
   const int* num_leaves;       // 0-d, on the device
   int nodes;                   // N, the node slots
+  const uint8_t* is_cat;       // [N] bool (categorical trees)
+  const uint8_t* cat_bits;     // [N, 32] bin bit sets, bit b of byte b/8
 };
 
-__device__ __forceinline__ int walk(const TreeT& t, const uint8_t* b,
+struct BundleT {               // EFB maps, [F] each (bundled datasets)
+  const int* col;              // the feature's group column
+  const int* lo;               // its group-bin range [lo, hi)
+  const int* hi;
+  const int* shift;            // group bin = feature bin + shift
+};
+
+template <bool CAT, bool BUNDLE>
+__device__ __forceinline__ int walk(const TreeT& t, const BundleT& e,
+                                    const uint8_t* b,
                                     const int* __restrict__ num_bins,
                                     const int* __restrict__ default_bins,
                                     int num_leaves) {
@@ -54,20 +76,36 @@ __device__ __forceinline__ int walk(const TreeT& t, const uint8_t* b,
   // a tree of nl leaves has nl - 1 <= nodes internal nodes on any path
   for (int step = 0; node >= 0 && step < t.nodes; ++step) {
     const int f = __ldg(t.feature + node);
-    const int bin = b[f];
-    const int mt = __ldg(t.missing_type + node);
-    const bool missing = (mt == 1 && bin == __ldg(default_bins + f)) ||
-                         (mt == 2 && bin == __ldg(num_bins + f) - 1);
-    const bool left = missing ? __ldg(t.default_left + node) != 0
-                              : bin <= __ldg(t.threshold_bin + node);
+    int bin;
+    if constexpr (BUNDLE) {
+      const int v = b[__ldg(e.col + f)];
+      bin = (v >= __ldg(e.lo + f) && v < __ldg(e.hi + f))
+                ? v - __ldg(e.shift + f)
+                : __ldg(default_bins + f);
+    } else {
+      bin = b[f];
+    }
+    bool left;
+    if (CAT && __ldg(t.is_cat + node) != 0) {
+      left = (unsigned)bin < 256u &&
+             ((__ldg(t.cat_bits + (long long)node * CAT_BYTES + (bin >> 3)) >>
+               (bin & 7)) & 1) != 0;
+    } else {
+      const int mt = __ldg(t.missing_type + node);
+      const bool missing = (mt == 1 && bin == __ldg(default_bins + f)) ||
+                           (mt == 2 && bin == __ldg(num_bins + f) - 1);
+      left = missing ? __ldg(t.default_left + node) != 0
+                     : bin <= __ldg(t.threshold_bin + node);
+    }
     node = left ? __ldg(t.left + node) : __ldg(t.right + node);
   }
   return node < 0 ? ~node : 0;
 }
 
+template <bool CAT, bool BUNDLE>
 __global__ void __launch_bounds__(WALK_THREADS)
-walk_binned_kernel(TreeT t, const uint8_t* __restrict__ bins, long long n,
-                   int G, const int* __restrict__ num_bins,
+walk_binned_kernel(TreeT t, BundleT e, const uint8_t* __restrict__ bins,
+                   long long n, int G, const int* __restrict__ num_bins,
                    const int* __restrict__ default_bins, int mode,
                    const float* __restrict__ lv,
                    const int* __restrict__ leaf_ids, int* __restrict__ leaf,
@@ -76,7 +114,8 @@ walk_binned_kernel(TreeT t, const uint8_t* __restrict__ bins, long long n,
   if (row >= n) return;
   int l = mode == MODE_MASKED_ADD ? leaf_ids[row] : -1;
   if (l < 0)
-    l = walk(t, bins + row * G, num_bins, default_bins, __ldg(t.num_leaves));
+    l = walk<CAT, BUNDLE>(t, e, bins + row * G, num_bins, default_bins,
+                          __ldg(t.num_leaves));
   if (mode == MODE_LEAF) {
     leaf[row] = l;
     return;
@@ -86,22 +125,43 @@ walk_binned_kernel(TreeT t, const uint8_t* __restrict__ bins, long long n,
 
 }  // namespace
 
-// bins [n, G] uint8 row-major; the tree's node arrays [nodes]; leaf [n]
-// int32 (leaf mode); lv [L] f32, score [n] f32, leaf_ids [n] int32 (masked
-// add).
+// bins [n, G] uint8 row-major; the tree's node arrays [nodes]; num_bins,
+// default_bins [F]; is_cat [nodes] and cat_bits [nodes, 32] (or null: no
+// categorical node); col, lo, hi, shift [F] (or null: one column a
+// feature); leaf [n] int32 (leaf mode); lv [L] f32, score [n] f32,
+// leaf_ids [n] int32 (masked add).
 LGBT_API int lgbt_walk_binned(
     const int* feature, const int* threshold_bin, const uint8_t* default_left,
     const int* missing_type, const int* left, const int* right,
-    const int* num_leaves, int nodes, const uint8_t* bins, long long n,
-    int G, const int* num_bins, const int* default_bins, int mode,
-    const float* lv, const int* leaf_ids, int* leaf, float* score,
-    cudaStream_t stream) {
+    const int* num_leaves, int nodes, const uint8_t* is_cat,
+    const uint8_t* cat_bits, const int* col, const int* lo, const int* hi,
+    const int* shift, const uint8_t* bins, long long n, int G,
+    const int* num_bins, const int* default_bins, int mode, const float* lv,
+    const int* leaf_ids, int* leaf, float* score, cudaStream_t stream) {
   if (n <= 0 || nodes < 1 || mode < MODE_LEAF || mode > MODE_ADD)
     return (int)cudaErrorInvalidValue;
-  TreeT t{feature, threshold_bin, default_left, missing_type,
-          left,    right,         num_leaves,   nodes};
-  const long long blocks = (n + WALK_THREADS - 1) / WALK_THREADS;
-  walk_binned_kernel<<<(unsigned)blocks, WALK_THREADS, 0, stream>>>(
-      t, bins, n, G, num_bins, default_bins, mode, lv, leaf_ids, leaf, score);
+  const bool cat = is_cat != nullptr;
+  const bool bundle = col != nullptr;
+  if (cat != (cat_bits != nullptr) ||
+      bundle != (lo != nullptr && hi != nullptr && shift != nullptr))
+    return (int)cudaErrorInvalidValue;
+  TreeT t{feature, threshold_bin, default_left, missing_type, left,
+          right,   num_leaves,    nodes,        is_cat,       cat_bits};
+  BundleT e{col, lo, hi, shift};
+  const unsigned blocks =
+      (unsigned)((n + WALK_THREADS - 1) / WALK_THREADS);
+#define LGBT_WALK(C, B)                                                  \
+  walk_binned_kernel<C, B><<<blocks, WALK_THREADS, 0, stream>>>(         \
+      t, e, bins, n, G, num_bins, default_bins, mode, lv, leaf_ids, leaf, \
+      score)
+  if (cat && bundle)
+    LGBT_WALK(true, true);
+  else if (cat)
+    LGBT_WALK(true, false);
+  else if (bundle)
+    LGBT_WALK(false, true);
+  else
+    LGBT_WALK(false, false);
+#undef LGBT_WALK
   return (int)cudaGetLastError();
 }

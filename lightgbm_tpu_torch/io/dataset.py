@@ -1,12 +1,13 @@
 """The binned training dataset (in-memory numpy construction).
 
 Port of `BinnedDataset.construct` of lightgbm_tpu/io/dataset.py for dense
-numerical matrices: the same row sample for bin finding, the same
-BinMappers (io/bin_mapper.py), the same trivial-feature filter and the same
-EFB grouping decision (io/efb.py), so bin boundaries and the binned matrix
-are equal bit for bit.  The bins become a uint8 [n, G] tensor on the
-dataset's device.  File and binary-cache I/O, sparse input, categorical
-features and real multi-feature bundles are not ported yet.
+matrices: the same row sample for bin finding, the same BinMappers
+(io/bin_mapper.py, numerical or categorical), the same trivial-feature
+filter and the same EFB bundles (io/efb.py), so bin boundaries and the
+binned matrix are equal bit for bit.  The bins are [n, G] columns, one a
+feature or, with bundles, one an EFB group, and become a uint8 tensor on
+the dataset's device.  File and binary-cache I/O and sparse input are not
+ported yet (ROADMAP.md queue 1, item 3).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import torch
 
 from ..utils import log
 from . import efb
-from .bin_mapper import NUMERICAL, BinMapper
+from .bin_mapper import CATEGORICAL, NUMERICAL, BinMapper
 from .metadata import Metadata
 
 
@@ -30,8 +31,8 @@ class BinnedDataset:
         self.used_feature_map: List[int] = []      # raw idx -> inner idx or -1
         self.real_feature_index: List[int] = []    # inner idx -> raw idx
         self.bin_mappers: List[BinMapper] = []     # per inner feature
-        self.bins: Optional[np.ndarray] = None     # [n, F_used] uint8 host
-        self.bundle = None                         # always None in the port
+        self.bins: Optional[np.ndarray] = None     # [n, G] uint8 host
+        self.bundle: Optional[efb.BundleInfo] = None   # EFB layout or None
         self.feature_offsets: Optional[np.ndarray] = None
         self.metadata = Metadata()
         self.feature_names: List[str] = []
@@ -48,11 +49,7 @@ class BinnedDataset:
                   reference: Optional["BinnedDataset"] = None
                   ) -> "BinnedDataset":
         """Build from a dense raw float matrix; with `reference`, reuse its
-        bin mappers (validation-set path)."""
-        if categorical_features:
-            raise NotImplementedError(
-                "categorical features are not ported yet (ROADMAP.md queue "
-                "1, item 11)")
+        bin mappers and bundles (validation-set path)."""
         X = np.asarray(X)
         if X.ndim != 2:
             log.fatal("Input data must be 2-dimensional")
@@ -70,12 +67,13 @@ class BinnedDataset:
             for name in ("used_feature_map", "real_feature_index",
                          "bin_mappers", "feature_names", "feature_offsets",
                          "monotone_constraints", "feature_penalty",
-                         "max_bin"):
+                         "max_bin", "bundle"):
                 setattr(ds, name, getattr(reference, name))
             ds.bins = ds.bin_block(X)
             return ds
 
         ds.max_bin = config.max_bin
+        cat_set = set(int(c) for c in categorical_features)
         sample_cnt = min(config.bin_construct_sample_cnt, n)
         rng = np.random.RandomState(config.data_random_seed)
         sample_indices = (np.arange(n) if sample_cnt >= n else
@@ -91,7 +89,8 @@ class BinnedDataset:
             nonzero = col[(np.abs(col) > 1e-35) | np.isnan(col)]
             m = BinMapper()
             m.find_bin(nonzero, Xs.shape[0], config.max_bin,
-                       config.min_data_in_bin, filter_cnt, NUMERICAL,
+                       config.min_data_in_bin, filter_cnt,
+                       CATEGORICAL if f in cat_set else NUMERICAL,
                        config.use_missing, config.zero_as_missing)
             mappers.append(m)
         ds.used_feature_map = [-1] * num_raw
@@ -109,30 +108,31 @@ class BinnedDataset:
         ds.feature_offsets = np.concatenate([[0], np.cumsum(nb)]).astype(
             np.int32)
         ds._resolve_constraints(config)
-        ds._check_bundles(Xs, config)
+        ds._find_bundles(Xs, config)
         ds.bins = ds.bin_block(X)
         return ds
 
-    def _check_bundles(self, Xs: np.ndarray, config) -> None:
-        """The EFB grouping decision of the JAX dataset; a real
-        multi-feature bundle raises, since the grower has no unbundling."""
+    def _find_bundles(self, Xs: np.ndarray, config) -> None:
+        """EFB grouping from the sampled rows (lightgbm_tpu/io/dataset.py
+        `_find_bundles`, FastFeatureBundling, dataset.cpp:139-212)."""
         if not config.enable_bundle or self.num_features <= 1:
+            return
+        if config.tree_learner == "feature":
+            # feature-parallel shards scan units by raw feature
+            log.debug("EFB disabled for feature-parallel tree learner")
             return
         nonzero_rows = []
         for inner, raw in enumerate(self.real_feature_index):
             m = self.bin_mappers[inner]
             b = m.values_to_bins(np.asarray(Xs[:, raw], np.float64))
             nonzero_rows.append(np.flatnonzero(b != m.default_bin))
-        bundle = efb.fast_feature_bundling(
+        self.bundle = efb.fast_feature_bundling(
             nonzero_rows, Xs.shape[0], [m.num_bin for m in self.bin_mappers],
             [m.default_bin for m in self.bin_mappers],
             config.max_conflict_rate, config.min_data_in_leaf, self.num_data)
-        if bundle is not None:
-            raise NotImplementedError(
-                "EFB bundled %d features into %d groups; multi-feature "
-                "bundles are not ported yet (ROADMAP.md queue 1, item 11); "
-                "pass enable_bundle=False"
-                % (self.num_features, bundle.num_groups))
+        if self.bundle is not None:
+            log.info("EFB bundled %d features into %d groups",
+                     self.num_features, self.bundle.num_groups)
 
     def _resolve_constraints(self, config) -> None:
         if config.monotone_constraints:
@@ -153,17 +153,39 @@ class BinnedDataset:
                 dtype=np.float64)
 
     def bin_block(self, X) -> np.ndarray:
-        """[k, num_raw] floats -> [k, F_used] uint8 bins."""
-        max_nb = max((m.num_bin for m in self.bin_mappers), default=2)
+        """[k, num_raw] floats -> [k, G] uint8 bins: one column a feature,
+        or with bundles one a group, its features' non-default bins shifted
+        into the group's range, later features of a group winning
+        conflicts (lightgbm_tpu/io/dataset.py `bin_block`)."""
+        n = X.shape[0]
+        info = self.bundle
+        max_nb = (int(info.group_num_bins.max()) if info is not None else
+                  max((m.num_bin for m in self.bin_mappers), default=2))
         if max_nb > 256:
             raise NotImplementedError(
                 "features with more than 256 bins need uint16 bins, which "
                 "are not ported yet (ROADMAP.md queue 1, item 11: uint16 "
                 "bins and max_bin > 256)")
-        bins = np.empty((X.shape[0], self.num_features), dtype=np.uint8)
-        for inner, raw in enumerate(self.real_feature_index):
-            bins[:, inner] = self.bin_mappers[inner].values_to_bins(
-                np.asarray(X[:, raw], dtype=np.float64)).astype(np.uint8)
+
+        def feature_bins(inner):
+            return self.bin_mappers[inner].values_to_bins(np.asarray(
+                X[:, self.real_feature_index[inner]], np.float64))
+
+        def group_bins(feats):
+            if len(feats) == 1:
+                return feature_bins(feats[0]).astype(np.uint8)
+            col = np.zeros(n, np.int64)
+            for inner in feats:
+                b = feature_bins(inner).astype(np.int64)
+                nz = b != int(info.feature_default[inner])
+                col = np.where(nz, b + int(info.feature_shift[inner]), col)
+            return col.astype(np.uint8)
+
+        groups = ([[f] for f in range(self.num_features)] if info is None
+                  else info.groups)
+        bins = np.empty((n, len(groups)), dtype=np.uint8)
+        for g, feats in enumerate(groups):
+            bins[:, g] = group_bins(feats)
         return bins
 
     @property
@@ -172,6 +194,26 @@ class BinnedDataset:
 
     def feature_num_bins(self) -> np.ndarray:
         return np.array([m.num_bin for m in self.bin_mappers], dtype=np.int32)
+
+    @property
+    def num_groups(self) -> int:
+        """Columns of the bin matrix: EFB groups, or one a feature."""
+        return (self.bundle.num_groups if self.bundle is not None
+                else self.num_features)
+
+    @property
+    def is_categorical(self) -> np.ndarray:
+        """bool [F]: the features binned as categories."""
+        return np.array([m.bin_type == CATEGORICAL for m in self.bin_mappers],
+                        bool)
+
+    def hist_max_bin(self) -> int:
+        """Bins per histogram column: the largest group's (up to 256 with
+        bundles, whatever max_bin is) or feature's bin count
+        (lightgbm_tpu/models/gbdt.py `_DatasetState.hist_max_bin`)."""
+        if self.bundle is not None:
+            return int(self.bundle.group_num_bins.max())
+        return int(self.feature_num_bins().max()) if self.num_features else 2
 
     def device_bins(self, device) -> torch.Tensor:
         """The binned matrix as a uint8 [n, G] tensor on `device` (cached)."""

@@ -191,3 +191,35 @@ def fast_feature_bundling(nonzero_rows: List[np.ndarray],
         return None
     return BundleInfo(groups, num_bins, default_bins)
 
+
+def bundling_from_sample_bins(bins: np.ndarray, num_bins: Sequence[int],
+                              default_bins: Sequence[int],
+                              max_conflict_rate: float,
+                              min_data_in_leaf: int,
+                              num_data: int) -> Optional[BundleInfo]:
+    """Convenience wrapper: sampled [S, F] binned matrix -> bundle layout."""
+    S, F = bins.shape
+    nonzero_rows = [np.flatnonzero(bins[:, f] != int(default_bins[f]))
+                    for f in range(F)]
+    return fast_feature_bundling(nonzero_rows, S, num_bins, default_bins,
+                                 max_conflict_rate, min_data_in_leaf,
+                                 num_data)
+
+
+def build_bundled_matrix(bins: np.ndarray, info: BundleInfo) -> np.ndarray:
+    """[n, F] per-feature bins -> [n, G] bundled columns."""
+    n = bins.shape[0]
+    G = info.num_groups
+    dtype = np.uint8 if int(info.group_num_bins.max()) <= 256 else np.uint16
+    out = np.zeros((n, G), dtype)
+    for g, feats in enumerate(info.groups):
+        if len(feats) == 1:
+            out[:, g] = bins[:, feats[0]].astype(dtype)
+            continue
+        col = np.zeros(n, np.int64)
+        for f in feats:                      # later features win conflicts
+            b = bins[:, f].astype(np.int64)
+            nz = b != int(info.feature_default[f])
+            col = np.where(nz, b + int(info.feature_shift[f]), col)
+        out[:, g] = col.astype(dtype)
+    return out

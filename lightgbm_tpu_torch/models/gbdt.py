@@ -105,8 +105,8 @@ from ..config import Config
 from ..io.dataset import BinnedDataset
 from ..metric import Metric
 from ..objective import ObjectiveFunction, create_objective
-from ..ops.grow import (TreeArrays, grow_tree_label, pack_tree_vector,
-                        unpack_tree_vector)
+from ..ops.grow import (BundleMaps, TreeArrays, grow_tree_label,
+                        pack_tree_vector, unpack_tree_vector)
 from ..ops import quantize as qz
 from ..ops import threefry
 from ..ops.graphs import RoundGraphs
@@ -129,9 +129,9 @@ _DRAIN_EVERY = 48
 
 class _DatasetState:
     """A validation set's device state (ScoreUpdater, score_updater.hpp;
-    lightgbm_tpu/models/gbdt.py:52-104): its bins for the tree walk and its
-    raw scores, class-major [k, n] in row order (`score`: [n] for k = 1,
-    as the GBDT's)."""
+    lightgbm_tpu/models/gbdt.py:52-104): its bins (group columns with EFB)
+    and bundle maps for the tree walk and its raw scores, class-major
+    [k, n] in row order (`score`: [n] for k = 1, as the GBDT's)."""
 
     def __init__(self, ds: BinnedDataset, device, k: int):
         self.bins = ds.device_bins(device)
@@ -139,6 +139,7 @@ class _DatasetState:
         self.default_bins = torch.as_tensor(
             np.array([m.default_bin for m in ds.bin_mappers], np.int32),
             device=device)
+        self.bundle = bundle_maps(ds, device)
         self.scores = init_score_matrix(ds, k, device)
 
     @property
@@ -249,8 +250,8 @@ class GBDT:
         self.feature_names = list(ds.feature_names)
         self.feature_infos = _feature_infos(ds)
         self.objective.init(ds.metadata, n, dev)
-        # bins per histogram column: the largest feature's bin count
-        self.max_bin = int(ds.feature_num_bins().max())
+        # bins per histogram column: the largest group's or feature's
+        self.max_bin = ds.hist_max_bin()
         L = max(cfg.num_leaves, 2)
         self.split_params = SplitParams(
             lambda_l1=cfg.lambda_l1, lambda_l2=cfg.lambda_l2,
@@ -258,7 +259,10 @@ class GBDT:
             min_data_in_leaf=cfg.min_data_in_leaf,
             min_sum_hessian_in_leaf=cfg.min_sum_hessian_in_leaf,
             min_gain_to_split=cfg.min_gain_to_split,
-            cegb_split_penalty=cfg.cegb_tradeoff * cfg.cegb_penalty_split)
+            cegb_split_penalty=cfg.cegb_tradeoff * cfg.cegb_penalty_split,
+            max_cat_to_onehot=cfg.max_cat_to_onehot,
+            cat_smooth=cfg.cat_smooth, cat_l2=cfg.cat_l2,
+            min_data_per_group=cfg.min_data_per_group)
         self.num_bins = torch.as_tensor(ds.feature_num_bins(), device=dev)
         self.default_bins = torch.as_tensor(
             np.array([m.default_bin for m in ds.bin_mappers], np.int32),
@@ -272,6 +276,15 @@ class GBDT:
         self.penalty = (None if ds.feature_penalty is None else
                         torch.as_tensor(ds.feature_penalty.astype(np.float32),
                                         device=dev))
+        # the EFB maps and the bin-type vector (gbdt.py:106-125, :330-336):
+        # None when the dataset has no bundle or no categorical feature, so
+        # the growers keep the numerical paths
+        self.bundle = bundle_maps(ds, dev)
+        cat = ds.is_categorical
+        self.is_categorical = (torch.as_tensor(cat, device=dev)
+                               if cat.any() else None)
+        # the width of a tree's cat_mask
+        self._cat_w = self.max_bin if self.is_categorical is not None else 0
         k = self.num_tree_per_iteration
         self.scores = init_score_matrix(ds, k, dev)
         if k > 1:
@@ -312,7 +325,8 @@ class GBDT:
         if self._use_partition_engine:
             # pristine layout (gbdt.py:1281-1282): factor >= 4 covers the
             # pristine block, the redirected root copy and the bump region
-            self.arena = Arena(n, ds.num_features, self._arena_factor(), dev,
+            # the arena stores the group columns (gbdt.py:1274)
+            self.arena = Arena(n, ds.num_groups, self._arena_factor(), dev,
                                quantized=self._quantized)
             init_pristine(self.arena, ds.device_bins(dev).t())
 
@@ -338,7 +352,7 @@ class GBDT:
         cfg = self.config
         base_ok = (self.max_bin <= 256 and self.train_set.num_features > 0
                    and self.num_data < (1 << 24))
-        need = arena_bytes(self.num_data, self.train_set.num_features,
+        need = arena_bytes(self.num_data, self.train_set.num_groups,
                            self._arena_factor(), self.max_leaves,
                            self.max_bin, bool(cfg.tpu_quantized_grad))
         eng = choose_tree_engine(cfg.tpu_tree_engine, base_ok, need,
@@ -431,7 +445,8 @@ class GBDT:
     def _unpack(self, host: torch.Tensor) -> TreeArrays:
         """A fetched packed tree as host TreeArrays; warns once when the
         arena truncated it."""
-        arrays, truncated = unpack_tree_vector(host.numpy(), self.max_leaves)
+        arrays, truncated = unpack_tree_vector(host.numpy(), self.max_leaves,
+                                               self._cat_w)
         if truncated and not self._truncation_warned:
             self._truncation_warned = True
             log.warning("Tree growth truncated at %d leaves by partition-"
@@ -603,7 +618,9 @@ class GBDT:
         else:
             grad, hess = self._grad[class_id], self._hess[class_id]
         common = dict(max_leaves=self.max_leaves, max_depth=cfg.max_depth,
-                      max_bin=self.max_bin, pvec=self._pvec)
+                      max_bin=self.max_bin, pvec=self._pvec,
+                      is_categorical=self.is_categorical, bundle=self.bundle,
+                      max_cat_threshold=cfg.max_cat_threshold)
         if not self._use_partition_engine:
             row_init = (self._bag_pred.to(torch.int32) - 1 if bagged else
                         torch.zeros(n, dtype=torch.int32, device=dev))
@@ -651,7 +668,7 @@ class GBDT:
         if bagged:
             walk_binned(self.train_set.device_bins(self.device), tree,
                         self.num_bins, self.default_bins, lv=lv,
-                        score=score, leaf_ids=leaf_ids)
+                        score=score, leaf_ids=leaf_ids, bundle=self.bundle)
         else:
             score.add_(lv[leaf_ids.long()])
 
@@ -793,7 +810,7 @@ class GBDT:
             self._add_leaf_values(lv, out, bagged, arrays, class_id)
         for _, vs, _m in self.valid_states:
             walk_binned(vs.bins, arrays, vs.num_bins, vs.default_bins, lv=lv,
-                        score=vs.scores[class_id])
+                        score=vs.scores[class_id], bundle=vs.bundle)
 
     def _drain_inflight(self) -> bool:
         """Materialize the pending deferred trees (gbdt.py:1113-1168),
@@ -857,7 +874,7 @@ class GBDT:
         bins = ds.device_bins(self.device)
         for i, tree in enumerate(self.models):
             _walk_add(bins, self.num_bins, self.default_bins,
-                      self.scores[i % k], tree)
+                      self.scores[i % k], tree, self.bundle, self.max_bin)
 
     def _sync_model(self) -> None:
         """Drain the pending trees before the model is read
@@ -888,7 +905,7 @@ class GBDT:
         """Add a host tree's output to a dataset's class score by KP2's add
         mode on the device (gbdt.py:2233-2243)."""
         _walk_add(state.bins, state.num_bins, state.default_bins,
-                  state.scores[class_id], tree)
+                  state.scores[class_id], tree, state.bundle, self.max_bin)
 
     def eval_train(self) -> Dict[str, List[float]]:
         self._sync_model()
@@ -1217,7 +1234,10 @@ def _feature_infos(ds: BinnedDataset) -> List[str]:
             out.append("none")
             continue
         m = ds.bin_mappers[inner]
-        out.append("[%s:%s]" % (_repr_g(m.min_val), _repr_g(m.max_val)))
+        if m.bin_type == 1:  # categorical
+            out.append(":".join(str(c) for c in sorted(m.bin_2_categorical)))
+        else:
+            out.append("[%s:%s]" % (_repr_g(m.min_val), _repr_g(m.max_val)))
     return out
 
 
@@ -1226,16 +1246,56 @@ def _repr_g(v: float) -> str:
                                       fractional=False)
 
 
-def _tree_to_device(tree: Tree, device) -> TreeArrays:
+def bundle_maps(ds: BinnedDataset, device) -> Optional[BundleMaps]:
+    """The dataset's EFB layout as device BundleMaps, or None without
+    bundles (lightgbm_tpu/models/gbdt.py:106-125)."""
+    info = ds.bundle
+    if info is None:
+        return None
+    G = info.num_groups
+    B = int(info.group_num_bins.max())
+    nbf = ds.feature_num_bins()
+    db = info.feature_default
+    b = np.arange(B, dtype=np.int64)[None, :]
+    g = info.feature_group.astype(np.int64)[:, None]
+    shift = np.where(info.needs_fix, info.feature_shift, 0)[:, None]
+    valid = b < nbf[:, None]
+    is_def = info.needs_fix[:, None] & (b == db[:, None])
+    idx = np.where(valid & ~is_def, g * B + b + shift, G * B)
+
+    def t(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype), device=device)
+
+    return BundleMaps(
+        unbundle_idx=t(idx, np.int64), feat_col=t(info.feature_group,
+                                                  np.int32),
+        feat_lo=t(info.feature_lo, np.int32),
+        feat_hi=t(info.feature_hi, np.int32),
+        feat_shift=t(info.feature_shift, np.int32),
+        needs_fix=t(info.needs_fix, bool))
+
+
+def _tree_to_device(tree: Tree, device, max_bin: int) -> TreeArrays:
     """A host tree's node arrays on the device for KP2's walk
     (gbdt.py:2246-2310): `add_valid`'s replay of earlier trees and the
-    rebuild of the training score."""
+    rebuild of the training score.  A tree with categorical nodes has
+    their bin bitsets as [N, max_bin] left-going masks."""
     nl = tree.num_leaves
     n = nl - 1
     dt = tree.decision_type[:n].astype(np.int32)
-    if (dt & K_CATEGORICAL_MASK).any():
-        raise NotImplementedError("categorical splits are not ported yet "
-                                  "(ROADMAP.md queue 1, item 11)")
+    W = max_bin if tree.num_cat > 0 else 0
+    is_cat = (dt & K_CATEGORICAL_MASK) > 0
+    cat_mask = np.zeros((n, W), bool)
+    word, bit = np.arange(W) // 32, np.arange(W) % 32
+    for node in np.flatnonzero(is_cat):
+        ci = int(tree.threshold_in_bin[node])
+        lo = tree.cat_boundaries_inner[ci]
+        hi = tree.cat_boundaries_inner[ci + 1]
+        bits = np.asarray(tree.cat_threshold_inner[lo:hi], np.uint32)
+        if len(bits):
+            cat_mask[node] = (word < len(bits)) & (
+                (bits[np.minimum(word, len(bits) - 1)] >> bit) & 1
+            ).astype(bool)
 
     def t(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a, dtype), device=device)
@@ -1254,7 +1314,7 @@ def _tree_to_device(tree: Tree, device) -> TreeArrays:
         leaf_value=t(tree.leaf_value[:nl], np.float32),
         leaf_count=t(zl, np.int32), leaf_parent=t(zl, np.int32),
         leaf_depth=t(zl, np.int32), num_leaves=t(nl, np.int32),
-        is_cat=t(zn, bool), cat_mask=t(np.zeros((n, 0)), bool))
+        is_cat=t(is_cat, bool), cat_mask=t(cat_mask, bool))
 
 
 def init_score_matrix(ds: BinnedDataset, k: int, device) -> torch.Tensor:
@@ -1272,7 +1332,8 @@ def init_score_matrix(ds: BinnedDataset, k: int, device) -> torch.Tensor:
 
 def _walk_add(bins: torch.Tensor, num_bins: torch.Tensor,
               default_bins: torch.Tensor, score: torch.Tensor,
-              tree: Tree) -> None:
+              tree: Tree, bundle: Optional[BundleMaps],
+              max_bin: int) -> None:
     """score += the host tree's f32 leaf value at each row's leaf (a
     constant for a one-leaf tree), the rows walked by KP2's add mode."""
     if tree.num_leaves <= 1:
@@ -1281,8 +1342,8 @@ def _walk_add(bins: torch.Tensor, num_bins: torch.Tensor,
     lv = torch.as_tensor(
         tree.leaf_value[:tree.num_leaves].astype(np.float32),
         device=score.device)
-    walk_binned(bins, _tree_to_device(tree, score.device), num_bins,
-                default_bins, lv=lv, score=score)
+    walk_binned(bins, _tree_to_device(tree, score.device, max_bin), num_bins,
+                default_bins, lv=lv, score=score, bundle=bundle)
 
 
 def _issparse(X) -> bool:

@@ -83,8 +83,8 @@ _ENTRY_POINTS = {
                                                    _I, _I, _D, _I, _P, _LL,
                                                    _P, _P, _P]},
     "walk_binned": {
-        "lgbt_walk_binned": [_P] * 7 + [_I, _P, _LL, _I, _P, _P, _I, _P, _P,
-                                        _P, _P, _P]},
+        "lgbt_walk_binned": [_P] * 7 + [_I] + [_P] * 6
+                            + [_P, _LL, _I, _P, _P, _I, _P, _P, _P, _P, _P]},
 }
 
 LAUNCHES: Counter = Counter()

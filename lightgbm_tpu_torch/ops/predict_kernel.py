@@ -14,9 +14,11 @@ CUDA tensor launches the kernel or raises.
   ops/predict.predict_ensemble_plain and, for the small batch,
   tree_values_plain with ordered_sum_plain.
 - `walk_binned` (KP2): one device tree (ops/grow.TreeArrays) over the
-  uint8 bins [n, G], writing each row's leaf or adding a leaf value to the
-  row's f32 score (all rows, or the rows whose leaf id is -1, the others
-  adding the value of their leaf id); plain version
+  uint8 bins [n, G] (a column a feature, or EFB group columns decoded
+  through ops/grow.BundleMaps), its categorical nodes by their bin sets,
+  writing each row's leaf or adding a leaf value to the row's f32 score
+  (all rows, or the rows whose leaf id is -1, the others adding the value
+  of their leaf id); plain version
   ops/grow.predict_leaf_inner and the same adds.  Counted as
   `walk_binned` (leaf mode), `walk_binned_add` and
   `walk_binned_masked_add`.
@@ -28,7 +30,7 @@ from typing import Optional
 import torch
 
 from . import _cuda
-from .grow import TreeArrays, predict_leaf_inner
+from .grow import BundleMaps, TreeArrays, predict_leaf_inner
 from .predict import (MODE_LEAF, MODE_SUM, MODE_SUM_EARLY_STOP,
                       EnsembleTables, ordered_sum_plain,
                       predict_ensemble_plain, tree_values_plain)
@@ -132,11 +134,12 @@ def walk_binned_plain(bins: torch.Tensor, tree: TreeArrays,
                       num_bins: torch.Tensor, default_bins: torch.Tensor,
                       lv: Optional[torch.Tensor] = None,
                       score: Optional[torch.Tensor] = None,
-                      leaf_ids: Optional[torch.Tensor] = None):
+                      leaf_ids: Optional[torch.Tensor] = None,
+                      bundle: Optional[BundleMaps] = None):
     """KP2 in plain PyTorch: the leaf of every row (no score), or
     `score += lv[leaf]` in place, with leaf_ids >= 0 taking the place of
     the walk's leaf where given."""
-    leaf = predict_leaf_inner(bins, tree, num_bins, default_bins)
+    leaf = predict_leaf_inner(bins, tree, num_bins, default_bins, bundle)
     if score is None:
         return leaf
     if leaf_ids is not None:
@@ -145,18 +148,37 @@ def walk_binned_plain(bins: torch.Tensor, tree: TreeArrays,
     return None
 
 
+def cat_bit_sets(cat_mask: torch.Tensor) -> torch.Tensor:
+    """uint8 [N, 32]: each node's left-going bins [N, W] (W <= 256) as a
+    256-bit set, bit b in byte b // 8 at b % 8, bins past W clear; built
+    on the device with no host copy, so it captures into a round graph."""
+    N, W = cat_mask.shape
+    if W > 256:
+        raise ValueError("a bin set holds 256 bins, the mask has %d" % W)
+    full = torch.nn.functional.pad(cat_mask.to(torch.uint8), (0, 256 - W))
+    weight = torch.bitwise_left_shift(
+        torch.ones(8, dtype=torch.uint8, device=cat_mask.device),
+        torch.arange(8, dtype=torch.uint8, device=cat_mask.device))
+    return (full.view(N, 32, 8) * weight).sum(dim=2, dtype=torch.uint8)
+
+
 def walk_binned(bins: torch.Tensor, tree: TreeArrays,
                 num_bins: torch.Tensor, default_bins: torch.Tensor,
                 lv: Optional[torch.Tensor] = None,
                 score: Optional[torch.Tensor] = None,
-                leaf_ids: Optional[torch.Tensor] = None):
-    """KP2: one tree over bins [n, G] uint8.  With no score: returns each
-    row's leaf (int32 [n]).  With lv (f32 [L]) and score (f32 [n]): adds
-    lv[leaf] to every row's score in place (one f32 add), and with
-    leaf_ids (int32 [n]) only the rows whose id is -1 walk, the others
-    adding lv[leaf_ids]."""
+                leaf_ids: Optional[torch.Tensor] = None,
+                bundle: Optional[BundleMaps] = None):
+    """KP2: one tree over bins [n, G] uint8, num_bins and default_bins [F]
+    per feature; with `bundle` the G columns are EFB groups (G = F
+    without).  With no score: returns each row's leaf (int32 [n]).  With
+    lv (f32 [L]) and score (f32 [n]): adds lv[leaf] to every row's score
+    in place (one f32 add), and with leaf_ids (int32 [n]) only the rows
+    whose id is -1 walk, the others adding lv[leaf_ids].  A tree whose
+    cat_mask is wider than 0 walks its categorical nodes by their bin
+    sets (`cat_bit_sets`)."""
     dev = bins.device
     n, G = bins.shape
+    F = num_bins.shape[0]
     _cuda.require(bins, "bins", torch.uint8, dev)
     N = tree.split_feature.shape[0]
     for name, dtype in (("split_feature", torch.int32),
@@ -168,12 +190,19 @@ def walk_binned(bins: torch.Tensor, tree: TreeArrays,
         _cuda.require(getattr(tree, name), name, dtype, dev, (N,))
     nl = tree.num_leaves.reshape(())
     _cuda.require(nl, "num_leaves", torch.int32, dev, ())
-    _cuda.require(num_bins, "num_bins", torch.int32, dev, (G,))
-    _cuda.require(default_bins, "default_bins", torch.int32, dev, (G,))
-    if tree.cat_mask.shape[1] > 0:
-        raise NotImplementedError(
-            "categorical splits are not ported yet (ROADMAP.md queue 1, "
-            "item 11)")
+    _cuda.require(num_bins, "num_bins", torch.int32, dev, (F,))
+    _cuda.require(default_bins, "default_bins", torch.int32, dev, (F,))
+    if bundle is None and F != G:
+        raise ValueError("bins has %d columns for %d features without a "
+                         "bundle" % (G, F))
+    if bundle is not None:
+        for name in ("feat_col", "feat_lo", "feat_hi", "feat_shift"):
+            _cuda.require(getattr(bundle, name), name, torch.int32, dev,
+                          (F,))
+    has_cat = tree.cat_mask.shape[1] > 0
+    if has_cat:
+        _cuda.require(tree.is_cat, "is_cat", torch.bool, dev, (N,))
+        _cuda.require(tree.cat_mask, "cat_mask", torch.bool, dev)
     if score is None:
         if lv is not None or leaf_ids is not None:
             raise ValueError("lv and leaf_ids need a score")
@@ -190,20 +219,24 @@ def walk_binned(bins: torch.Tensor, tree: TreeArrays,
         out = None
     if not _cuda.plain_or_cuda(dev):
         got = walk_binned_plain(bins, tree, num_bins, default_bins, lv,
-                                score, leaf_ids)
+                                score, leaf_ids, bundle)
         return got if out is not None else None
     if n == 0:
         return out
 
     def ptr(t):
         return 0 if t is None else t.data_ptr()
+    bits = cat_bit_sets(tree.cat_mask) if has_cat else None
     rc = _cuda.fn("lgbt_walk_binned")(
         tree.split_feature.data_ptr(), tree.threshold_bin.data_ptr(),
         tree.default_left.data_ptr(), tree.missing_type.data_ptr(),
         tree.left_child.data_ptr(), tree.right_child.data_ptr(),
-        nl.data_ptr(), N, bins.data_ptr(), n, G,
-        num_bins.data_ptr(), default_bins.data_ptr(), mode, ptr(lv),
-        ptr(leaf_ids), ptr(out), ptr(score), _cuda.stream(dev))
+        nl.data_ptr(), N, ptr(tree.is_cat if has_cat else None), ptr(bits),
+        *(ptr(None if bundle is None else getattr(bundle, name))
+          for name in ("feat_col", "feat_lo", "feat_hi", "feat_shift")),
+        bins.data_ptr(), n, G, num_bins.data_ptr(), default_bins.data_ptr(),
+        mode, ptr(lv), ptr(leaf_ids), ptr(out), ptr(score),
+        _cuda.stream(dev))
     _cuda.check(rc, ("walk_binned", "walk_binned_masked_add",
                      "walk_binned_add")[mode])
     return out

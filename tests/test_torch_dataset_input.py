@@ -4,10 +4,9 @@
   feature names as JAX's `Dataset`, a model text equal to the one trained
   on the bare matrix but for its feature names, and the header of
   JAX's model text (trained with the label engine on the same frame);
-- a `category` column detected under "auto", and one named in
-  `categorical_feature`, reach the binner, which raises
-  NotImplementedError (categorical features are ROADMAP.md queue 1, item
-  11) where JAX detects the same column;
+- a `category` column detected under "auto", and one named or indexed in
+  `categorical_feature`, is binned as a category where JAX bins it so and
+  trains to JAX's model text (the label engine, 3 rounds);
 - scipy sparse input and a file path raise NotImplementedError naming
   queue 1, item 3;
 - `Booster.predict` reads a DataFrame's category column as its codes, as
@@ -15,6 +14,8 @@
 - the engine's and callback's not-yet-ported features name queue 1, item
   7b, and checkpoint resume item 14.
 """
+import json
+
 import numpy as np
 import pandas as pd
 import pytest
@@ -23,6 +24,8 @@ import scipy.sparse as sp
 import lightgbm_tpu as jlgb
 import lightgbm_tpu_torch as tlgb
 from lightgbm_tpu_torch import callback as tcallback
+
+from test_torch_inflight import assert_texts_match
 
 PARAMS = {"objective": "binary", "num_leaves": 7, "min_data_in_leaf": 5,
           "learning_rate": 0.25, "verbose": -1}
@@ -71,6 +74,9 @@ def test_numeric_frame_reads_as_jax_reads_it():
 
 @pytest.mark.parametrize("how", ["auto", "by_name", "by_index"])
 def test_category_column_raises_where_jax_detects_it(how):
+    """A category column, detected or named or indexed, is binned as a
+    category where JAX bins it so, and trains to JAX's model; prediction
+    on the frame maps its categories to their codes."""
     df, y = _frame()
     df["c"] = pd.Categorical(10 * np.random.RandomState(1).randint(0, 5,
                                                                    len(df)))
@@ -79,8 +85,16 @@ def test_category_column_raises_where_jax_detects_it(how):
     jds = jlgb.Dataset(df, y, **kw).construct()
     assert jds._binned.bin_mappers[2].bin_type != \
         jds._binned.bin_mappers[0].bin_type
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tlgb.Dataset(df, y, device="cpu", **kw).construct()
+    tds = tlgb.Dataset(df, y, device="cpu", **kw).construct()
+    assert [m.bin_type for m in tds._binned.bin_mappers] == \
+        [m.bin_type for m in jds._binned.bin_mappers]
+    params = dict(PARAMS, tpu_tree_engine="label")
+    tb = tlgb.train(params, tds, 3, device="cpu")
+    jb = jlgb.train(params, jds, 3)
+    assert_texts_match(tb.model_to_string(), jb.model_to_string())
+    np.testing.assert_allclose(tb.predict(df, raw_score=True),
+                               jb.predict(df, raw_score=True), rtol=0,
+                               atol=5e-6)
 
 
 def test_unmatched_category_names_are_dropped_as_in_jax():
@@ -147,3 +161,30 @@ def test_unported_callbacks_and_cv_name_item_7b():
         tcallback.reset_parameter(learning_rate=[0.1])
     with pytest.raises(NotImplementedError, match="item 7b"):
         tlgb.cv(PARAMS, tlgb.Dataset(df, y, device="cpu"))
+
+
+def test_mixed_columns_bin_as_jax_does():
+    """Numerical columns (one with NaNs, one of few values) beside a
+    categorical one: the mappers equal JAX's, column for column, and so do
+    the bins, with and without EFB bundles."""
+    rng = np.random.RandomState(6)
+    n = 3000
+    X = rng.randn(n, 12)
+    X[rng.rand(n) < 0.05, 3] = np.nan
+    X[:, 5] = rng.randint(0, 30, n)
+    X[:, 7] = np.round(X[:, 7] * 3)
+    y = (X[:, 0] > 0).astype(np.float64)
+    onehot = np.zeros((n, 8))
+    onehot[np.arange(n), rng.randint(0, 8, n)] = 1.0
+    for data in (X, np.column_stack([X, onehot])):
+        got = tlgb.Dataset(data, y, categorical_feature=[5],
+                           device="cpu").construct()._binned
+        want = jlgb.Dataset(data, y,
+                            categorical_feature=[5]).construct()._binned
+        # as JSON: a NaN bin bound equals itself there
+        assert [json.dumps(m.to_state()) for m in got.bin_mappers] == \
+            [json.dumps(m.to_state()) for m in want.bin_mappers]
+        assert got.bin_mappers[5].bin_type == 1
+        assert got.bin_mappers[0].bin_type == 0
+        assert (got.bundle is None) is (data is X)
+        np.testing.assert_array_equal(got.bins, np.asarray(want.bins))

@@ -120,7 +120,15 @@ Tolerances, per kernel:
   one-vs-all, each round's trees grown on both from the CPU's bounded
   dyadic gradients: the same splits and leaf of every row in each of the
   21 trees, leaf values rtol 1e-5, scores and raw predictions within
-  5e-6 of their scale.
+  5e-6 of their scale;
+- categorical features and EFB bundles: KP2 over CPU-trained trees with
+  categorical nodes, over EFB group columns and both, in every mode on
+  the card against its plain version on the CPU, bit for bit; five rounds
+  of the airline data (six categorical columns; carried f32 and
+  quantized, a validation set, the label engine) and of Covertype's
+  one-hot layout bundled by EFB (carried, the label engine) through
+  their graphs against an eager twin, bit for bit on dyadic gradients,
+  with no K1 launch on the categorical data.
 """
 import os
 
@@ -2074,3 +2082,197 @@ def test_multiclass_round_card_vs_cpu(objective, dev):
     np.testing.assert_allclose(a.predict(X, raw_score=True),
                                b.predict(X, raw_score=True), rtol=0,
                                atol=scale)
+
+
+# --------------------------------------------------------------------------- #
+# categorical features and EFB bundles
+# --------------------------------------------------------------------------- #
+def _airline_like(n, seed, airports=60):
+    """Rows of the airline layout (six category columns as codes, DepTime,
+    Distance) and a label from per-category effects."""
+    rng = np.random.RandomState(seed)
+    cards = {0: 12, 1: 31, 2: 7, 4: 22, 5: airports, 6: airports}
+    X = np.zeros((n, 8), np.float32)
+    score = np.zeros(n)
+    for j, c in cards.items():
+        codes = rng.randint(0, c, n)
+        X[:, j] = codes
+        score += np.random.RandomState(100 + j).randn(c)[codes]
+    X[:, 3] = rng.randint(0, 2400, n)
+    X[:, 7] = np.round(rng.gamma(2.0, 400.0, n))
+    score += (X[:, 3] > 1700) * 0.7 + rng.randn(n)
+    return X, (score > 0.5).astype(np.float32)
+
+
+AIRLINE_CATS = [0, 1, 2, 4, 5, 6]
+
+
+def _onehot_like(n, seed, k=1):
+    """Covertype's layout: 10 numbers, then 4 and 40 one-hot columns (the
+    row's area and soil type); k classes (k = 1: a binary label)."""
+    rng = np.random.RandomState(seed)
+    X = np.zeros((n, 54), np.float32)
+    X[:, :10] = rng.randn(n, 10)
+    area, soil = rng.randint(0, 4, n), rng.randint(0, 40, n)
+    X[np.arange(n), 10 + area] = 1.0
+    X[np.arange(n), 14 + soil] = 1.0
+    s = X[:, 0] + np.random.RandomState(7).randn(40)[soil] + 0.3 * area \
+        + 0.5 * rng.randn(n)
+    if k == 1:
+        return X, (s > 0.5).astype(np.float32)
+    return X, np.clip(np.floor(s + 2), 0, k - 1).astype(np.float32)
+
+
+def _mixed_like(n, seed):
+    """The airline columns followed by 12 one-hot columns: categorical
+    features beside an EFB bundle."""
+    X, y = _airline_like(n, seed)
+    rng = np.random.RandomState(seed + 1)
+    oh = np.zeros((n, 12), np.float32)
+    pick = rng.randint(0, 12, n)
+    oh[np.arange(n), pick] = 1.0
+    y = np.where(pick % 3 == 0, 1.0 - y, y).astype(np.float32)
+    return np.column_stack([X, oh]), y
+
+
+@pytest.mark.parametrize("kind", ["categorical", "bundled", "both"])
+def test_walk_binned_categories_and_bundles_card_vs_cpu(kind, dev):
+    """KP2 over trees with categorical nodes (their bin sets as 256-bit
+    sets), over EFB group columns (decoded through the bundle maps) and
+    both: three 31-leaf trees trained on the CPU, each in the device form
+    the validation sets walk (gbdt._tree_to_device), walked on the card in
+    every mode against the plain version on the CPU, bit for bit, and the
+    plain walk's leaves the host walk's of the raw rows."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.models.gbdt import _tree_to_device, bundle_maps
+    n = 120_001
+    if kind == "categorical":
+        X, y = _airline_like(n, 31)
+        kw = dict(categorical_feature=AIRLINE_CATS)
+    elif kind == "bundled":
+        X, y = _onehot_like(n, 32)
+        kw = {}
+    else:
+        X, y = _mixed_like(n, 33)
+        kw = dict(categorical_feature=AIRLINE_CATS)
+    params = {"objective": "binary", "num_leaves": 31, "verbose": -1,
+              "learning_rate": 0.2}
+    bst = lt.train(params, lt.Dataset(X, y, device="cpu", **kw), 3,
+                   device="cpu")
+    g = bst._gbdt
+    ds = g.train_set
+    assert (g.is_categorical is not None) is (kind != "bundled")
+    assert (ds.bundle is not None) is (kind != "categorical")
+    bins = ds.device_bins("cpu")
+    maps = bundle_maps(ds, "cpu")
+    maps_dev = bundle_maps(ds, dev)
+    rng = np.random.RandomState(5)
+    ids = torch.from_numpy(np.where(rng.rand(n) < 0.7,
+                                    rng.randint(0, 31, n), -1)
+                           .astype(np.int32))
+    cats = 0
+    for tree in g.models:
+        t_cpu = _tree_to_device(tree, "cpu", g.max_bin)
+        t_dev = _tree_to_device(tree, dev, g.max_bin)
+        cats += int(t_cpu.is_cat.sum())
+        want = walk_binned(bins, t_cpu, g.num_bins, g.default_bins,
+                           bundle=maps)
+        np.testing.assert_array_equal(want.numpy(),
+                                      tree.predict_leaf_index(X))
+        args = (bins.to(dev), t_dev, g.num_bins.to(dev),
+                g.default_bins.to(dev))
+        got = walk_binned(*args, bundle=maps_dev)
+        assert torch.equal(got.cpu(), want)
+        lv = torch.from_numpy(rng.randn(tree.num_leaves).astype(np.float32))
+        score = torch.from_numpy(rng.randn(n).astype(np.float32))
+        for leaf_ids in (None, ids.clamp_max(tree.num_leaves - 1)):
+            s_cpu = score.clone()
+            walk_binned(bins, t_cpu, g.num_bins, g.default_bins, lv=lv,
+                        score=s_cpu, leaf_ids=leaf_ids, bundle=maps)
+            s_dev = score.to(dev)
+            walk_binned(*args, lv=lv.to(dev), score=s_dev,
+                        leaf_ids=None if leaf_ids is None
+                        else leaf_ids.to(dev), bundle=maps_dev)
+            assert torch.equal(s_dev.cpu().view(torch.int32),
+                               s_cpu.view(torch.int32))
+    assert (cats > 0) is (kind != "bundled")
+
+
+# name -> (data, extra params)
+CAT_GRAPH_PATHS = {
+    "categorical_carried": ("airline", {}),
+    "categorical_quantized": ("airline", {"tpu_quantized_grad": True}),
+    "categorical_valid": ("airline", {"metric": "auc"}),
+    "categorical_label": ("airline", {"tpu_tree_engine": "label",
+                                      "tpu_histogram_impl": "pallas"}),
+    "efb_carried": ("onehot", {}),
+    "efb_label": ("onehot", {"tpu_tree_engine": "label",
+                             "tpu_histogram_impl": "pallas"}),
+}
+
+
+@pytest.mark.parametrize("path", sorted(CAT_GRAPH_PATHS))
+def test_categorical_and_bundled_graph_rounds_match_eager(path, dev):
+    """Five rounds of a 31-leaf booster at 20k rows, the airline data with
+    six categorical columns or Covertype's one-hot layout bundled by EFB,
+    through its CUDA graphs against its twin run eagerly (f32 gradients
+    dyadic): the training score, each round's tree (the deferred rounds'
+    pinned copy, the valid-set run's host tree) and the validation score
+    bit for bit; the trees hold categorical splits on the airline data
+    and split on bundled features on the one-hot data; K1 never runs on
+    the categorical data."""
+    import lightgbm_tpu_torch as lt
+    data, extra = CAT_GRAPH_PATHS[path]
+    if data == "airline":
+        X, y = _airline_like(20_000, 41)
+        Xv, yv = _airline_like(5_000, 42)
+        kw = dict(categorical_feature=AIRLINE_CATS)
+    else:
+        X, y = _onehot_like(20_000, 43)
+        Xv, yv = _onehot_like(5_000, 44)
+        kw = {}
+    params = dict({"objective": "binary", "num_leaves": 31,
+                   "learning_rate": 0.1, "min_data_in_leaf": 20,
+                   "verbose": -1}, **extra)
+    valid = "metric" in extra
+    boosters = []
+    for _ in range(2):
+        ds = lt.Dataset(X, y, device=dev, **kw)
+        bst = lt.Booster(params, ds, device=dev)
+        if valid:
+            bst.add_valid(lt.Dataset(Xv, yv, reference=ds, device=dev), "v")
+        if not extra.get("tpu_quantized_grad"):
+            _dyadic_gradients(bst._gbdt)
+        boosters.append(bst)
+    a, b = boosters
+    b._gbdt._graphs = _EagerRounds()
+    ga, gb = a._gbdt, b._gbdt
+    _cuda.reset_launch_counts()
+    for r in range(5):
+        a.update()
+        b.update()
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(ga.score), _bits(gb.score)), r
+        if valid:
+            assert ga.models[-1].to_string() == gb.models[-1].to_string(), r
+        else:
+            ea, eb = ga._inflight[-1], gb._inflight[-1]
+            ea["event"].synchronize()
+            eb["event"].synchronize()
+            assert torch.equal(ea["host"], eb["host"]), r
+        for (_, va, _m), (_, vb, _n) in zip(ga.valid_states,
+                                            gb.valid_states):
+            assert torch.equal(_bits(va.score), _bits(vb.score)), r
+    counts = dict(_cuda.LAUNCHES)
+    assert a.model_to_string() == b.model_to_string()
+    assert sum(x["replays"] for x in ga._graphs.stats()) == 4
+    if data == "airline":
+        assert ga.is_categorical is not None
+        assert sum(t.num_cat for t in ga.models) > 0
+        assert counts.get("split_scan", 0) == 0, counts
+    else:
+        assert ga.bundle is not None and counts.get("split_scan", 0) > 0
+        grouped = [f for grp in ga.train_set.bundle.groups if len(grp) > 1
+                   for f in grp]
+        assert any(int(f) in grouped for t in ga.models
+                   for f in t.split_feature_inner[:t.num_leaves - 1])

@@ -6,8 +6,9 @@
   lightgbm_tpu (AST check);
 - entry points with no device and no CUDA raise, with no CPU fallback;
 - every configuration this slice does not run raises NotImplementedError
-  naming the ROADMAP.md item that brings it, and quantized training,
-  bagging and the label engine, which it does run, engage;
+  naming the ROADMAP.md item that brings it, those that raised until they
+  were ported (categorical features, EFB bundles) train as JAX trains
+  them, and quantized training, bagging and the label engine engage;
 - `Dataset.set_weight` moves training between the carried and pristine
   arenas as weights demand, and a validation set keeps it off the carried
   arena.
@@ -124,7 +125,6 @@ UNSUPPORTED = {
     "double_precision": ({"tpu_double_precision": True}, {}),
     # 600 distinct values a feature and min_data_in_bin=1: 511 bins
     "wide_bins": ({"max_bin": 511, "min_data_in_bin": 1}, {}),
-    "categorical": ({}, {"categorical_feature": [0]}),
     "goss": ({"boosting": "goss"}, {}),
     "rf": ({"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
            {}),
@@ -139,17 +139,25 @@ UNSUPPORTED = {
     # into the serial one, as the reference does (config.cpp:230-260)
     "data_parallel": ({"tree_learner": "data", "num_machines": 2}, {}),
     "voting_parallel": ({"tree_learner": "voting", "num_devices": 4}, {}),
-    "efb_bundle": ({}, {"sparse": True}),
+}
+# configurations that raised until they were ported: each now trains as
+# the JAX package trains it (name -> Dataset keywords)
+PORTED = {
+    "categorical": {"categorical_feature": [0]},
+    "efb_bundle": {"sparse": True},
 }
 
 
-def _sparse_data(seed=1, n=600, F=6):
-    """Mutually exclusive sparse columns: EFB bundles them."""
+def _sparse_data(seed=1, n=600, F=6, flip=0.0):
+    """Mutually exclusive sparse columns: EFB bundles them; a share `flip`
+    of the labels flipped."""
     rng = np.random.RandomState(seed)
     X = np.zeros((n, F))
     owner = rng.randint(0, F, n)
     X[np.arange(n), owner] = rng.rand(n) + 0.5
     y = (owner % 2).astype(float)
+    flipped = rng.rand(n) < flip
+    y[flipped] = 1.0 - y[flipped]
     return X, y
 
 
@@ -157,8 +165,33 @@ ROADMAP_ITEMS = {"double_precision": "f64 on the label engine",
                  "wide_bins": "uint16 bins and max_bin > 256"}
 
 
-@pytest.mark.parametrize("name", sorted(UNSUPPORTED))
+@pytest.mark.parametrize("name", sorted(set(UNSUPPORTED) | set(PORTED)))
 def test_unsupported_config_raises(name):
+    """A configuration of UNSUPPORTED raises NotImplementedError naming its
+    ROADMAP.md item; one of PORTED trains 2 rounds as the JAX package's
+    label engine trains it: the same model text (names and integers
+    equal, reals within rtol 1e-4)."""
+    if name in PORTED:
+        import lightgbm_tpu as jlgb
+        from test_torch_inflight import assert_texts_match
+        ds_kw = dict(PORTED[name])
+        # labels with noise, so no split after the first ones rests on
+        # gains of rounding noise
+        X, y = (_sparse_data(flip=0.15) if ds_kw.pop("sparse", False)
+                else _data())
+        params = {"objective": "binary", "verbose": -1, "num_leaves": 7,
+                  "tpu_tree_engine": "label"}
+        tb = tlgb.train(params, tlgb.Dataset(X, y, device="cpu", **ds_kw),
+                        num_boost_round=2, device="cpu")
+        jb = jlgb.train(params, jlgb.Dataset(X, y, **ds_kw),
+                        num_boost_round=2)
+        binned = tb._gbdt.train_set
+        if name == "efb_bundle":
+            assert binned.bundle is not None and binned.bundle.any_bundled
+        else:
+            assert binned.bin_mappers[0].bin_type == 1
+        assert_texts_match(tb.model_to_string(), jb.model_to_string())
+        return
     params, ds_kw, train_kw = (UNSUPPORTED[name] + ({},))[:3]
     ds_kw = dict(ds_kw)
     X, y = _sparse_data() if ds_kw.pop("sparse", False) else _data()

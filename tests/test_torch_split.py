@@ -191,7 +191,7 @@ def test_plain_scan_matches_xla_scan(name):
     c = _case(name)
     got = _port_pf(c)
     for i in range(c["hist"].shape[0]):
-        one = type(got)(*[v[i] for v in got])
+        one = type(got)(*[None if v is None else v[i] for v in got])
         _assert_pf_equal(one, _jax_xla_pf(c, i), rtol=1e-5)
 
 

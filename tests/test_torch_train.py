@@ -281,7 +281,7 @@ def _body(path):
 @pytest.mark.parametrize("path", ["utils/log.py", "io/bin_mapper.py",
                                   "io/metadata.py", "models/tree.py",
                                   "models/shap.py", "metric_xentropy.py",
-                                  "metric_multiclass.py"])
+                                  "metric_multiclass.py", "io/efb.py"])
 def test_copied_modules_are_verbatim(path):
     port = _body("lightgbm_tpu_torch/" + path)
     assert port[0] == "# Copied from lightgbm_tpu/%s; kept in step with it " \
@@ -290,9 +290,22 @@ def test_copied_modules_are_verbatim(path):
 
 
 def test_efb_copy_is_the_grouping_decision():
-    port = _body("lightgbm_tpu_torch/io/efb.py")
-    src = _body("lightgbm_tpu/io/efb.py")
-    assert port[1:] == src[:len(port) - 1]
+    """The port's datasets take the JAX datasets' EFB decision on one-hot
+    columns: the same groups, ranges and bundled bins."""
+    rng = np.random.RandomState(5)
+    n = 1500
+    onehot = np.zeros((n, 12))
+    onehot[np.arange(n), rng.randint(0, 12, n)] = 1.0
+    X = np.column_stack([rng.randn(n, 2), onehot])
+    y = rng.rand(n)
+    got = tlgb.Dataset(X, y, device="cpu").construct()._binned
+    want = jlgb.Dataset(X, y).construct()._binned
+    assert got.bundle is not None and got.bundle.num_groups < X.shape[1]
+    assert got.bundle.groups == want.bundle.groups
+    for name in ("feature_lo", "feature_hi", "feature_shift", "needs_fix"):
+        np.testing.assert_array_equal(getattr(got.bundle, name),
+                                      getattr(want.bundle, name))
+    np.testing.assert_array_equal(got.bins, np.asarray(want.bins))
 
 
 def test_config_schema_matches():
