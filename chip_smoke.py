@@ -32,8 +32,11 @@
    same run on the CPU (plain versions), with f32 and with quantized
    gradients, unweighted (the carried arena), weighted (the pristine one),
    bagged (0.8 of the rows each round) and with a validation set (the
-   eager path), and on the label engine, unbagged and bagged: equal bags,
-   split features and leaves of every row in the tree's bag;
+   eager path), and on the label engine, unbagged and bagged, and the
+   boosting modes (GOSS at learning_rate 0.5, two rounds of every row and
+   a sampled one; RF; DART dropping a tree in round 3): equal bags,
+   samples and drops, split features and leaves of every row in the
+   tree's bag or sample;
 5. training phase: a Higgs-shaped binary GBDT (28 dense features,
    num_leaves=255, max_bin=255, min_data_in_leaf=20, learning_rate=0.1,
    10.5M rows by default) trains through lightgbm_tpu_torch.train on the
@@ -66,8 +69,25 @@
    and bag at the full row count: leaf mode, masked add and add against
    the plain versions, bit for bit, timed beside the bytes each mode
    must move (in masked add only the rows out of the bag read bins);
-6. prediction phase: the f32 carried configuration trained for
-   --predict-rounds rounds (500, the reference's Higgs experiment) at the
+6. boosting-modes phase, on the training phase's Higgs data and holdout:
+   GOSS f32 and quantized (13 rounds: 10 of every row at learning_rate
+   0.1, then 3 sampled: the top 0.2 of |g*h| and 0.1 of the rest, the
+   sample drawn on the card in the gradients' graph and grown as a bag:
+   K3's pred mode, K4's set mode, KP2's masked add), GOSS with the
+   holdout as a validation set and GOSS on the label engine, RF (5
+   rounds over the smoke's bag, a fetch a round, the running average) and
+   DART (12 rounds at its defaults, drops walked by KP2's add mode), each
+   through train_and_check with its kernels launched and no other: the
+   holdout AUC at least 0.75, KP1's sums bit for bit the host walk's,
+   GOSS's sampled rounds holding top_k + other_k rows or more (exactly,
+   past ties at the threshold counted apart, in one more round), the
+   valid-set run's last evals_result equal to the host prediction's
+   within 1e-6, RF's and DART's training scores equal to their models'
+   prediction on 100k training rows within 1e-5; each run's replayed
+   round and a profiled one;
+7. prediction phase: the f32 carried configuration trained for
+   --predict-rounds rounds (250: the reference's Higgs experiment takes
+   500, cut to keep the whole smoke within its time) at the
    full row count, each drain timed; KP1 on the model over the holdout
    and 1M training rows, as f32 rows (as the data comes) and as f64 rows,
    bit for bit its plain version on the card and (the holdout) the host
@@ -83,7 +103,7 @@
    ensemble's device bytes equal to the estimate; KP1's launches counted
    over the holdout's predict (row tiles) and the buckets' (small-batch
    walk);
-7. lambdarank phase (bench.py's second headline workload,
+8. lambdarank phase (bench.py's second headline workload,
    MSLR-WEB30K-shaped: 18,900 queries of 120 documents, 2,268,000 rows x
    137 f32 features from bench.py's generator, seed 11; num_leaves=63,
    learning_rate=0.1, min_data_in_leaf=20, max_bin=255, metric=ndcg):
@@ -105,12 +125,12 @@
    time; the parity phase adds a 20k-row lambdarank run (167 queries),
    an L1 run (a leaf refit a round) and a Poisson run, each on the card
    against the CPU: equal split features and every row in the same leaf;
-8. objectives phase: regression_l1, huber, poisson and xentropy on the
+9. objectives phase: regression_l1, huber, poisson and xentropy on the
    Higgs data cut to 1M rows, 255 leaves, 5 rounds each: trees of more
    than one leaf, a graph replay every round after the first, the fused
    runs' fetches deferred and L1's one a round, the training metric of
    the first 1..5 trees falling, KP1's sums bit for bit the host walk's;
-9. multiclass phase (the UCI Covertype dataset's shape: 581,012 rows x 54
+10. multiclass phase (the UCI Covertype dataset's shape: 581,012 rows x 54
    dense f32 features from a generator with Covertype's 7 class counts,
    a 58,101-row holdout; PARAMS with objective=multiclass, num_class=7):
    a 20k-row, 3-round, 31-leaf softmax parity run (21 trees, both runs
@@ -119,7 +139,8 @@
    card's own softmax gradients of the CPU's score within 2e-6 of the
    CPU's);
    K2 f32 at G = 54 (root and a 40k-row child) against its plain version,
-   timed beside its bound and index_add_; 5 rounds (35 trees) through
+   timed beside its bound and index_add_; 3 rounds (21 trees; MC_ROUNDS)
+   through
    lightgbm_tpu_torch.train: softmax f32 and quantized on the fused
    pristine path (one graph a class, one for the gradients of every class
    from the round's starting score), softmax with the holdout as a
@@ -143,7 +164,7 @@
    and softmax f32 on the partition engine (fused pristine, K1 after
    unbundling) and on the label engine, each through train_and_check,
    holdout multi_logloss below the prior's 1.2052;
-10. categorical phase (the airline data of szilard's benchm-ml and
+11. categorical phase (the airline data of szilard's benchm-ml and
    GBM-perf benchmarks at train-10m's width: 10,000,000 rows x 8 columns,
    Month, DayofMonth, DayOfWeek, UniqueCarrier, Origin and Dest
    categorical with 12, 31, 7, 22, 255 and 255 categories (the airports
@@ -163,7 +184,7 @@
    walk's; KP2 over the valid-set run's categorical tree at 10M rows
    against its plain version, bit for bit, timed beside its bound; one
    split's categorical scan captured for its node count;
-11. prints one JSON line of training and prediction results and one of
+12. prints one JSON line of training and prediction results and one of
    per-kernel results, then the device line {"ok": true, "device": {...}}
    as the last line.
 
@@ -254,6 +275,15 @@ PARITY_PATHS = ("f32", "quantized", "weighted_f32", "weighted_quantized",
 # objectives of the parity runs on the f32 path's settings: lambdarank, a
 # leaf refit a round (L1), a log link (Poisson)
 PARITY_OBJECTIVES = ("lambdarank", "regression_l1", "poisson")
+# the boosting modes' parity runs: the settings over their path's, the
+# path, and the driver class each trains.  GOSS at learning_rate 0.5: two
+# rounds of every row, then a sampled one; DART dropping a tree in round 3
+BOOSTING_PARITY = {"goss": dict(boosting="goss", learning_rate=0.5),
+                   "rf": dict(boosting="rf"),
+                   "dart": dict(boosting="dart", drop_rate=0.5,
+                                skip_drop=0.0)}
+BOOSTING_PARITY_PATHS = {"goss": "f32", "rf": "bagged_f32", "dart": "f32"}
+BOOSTING_CLASS = {"goss": "GOSS", "rf": "RF", "dart": "DART"}
 # the kernels of the partition engine (K2-K6), none of which the label
 # engine may launch
 PARTITION_KERNELS = ("segment_histogram", "segment_histogram_i8",
@@ -1241,7 +1271,8 @@ def ablate_phase(n: int, dev, results):
     torch.cuda.empty_cache()
 
 
-def parity_phase(dev, path: str, objective: str = None, data: str = None):
+def parity_phase(dev, path: str, objective: str = None, data: str = None,
+                 boosting: str = None):
     """A small run on the card against the same run on the CPU, stepped
     with update() so each tree's bag can be read: a path of the binary
     runs, or with `objective` that objective on the f32 path's settings
@@ -1256,10 +1287,12 @@ def parity_phase(dev, path: str, objective: str = None, data: str = None):
     categorical data a tree may take a bin set's complement where both
     walks of the sorted scan reach it with gains equal but for the f32
     sums' order (ROADMAP.md queue 3): it must then split the rows into
-    the same leaves, its children swapped."""
+    the same leaves, its children swapped.  boosting: a boosting mode of
+    BOOSTING_PARITY on the path's settings; GOSS's in-sample rows take
+    the bag's place in the checks."""
     import lightgbm_tpu_torch as lt
     quantized = flag(path, "quantized")
-    name = "_".join(x for x in (objective or path, data) if x)
+    name = "_".join(x for x in (boosting or objective or path, data) if x)
     group = None
     cat_kw = {}
     if data == "airline":
@@ -1277,6 +1310,8 @@ def parity_phase(dev, path: str, objective: str = None, data: str = None):
     params = path_params(path, num_leaves=31)
     if objective is not None:
         params["objective"] = objective
+    if boosting is not None:
+        params.update(BOOSTING_PARITY[boosting])
     kc = COVTYPE_K if objective == "multiclass" else 1
     if kc > 1:
         params["num_class"] = kc
@@ -1290,6 +1325,7 @@ def parity_phase(dev, path: str, objective: str = None, data: str = None):
         out[role] = (bst, [], [])
     (bk, bags_k, evals_k), (bc, bags_c, evals_c) = out["card"], out["cpu"]
     shared = share_gradients(bk, bc) if kc > 1 else None
+    drops = {}
     for _ in range(3):
         # the CPU first: a multiclass round's gradients feed the card's
         for role in ("cpu", "card"):
@@ -1298,6 +1334,11 @@ def parity_phase(dev, path: str, objective: str = None, data: str = None):
                 shared()
             bst.update()
             mask = bst._gbdt._bag_mask
+            drops.setdefault(role, []).append(
+                list(getattr(bst._gbdt, "_drop_index", ())))
+            if boosting == "goss" and bst._gbdt._bag_pred is not None:
+                mask = np.where(bst._gbdt._bag_pred.cpu().numpy() == 1, 0,
+                                -1).astype(np.int32)
             bags.append(None if mask is None else mask.copy())
             evals.append(bst.eval_valid())
     for role in ("card", "cpu"):
@@ -1306,7 +1347,10 @@ def parity_phase(dev, path: str, objective: str = None, data: str = None):
         g = bst._gbdt
         expect(g._quantized is quantized
                and bool(g._carried_active) is (carried(path)
-                                                and objective is None),
+                                                and objective is None
+                                                and boosting is None)
+               and (boosting is None or type(g).__name__
+                    == BOOSTING_CLASS[boosting]),
                "parity %s: the %s run took another path" % (name, role))
         expect((g.is_categorical is not None) is (data == "airline")
                and (g.bundle is not None) is (data == "onehot"),
@@ -1410,6 +1454,16 @@ def parity_phase(dev, path: str, objective: str = None, data: str = None):
         msg += ("; equal bags of %d rows each round; out-of-bag rows in "
                 "another leaf per tree: %s" % (int((bags_k[0] == 0).sum()),
                                                oob_moved))
+    if boosting == "goss":
+        msg += ("; equal samples, rows in them per round %s; rows out of "
+                "them in another leaf per tree: %s"
+                % ([None if b is None else int((b == 0).sum())
+                    for b in bags_k], oob_moved))
+    if boosting == "dart":
+        expect(drops["card"] == drops["cpu"] and any(drops["card"]),
+               "parity %s: drops card %s, CPU %s" % (name, drops["card"],
+                                                     drops["cpu"]))
+        msg += "; equal drops per round %s" % drops["card"]
     if flag(path, "valid"):
         vk = [e[0][2] for e in evals_k]
         vc = [e[0][2] for e in evals_c]
@@ -1553,9 +1607,12 @@ REPLAYED_ROUNDS = 3
 
 def graphs_a_round(g) -> int:
     """The graphs a round of the booster's replays: one, or k > 1 classes'
-    and the gradients'."""
+    and the gradients' (GOSS: the gradients' with the sample, and the
+    tree's; RF, whose gradients are taken once: one a class)."""
     k = g.num_tree_per_iteration
-    return 1 if k == 1 else k + 1
+    if type(g).__name__ == "RF":
+        return k
+    return k + 1 if getattr(g, "_held", k > 1) else 1
 
 
 def replayed_round_ms(booster, rounds: int) -> float:
@@ -1587,7 +1644,8 @@ NO_WORK_OPS = frozenset((
     "lift_fresh", "empty", "empty_like", "empty_strided", "resize_"))
 
 
-def profile_round(booster, what: str, rows: int = None) -> dict:
+def profile_round(booster, what: str, rows: int = None,
+                  held: int = None) -> dict:
     """One more boosting round under torch.profiler, a graph replay with the
     drain of its tree at its end: its wall time, the device time of every
     kernel by name, and the device's idle share.  With rows, also the
@@ -1598,7 +1656,9 @@ def profile_round(booster, what: str, rows: int = None) -> dict:
     first, one round captures anew under a profiler of the host, and the
     carried path's other slot captures too before the profiled round.  A
     package without graphs (an older checkout) has its profiled round's
-    operations counted."""
+    operations counted.  `held`: the graphs the booster holds, where not
+    the carried path's two or a round's (GOSS: its warm-up rounds' two
+    and its sampled rounds' two)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1641,8 +1701,9 @@ def profile_round(booster, what: str, rows: int = None) -> dict:
         expect(len(replayed) == per_round
                and sum(x.replays for x in graphs.graphs.values())
                == sum(replays.values()) + per_round
-               and len(graphs.graphs) == (2 if g._carried_active
-                                          else per_round),
+               and len(graphs.graphs) == (
+                   held if held is not None else
+                   2 if g._carried_active else per_round),
                "profile (%s): the profiled round did not replay its graphs"
                % what)
         # a complete trace holds an event for every node of the replayed
@@ -1718,10 +1779,12 @@ def ops_over_rows(prof, rows: int) -> dict:
     return over
 
 
-PREDICT_ROUNDS = 500        # the reference's Higgs experiment
+# the reference's Higgs experiment trains 500 rounds; cut to 250 to keep
+# the whole smoke within its time when the boosting-modes phase came in
+PREDICT_ROUNDS = 250
 TRAIN_ROWS_PREDICTED = 1_000_000
 # processes that share the host walks of the prediction phase's checks: a
-# host walk of the 100k holdout rows through the 500 trees takes ~45 s in
+# host walk of the 100k holdout rows through 500 trees takes ~45 s in
 # one process, and each row's walk (its early stop too) depends on no
 # other row, so the rows are split among processes, each of which loads
 # the model from its text, and the parts put together are one process's
@@ -2330,6 +2393,186 @@ def k2_width_phase(ds, dev, results, shape_of: str):
     return k2
 
 
+# the boosting-modes phase on the training phase's Higgs dataset: run ->
+# (settings over PARAMS, rounds).  GOSS at learning_rate 0.1: 10 warm-up
+# rounds of every row, then 3 sampled ones; RF over the smoke's bag; DART
+# at its defaults (drop_rate 0.1, skip_drop 0.5, max_drop 50), whose drop
+# stream (drop_seed 4) drops trees in rounds 4, 6, 7, 8 and 12
+LABEL = dict(tpu_tree_engine="label", tpu_histogram_impl="pallas")
+BOOST_RUNS = {
+    "goss_f32": (dict(boosting="goss"), 13),
+    "goss_quantized": (dict(boosting="goss", tpu_quantized_grad=True), 13),
+    "goss_valid_f32": (dict(boosting="goss", metric="auc"), 13),
+    "goss_label_f32": (dict(LABEL, boosting="goss"), 13),
+    "rf_f32": (dict(BAGGING, boosting="rf"), 5),
+    "dart_f32": (dict(boosting="dart"), 12),
+}
+SCORE_ROWS = 100_000
+
+
+def boost_kernels(name: str) -> tuple:
+    """(kernels a boosting-modes run must launch, every other training or
+    prediction kernel).  GOSS's warm-up rounds grow over every row (K4's
+    add mode; K5 at a quantized root), its sampled rounds over the sample
+    as over a bag (K3's pred mode at the root, K4's set mode, KP2's masked
+    add); the label engine grows with K7 and K1, KP2's masked add in the
+    sampled rounds; the valid-set run's fetched trees reach the training
+    score by K4's add mode (warm-up) and its validation score by KP2's add
+    mode; RF grows every tree over its bag; DART grows over every row,
+    its fetched trees and its drops reaching the score by K4's and KP2's
+    add modes."""
+    if "label" in name:
+        must = ("leaf_histogram", "split_scan", WALK_MASKED)
+    elif name.startswith("goss"):
+        sfx = "_i8" if "quantized" in name else ""
+        must = ("split_scan", "segment_histogram" + sfx,
+                "partition_segment" + sfx, "partition_segment_pred" + sfx,
+                "scatter_segments", "scatter_segments_add", WALK_MASKED)
+        if sfx:
+            must += ("fused_root_histogram",)
+        if "valid" in name:
+            must += (WALK_ADD,)
+    elif name.startswith("rf"):
+        must = ("split_scan", "segment_histogram", "partition_segment",
+                "partition_segment_pred", "scatter_segments", WALK_MASKED)
+    else:
+        must = ("split_scan", "segment_histogram", "partition_segment",
+                "scatter_segments_add", WALK_ADD)
+    return must, tuple(k for k in TRAINING_KERNELS + PREDICT_KERNELS
+                       if k not in must)
+
+
+def goss_tie_round(booster) -> dict:
+    """One more sampled GOSS round, its sample counted against the rows
+    at or above the top_k-th largest |g*h| of the round's starting score,
+    computed apart: the sample holds those rows and other_k more, so
+    top_k + other_k where no row ties the threshold."""
+    import torch
+    g = booster._gbdt
+    top_k, other_k = g._goss_counts
+    grad, hess = g._gradients()
+    score = (grad * hess).abs().sum(0)
+    thr = torch.sort(score, descending=True).values[top_k - 1]
+    tops = int((score >= thr).sum())
+    booster.update()
+    got = int(g._bag_pred.sum())
+    expect(got == tops + other_k, "GOSS: %d rows in the sample, %d at or "
+           "above the threshold and %d others" % (got, tops, other_k))
+    return dict(in_sample=got, tied_past_top_k=tops - top_k)
+
+
+def boosting_phase(X, Xh, yh, ds_obj, valid_obj, dev) -> tuple:
+    """GOSS, RF and DART on the training phase's Higgs dataset through
+    lightgbm_tpu_torch.train (train_and_check), BOOST_RUNS: the holdout's
+    AUC at least AUC_FLOOR and KP1's sums bit for bit the host walk's;
+    GOSS's sampled rounds hold at least top_k + other_k rows, exactly that
+    many past ties at the threshold (goss_tie_round); the valid-set run's
+    last evals_result equal to the host prediction's within 1e-6; RF's and
+    DART's training scores equal to their models' prediction of the first
+    SCORE_ROWS training rows within 1e-5 (the averaging, the drops and the
+    normalization against the saved trees); each run's replayed round and
+    a profiled one (GOSS's sampled, DART's with its drops where the drop
+    stream draws them).  Returns (records by run, launches by run)."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.metric import auc
+
+    ds_obj.set_weight(None)
+    recs, launches = {}, {}
+    for name, (extra, rounds) in BOOST_RUNS.items():
+        goss = name.startswith("goss")
+        valid = "valid" in name
+        counts = []
+
+        def count_sample(env):
+            pred = env.model._gbdt._bag_pred
+            if pred is not None:
+                counts.append(pred.sum())
+        kw, evals = dict(callbacks=[count_sample] if goss else None), {}
+        if valid:
+            kw.update(valid_sets=[valid_obj], valid_names=["holdout"],
+                      evals_result=evals, verbose_eval=False)
+        must, never = boost_kernels(name)
+        booster, rec = train_and_check(
+            name, dict(PARAMS, **extra), ds_obj, dev, rounds, must, never,
+            deferred=goss and not valid, graphs=4 if goss else 1,
+            replays=2 * rounds - 4 if goss else rounds - 1, **kw)
+        g = booster._gbdt
+        expect(type(g).__name__ == BOOSTING_CLASS[extra["boosting"]]
+               and not g._carried_active
+               and g._quantized is ("quantized" in name)
+               and g._use_partition_engine is ("label" not in name),
+               "%s: %s, carried %s, quantized %s, partition engine %s"
+               % (name, type(g).__name__, g._carried_active, g._quantized,
+                  g._use_partition_engine))
+        raw = booster.predict(Xh, raw_score=True)
+        host = booster.predict(Xh, raw_score=True, device=False)
+        expect(np.array_equal(raw, host), "%s: KP1's holdout sums differ "
+               "from the host walk's by up to %.3g"
+               % (name, float(np.abs(raw - host).max())))
+        holdout_auc = auc(yh, booster.predict(Xh))
+        expect(holdout_auc >= AUC_FLOOR, "%s holdout AUC %.4f < %.2f"
+               % (name, holdout_auc, AUC_FLOOR))
+        extra_msg = ""
+        if goss:
+            top_k, other_k = g._goss_counts
+            counts = [int(c) for c in counts]
+            expect(len(counts) == rounds - 10
+                   and min(counts) >= top_k + other_k,
+                   "%s: in-sample rows %s of sampled rounds (top_k %d, "
+                   "other_k %d)" % (name, counts, top_k, other_k))
+            rec["sample"] = dict(top_k=top_k, other_k=other_k,
+                                 in_sample=counts)
+            rec["sample"].update(goss_tie_round(booster))
+            extra_msg = ("; in-sample rows of the sampled rounds %s (top_k "
+                         "%d + other_k %d); one more round: %d, %d rows "
+                         "tied past top_k at the threshold"
+                         % (counts, top_k, other_k,
+                            rec["sample"]["in_sample"],
+                            rec["sample"]["tied_past_top_k"]))
+        if valid:
+            last = evals["holdout"]["auc"][-1]
+            expect(len(evals["holdout"]["auc"]) == rounds
+                   and abs(last - holdout_auc) <= 1e-6,
+                   "%s: last evals_result AUC %.8f, host predict AUC %.8f"
+                   % (name, last, holdout_auc))
+            extra_msg += "; evals_result holdout AUC %s" % [
+                "%.6f" % v for v in evals["holdout"]["auc"]]
+        if not goss:
+            want = booster.predict(X[:SCORE_ROWS], raw_score=True)
+            got = g.score[:SCORE_ROWS].cpu().numpy()
+            err = float(np.abs(got - want).max())
+            expect(err <= 1e-5, "%s: the training score is %.3g from the "
+                   "model's prediction" % (name, err))
+            rec["score_err"] = err
+            extra_msg += ("; training score within %.3g of predict on %d "
+                          "training rows" % (err, SCORE_ROWS))
+        if name.startswith("dart"):
+            extra_msg += "; tree weights %s" % ["%.5f" % w
+                                                for w in g.tree_weight]
+        rec["replay_round_ms"] = replayed_round_ms(booster, REPLAYED_ROUNDS)
+        rec["profile"] = profile_round(booster, name,
+                                       held=4 if goss else None)
+        rec.update(holdout_auc=holdout_auc, evals_result=evals or None)
+        print("boosting (%s): %d rows, %d rounds, leaves %s; train %.3f s "
+              "(%.1f ms a round, set-up included); holdout AUC %.4f%s; "
+              "graphs x nodes %s, capture and instantiate %s s; %d drains, "
+              "%d tree fetches; %.1f ms a replayed round (%d more rounds); "
+              "peak device memory %.3f GB; kernels launched %s"
+              % (name, len(X), rounds, rec["leaves"], rec["train_s"],
+                 rec["round_ms"], holdout_auc, extra_msg,
+                 ["1 x %d" % x["nodes"] for x in rec["graphs"]],
+                 ["%.3f" % x["capture_s"] for x in rec["graphs"]],
+                 rec["drains"], rec["tree_fetches"], rec["replay_round_ms"],
+                 REPLAYED_ROUNDS, rec["peak_bytes"] / 1e9,
+                 {k: v for k, v in sorted(rec["launches"].items()) if v}))
+        recs[name] = rec
+        launches[name] = rec["launches"]
+        del booster, g
+        torch.cuda.empty_cache()
+    return recs, launches
+
+
 def rank_kernel_phase(ds, dev, results):
     """K2 f32 at the lambdarank widths (G = 137: five slabs, the last one
     partial, across several feature chunks) at the root and on a 40k-row
@@ -2389,7 +2632,7 @@ def rank_kernel_phase(ds, dev, results):
 
 
 def train_and_check(name, params, ds, dev, rounds, must, never, deferred,
-                    graphs: int = 1, **train_kw):
+                    graphs: int = 1, replays: int = None, **train_kw):
     """lightgbm_tpu_torch.train on the card with the launch counters zeroed
     just before and read just after: the kernels of `must` launched, those
     of `never` not; every round trained unless early stopping ended the
@@ -2397,8 +2640,9 @@ def train_and_check(name, params, ds, dev, rounds, must, never, deferred,
     `graphs` graphs (the carried path's two slots, else one; k > 1: one a
     class and the gradients'), each replayed at every round after its
     first call (the first class's and the gradients' first calls run
-    eagerly, the other classes' capture in round 1); with `deferred` no
-    tree fetched but at drains, else one a tree."""
+    eagerly, the other classes' capture in round 1), or `replays` in
+    all; with `deferred` no tree fetched but at drains, else one a
+    tree."""
     import torch
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.ops import _cuda
@@ -2427,11 +2671,12 @@ def train_and_check(name, params, ds, dev, rounds, must, never, deferred,
            and min(leaves) > 1, "%s trees did not grow: leaves %s"
            % (name, leaves))
     stats = g._graphs.stats()
-    replays = sum(x["replays"] for x in stats)
-    want = trained - 1 if k == 1 else (k * trained - 1) + (trained - 1)
-    expect(len(stats) == graphs and replays == want,
+    want = (replays if replays is not None else trained - 1 if k == 1
+            else (k * trained - 1) + (trained - 1))
+    got = sum(x["replays"] for x in stats)
+    expect(len(stats) == graphs and got == want,
            "%s: %d graphs, %d replays in %d rounds"
-           % (name, len(stats), replays, trained))
+           % (name, len(stats), got, trained))
     expect((g._tree_fetches, g._drains > 0) == ((0, True) if deferred
                                                  else (len(leaves), False)),
            "%s: %d tree fetches, %d drains in %d rounds"
@@ -2627,6 +2872,10 @@ COVTYPE_COUNTS = (211_840, 283_301, 35_754, 2_747, 9_493, 17_367, 20_510)
 COVTYPE_K = len(COVTYPE_COUNTS)
 COVTYPE_HOLDOUT = 58_101
 MC_PARAMS = dict(PARAMS, objective="multiclass", num_class=COVTYPE_K)
+# the rounds of the multiclass phase's runs and its EFB runs: cut from 5
+# to 3 to keep the whole smoke within its time when the boosting-modes
+# phase came in
+MC_ROUNDS = 3
 # the runs of the multiclass phase: name -> (objective, quantized, a
 # validation set)
 MC_RUNS = {"multiclass_f32": ("multiclass", False, False),
@@ -2706,7 +2955,7 @@ def multi_metrics(y, raw, objective) -> dict:
 
 
 def multiclass_predict_phase(booster, X, Xh, dev, results) -> dict:
-    """KP1 on the f32 run's 35 trees (k = 7): the holdout's sums (the
+    """KP1 on the f32 run's 21 trees (k = 7): the holdout's sums (the
     small-batch walk) and MC_TILE_ROWS training rows' (row tiles) bit for
     bit the host walk's; the leaves the host walk's; softmax rows summing
     to 1 within 1e-12; early stop every MC_ES_FREQ trees at a margin that
@@ -2808,7 +3057,7 @@ def multiclass_predict_phase(booster, X, Xh, dev, results) -> dict:
 def multiclass_phase(dev, rounds: int, results) -> tuple:
     """Multiclass at Covertype width through the entry points a user calls:
     lightgbm_tpu_torch.train with num_class 7 on 581,012 x 54, each run
-    through train_and_check (5 rounds of 7 trees, every class growing a
+    through train_and_check (3 rounds of 7 trees, every class growing a
     tree in round 1): softmax f32 and quantized on the fused pristine path
     (one graph a class and one for the gradients, replayed every round),
     softmax with the holdout as a validation set (multi_logloss and
@@ -3413,6 +3662,8 @@ def main(argv=None) -> int:
     parity = {path: parity_phase(dev, path) for path in PARITY_PATHS}
     for objective in PARITY_OBJECTIVES:
         parity[objective] = parity_phase(dev, "f32", objective)
+    for mode, path in BOOSTING_PARITY_PATHS.items():
+        parity[mode] = parity_phase(dev, path, boosting=mode)
     phase_s["parity"] = time.perf_counter() - t
     t = time.perf_counter()
     train = {}
@@ -3445,6 +3696,10 @@ def main(argv=None) -> int:
                "run's (limit %.2f)" % (path, gap, AUC_GAP))
     phase_s["training"] = time.perf_counter() - t
     t = time.perf_counter()
+    boosting, boost_launches = boosting_phase(X, Xh, yh, ds_obj, valid_obj,
+                                              dev)
+    phase_s["boosting"] = time.perf_counter() - t
+    t = time.perf_counter()
     prediction = prediction_phase(X, Xh, ds_obj, dev, args.predict_rounds,
                                   results)
     torch.cuda.empty_cache()
@@ -3459,10 +3714,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     t = time.perf_counter()
     parity["multiclass"] = parity_phase(dev, "f32", "multiclass")
-    multiclass, mc_launches = multiclass_phase(dev, args.rounds, results)
+    mc_rounds = min(args.rounds, MC_ROUNDS)
+    multiclass, mc_launches = multiclass_phase(dev, mc_rounds, results)
     parity["multiclass_onehot"] = parity_phase(dev, "f32", "multiclass",
                                                data="onehot")
-    efb, efb_launches = efb_runs(dev, args.rounds, results)
+    efb, efb_launches = efb_runs(dev, mc_rounds, results)
     mc_launches.update(efb_launches)
     phase_s["multiclass"] = time.perf_counter() - t
     t = time.perf_counter()
@@ -3522,7 +3778,9 @@ def main(argv=None) -> int:
         r["launches"] = int(launches[path].get(name, 0))
         expect(r["launches"] > 0, "kernel %s was not launched on the %s "
                "training path" % (name, path))
+    launches.update(boost_launches)
     print(json.dumps({"card": card, "training": train, "parity": parity,
+                      "boosting": boosting,
                       "lambdarank": ranking, "objectives": objectives,
                       "multiclass": multiclass, "efb": efb,
                       "categorical": categorical, "prediction": prediction,

@@ -18,6 +18,7 @@ from .device import resolve_device
 from .io.dataset import BinnedDataset
 from .io.metadata import Metadata
 from .metric import is_bigger_better, metrics_from_config
+from .models import create_boosting
 from .models.gbdt import GBDT
 from .objective import create_objective
 from .utils import log
@@ -193,7 +194,8 @@ class Booster:
             train_set.construct()
             objective = create_objective(cfg.objective, cfg)
             self.config = cfg
-            self._gbdt = GBDT(cfg, train_set._binned, objective, self.device)
+            self._gbdt = create_boosting(cfg, train_set._binned, objective,
+                                         self.device)
         elif model_file is not None or model_str is not None:
             if model_file is not None:
                 with open(model_file) as f:

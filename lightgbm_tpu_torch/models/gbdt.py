@@ -91,12 +91,22 @@ degenerate stop back.  The valid-set runs fetch each tree in their round,
 as JAX does: the scores add the host tree's f64-shrunk leaf values, the
 validation sets' by KP2's add mode on the round's device tree.
 
+The boosting modes subclass this driver on the JAX package's hooks
+(models/goss.py, rf.py, dart.py; gbdt.py:419-433, :520, :701, :1515-1517,
+:1613-1620): GOSS samples the rows inside the gradients' graph
+(`_sample_gradients`) and its sample takes the bag's place (`_bagging`),
+so it never runs the fused paths; DART changes old trees every iteration,
+so it never defers (`_allow_deferred`); RF drives its own iteration over
+gradients taken once.  Where the rounds read held gradients (k > 1, GOSS,
+RF), they sit in the booster's `_grad` and `_hess`.
+
 Configurations this slice does not run raise NotImplementedError naming the
 ROADMAP.md item that will bring them; none is served by a substitute.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Hashable, List, NamedTuple, Optional, \
+    Sequence, Tuple
 
 import numpy as np
 import torch
@@ -160,10 +170,6 @@ def check_supported(cfg: Config) -> None:
     if cfg.tpu_double_precision:
         no("tpu_double_precision", "queue 1, item 11: f64 on the label "
            "engine")
-    if cfg.boosting == "goss":
-        no("GOSS", "queue 1, item 11: boosting modes")
-    if cfg.boosting != "gbdt":
-        no("boosting=%s" % cfg.boosting, "queue 1, item 11: boosting modes")
     if cfg.forcedsplits_filename:
         no("forced splits", "queue 1, item 11: forced splits")
     if cfg.tree_learner != "serial" or cfg.num_machines > 1:
@@ -176,10 +182,27 @@ def check_supported(cfg: Config) -> None:
            "queue 1, item 11: histogram pooling")
 
 
+class Sample(NamedTuple):
+    """An iteration's row sampling (`GBDT._sample_gradients`): what keys
+    its graph, its threefry key (staged to the device with the round's
+    inputs), and fn(grad, hess, key) -> (grad, hess), the device half run
+    inside the gradients' graph, which also writes the sample's predicate
+    into `_bag_pred`."""
+    key: Hashable
+    words: Tuple[int, int]
+    fn: Callable
+
+
 class GBDT:
     """The boosting driver (gbdt.h:24-470)."""
 
     sub_model_name = "tree"
+    # a subclass that changes old trees within an iteration fetches every
+    # tree in its round (DART; gbdt.py:520)
+    _allow_deferred = True
+    # rounds read the gradients from `_grad` and `_hess` (GOSS, RF; and
+    # every booster of k > 1 trees an iteration)
+    _holds_gradients = False
 
     def __init__(self, config: Config, train_set: Optional[BinnedDataset],
                  objective: Optional[ObjectiveFunction], device):
@@ -287,7 +310,8 @@ class GBDT:
         self._cat_w = self.max_bin if self.is_categorical is not None else 0
         k = self.num_tree_per_iteration
         self.scores = init_score_matrix(ds, k, dev)
-        if k > 1:
+        self._held = k > 1 or self._holds_gradients
+        if self._held:
             # every class's gradients of the round's starting score
             self._grad = torch.zeros((k, n), dtype=torch.float32, device=dev)
             self._hess = torch.zeros((k, n), dtype=torch.float32, device=dev)
@@ -297,8 +321,9 @@ class GBDT:
                                         dtype=torch.float32, device=dev)
         # the round's host inputs on the device, a row a class: the
         # quantization key's two words, then the feature mask (ops/graphs.py's
-        # static inputs)
-        self._round_inp = torch.zeros((k, 2 + ds.num_features),
+        # static inputs); a last row whose first two words are the sampling
+        # key (GOSS)
+        self._round_inp = torch.zeros((k + 1, 2 + ds.num_features),
                                       dtype=torch.int64, device=dev)
         self._graphs = RoundGraphs(dev)
         self._setup_tree_engine()
@@ -411,15 +436,19 @@ class GBDT:
         return self._ring[i]
 
     def _stage_inputs(self, slot: Optional[dict], classes: Sequence[int],
-                      keys: Sequence) -> None:
+                      keys: Sequence,
+                      sample: Optional[Sample] = None) -> None:
         """The round's feature masks, one a trained class drawn in class
         order, and quantization keys into `_round_inp`'s rows of those
-        classes, through the slot's pinned buffer on the card."""
+        classes, and the sample's key into its last row, through the slot's
+        pinned buffer on the card."""
         vals = np.zeros(self._round_inp.shape, np.int64)
         for kk, key in zip(classes, keys):
             if key is not None:
                 vals[kk, :2] = key
             vals[kk, 2:] = self._feature_sample()
+        if sample is not None:
+            vals[-1, :2] = sample.words
         if slot is None:
             self._round_inp.copy_(torch.from_numpy(vals))
             return
@@ -472,19 +501,25 @@ class GBDT:
                         "convergence", self.objective.name)
         return 0.0
 
-    def _renew_tree_output(self, tree: Tree, leaf_ids: torch.Tensor) -> None:
+    def _renew_tree_output(self, tree: Tree, class_id: int,
+                           leaf_ids: torch.Tensor) -> None:
         """The percentile leaf refits of L1, quantile and MAPE (gbdt.py:
         1568-1589, serial_tree_learner.cpp:850-928): each leaf's value
         becomes the (weighted) percentile of its rows' residuals against
-        the score before this tree, all leaves in one pass on the device
-        (ops/quantile.py); rows out of the bag (leaf id -1) take no part.
-        These objectives grow one tree an iteration."""
-        residual = self._renew_label - self.scores[0]
+        the baseline score (`_renew_baseline_score`), all leaves in one
+        pass on the device (ops/quantile.py); rows out of the bag (leaf id
+        -1) take no part."""
+        residual = self._renew_label - self._renew_baseline_score(class_id)
         vals = renew_leaf_percentiles(
             residual, leaf_ids, self.objective.renew_alpha(),
             self.max_leaves, self.objective.renew_weights())
         nl = tree.num_leaves
         tree.leaf_value[:nl] = vals[:nl].double().cpu().numpy()
+
+    def _renew_baseline_score(self, class_id: int) -> torch.Tensor:
+        """The leaf refits' baseline (gbdt.py:1613-1620): the class's score
+        before this tree; RF overrides it with its constant init score."""
+        return self.scores[class_id]
 
     def _add_constant(self, val: float, class_id: int) -> None:
         """Add val to the class's training score and validation scores."""
@@ -518,6 +553,12 @@ class GBDT:
             self._bag_mask = self._bag_pred = self._bag_count = None
         return self._bag_pred
 
+    def _sample_gradients(self) -> Optional[Sample]:
+        """The iteration's row sampling (gbdt.py:1515-1517), asked on the
+        eager path before the gradients: None keeps every row; GOSS
+        overrides it."""
+        return None
+
     def train_one_iter(self) -> bool:
         """One boosting iteration, k trees; True when training cannot
         continue (no class grew a tree).  On the deferred paths that is
@@ -536,12 +577,15 @@ class GBDT:
         # gbdt.py:518-533, :695-702: the fused paths need every row in the
         # bag, every class trained and no host tree within the iteration
         # (no validation set or metric, no leaf refit)
-        deferred_ok = (not self.valid_states and not self.train_metrics
+        deferred_ok = (self._allow_deferred and not self.valid_states
+                       and not self.train_metrics
                        and not self.objective.is_renew_tree_output())
         fused_ok = (deferred_ok and self._use_partition_engine
                     and len(classes) == k
                     and (cfg.bagging_freq <= 0
-                         or cfg.bagging_fraction >= 1.0))
+                         or cfg.bagging_fraction >= 1.0)
+                    and type(self)._sample_gradients
+                    is GBDT._sample_gradients)
         if self._carried_active and not fused_ok:
             # left for good (gbdt.py:542-545): the score is in row order,
             # and this tree's work region may overwrite the carry slots
@@ -560,13 +604,15 @@ class GBDT:
             fold = fused_ok and not self._carried_active
             keys = [threefry.fold_in(key, kk) if fold else key
                     for kk in classes]
+        sample = None if fused_ok else self._sample_gradients()
         slot = None
         if classes:
             slot = self._slot()
-            self._stage_inputs(slot, classes, keys)
+            self._stage_inputs(slot, classes, keys, sample)
         if fused_ok:
             return self._fused_iter(slot, init_scores)
-        return self._eager_iter(slot, init_scores, classes, deferred_ok)
+        return self._eager_iter(slot, init_scores, classes, deferred_ok,
+                                sample)
 
     def _gradients(self):
         """The objective's f32 gradients and hessians of the score ([n] for
@@ -575,16 +621,19 @@ class GBDT:
         return (grad.to(torch.float32).view(self.scores.shape),
                 hess.to(torch.float32).view(self.scores.shape))
 
-    def _run_gradients(self) -> None:
+    def _run_gradients(self, sample: Optional[Sample] = None) -> None:
         """Every class's gradients of the round's starting score into the
-        booster's static `_grad` and `_hess` (k > 1), one graph on the
-        card."""
+        booster's static `_grad` and `_hess`, sampled by `sample` under the
+        key in `_round_inp`'s last row; one graph on the card a sampling."""
         def fn():
             grad, hess = self._gradients()
+            if sample is not None:
+                grad, hess = sample.fn(grad, hess, self._round_inp[-1, :2])
             self._grad.copy_(grad)
             self._hess.copy_(hess)
             return (self._grad, self._hess)
-        key = ("gradients", tuple(self.scores.shape))
+        key = ("gradients", tuple(self.scores.shape),
+               None if sample is None else sample.key)
         self._graphs.run(key, key, fn)
 
     def _round(self, parity: Optional[int], emit: str, bagged: bool,
@@ -593,7 +642,8 @@ class GBDT:
         function ops/graphs.py captures.  For k = 1 the round starts from
         the score, computing the objective's gradients itself; for k > 1
         it reads the class's row of `_grad` and `_hess`, which
-        `_run_gradients` computed for every class before the first tree.
+        `_run_gradients` computed for every class before the first tree
+        (and so for GOSS and RF at every k).
         The gradients, on a carried root gathered into its slot's order
         (JAX computes the same elementwise gradients from its carried score
         planes, gbdt.py:931-939), are quantized under the key in the
@@ -613,7 +663,7 @@ class GBDT:
         dev = self.device
         inp = self._round_inp[class_id]
         mask = inp[2:] != 0
-        if self.num_tree_per_iteration == 1:
+        if not self._held:
             grad, hess = (t[0] for t in self._gradients())
         else:
             grad, hess = self._grad[class_id], self._hess[class_id]
@@ -716,7 +766,8 @@ class GBDT:
                                    slot=len(self.models) - 1))
 
     def _eager_iter(self, slot, init_scores: List[float],
-                    classes: Sequence[int], deferred_ok: bool) -> bool:
+                    classes: Sequence[int], deferred_ok: bool,
+                    sample: Optional[Sample]) -> bool:
         """The eager path's iteration (gbdt.py:593-687, growing through
         `_grow_one_tree`, :1372-1417): the bag, drawn once for every class,
         the pristine root, per-row leaf ids (-1 out of the bag) or, on the
@@ -733,7 +784,8 @@ class GBDT:
         add over a bag, or a gather; each validation set's by KP2's add
         mode on the round's device tree.  A class that needs no training
         grows no tree: its first iteration keeps its prior as a constant
-        tree (:656-679)."""
+        tree (:656-679).  A GOSS sample is drawn with the gradients and
+        grows the trees as a bag does (:609-610)."""
         k = self.num_tree_per_iteration
         in_bag = self._bagging(self.iter)
         bagged = in_bag is not None
@@ -745,8 +797,8 @@ class GBDT:
         else:
             emit = "segments" if not bagged and not renew else "leaf_ids"
         update = deferred_ok and emit != "score"
-        if k > 1 and classes:
-            self._run_gradients()
+        if self._held and classes:
+            self._run_gradients(sample)
         should_continue = deferred_any = False
         for kk in range(k):
             new_tree, out, arrays = Tree(1), None, None
@@ -757,11 +809,7 @@ class GBDT:
                     self._defer(packed, slot, kk, init_scores[kk])
                     deferred_any = True
                     continue
-                host, event = self._to_host(packed, slot, kk)
-                if event is not None:
-                    event.synchronize()
-                self._tree_fetches += 1
-                host_arrays = self._unpack(host)
+                host_arrays = self._fetch(packed, slot, kk)
                 if int(host_arrays.num_leaves) > 1:
                     new_tree = Tree.from_arrays(host_arrays, self.train_set)
             if new_tree.num_leaves > 1:
@@ -789,6 +837,20 @@ class GBDT:
         self.iter += 1
         return False
 
+    def _fetch(self, packed: torch.Tensor, slot, class_id: int) -> TreeArrays:
+        """The round's packed tree fetched to the host now, as TreeArrays."""
+        host, event = self._to_host(packed, slot, class_id)
+        if event is not None:
+            event.synchronize()
+        self._tree_fetches += 1
+        return self._unpack(host)
+
+    def _leaf_values(self, tree: Tree) -> torch.Tensor:
+        """A host tree's leaf values as f32 [max_leaves] on the device."""
+        host_lv = np.zeros(self.max_leaves, np.float32)
+        host_lv[:tree.num_leaves] = tree.leaf_value[:tree.num_leaves]
+        return torch.as_tensor(host_lv, device=self.device)
+
     def _add_host_tree(self, tree: Tree, class_id: int, out, arrays,
                        emit: str, bagged: bool) -> None:
         """A fetched tree of more than one leaf: its leaves refit (L1,
@@ -796,12 +858,9 @@ class GBDT:
         class's scores (gbdt.py:1616-1630, :1623: the f64-shrunk values
         cast to f32)."""
         if self.objective.is_renew_tree_output():
-            self._renew_tree_output(tree, out)
+            self._renew_tree_output(tree, class_id, out)
         tree.shrink(self.shrinkage_rate)
-        nl = tree.num_leaves
-        host_lv = np.zeros(self.max_leaves, np.float32)
-        host_lv[:nl] = tree.leaf_value[:nl]
-        lv = torch.as_tensor(host_lv, device=self.device)
+        lv = self._leaf_values(tree)
         if emit == "segments":
             # s = 1 adds each value exactly as `score += lv[leaf_ids]`
             scatter_segments(self.arena, out, lv, arrays.num_leaves.view(1),
@@ -868,13 +927,17 @@ class GBDT:
         1047-1059): the init score, then every tree's host leaf values,
         tree i into class i % k, by KP2's add mode over the training
         bins."""
-        ds = self.train_set
         k = self.num_tree_per_iteration
-        self.scores.copy_(init_score_matrix(ds, k, self.device))
-        bins = ds.device_bins(self.device)
+        self.scores.copy_(init_score_matrix(self.train_set, k, self.device))
         for i, tree in enumerate(self.models):
-            _walk_add(bins, self.num_bins, self.default_bins,
-                      self.scores[i % k], tree, self.bundle, self.max_bin)
+            self._add_train_tree_score(tree, i % k)
+
+    def _add_train_tree_score(self, tree: Tree, class_id: int) -> None:
+        """Add a host tree's output to the class's training score by KP2's
+        add mode over the training bins."""
+        _walk_add(self.train_set.device_bins(self.device), self.num_bins,
+                  self.default_bins, self.scores[class_id], tree,
+                  self.bundle, self.max_bin)
 
     def _sync_model(self) -> None:
         """Drain the pending trees before the model is read

@@ -1,10 +1,13 @@
-"""The port's copy of the part of `jax.random` that quantized training uses.
+"""The port's copy of the part of `jax.random` that quantized training and
+GOSS use.
 
 JAX's default generator is threefry2x32 (Salmon et al., "Parallel random
 numbers: as easy as 1, 2, 3", SC 2011).  The quantized trainer draws its
 stochastic-rounding noise with `jax.random.uniform(key, (n,), float32)`
 under a key from `PRNGKey(seed)` and `fold_in`, so the port must give the
-same bits to give the same gradient codes.  This module computes them with
+same bits to give the same gradient codes.  GOSS draws its rows with
+`jax.random.uniform` under keys from a chain of `jax.random.split`
+(lightgbm_tpu/models/goss.py:49, :78).  This module computes them with
 integer torch ops: each uint32 lane is held in an int64 tensor (or a Python
 int) and masked to 32 bits after every add and shift, since torch's uint32
 arithmetic is thin.
@@ -21,7 +24,7 @@ reads the key of each round from a buffer instead of baking it in.
 """
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import List, Tuple, Union
 
 import torch
 
@@ -62,6 +65,13 @@ def PRNGKey(seed: int) -> Key:
 def fold_in(key: Key, data: int) -> Key:
     """jax.random.fold_in: hash the counter pair (0, data) under key."""
     return threefry2x32(key[0], key[1], 0, int(data) & M32)
+
+
+def split(key: Tuple[int, int], num: int = 2) -> List[Tuple[int, int]]:
+    """jax.random.split with partitionable threefry
+    (`jax._src.prng._threefry_split_foldlike`): key i hashes the counter
+    pair (0, i), so it equals fold_in(key, i)."""
+    return [threefry2x32(key[0], key[1], 0, i) for i in range(num)]
 
 
 def uniform(key: Key, n: int, device=None) -> torch.Tensor:

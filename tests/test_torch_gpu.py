@@ -129,6 +129,15 @@ Tolerances, per kernel:
   one-hot layout bundled by EFB (carried, the label engine) through
   their graphs against an eager twin, bit for bit on dyadic gradients,
   with no K1 launch on the categorical data.
+- the boosting modes: GOSS's sample (the threshold of the top rows, the
+  other rows by a stable sort of their uniform draw, the amplification)
+  on the card against its CPU version on the same gradients and key, bit
+  for bit, at 1M rows with ties at both boundaries, one class and three;
+  GOSS (f32 and quantized, 2 warm-up rounds then sampled ones) through its
+  graphs (the gradients' with the sample, the tree's) against an eager
+  twin, bit for bit, K3's pred mode and KP2's masked add launched in the
+  sampled rounds; DART's device prediction after every round, drops
+  included, equal to the host walk of the rescaled trees, bit for bit.
 """
 import os
 
@@ -2276,3 +2285,105 @@ def test_categorical_and_bundled_graph_rounds_match_eager(path, dev):
                    for f in grp]
         assert any(int(f) in grouped for t in ga.models
                    for f in t.split_feature_inner[:t.num_leaves - 1])
+
+
+# --------------------------------------------------------------------------- #
+# the boosting modes: GOSS's sample, its graphs, DART's rescaled trees
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("k", [1, 3])
+def test_goss_sample_card_vs_cpu(k, dev):
+    """The sample of 1M rows on the card against the CPU on the same
+    gradients and key (the card's key an int64 [2] device tensor, as the
+    round graph reads it): the predicate, gradients and hessians bit for
+    bit.  A block of rows repeats another's gradients, so the score ties
+    at the top_k boundary too."""
+    from lightgbm_tpu_torch.models.goss import goss_sample
+    from lightgbm_tpu_torch.ops import threefry
+    rng = np.random.RandomState(31 + k)
+    n = 1_000_000
+    top_k, other_k = n // 5, n // 10
+    g = torch.from_numpy(rng.randn(k, n).astype(np.float32))
+    h = torch.from_numpy((rng.rand(k, n) + 0.1).astype(np.float32))
+    g[:, :n // 4] = g[:, n // 4:n // 2]
+    h[:, :n // 4] = h[:, n // 4:n // 2]
+    key = threefry.split(threefry.PRNGKey(3))[1]
+    want = goss_sample(g, h, key, (n - top_k) / other_k, top_k, other_k)
+    got = goss_sample(g.to(dev), h.to(dev),
+                      torch.tensor(key, dtype=torch.int64, device=dev),
+                      (n - top_k) / other_k, top_k, other_k)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert int(want[2].sum()) >= top_k + other_k
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_goss_graph_rounds_match_eager(quantized, dev):
+    """Five GOSS rounds at learning_rate 0.5 (two of every row, then three
+    sampled) of a 31-leaf booster at 20k rows through its graphs against
+    an eager twin: the training score, the in-sample predicate and each
+    round's packed tree (pinned copy) bit for bit (f32 gradients dyadic);
+    the sampled rounds launch K3's pred mode and KP2's masked add."""
+    import lightgbm_tpu_torch as lt
+    X, y = _higgs_like(20_000, seed=25)
+    params = {"objective": "binary", "boosting": "goss", "num_leaves": 31,
+              "learning_rate": 0.5, "max_bin": 63, "min_data_in_leaf": 20,
+              "verbose": -1, "feature_fraction": 0.8,
+              "tpu_quantized_grad": quantized}
+    boosters = []
+    for _ in range(2):
+        bst = lt.Booster(params, lt.Dataset(X, y, device=dev), device=dev)
+        if not quantized:
+            _dyadic_gradients(bst._gbdt)
+        boosters.append(bst)
+    a, b = boosters
+    b._gbdt._graphs = _EagerRounds()
+    ga, gb = a._gbdt, b._gbdt
+    for r in range(5):
+        _cuda.reset_launch_counts()
+        a.update()
+        b.update()
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+        assert torch.equal(_bits(ga.score), _bits(gb.score)), r
+        assert (ga._bag_pred is None) == (gb._bag_pred is None) == (r < 2)
+        if r >= 2:
+            assert torch.equal(ga._bag_pred, gb._bag_pred), r
+            assert int(ga._bag_pred.sum()) >= 20_000 * 3 // 10
+            sfx = "_i8" if quantized else ""
+            assert counts["partition_segment_pred" + sfx] == 2, counts
+            assert counts["walk_binned_masked_add"] == 2, counts
+        ea, eb = ga._inflight[-1], gb._inflight[-1]
+        ea["event"].synchronize()
+        eb["event"].synchronize()
+        assert torch.equal(ea["host"], eb["host"]), r
+    stats = ga._graphs.stats()
+    # gradients and tree, warm-up and sampled: four keys, each warmed or
+    # captured at its first call
+    assert len(stats) == 4
+    assert a.model_to_string() == b.model_to_string()
+
+
+def test_dart_device_prediction_follows_dropped_trees(dev):
+    """DART rescales old trees in place every round it drops some: after
+    every round KP1's prediction (its tables cached on the model's length
+    and generation) equals the host walk of the trees, bit for bit; a
+    drop bumps the generation."""
+    import lightgbm_tpu_torch as lt
+    X, y = _higgs_like(20_000, seed=26)
+    params = {"objective": "binary", "boosting": "dart", "num_leaves": 31,
+              "learning_rate": 0.3, "max_bin": 63, "verbose": -1,
+              "drop_rate": 0.5, "skip_drop": 0.0}
+    bst = lt.Booster(params, lt.Dataset(X, y, device=dev), device=dev)
+    g = bst._gbdt
+    dropped = 0
+    for r in range(6):
+        gen = g._model_gen
+        bst.update()
+        assert g._model_gen == gen + bool(g._drop_index)
+        dropped += len(g._drop_index)
+        raw = bst.predict(X[:5000], raw_score=True)
+        host = bst.predict(X[:5000], raw_score=True, device=False)
+        np.testing.assert_array_equal(raw, host)
+    assert dropped >= 3
+    np.testing.assert_allclose(g.score[:5000].cpu().numpy(), raw, rtol=0,
+                               atol=1e-5)

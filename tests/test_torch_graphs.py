@@ -97,8 +97,9 @@ def test_round_inputs_are_staged():
     key = threefry.fold_in(qz.quantize_key(7, 3), 0)
     g._stage_inputs(None, [0], [key])
     inp = g._round_inp
-    assert inp.dtype == torch.int64 and inp.shape == (1, 2 + X.shape[1])
-    assert tuple(inp[0, :2].tolist()) == key
+    # a row a class, then the sampling key's row (GOSS), here unused
+    assert inp.dtype == torch.int64 and inp.shape == (2, 2 + X.shape[1])
+    assert tuple(inp[0, :2].tolist()) == key and not inp[1].any()
     assert int(inp[0, 2:].sum()) == 3 and set(inp[0, 2:].tolist()) <= {0, 1}
     g._stage_inputs(None, [0], [None])
     assert inp[0, :2].tolist() == [0, 0]

@@ -31,7 +31,10 @@ against the JAX package and the reference's interop fixtures, on the CPU.
   feature its tables split on;
 - sparse input reaches the score and the leaf paths densified in chunks;
 - a `boosting=rf` model of the JAX package predicts the mean of its trees
-  in the port too (its `average_output` line is read and written back).
+  in the port too (its `average_output` line is read and written back);
+- DART and GOSS models of the JAX package, carried across by
+  `interop.booster_from_model_string`, predict JAX's raw scores within
+  INTEROP_ATOL x scale on both walks.
 """
 import os
 
@@ -43,6 +46,7 @@ import torch
 import lightgbm_tpu as jlgb
 import lightgbm_tpu_torch as tlgb
 from lightgbm_tpu.ops import predict as jpredict
+from lightgbm_tpu_torch import interop
 from lightgbm_tpu_torch.models.tree import Tree
 from lightgbm_tpu_torch.ops import predict as tpredict
 from lightgbm_tpu_torch.ops import predict_kernel as tpk
@@ -373,6 +377,26 @@ def test_rf_model_predicts_the_mean_of_its_trees(raw_score):
     assert again._gbdt.average_output
     np.testing.assert_array_equal(again.predict(X, raw_score=raw_score),
                                   tb.predict(X, raw_score=raw_score))
+
+
+@pytest.mark.parametrize("boosting", ["dart", "goss"])
+def test_boosting_mode_models_carry_across(boosting):
+    """A JAX DART model (trees rescaled by its drops) and a JAX GOSS model
+    (trees of sampled rounds) load into the port as plain GBDTs, as the
+    JAX package loads them, and predict its raw scores."""
+    X, y = _nan_zero_data(1500, seed=9)
+    params = {"objective": "binary", "boosting": boosting, "num_leaves": 15,
+              "learning_rate": 0.5, "drop_rate": 0.5, "skip_drop": 0.0,
+              "verbose": -1}
+    jb = jlgb.train(params, jlgb.Dataset(X, y), num_boost_round=6)
+    carried = interop.booster_from_model_string(jb.model_to_string(),
+                                                device="cpu")
+    assert type(carried._gbdt).__name__ == "GBDT"
+    want = jb.predict(X, raw_score=True)
+    scale = max(1.0, float(np.abs(want).max()))
+    for device in (None, False):
+        _assert_close(carried.predict(X, raw_score=True, device=device),
+                      want, scale)
 
 
 # --------------------------------------------------------------------------- #

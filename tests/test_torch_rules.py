@@ -125,14 +125,10 @@ UNSUPPORTED = {
     "double_precision": ({"tpu_double_precision": True}, {}),
     # 600 distinct values a feature and min_data_in_bin=1: 511 bins
     "wide_bins": ({"max_bin": 511, "min_data_in_bin": 1}, {}),
-    "goss": ({"boosting": "goss"}, {}),
-    "rf": ({"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
-           {}),
     "learning_rates": ({}, {}, {"learning_rates": [0.1]}),
     "reset_parameter_callback": ({}, {}, {"callbacks": [_schedule]}),
     "fobj": ({}, {}, {"fobj": lambda preds, data: (preds, preds)}),
     "init_model": ({}, {}, {"init_model": "model.txt"}),
-    "dart": ({"boosting": "dart"}, {}),
     "forced_splits": ({"forcedsplits_filename": "forced.json"}, {}),
     "histogram_pool": ({"histogram_pool_size": 64.0}, {}),
     # with one machine and one device the config turns a parallel learner
@@ -141,10 +137,16 @@ UNSUPPORTED = {
     "voting_parallel": ({"tree_learner": "voting", "num_devices": 4}, {}),
 }
 # configurations that raised until they were ported: each now trains as
-# the JAX package trains it (name -> Dataset keywords)
+# the JAX package trains it (name -> (params, Dataset keywords))
 PORTED = {
-    "categorical": {"categorical_feature": [0]},
-    "efb_bundle": {"sparse": True},
+    "categorical": ({}, {"categorical_feature": [0]}),
+    "efb_bundle": ({}, {"sparse": True}),
+    "goss": ({"boosting": "goss"}, {}),
+    # a bag of 0.5 leaves the second tree's last split at a tie between
+    # two features, broken apart by f32 rounding
+    "rf": ({"boosting": "rf", "bagging_fraction": 0.8, "bagging_freq": 1},
+           {}),
+    "dart": ({"boosting": "dart"}, {}),
 }
 
 
@@ -174,13 +176,14 @@ def test_unsupported_config_raises(name):
     if name in PORTED:
         import lightgbm_tpu as jlgb
         from test_torch_inflight import assert_texts_match
-        ds_kw = dict(PORTED[name])
+        extra, ds_kw = PORTED[name]
+        ds_kw = dict(ds_kw)
         # labels with noise, so no split after the first ones rests on
         # gains of rounding noise
         X, y = (_sparse_data(flip=0.15) if ds_kw.pop("sparse", False)
                 else _data())
-        params = {"objective": "binary", "verbose": -1, "num_leaves": 7,
-                  "tpu_tree_engine": "label"}
+        params = dict({"objective": "binary", "verbose": -1,
+                       "num_leaves": 7, "tpu_tree_engine": "label"}, **extra)
         tb = tlgb.train(params, tlgb.Dataset(X, y, device="cpu", **ds_kw),
                         num_boost_round=2, device="cpu")
         jb = jlgb.train(params, jlgb.Dataset(X, y, **ds_kw),
@@ -188,8 +191,10 @@ def test_unsupported_config_raises(name):
         binned = tb._gbdt.train_set
         if name == "efb_bundle":
             assert binned.bundle is not None and binned.bundle.any_bundled
-        else:
+        elif name == "categorical":
             assert binned.bin_mappers[0].bin_type == 1
+        else:
+            assert type(tb._gbdt).__name__ == type(jb._gbdt).__name__
         assert_texts_match(tb.model_to_string(), jb.model_to_string())
         return
     params, ds_kw, train_kw = (UNSUPPORTED[name] + ({},))[:3]
