@@ -22,10 +22,10 @@
    the chain its add mode replaces); quantized arenas (int8 codes made on
    the CPU): K2 in int8 mode, K5 fused_refresh_histogram, K3 in both modes
    moving the codes, K6 moving the codes, each held exactly equal to its
-   plain version; K7 leaf_histogram over the dataset's row-major bins, f32
-   and int8, at the root (every row in leaf 0) and on a leaf of about 40k
-   rows scattered over the rows, with one row-list workspace as the grower
-   holds it; K8 partition_ablate, K3's stage ablation, at the dataset's row
+   plain version; K7 leaf_histogram over the dataset's row-major bins,
+   f32, int8 and f64 (tpu_double_precision), at the root (every row in
+   leaf 0) and on a leaf of about 40k rows scattered over the rows, with
+   one row-list workspace as the grower holds it; K8 partition_ablate, K3's stage ablation, at the dataset's row
    count on an f32 and an int8 arena, its full stage held exactly equal to
    K3's plain version;
 4. parity phase: a 20k-row, 3-round, 31-leaf run on the card against the
@@ -36,7 +36,11 @@
    boosting modes (GOSS at learning_rate 0.5, two rounds of every row and
    a sampled one; RF; DART dropping a tree in round 3): equal bags,
    samples and drops, split features and leaves of every row in the
-   tree's bag or sample;
+   tree's bag or sample; and the general grower (CEGB, forced splits, a
+   pooled quantized run, f64 on the label engine, the label engine on the
+   airline layout with 300 airports: uint16 bins), both runs grown from
+   the CPU's gradients rounded to 1/256: the same splits and every row in
+   the same leaf;
 5. training phase: a Higgs-shaped binary GBDT (28 dense features,
    num_leaves=255, max_bin=255, min_data_in_leaf=20, learning_rate=0.1,
    10.5M rows by default) trains through lightgbm_tpu_torch.train on the
@@ -85,8 +89,22 @@
    within 1e-6, RF's and DART's training scores equal to their models'
    prediction on 100k training rows within 1e-5; each run's replayed
    round and a profiled one;
+6b. general-grower phase, on the same data and holdout (general_phase):
+   CEGB on the carried arena and on the label engine (cegb_tradeoff 1, a
+   split penalty of 1e-6 a row, a coupled penalty of 1e4 on the odd
+   features: their share of the splits below the training phase's f32
+   run's), forced splits on both engines (a three-node plan whose root
+   is not the unforced run's root feature: every tree's first splits the
+   plan's), the quantized carried run with a pool of 64 of the 255
+   leaves' histograms (the training phase's quantized trees: the same
+   splits, counts and leaves, leaf values within 1e-5; K2 launched once
+   more each split), f64 on the label engine with the holdout as a
+   validation set (AUC within 0.02 of the f32 label run's, the score
+   f64, KP2's f64 add over its last tree at 10.5M rows bit for bit its
+   plain version); each through train_and_check with its kernels
+   launched and no other, KP1's holdout sums bit for bit the host walk's;
 7. prediction phase: the f32 carried configuration trained for
-   --predict-rounds rounds (250: the reference's Higgs experiment takes
+   --predict-rounds rounds (100: the reference's Higgs experiment takes
    500, cut to keep the whole smoke within its time) at the
    full row count, each drain timed; KP1 on the model over the holdout
    and 1M training rows, as f32 rows (as the data comes) and as f64 rows,
@@ -167,23 +185,30 @@
 11. categorical phase (the airline data of szilard's benchm-ml and
    GBM-perf benchmarks at train-10m's width: 10,000,000 rows x 8 columns,
    Month, DayofMonth, DayOfWeek, UniqueCarrier, Origin and Dest
-   categorical with 12, 31, 7, 22, 255 and 255 categories (the airports
-   cut from train-10m's ~300 to what uint8 bins hold), airports
-   Zipf-skewed to ATL's share of departures, `airline_like` seed 31, a
-   100k-row holdout of seed 32;
+   categorical with 12, 31, 7, 22, 255 and 255 categories for the
+   partition engine's runs (the airports cut from train-10m's ~300 to
+   what uint8 bins hold), airports Zipf-skewed to ATL's share of
+   departures, `airline_like` seed 31, a 100k-row holdout of seed 32;
    PARAMS, the categorical knobs at their defaults): a 20k-row weighted
    parity run (trees that take a bin set's complement must put the rows
-   in the same leaves, relabelled); K2 f32 at G = 8; five runs through
+   in the same leaves, relabelled); K2 f32 at G = 8; four runs through
    train_and_check, f32 and quantized on the carried arena, f32 with the
    holdout as a validation set (KP2's add mode over categorical nodes),
-   the label engine, and an f32 twin given the six columns as numbers,
-   K1 launched by the twin only; every holdout AUC at least 0.75, the
+   and an f32 twin given the six columns as numbers, K1 launched by the
+   twin only; every holdout AUC at least 0.75, the
    categorical f32 run's above the twin's, the quantized within 0.02 of
    f32, the valid-set run's last evals_result equal to the host
    prediction's within 1e-6, KP1's holdout sums bit for bit the host
    walk's; KP2 over the valid-set run's categorical tree at 10M rows
    against its plain version, bit for bit, timed beside its bound; one
-   split's categorical scan captured for its node count;
+   split's categorical scan captured for its node count; then the label
+   engine on the same layout with train-10m's 300 airports each way
+   (uint16 bins, 292-293 categorical bins in Origin and Dest): K7's
+   uint16 form against its plain version at the root and on a 40k leaf,
+   a run with the 300-airport holdout as a validation set (KP2's add
+   over uint16 bins and bin sets wider than 256 bits, AUC at least 0.75,
+   the last evals_result the host prediction's), and KP2 over its last
+   tree at 10M rows against its plain version (wide_label_run);
 12. prints one JSON line of training and prediction results and one of
    per-kernel results, then the device line {"ok": true, "device": {...}}
    as the last line.
@@ -194,6 +219,7 @@ the package is missing, or when any phase fails.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -201,6 +227,34 @@ import time
 from typing import NamedTuple
 
 import numpy as np
+
+# where the smoke's own time goes: seconds by (phase, kind of step), each
+# step's time less that of the timed steps it makes (`timed`), printed as
+# `steps, s:` before the phases' line
+STEP_S = {}
+PHASE = ["set-up"]
+_OPEN_STEPS = []
+
+
+def timed(kind: str):
+    """Decorator: the call's seconds, less those of the timed calls it
+    makes, added to STEP_S[(the current phase, kind)]."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            t = time.perf_counter()
+            _OPEN_STEPS.append(0.0)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                dt = time.perf_counter() - t
+                key = (PHASE[0], kind)
+                STEP_S[key] = STEP_S.get(key, 0.0) + dt - _OPEN_STEPS.pop()
+                if _OPEN_STEPS:
+                    _OPEN_STEPS[-1] += dt
+        return inner
+    return wrap
+
 
 ROWS = 10_500_000
 FEATURES = 28
@@ -391,6 +445,7 @@ def row_weights(n: int, seed: int = 3) -> np.ndarray:
     return np.random.RandomState(seed).rand(n).astype(np.float32) + 0.5
 
 
+@timed("data")
 def higgs_like(n: int, seed: int = 7):
     """bench.py's Higgs-shaped generator: X [n, 28] f32, labels from a
     random linear score plus one interaction; a held-out draw of the same
@@ -410,6 +465,7 @@ def higgs_like(n: int, seed: int = 7):
     return X, y, Xh, yh
 
 
+@timed("kernel timing")
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     """Mean ms of fn() over a run of reps back-to-back calls between two
     CUDA events, after warm-up calls."""
@@ -479,6 +535,7 @@ def traced(work, activities, record_shapes: bool = False):
             sum(PAD_KERNEL in ev.name for ev in device))
 
 
+@timed("kernel timing")
 def kernel_only_ms(fn, reps: int, any_kernel: bool = False):
     """Device ms a call of fn spends in the port's kernels (torch.profiler
     over reps calls after a warm-up, `traced`): the time without the
@@ -1157,12 +1214,36 @@ def leaf_kernel_phase(ds, dev, results):
     child = int(np.argmin(np.abs(np.bincount(leaves) - CHILD_ROWS)))
     ids = {"root": np.zeros(n, np.int64), "child": leaves}
     work = hk.row_list(n, dev)      # the row list, as a grower holds it
-    for quantized in (False, True):
-        name = "leaf_histogram_i8" if quantized else "leaf_histogram"
+    leaf_forms(bins, {"leaf_histogram": (g, h),
+                      "leaf_histogram_i8": (gq, hq)},
+               ids, child, B, work, dev, results)
+    # the f64 payload (tpu_double_precision), launched by the general
+    # grower's f64 run
+    leaf_forms(bins, {"leaf_histogram_f64": (g.double(), h.double())},
+               ids, child, B, work, dev, results, shape_of="general")
+    del g, h, gq, hq, work
+    torch.cuda.empty_cache()
+
+
+def leaf_forms(bins, forms, ids, child, B, work, dev, results,
+               shape_of: str = None):
+    """K7's forms of `forms` (name -> payload pair) over one matrix of
+    device bins, at the root and on the leaf `child` of the ids, against
+    the plain version: exact for int8 codes, counts equal and g/h within
+    1e-5 of the bin's |value| sum in f32 (1e-12 in f64); timed beside the
+    plain version, index_add_ and the bound."""
+    import torch
+    from lightgbm_tpu_torch.io.dataset import bin_values
+    from lightgbm_tpu_torch.ops import histogram_kernel as hk
+    n, F = bins.shape
+    bin_bytes = bins.element_size()
+    for name, (pg, ph) in forms.items():
+        quantized = name.endswith("_i8")
+        wide = pg.dtype == torch.float64
         fn = hk.leaf_histogram_quantized if quantized else hk.leaf_histogram
         plain = (hk.leaf_histogram_quantized_plain if quantized
                  else hk.leaf_histogram_plain)
-        pg, ph = (gq, hq) if quantized else (g, h)
+        tol = 1e-12 if wide else 1e-5
         r = {}
         for what, lid in ids.items():
             leaf_ids = torch.from_numpy(lid.astype(
@@ -1185,14 +1266,15 @@ def leaf_kernel_phase(ds, dev, results):
                 err_t = (got - want).abs()
                 err = float(err_t.max())
                 rel = float((err_t / scale.clamp_min(1e-30)).max())
-                expect(rel <= 1e-5, "K7 %s: error %.3g of the |value| sums "
-                       "exceeds rtol 1e-5" % (what, rel))
+                expect(rel <= tol, "K7 %s %s: error %.3g of the |value| sums"
+                       " exceeds rtol %g" % (name, what, rel, tol))
             # the library yardstick: one index_add_ of the leaf's (feature,
             # row) pairs into the [F*B, 3] histogram
             rows = (leaf_ids.to(torch.int32) == leaf).nonzero()[:, 0]
             flat = (torch.arange(F, device=dev)[None, :] * B
-                    + bins.index_select(0, rows).long()).reshape(-1)
-            vdt = torch.int32 if quantized else torch.float32
+                    + bin_values(bins.index_select(0, rows))).reshape(-1)
+            vdt = (torch.int32 if quantized else torch.float64 if wide
+                   else torch.float32)
             vals = torch.stack([pg[rows].to(vdt), ph[rows].to(vdt),
                                 torch.ones(m, dtype=vdt, device=dev)], dim=1
                                ).repeat_interleave(F, dim=0)
@@ -1205,26 +1287,32 @@ def leaf_kernel_phase(ds, dev, results):
                                                B), 3),
                 library_ms=cuda_ms(lambda: hist0.index_add_(0, flat, vals),
                                    5),
-                bytes=hk.leaf_histogram_bytes(n, m, F, B, quantized),
+                bytes=hk.leaf_histogram_bytes(n, m, F, B, quantized,
+                                              bin_bytes,
+                                              8 if wide else 4),
                 ops=3 * F * m)
             del flat, vals, rows
-        print("K7 %s: root %d rows %.4f ms (plain %.4f, index_add_ %.4f); "
-              "child leaf of %d rows %.4f ms (plain %.4f, index_add_ %.4f); "
-              "%s" % (name, n, r["root"]["ms"], r["root"]["plain_ms"],
-                      r["root"]["library_ms"], r["child"]["rows"],
-                      r["child"]["ms"], r["child"]["plain_ms"],
-                      r["child"]["library_ms"], "exact" if quantized else
-                      "max abs err %.3g" % max(r["root"]["max_abs_err"],
-                                               r["child"]["max_abs_err"])))
+        print("K7 %s: B = %d; root %d rows %.4f ms (plain %.4f, index_add_ "
+              "%.4f); child leaf of %d rows %.4f ms (plain %.4f, index_add_ "
+              "%.4f); %s"
+              % (name, B, n, r["root"]["ms"], r["root"]["plain_ms"],
+                 r["root"]["library_ms"], r["child"]["rows"],
+                 r["child"]["ms"], r["child"]["plain_ms"],
+                 r["child"]["library_ms"], "exact" if quantized else
+                 "max abs err %.3g" % max(r["root"]["max_abs_err"],
+                                          r["child"]["max_abs_err"])))
         b_ms, b_by = bound(r["root"]["bytes"], r["root"]["ops"])
         results[name] = dict(
             name=name, route="cuda", source=SRC % "leaf_histogram",
-            replaces=REPLACES[name], mode="int8" if quantized else "f32",
+            replaces=REPLACES["leaf_histogram_i8" if quantized
+                              else "leaf_histogram"],
+            mode="int8" if quantized else "f64" if wide else "f32",
+            bins="uint16" if bin_bytes == 2 else "uint8", B=B,
             launches=0,
             max_abs_err=max(r["root"]["max_abs_err"],
                             r["child"]["max_abs_err"]),
             tolerance="exact" if quantized else
-            "counts equal; g/h within 1e-5 of the bin's |value| sum",
+            "counts equal; g/h within %g of the bin's |value| sum" % tol,
             ms=r["root"]["ms"], plain_ms=r["root"]["plain_ms"],
             bound_ms=b_ms, bound_by=b_by, library_ms=r["root"]["library_ms"],
             library="index_add_ of the leaf's (feature, row) pairs",
@@ -1232,8 +1320,8 @@ def leaf_kernel_phase(ds, dev, results):
                 {k: r["child"][k] for k in ("ms", "plain_ms", "library_ms",
                                             "rows")},
                 bound_ms=bound(r["child"]["bytes"], r["child"]["ops"])[0]))
-    del g, h, gq, hq, work
-    torch.cuda.empty_cache()
+        if shape_of is not None:
+            results[name]["shape_of"] = shape_of
 
 
 def ablate_phase(n: int, dev, results):
@@ -1509,6 +1597,11 @@ def share_gradients(card, cpu):
     return hook
 
 
+# each training path's trees and model text as trained (training_phase),
+# which the general-grower phase compares with
+TRAINED = {}
+
+
 def training_phase(X, Xh, yh, ds_obj, valid_obj, rounds, dev, reduced, path):
     """A main path: lightgbm_tpu_torch.train on the card (train_and_check),
     then predict on the holdout."""
@@ -1537,6 +1630,8 @@ def training_phase(X, Xh, yh, ds_obj, valid_obj, rounds, dev, reduced, path):
            and bool(g._carried_active) is carried(path),
            "%s training: quantized %s, carried %s" % (path, g._quantized,
                                                       g._carried_active))
+    # the trained model, before the replayed and profiled rounds add to it
+    TRAINED[path] = (list(g.models), booster.model_to_string())
     if flag(path, "bagged"):
         expect(g._bag_count == int(BAGGING["bagging_fraction"] * len(X)),
                "%s training: %s rows in the bag" % (path, g._bag_count))
@@ -1615,6 +1710,7 @@ def graphs_a_round(g) -> int:
     return k + 1 if getattr(g, "_held", k > 1) else 1
 
 
+@timed("replay")
 def replayed_round_ms(booster, rounds: int) -> float:
     """Host ms a round over `rounds` more rounds of a trained booster, every
     one graph replays, from a synchronized card to the drain and
@@ -1644,6 +1740,7 @@ NO_WORK_OPS = frozenset((
     "lift_fresh", "empty", "empty_like", "empty_strided", "resize_"))
 
 
+@timed("profile")
 def profile_round(booster, what: str, rows: int = None,
                   held: int = None) -> dict:
     """One more boosting round under torch.profiler, a graph replay with the
@@ -1780,8 +1877,9 @@ def ops_over_rows(prof, rows: int) -> dict:
 
 
 # the reference's Higgs experiment trains 500 rounds; cut to 250 to keep
-# the whole smoke within its time when the boosting-modes phase came in
-PREDICT_ROUNDS = 250
+# the whole smoke within its time when the boosting-modes phase came in,
+# to 100 when the general grower's phase came in
+PREDICT_ROUNDS = 100
 TRAIN_ROWS_PREDICTED = 1_000_000
 # processes that share the host walks of the prediction phase's checks: a
 # host walk of the 100k holdout rows through 500 trees takes ~45 s in
@@ -1814,6 +1912,7 @@ def _host_walk_part(job):
     return out, time.perf_counter() - t
 
 
+@timed("host walks")
 def host_walks(bst, X, checks: dict) -> dict:
     """The host walk (predict with device=False) of each check over all of
     X, {name: predict's keywords}, its rows split among HOST_WALK_PROCS
@@ -2190,7 +2289,7 @@ def kp2_phase(booster, dev, results):
     expect(torch.equal(got, want), "KP2 leaf mode: leaves differ")
     expect(torch.equal(got[ids >= 0], ids[ids >= 0]),
            "KP2 leaf mode: a row of the bag walks to another leaf than K4's")
-    lv = tree.leaf_value * g._shrink_f32
+    lv = tree.leaf_value * g._shrink_dev
     score0 = torch.randn(n, generator=torch.Generator(device=dev)
                          .manual_seed(9), device=dev)
     r = {}
@@ -2279,6 +2378,7 @@ def pristine_kernels(k4: str, *extra) -> tuple:
                        if k not in must)
 
 
+@timed("data")
 def mslr_like(n_query: int, seed: int = 11, w=None):
     """Copied from bench.py:197-222 (bench_lambdarank's generator): X [n,
     137] f32, graded relevance 0-4 from each query's ranking of a sparse
@@ -2631,6 +2731,7 @@ def rank_kernel_phase(ds, dev, results):
     torch.cuda.empty_cache()
 
 
+@timed("train")
 def train_and_check(name, params, ds, dev, rounds, must, never, deferred,
                     graphs: int = 1, replays: int = None, **train_kw):
     """lightgbm_tpu_torch.train on the card with the launch counters zeroed
@@ -2901,6 +3002,7 @@ def class_counts(n: int) -> np.ndarray:
     return out
 
 
+@timed("data")
 def covertype_like(n: int, seed: int = 21, means=None):
     """X [n, 54] f32 and labels 0-6 with Covertype's class counts scaled to
     n (class_counts): the labels a shuffled vector of those counts, each
@@ -3179,11 +3281,14 @@ def multiclass_phase(dev, rounds: int, results) -> tuple:
 # the label dep_delayed_15min
 AIRLINE_ROWS = 10_000_000
 AIRLINE_HOLDOUT = 100_000
-# the airports each way: train-10m has about 300, but 300 skewed to the
-# same top share (exponent 0.661) leave a categorical bin mapper 292 of
-# them, past the 256 bins of a uint8 column, and uint16 bins are not ported (ROADMAP.md queue 1, item 11): cut
-# to the 255 that max_bin 255 keeps
+# the airports each way: train-10m has about 300, which skewed to the same
+# top share leave a categorical bin mapper 292 of them, past the 256 bins
+# of a uint8 column: uint16 bins, which only the label engine takes, as in
+# JAX (lightgbm_tpu/models/gbdt.py:1217-1219).  The label run takes the
+# 300 (AIRLINE_WIDE); the partition runs, on uint8 bins, the 255 that
+# max_bin 255 keeps
 AIRLINE_AIRPORTS = 255
+AIRLINE_WIDE = 300
 AIRLINE_CARDS = {0: 12, 1: 31, 2: 7, 4: 22, 5: AIRLINE_AIRPORTS,
                  6: AIRLINE_AIRPORTS}
 AIRLINE_CATS = tuple(sorted(AIRLINE_CARDS))
@@ -3195,8 +3300,11 @@ AIRPORT_SKEW = 0.6431
 # the categorical runs: name -> (path of PATHS, categories as numbers)
 CAT_RUNS = {"cat_f32": ("f32", False), "cat_quantized": ("quantized", False),
             "cat_valid_f32": ("valid_f32", False),
-            "cat_label_f32": ("label_f32", False),
             "cat_numeric_f32": ("f32", True)}
+# the label engine's run on the 300 airports: uint16 bins, bin sets wider
+# than 256 bits, the 300-airport holdout as a validation set (KP2's add
+# mode over uint16 bins)
+CAT_WIDE_RUN = "cat_label_wide_f32"
 # Covertype at its own layout: 10 numbers, then 4 wilderness-area and 40
 # soil-type one-hot columns, which EFB bundles
 COVTYPE_NUMERIC, COVTYPE_AREAS, COVTYPE_SOILS = 10, 4, 40
@@ -3206,31 +3314,36 @@ EFB_RUNS = {"efb_multiclass_f32": False, "efb_multiclass_label_f32": True}
 COVTYPE_PRIOR_LOGLOSS = 1.2052
 
 
-def airline_like(n: int, seed: int = 31, effects=None):
+@timed("data")
+def airline_like(n: int, seed: int = 31, effects=None,
+                 airports: int = AIRLINE_AIRPORTS):
     """X [n, 8] f32 in the airline layout, categories as integer codes
-    (months, days, weekdays, 22 carriers, AIRLINE_AIRPORTS airports each
-    way drawn with a Zipf skew of AIRPORT_SKEW), DepTime as hhmm, Distance in miles; the
-    label a logistic draw from per-category effects (no order of the codes
-    carries them), a route effect of each (Origin, Dest) pair, the hour of
-    departure and noise, about a fifth of the rows delayed.  effects: a
-    holdout takes the training draw's.  Returns (X, y, effects)."""
+    (months, days, weekdays, 22 carriers, `airports` airports each way
+    drawn with a Zipf skew of AIRPORT_SKEW), DepTime as hhmm, Distance in
+    miles; the label a logistic draw from per-category effects (no order
+    of the codes carries them), a route effect of each (Origin, Dest)
+    pair, the hour of departure and noise, about a fifth of the rows
+    delayed.  effects: a holdout takes the training draw's.  Returns (X,
+    y, effects)."""
     rng = np.random.RandomState(seed)
+    cards = dict(AIRLINE_CARDS)
+    cards[5] = cards[6] = airports
     if effects is None:
         er = np.random.RandomState(seed + 1000)
         scale = {0: 0.35, 1: 0.15, 2: 0.2, 4: 0.5, 5: 0.7, 6: 0.7}
         effects = {j: er.randn(c).astype(np.float32) * scale[j]
-                   for j, c in AIRLINE_CARDS.items()}
-        A = AIRLINE_AIRPORTS
-        effects["route"] = er.randn(A, A).astype(np.float32) * 0.4
-        effects["miles"] = er.gamma(2.0, 450.0, (A, A)).astype(
+                   for j, c in cards.items()}
+        effects["route"] = er.randn(airports, airports).astype(
+            np.float32) * 0.4
+        effects["miles"] = er.gamma(2.0, 450.0, (airports, airports)).astype(
             np.float32)
     X = np.empty((n, 8), np.float32)
     score = np.zeros(n, np.float32)
-    zipf = 1.0 / np.arange(1, AIRLINE_AIRPORTS + 1) ** AIRPORT_SKEW
+    zipf = 1.0 / np.arange(1, airports + 1) ** AIRPORT_SKEW
     zipf /= zipf.sum()
     codes = {}
-    for j, card in AIRLINE_CARDS.items():
-        c = (rng.choice(card, n, p=zipf) if card == AIRLINE_AIRPORTS else
+    for j, card in cards.items():
+        c = (rng.choice(card, n, p=zipf) if j in (5, 6) else
              rng.randint(0, card, n))
         codes[j] = c
         X[:, j] = c
@@ -3244,6 +3357,7 @@ def airline_like(n: int, seed: int = 31, effects=None):
     return X, y, effects
 
 
+@timed("data")
 def covertype_onehot(n: int, seed: int = 51, means=None):
     """X [n, 54] f32 at Covertype's layout: 10 numbers (a standard normal
     draw shifted by the class's means), then the row's wilderness area
@@ -3283,17 +3397,22 @@ def cat_kernels(path: str, numeric: bool) -> tuple:
             never + ("split_scan",))
 
 
-def kp2_categorical(booster, X, dev, results) -> dict:
-    """KP2 over the categorical valid-set run's last tree: its device form
+def kp2_categorical(booster, X, dev, results,
+                    key: str = "walk_binned_cat") -> dict:
+    """KP2 over a categorical valid-set run's last tree: its device form
     (gbdt._tree_to_device, the bin sets as [N, B] masks) over the 10M
-    training rows' bins, leaf mode and add mode against the plain walk,
-    bit for bit, and the leaves against the host walk of the raw rows;
-    timed beside the bytes each mode must move.  Its entry goes to the
-    kernels line as walk_binned_cat, its launches those of the valid-set
-    run."""
+    training rows' bins, leaf mode, add mode and masked add (a bag of
+    about 80% of the rows at their leaf ids, the others walked) against
+    the plain walk, bit for bit, and the leaves against the host walk of
+    the raw rows; timed beside the bytes each mode must move.  Its entry goes to the
+    kernels line under `key` (walk_binned_cat: the 255-airport run, uint8
+    bins and 32-byte bin sets; walk_binned_u16: the 300-airport label
+    run, uint16 bins and wider sets), its launches those of the
+    valid-set run."""
     import torch
     from lightgbm_tpu_torch.models.gbdt import _tree_to_device
-    from lightgbm_tpu_torch.ops.predict_kernel import (walk_binned,
+    from lightgbm_tpu_torch.ops.predict_kernel import (cat_set_bytes,
+                                                       walk_binned,
                                                        walk_binned_plain)
     g = booster._gbdt
     tree = g.models[-1]
@@ -3315,50 +3434,73 @@ def kp2_categorical(booster, X, dev, results) -> dict:
                          device=dev)
     score0 = torch.randn(n, generator=torch.Generator(device=dev)
                          .manual_seed(9), device=dev)
-    sk_, sp_ = score0.clone(), score0.clone()
-    walk_binned(bins, dt, nb, db, lv=lv, score=sk_)
-    walk_binned_plain(bins, dt, nb, db, lv=lv, score=sp_)
-    expect(torch.equal(sk_.view(torch.int32), sp_.view(torch.int32)),
-           "KP2 categorical add: scores differ")
+    out_of_bag, ids = bag_ids(got, dev)
     r = {}
-    for mode in ("add", "leaf"):
-        if mode == "add":
-            def run():
-                walk_binned(bins, dt, nb, db, lv=lv, score=sk_)
-
-            def plain():
-                walk_binned_plain(bins, dt, nb, db, lv=lv, score=sp_)
-        else:
+    for mode, kw in (("add", {}), ("masked_add", dict(leaf_ids=ids)),
+                     ("leaf", None)):
+        if kw is None:
             def run():
                 walk_binned(bins, dt, nb, db)
 
             def plain():
                 walk_binned_plain(bins, dt, nb, db)
-        walked = torch.ones(n, dtype=torch.bool, device=dev)
-        # the tables: 21 bytes a node, 32 of bin set a categorical one
-        nbytes = walk_binned_bytes(walked, G, dt.split_feature.shape[0],
-                                   tree.num_leaves, mode) + 32 * ncat
+        else:
+            sk_, sp_ = score0.clone(), score0.clone()
+            walk_binned(bins, dt, nb, db, lv=lv, score=sk_, **kw)
+            walk_binned_plain(bins, dt, nb, db, lv=lv, score=sp_, **kw)
+            expect(torch.equal(sk_.view(torch.int32), sp_.view(torch.int32)),
+                   "KP2 categorical %s (%s): scores differ" % (mode, key))
+
+            def run():
+                walk_binned(bins, dt, nb, db, lv=lv, score=sk_, **kw)
+
+            def plain():
+                walk_binned_plain(bins, dt, nb, db, lv=lv, score=sp_, **kw)
+        walked = (out_of_bag if mode == "masked_add" else
+                  torch.ones(n, dtype=torch.bool, device=dev))
+        # the tables: 21 bytes a node, its bin set a categorical one; a
+        # row's bins G * the bin's bytes
+        nbytes = walk_binned_bytes(walked, G * bins.element_size(),
+                                   dt.split_feature.shape[0],
+                                   tree.num_leaves, mode) + ncat * \
+            cat_set_bytes(dt.cat_mask.shape[1])
         r[mode] = dict(ms=cuda_ms(run, 10), kernel_ms=kernel_only_ms(run, 10),
                        plain_ms=cuda_ms(plain, 1, warmup=0), bytes=nbytes,
                        bound_ms=bound(nbytes, 0)[0])
-    print("KP2 walk_binned over categorical nodes: %d rows x %d columns, "
-          "the valid-set run's last tree (%d leaves, %d categorical nodes); "
-          "%s; exact, leaves the host walk's"
-          % (n, G, tree.num_leaves, ncat, "; ".join(
+    print("KP2 walk_binned over categorical nodes (%s): %d rows x %d "
+          "columns of %s bins, the valid-set run's last tree (%d leaves, %d "
+          "categorical nodes, %d-byte bin sets); %s; exact, leaves the host "
+          "walk's"
+          % (key, n, G, "uint16" if bins.element_size() == 2 else "uint8",
+             tree.num_leaves, ncat, cat_set_bytes(dt.cat_mask.shape[1]),
+             "; ".join(
               "%s %.4f ms, kernel-only %s (bound %.4f, plain %.3f)" % (
                   m, v["ms"], profiled(v["kernel_ms"]), v["bound_ms"],
                   v["plain_ms"]) for m, v in r.items())))
     v = r["add"]
-    results["walk_binned_cat"] = dict(
-        name="walk_binned_cat", route="cuda", source=SRC % "walk_binned",
+    results[key] = dict(
+        name=key, route="cuda", source=SRC % "walk_binned",
         replaces=REPLACES["walk_binned"], port_only=True, mode="add",
         launches=0, shape_of="categorical", max_abs_err=0.0,
         tolerance="bit for bit", ms=v["ms"], kernel_ms=v["kernel_ms"],
         plain_ms=v["plain_ms"], bound_ms=v["bound_ms"], bound_by="bytes",
         library_ms=None, library="none: no single PyTorch call walks a "
         "tree", rows=n, leaves=tree.num_leaves, categorical_nodes=ncat,
-        leaf_mode=r["leaf"])
+        bins="uint16" if bins.element_size() == 2 else "uint8",
+        leaf_mode=r["leaf"], masked_add=r["masked_add"])
     return r
+
+
+def bag_ids(leaf_ids, dev) -> tuple:
+    """(out_of_bag, ids): a seeded draw of about 20% of the rows out of a
+    bag, and the rows' leaf ids with -1 at those rows, as K4 leaves them
+    for KP2's masked add (the bag's rows add at their ids, the others are
+    walked)."""
+    import torch
+    out_of_bag = torch.rand(leaf_ids.shape[0], device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(5)) < 0.2
+    return out_of_bag, torch.where(out_of_bag, -1, leaf_ids)
 
 
 def categorical_phase(dev, rounds: int, results) -> tuple:
@@ -3367,9 +3509,8 @@ def categorical_phase(dev, rounds: int, results) -> tuple:
     lightgbm_tpu_torch.train with PARAMS (255 leaves, max_bin 255, the
     categorical knobs at their defaults): f32 and quantized on the carried
     arena, f32 with the holdout as a validation set (the eager path, KP2's
-    add mode over categorical nodes, early stopping after 2), f32 on the
-    label engine, and an f32 carried twin given the six columns as
-    numbers; each through train_and_check with K1 launched only by the
+    add mode over categorical nodes, early stopping after 2) and an f32
+    carried twin given the six columns as numbers; each through train_and_check with K1 launched only by the
     twin, KP1's holdout sums bit for bit the host walk's, the holdout AUC
     at least AUC_FLOOR, the replayed round and a profiled round; the
     categorical f32 run's AUC above the twin's, the quantized run's within
@@ -3377,7 +3518,8 @@ def categorical_phase(dev, rounds: int, results) -> tuple:
     prediction's within 1e-6; K2 f32 at the dataset's G against its plain
     version; KP2 over the valid-set run's categorical tree
     (kp2_categorical); and the node count of one categorical split's
-    scan (ops/grow.scan_rows of two children), counted from a capture.
+    scan (ops/grow.scan_rows of two children), counted from a capture;
+    then the label engine on AIRLINE_WIDE airports (wide_label_run).
     Returns (records by run, launches by run)."""
     import torch
     import lightgbm_tpu_torch as lt
@@ -3480,7 +3622,106 @@ def categorical_phase(dev, rounds: int, results) -> tuple:
         launches["cat_valid_f32"].get(WALK_ADD, 0))
     del ds, dv, ds_num, X
     torch.cuda.empty_cache()
+    recs[CAT_WIDE_RUN], launches[CAT_WIDE_RUN] = wide_label_run(
+        dev, rounds, results)
     return recs, launches
+
+
+def wide_label_run(dev, rounds: int, results) -> tuple:
+    """The airline data with AIRLINE_WIDE airports each way (10M x 8, a
+    100k-row holdout of the same draw): uint16 bins (Origin and Dest past
+    256 categorical bins), which the label engine takes; K7's uint16 form
+    against its plain version at the root and on a ~40k-row leaf; then
+    the label engine through train_and_check with the holdout as a
+    validation set (KP2's add mode over uint16 bins and bin sets wider
+    than 256 bits), early stopping after 2: K7's uint16 form and KP2's
+    uint16 add launched, no other training kernel; categorical splits,
+    KP1's holdout sums bit for bit the host walk's, the holdout AUC at
+    least AUC_FLOOR, the last evals_result the host prediction's within
+    1e-6; KP2 over its last tree at the full row count
+    (kp2_categorical).  Returns (record, launches)."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.metric import auc
+
+    t = time.perf_counter()
+    X, y, eff = airline_like(AIRLINE_ROWS, airports=AIRLINE_WIDE)
+    Xh, yh, _ = airline_like(AIRLINE_HOLDOUT, seed=32, effects=eff,
+                             airports=AIRLINE_WIDE)
+    cat = dict(categorical_feature=list(AIRLINE_CATS))
+    ds = lt.Dataset(X, y, params=PARAMS, device=dev, **cat).construct()
+    dv = lt.Dataset(Xh, yh, reference=ds, device=dev)
+    b = ds._binned
+    print("categorical data, %d airports each way: %d rows, bins %s (%s), "
+          "a histogram column of %d bins; generated and binned in %.1f s"
+          % (AIRLINE_WIDE, len(y), b.feature_num_bins().tolist(),
+             b.bins.dtype, b.hist_max_bin(), time.perf_counter() - t))
+    expect(b.bins.dtype == np.uint16 and b.hist_max_bin() > 256,
+           "%d airports: bins %s, %d a column" % (AIRLINE_WIDE, b.bins.dtype,
+                                                  b.hist_max_bin()))
+    n = len(y)
+    rng = np.random.RandomState(19)
+    g = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
+    h = torch.from_numpy((rng.rand(n) * 0.25 + 0.01).astype(np.float32)
+                         ).to(dev)
+    leaves = rng.randint(0, LEAVES, n)
+    child = int(np.argmin(np.abs(np.bincount(leaves) - CHILD_ROWS)))
+    from lightgbm_tpu_torch.ops import histogram_kernel as hk
+    leaf_forms(b.device_bins(dev), {"leaf_histogram_u16": (g, h)},
+               {"root": np.zeros(n, np.int64), "child": leaves}, child,
+               b.hist_max_bin(), hk.row_list(n, dev), dev, results,
+               shape_of="categorical")
+    del g, h, leaves
+    evals = {}
+    must = ("leaf_histogram_u16", WALK_ADD + "_u16")
+    booster, rec = train_and_check(
+        CAT_WIDE_RUN, path_params("label_f32", metric="auc"), ds, dev, rounds,
+        must, TRAINING_KERNELS + PREDICT_KERNELS, deferred=False, graphs=1,
+        valid_sets=[dv], valid_names=["holdout"],
+        early_stopping_rounds=EARLY_STOPPING_ROUNDS, evals_result=evals,
+        verbose_eval=False)
+    g = booster._gbdt
+    cats = sum(m.num_cat for m in g.models)
+    expect(not g._use_partition_engine and cats > 0
+           and g.max_bin == b.hist_max_bin(),
+           "%s: partition engine %s, %d categorical splits, max_bin %d"
+           % (CAT_WIDE_RUN, g._use_partition_engine, cats, g.max_bin))
+    raw = booster.predict(Xh, raw_score=True)
+    host = booster.predict(Xh, raw_score=True, device=False)
+    expect(np.array_equal(raw, host), "%s: KP1's holdout sums differ from "
+           "the host walk's by up to %.3g"
+           % (CAT_WIDE_RUN, float(np.abs(raw - host).max())))
+    holdout_auc = auc(yh, booster.predict(Xh))
+    last = evals["holdout"]["auc"][-1]
+    expect(holdout_auc >= AUC_FLOOR and abs(last - holdout_auc) <= 1e-6,
+           "%s: holdout AUC %.4f (floor %.2f), last evals_result %.8f"
+           % (CAT_WIDE_RUN, holdout_auc, AUC_FLOOR, last))
+    rec["kp2"] = kp2_categorical(booster, X, dev, results,
+                                 key="walk_binned_u16")
+    rec["replay_round_ms"] = replayed_round_ms(booster, REPLAYED_ROUNDS)
+    rec["profile"] = profile_round(booster, CAT_WIDE_RUN)
+    rec.update(holdout_auc=holdout_auc, categorical_splits=cats,
+               evals_result=evals)
+    print("categorical (%s, label engine, %d airports, uint16 bins): %d "
+          "rows, %d rounds, leaves %s, %d categorical splits; train %.3f s "
+          "(%.1f ms a round, set-up included); holdout AUC %.4f; "
+          "evals_result holdout AUC %s; graphs x nodes %s, capture and "
+          "instantiate %s s; %d drains, %d tree fetches; %.1f ms a "
+          "replayed round (%d more rounds); peak device memory %.3f GB"
+          % (CAT_WIDE_RUN, AIRLINE_WIDE, n, len(rec["leaves"]),
+             rec["leaves"], cats, rec["train_s"], rec["round_ms"],
+             holdout_auc, evals["holdout"]["auc"],
+             ["1 x %d" % x["nodes"] for x in rec["graphs"]],
+             ["%.3f" % x["capture_s"] for x in rec["graphs"]],
+             rec["drains"], rec["tree_fetches"], rec["replay_round_ms"],
+             REPLAYED_ROUNDS, rec["peak_bytes"] / 1e9))
+    results["leaf_histogram_u16"]["launches"] = int(
+        rec["launches"].get("leaf_histogram_u16", 0))
+    results["walk_binned_u16"]["launches"] = int(
+        rec["launches"].get(WALK_ADD + "_u16", 0))
+    del booster, g, ds, dv, X
+    torch.cuda.empty_cache()
+    return rec, rec["launches"]
 
 
 def categorical_scan_nodes(ds, dev) -> dict:
@@ -3608,6 +3849,417 @@ def efb_runs(dev, rounds: int, results) -> tuple:
     return recs, launches
 
 
+# --------------------------------------------------------------------------- #
+# the general grower: CEGB, forced splits, histogram pooling, f64 on the
+# label engine (uint16 bins: the categorical phase's 300-airport run)
+# --------------------------------------------------------------------------- #
+# CEGB: a small split penalty (times the leaf's rows: 10.5 at the root)
+# and a coupled penalty on the odd features, charged until a tree first
+# splits on one
+CEGB_SPLIT = 1e-6
+CEGB_COUPLED = 1e4
+# a pool of about 64 of the 255 leaves' [28, 255, 3] f32 histograms
+POOL_SLOTS = 64
+POOL_MB = POOL_SLOTS * FEATURES * 255 * 12 / (1 << 20)
+# name -> (params over PARAMS, the label engine)
+GENERAL_RUNS = {
+    "cegb_f32": (dict(cegb_tradeoff=1.0, cegb_penalty_split=CEGB_SPLIT,
+                      cegb_penalty_feature_coupled=[
+                          CEGB_COUPLED * (f % 2) for f in range(FEATURES)]),
+                 False),
+    "cegb_label_f32": (dict(LABEL, cegb_tradeoff=1.0,
+                            cegb_penalty_split=CEGB_SPLIT,
+                            cegb_penalty_feature_coupled=[
+                                CEGB_COUPLED * (f % 2)
+                                for f in range(FEATURES)]), True),
+    "forced_f32": (dict(forced=True), False),
+    "forced_label_f32": (dict(LABEL, forced=True), True),
+    "pooled_quantized": (dict(tpu_quantized_grad=True,
+                              histogram_pool_size=POOL_MB), False),
+    # with the holdout as a validation set: KP2's f64 add a round
+    "f64_label": (dict(LABEL, tpu_double_precision=True, metric="auc"),
+                  True),
+}
+# the 20k-row card-vs-CPU runs of the general grower (general_parity)
+GENERAL_PARITY = {
+    "cegb": dict(cegb_tradeoff=1.0, cegb_penalty_split=CEGB_SPLIT,
+                 cegb_penalty_feature_coupled=[2.0 * (f % 2)
+                                               for f in range(FEATURES)]),
+    "forced": dict(forced=True),
+    "pooled_quantized": dict(tpu_quantized_grad=True,
+                             histogram_pool_size=8 * FEATURES * 63 * 12
+                             / (1 << 20)),
+    "f64_label": dict(LABEL, tpu_double_precision=True),
+    "label_airports_300": dict(LABEL, airports=True),
+}
+
+
+def forced_plan(root: int) -> dict:
+    """A three-node plan over the Higgs features (each N(0, 1), split at
+    0): feature root + 1 at the root, root + 2 and root + 3 on its
+    children, where `root` is the unforced run's root feature."""
+    f = [(root + k) % FEATURES for k in (1, 2, 3)]
+    return {"feature": f[0], "threshold": 0.0,
+            "left": {"feature": f[1], "threshold": 0.0},
+            "right": {"feature": f[2], "threshold": 0.0}}
+
+
+def write_plan(plan: dict) -> str:
+    import os
+    import tempfile
+    fd, path = tempfile.mkstemp(suffix=".json", prefix="forced_")
+    with os.fdopen(fd, "w") as f:
+        json.dump(plan, f)
+    return path
+
+
+def general_parity(dev, case: str, root: int) -> dict:
+    """A 20k-row, 3-round, 31-leaf run of a general-grower option on the
+    card against the same run on the CPU, both grown from the CPU's
+    gradients rounded to 1/256 (`share_gradients`: every histogram sum
+    exact on both devices, f32 or f64): equal split features and
+    thresholds, every row in the same leaf (on the 300-airport data, a
+    tree that takes a bin set's complement holds the same leaves,
+    relabelled), leaf values within 1e-5 of the largest."""
+    import os
+    import lightgbm_tpu_torch as lt
+    extra = dict(GENERAL_PARITY[case])
+    airports = extra.pop("airports", False)
+    plan = None
+    if extra.pop("forced", False):
+        plan = write_plan(forced_plan(root))
+        extra["forcedsplits_filename"] = plan
+    kw = {}
+    if airports:
+        X, y, _ = airline_like(20_000, seed=44, airports=AIRLINE_WIDE)
+        kw = dict(categorical_feature=list(AIRLINE_CATS))
+        params = dict(PARAMS, num_leaves=31, **extra)
+    else:
+        X, y, _, _ = higgs_like(20_000, seed=12)
+        params = dict(PARAMS, num_leaves=31, max_bin=63, **extra)
+    out = {}
+    try:
+        for role, d in (("card", dev), ("cpu", "cpu")):
+            out[role] = lt.Booster(params, lt.Dataset(X, y, device=d, **kw),
+                                   device=d)
+    finally:
+        if plan is not None:
+            os.unlink(plan)
+    bk, bc = out["card"], out["cpu"]
+    shared = share_gradients(bk, bc)
+    for _ in range(3):
+        bc.update()
+        shared()
+        bk.update()
+    gk, gc = bk._gbdt, bc._gbdt
+    expect(bk.num_trees() == bc.num_trees() == 3, "general parity %s: tree "
+           "counts differ" % case)
+    mirrored, leaf_err = 0, 0.0
+    for t, (a, b) in enumerate(zip(gk.models, gc.models)):
+        k = a.num_leaves - 1
+        la, lb = a.predict_leaf_index(X), b.predict_leaf_index(X)
+        expect(a.num_leaves == b.num_leaves > 1 and np.array_equal(
+            np.sort(a.split_feature[:k]), np.sort(b.split_feature[:k])),
+            "general parity %s: tree %d's splits differ" % (case, t))
+        if airports and not np.array_equal(la, lb):
+            expect(len(set(zip(la, lb))) == len(set(la)) == len(set(lb)),
+                   "general parity %s: tree %d's leaves differ" % (case, t))
+            mirrored += 1
+            continue
+        expect(np.array_equal(a.split_feature[:k], b.split_feature[:k])
+               and np.array_equal(a.threshold_in_bin[:k],
+                                  b.threshold_in_bin[:k])
+               and np.array_equal(la, lb),
+               "general parity %s: tree %d's splits or leaves differ"
+               % (case, t))
+        scale = float(np.abs(b.leaf_value[:k + 1]).max())
+        err = float(np.abs(a.leaf_value[:k + 1] - b.leaf_value[:k + 1]).max())
+        leaf_err = max(leaf_err, err / max(scale, 1e-30))
+    expect(leaf_err <= 1e-5, "general parity %s: leaf values differ by %.3g "
+           "of the largest" % (case, leaf_err))
+    if case == "cegb":
+        expect(torch_equal(gk._cegb_used, gc._cegb_used), "general parity "
+               "cegb: the used-feature vectors differ")
+    if case == "forced":
+        for t in gk.models:
+            expect(t.split_feature[0] == (root + 1) % FEATURES,
+                   "general parity forced: the root is not forced")
+    if case == "pooled_quantized":
+        expect(gk._quantized and 4 <= gk._hist_slots < 31, "general parity "
+               "pooled: quantized %s, %d slots" % (gk._quantized,
+                                                    gk._hist_slots))
+    if case == "f64_label":
+        expect(str(gk.score.dtype) == "torch.float64", "general parity f64:"
+               " the score is %s" % gk.score.dtype)
+    if airports:
+        expect(str(gk.train_set.device_bins(dev).dtype) == "torch.int16",
+               "general parity airports: the bins are not uint16")
+    print("parity (general grower, %s): %d rows, 3 rounds, 31 leaves, card "
+          "and CPU grown from the CPU's gradients rounded to 1/256: the same "
+          "splits with every row in the same leaf%s; leaf values within "
+          "%.3g of the largest"
+          % (case, len(y), "" if not airports else
+             " (%d trees took a bin set's complement, the same leaves "
+             "relabelled)" % mirrored, leaf_err))
+    return dict(rows=len(y), leaf_rel_err=leaf_err, mirrored_trees=mirrored)
+
+
+def torch_equal(a, b) -> bool:
+    return bool((a.cpu() == b.cpu()).all())
+
+
+def general_kernels(name: str) -> tuple:
+    """(must, never) of a general-grower run: the f32 carried path's
+    kernels (the quantized one's for the pooled run), or the label
+    engine's (K7 in its f64 form for f64)."""
+    if name == "f64_label":
+        must = ("leaf_histogram_f64", WALK_ADD + "_f64")
+        return must, TRAINING_KERNELS + PREDICT_KERNELS
+    if "label" in name:
+        return path_kernels("label_f32")
+    return path_kernels("quantized" if "quantized" in name else "f32")
+
+
+def split_share(models, feats) -> float:
+    """The share of the models' splits on the features `feats`."""
+    counts = np.zeros(FEATURES)
+    for t in models:
+        np.add.at(counts, t.split_feature[:t.num_leaves - 1], 1)
+    return float(counts[list(feats)].sum() / max(counts.sum(), 1))
+
+
+def general_phase(X, Xh, yh, ds_obj, valid_obj, dev, rounds, base,
+                  results) -> tuple:
+    """The general grower at Higgs width (10.5M x 28, PARAMS, 255 leaves),
+    each run of GENERAL_RUNS through train_and_check with its kernels
+    launched and no other, the holdout AUC at least AUC_FLOOR and KP1's
+    sums bit for bit the host walk's: CEGB on the carried arena and on the
+    label engine (the penalized odd features take a smaller share of the
+    splits than in the training phase's f32 run); forced splits on both
+    engines (a three-node plan whose root is not the unforced run's, every
+    tree's first splits the plan's); the quantized carried run with a pool
+    of POOL_SLOTS histograms (the training phase's quantized trees: the
+    same splits and leaves, leaf values within 1e-5; some but not all
+    splits missing the pool, counted on the device, each miss recomputing
+    its parent by K2); f64 on the label engine
+    with the holdout as a validation set (the holdout AUC within AUC_GAP
+    of the f32 label run's, the score f64, the last evals_result equal to
+    the host prediction's within 1e-6, the validation score by KP2's f64
+    add; then KP2's f64 add and masked add over its last tree at the full
+    row count against the plain version, bit for bit).  `base`: the
+    training phase's f32 root feature, its odd features' split share, its
+    quantized model's trees, text and K2 launches, and its label run's
+    AUC.  Returns (records,
+    launches)."""
+    import os
+    import torch
+    from lightgbm_tpu_torch.metric import auc
+
+    ds_obj.set_weight(None)
+    recs, launches = {}, {}
+    for name, (extra, label) in GENERAL_RUNS.items():
+        params = dict(PARAMS, **extra)
+        plan = None
+        if params.pop("forced", False):
+            plan = write_plan(forced_plan(base["root"]))
+            params["forcedsplits_filename"] = plan
+        must, never = general_kernels(name)
+        carried_run = not label
+        kw, evals = {}, {}
+        if "metric" in params:
+            kw = dict(valid_sets=[valid_obj], valid_names=["holdout"],
+                      evals_result=evals, verbose_eval=False)
+        try:
+            booster, rec = train_and_check(
+                name, params, ds_obj, dev, rounds, must, never,
+                deferred=not kw, graphs=2 if carried_run else 1, **kw)
+        finally:
+            if plan is not None:
+                os.unlink(plan)
+        g = booster._gbdt
+        expect(g._use_partition_engine is not label
+               and bool(g._carried_active) is carried_run,
+               "%s: partition engine %s, carried %s"
+               % (name, g._use_partition_engine, g._carried_active))
+        raw = booster.predict(Xh, raw_score=True)
+        host = booster.predict(Xh, raw_score=True, device=False)
+        expect(np.array_equal(raw, host), "%s: KP1's holdout sums differ "
+               "from the host walk's by up to %.3g"
+               % (name, float(np.abs(raw - host).max())))
+        holdout_auc = auc(yh, booster.predict(Xh))
+        expect(holdout_auc >= AUC_FLOOR, "%s holdout AUC %.4f < %.2f"
+               % (name, holdout_auc, AUC_FLOOR))
+        msg = ""
+        if name.startswith("cegb"):
+            share = split_share(g.models, range(1, FEATURES, 2))
+            used = g._cegb_used.cpu().numpy()
+            expect(share < base["odd_share"], "%s: the penalized features "
+                   "take %.4f of the splits, the unpenalized run %.4f"
+                   % (name, share, base["odd_share"]))
+            rec.update(penalized_share=share,
+                       used_features=int(used.sum()))
+            msg = ("; penalized (odd) features %.4f of the splits (f32 run "
+                   "%.4f), %d of %d features used"
+                   % (share, base["odd_share"], int(used.sum()), FEATURES))
+        if name.startswith("forced"):
+            plan_f = forced_plan(base["root"])
+            for t in g.models:
+                expect(t.split_feature[0] == plan_f["feature"]
+                       and t.split_feature[t.left_child[0]]
+                       == plan_f["left"]["feature"]
+                       and t.split_feature[t.right_child[0]]
+                       == plan_f["right"]["feature"],
+                       "%s: a tree's first splits are not the plan's" % name)
+            msg = ("; every tree's first splits the plan's (features %d, "
+                   "%d, %d; the unforced root %d)"
+                   % (plan_f["feature"], plan_f["left"]["feature"],
+                      plan_f["right"]["feature"], base["root"]))
+        if name == "pooled_quantized":
+            expect(g._hist_slots == POOL_SLOTS and g._quantized,
+                   "%s: %d slots, quantized %s" % (name, g._hist_slots,
+                                                   g._quantized))
+            # a recomputed parent is the dequantized sum of its codes where
+            # the dense cache holds a difference of two dequantized sums, as
+            # in the JAX package, so the reals may part in the last bits;
+            # the misses are the trained rounds' (read before the timed and
+            # profiled rounds below)
+            same, err = 0, 0.0
+            for a, b in zip(g.models, base["quantized_models"]):
+                k = a.num_leaves - 1
+                expect(a.num_leaves == b.num_leaves
+                       and np.array_equal(a.split_feature[:k],
+                                          b.split_feature[:k])
+                       and np.array_equal(a.threshold_in_bin[:k],
+                                          b.threshold_in_bin[:k])
+                       and np.array_equal(a.leaf_count[:k + 1],
+                                          b.leaf_count[:k + 1]),
+                       "%s: a tree differs from the dense run's" % name)
+                d = np.abs(a.leaf_value[:k + 1] - b.leaf_value[:k + 1])
+                err = max(err, float(d.max() / np.abs(b.leaf_value[:k + 1])
+                                     .max()))
+                same += int(np.array_equal(a.leaf_value, b.leaf_value))
+            expect(err <= 1e-5, "%s: leaf values %.3g from the dense run's"
+                   % (name, err))
+            misses = int(g._pool_misses)
+            splits = sum(t.num_leaves - 1 for t in g.models)
+            expect(0 < misses < splits, "%s: %d of the %d splits missed "
+                   "the pool" % (name, misses, splits))
+            k2 = rec["launches"].get("segment_histogram_i8", 0)
+            text_equal = booster.model_to_string() == base["quantized_text"]
+            rec.update(leaf_rel_err=err, trees_bit_equal=same,
+                       pool_misses=misses, splits=splits, k2_launches=k2,
+                       text_equal=text_equal)
+            msg = ("; %d slots; %d of %d splits missed the pool and "
+                   "recomputed their parent by K2 (%d launches, dense %d); "
+                   "trees the dense quantized run's (%d of %d bit for bit, "
+                   "leaf values within %.3g; model text %s)"
+                   % (g._hist_slots, misses, splits, k2,
+                      base["quantized_k2"], same, len(g.models), err,
+                      "equal" if text_equal else "differs in its reals"))
+        if name == "f64_label":
+            gap = abs(holdout_auc - base["label_auc"])
+            last = evals["holdout"]["auc"][-1]
+            expect(str(g.score.dtype) == "torch.float64" and gap <= AUC_GAP
+                   and abs(last - holdout_auc) <= 1e-6,
+                   "%s: score %s, holdout AUC %.4f from the f32 label run's,"
+                   " last evals_result %.8f against predict's %.8f"
+                   % (name, g.score.dtype, gap, last, holdout_auc))
+            msg = ("; score f64; AUC %.4f from the f32 label run's; "
+                   "evals_result holdout AUC %s" % (gap,
+                                                    evals["holdout"]["auc"]))
+            rec["kp2_f64"] = kp2_f64(booster, dev, results)
+        rec["replay_round_ms"] = replayed_round_ms(booster, REPLAYED_ROUNDS)
+        rec["profile"] = profile_round(booster, name)
+        rec["holdout_auc"] = holdout_auc
+        print("general grower (%s): %d rows, %d rounds, leaves %s; train "
+              "%.3f s (%.1f ms a round, set-up included); holdout AUC %.4f%s;"
+              " graphs x nodes %s, capture and instantiate %s s; %d drains, "
+              "%d tree fetches; %.1f ms a replayed round (%d more rounds); "
+              "peak device memory %.3f GB; kernels launched %s"
+              % (name, len(X), rounds, rec["leaves"], rec["train_s"],
+                 rec["round_ms"], holdout_auc, msg,
+                 ["1 x %d" % x["nodes"] for x in rec["graphs"]],
+                 ["%.3f" % x["capture_s"] for x in rec["graphs"]],
+                 rec["drains"], rec["tree_fetches"], rec["replay_round_ms"],
+                 REPLAYED_ROUNDS, rec["peak_bytes"] / 1e9,
+                 {k: v for k, v in sorted(rec["launches"].items()) if v}))
+        recs[name] = rec
+        launches[name] = rec["launches"]
+        del booster, g
+        torch.cuda.empty_cache()
+    results["leaf_histogram_f64"]["launches"] = int(
+        launches["f64_label"].get("leaf_histogram_f64", 0))
+    results["walk_binned_add_f64"]["launches"] = int(
+        launches["f64_label"].get("walk_binned_add_f64", 0))
+    return recs, launches
+
+
+def kp2_f64(booster, dev, results) -> dict:
+    """KP2's f64 add (the f64 run's score updates: a validation set's, a
+    rebuilt training score's) and masked add (a bagged f64 round's: a bag
+    of about 80% of the rows at their leaf ids) over the f64 label run's
+    last tree at the full row count, against its plain version, bit for
+    bit, timed beside the bytes each must move (8-byte scores)."""
+    import torch
+    from lightgbm_tpu_torch.models.gbdt import _tree_to_device
+    from lightgbm_tpu_torch.ops.predict_kernel import (walk_binned,
+                                                       walk_binned_plain)
+    g = booster._gbdt
+    tree = g.models[-1]
+    dt = _tree_to_device(tree, dev, g.max_bin)
+    bins = g.train_set.device_bins(dev)
+    n, G = bins.shape
+    nb, db = g.num_bins, g.default_bins
+    lv = torch.as_tensor(tree.leaf_value[:tree.num_leaves], device=dev)
+    score0 = torch.randn(n, dtype=torch.float64, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+    out_of_bag, ids = bag_ids(walk_binned_plain(bins, dt, nb, db), dev)
+    modes = {}
+    for mode, kw in (("add", {}), ("masked_add", dict(leaf_ids=ids))):
+        sk_, sp_ = score0.clone(), score0.clone()
+        walk_binned(bins, dt, nb, db, lv=lv, score=sk_, **kw)
+        walk_binned_plain(bins, dt, nb, db, lv=lv, score=sp_, **kw)
+        expect(torch.equal(sk_.view(torch.int64), sp_.view(torch.int64)),
+               "KP2 f64 %s: scores differ from the plain version's" % mode)
+
+        def run():
+            walk_binned(bins, dt, nb, db, lv=lv, score=sk_, **kw)
+
+        def plain():
+            walk_binned_plain(bins, dt, nb, db, lv=lv, score=sp_, **kw)
+        walked = (out_of_bag if mode == "masked_add" else
+                  torch.ones(n, dtype=torch.bool, device=dev))
+        nbytes = walk_binned_bytes(walked, G, dt.split_feature.shape[0],
+                                   tree.num_leaves, mode) + 8 * n
+        modes[mode] = dict(ms=cuda_ms(run, 10),
+                           kernel_ms=kernel_only_ms(run, 10),
+                           plain_ms=cuda_ms(plain, 1, warmup=0),
+                           bytes=nbytes, bound_ms=bound(nbytes, 0)[0])
+    r = dict(modes["add"], masked_add=modes["masked_add"])
+    print("KP2 walk_binned, f64: %d rows x %d bins, the f64 label run's "
+          "last tree (%d leaves): %s; bit for bit"
+          % (n, G, tree.num_leaves, "; ".join(
+              "%s %.4f ms, kernel-only %s (bound %.4f, plain %.3f)" % (
+                  m, v["ms"], profiled(v["kernel_ms"]), v["bound_ms"],
+                  v["plain_ms"]) for m, v in modes.items())))
+    results["walk_binned_add_f64"] = dict(
+        name="walk_binned_add_f64", route="cuda", source=SRC % "walk_binned",
+        replaces=REPLACES["walk_binned"], port_only=True, mode="add, f64",
+        launches=0, shape_of="general", max_abs_err=0.0,
+        tolerance="bit for bit", ms=r["ms"], kernel_ms=r["kernel_ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by="bytes",
+        library_ms=None, library="none: no single PyTorch call walks a "
+        "tree", rows=n, leaves=tree.num_leaves, masked_add=r["masked_add"])
+    return r
+
+
+def phase_start(name: str) -> float:
+    """The phase that timed steps count to from now (STEP_S), and the
+    time it starts."""
+    PHASE[0] = name
+    return time.perf_counter()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=ROWS,
@@ -3623,6 +4275,9 @@ def main(argv=None) -> int:
         return 1
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.ops import _cuda
+    # binning's share of each phase (STEP_S): every dataset of the smoke,
+    # a Booster's own included, is binned by construct()
+    lt.Dataset.construct = timed("binning")(lt.Dataset.construct)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3652,20 +4307,22 @@ def main(argv=None) -> int:
     valid_obj = lt.Dataset(Xh, yh, reference=ds_obj, device=dev).construct()
     results = {}
     phase_s = {}
-    t = time.perf_counter()
+    t = phase_start("kernels")
     for quantized in (False, True):
         kernel_phase(ds_obj._binned, dev, results, quantized)
     leaf_kernel_phase(ds_obj._binned, dev, results)
     ablate_phase(len(X), dev, results)
     phase_s["kernels"] = time.perf_counter() - t
-    t = time.perf_counter()
+    t = phase_start("parity")
     parity = {path: parity_phase(dev, path) for path in PARITY_PATHS}
     for objective in PARITY_OBJECTIVES:
         parity[objective] = parity_phase(dev, "f32", objective)
     for mode, path in BOOSTING_PARITY_PATHS.items():
         parity[mode] = parity_phase(dev, path, boosting=mode)
+    for case in GENERAL_PARITY:
+        parity["general_" + case] = general_parity(dev, case, root=0)
     phase_s["parity"] = time.perf_counter() - t
-    t = time.perf_counter()
+    t = phase_start("training")
     train = {}
     launches = {}
     for path in PATHS:
@@ -3695,24 +4352,36 @@ def main(argv=None) -> int:
         expect(gap <= AUC_GAP, "%s holdout AUC is %.4f from the valid_f32 "
                "run's (limit %.2f)" % (path, gap, AUC_GAP))
     phase_s["training"] = time.perf_counter() - t
-    t = time.perf_counter()
+    t = phase_start("boosting")
     boosting, boost_launches = boosting_phase(X, Xh, yh, ds_obj, valid_obj,
                                               dev)
     phase_s["boosting"] = time.perf_counter() - t
-    t = time.perf_counter()
+    t = phase_start("general")
+    f32_models = TRAINED["f32"][0]
+    base = dict(root=int(f32_models[0].split_feature[0]),
+                odd_share=split_share(f32_models, range(1, FEATURES, 2)),
+                quantized_models=TRAINED["quantized"][0],
+                quantized_text=TRAINED["quantized"][1],
+                quantized_k2=int(launches["quantized"].get(
+                    "segment_histogram_i8", 0)),
+                label_auc=train["label_f32"]["holdout_auc"])
+    general, general_launches = general_phase(
+        X, Xh, yh, ds_obj, valid_obj, dev, args.rounds, base, results)
+    phase_s["general"] = time.perf_counter() - t
+    t = phase_start("prediction")
     prediction = prediction_phase(X, Xh, ds_obj, dev, args.predict_rounds,
                                   results)
     torch.cuda.empty_cache()
     phase_s["prediction"] = time.perf_counter() - t
-    t = time.perf_counter()
+    t = phase_start("lambdarank")
     ranking = rank_phase(dev, args.rounds, results)
     phase_s["lambdarank"] = time.perf_counter() - t
-    t = time.perf_counter()
+    t = phase_start("objectives")
     objectives = objectives_phase(X, y, dev, args.rounds)
     phase_s["objectives"] = time.perf_counter() - t
     del X, y, Xh, yh, ds_obj, valid_obj
     torch.cuda.empty_cache()
-    t = time.perf_counter()
+    t = phase_start("multiclass")
     parity["multiclass"] = parity_phase(dev, "f32", "multiclass")
     mc_rounds = min(args.rounds, MC_ROUNDS)
     multiclass, mc_launches = multiclass_phase(dev, mc_rounds, results)
@@ -3721,12 +4390,19 @@ def main(argv=None) -> int:
     efb, efb_launches = efb_runs(dev, mc_rounds, results)
     mc_launches.update(efb_launches)
     phase_s["multiclass"] = time.perf_counter() - t
-    t = time.perf_counter()
+    t = phase_start("categorical")
     parity["weighted_f32_airline"] = parity_phase(dev, "weighted_f32",
                                                   data="airline")
     categorical, cat_launches = categorical_phase(dev, args.rounds, results)
     mc_launches.update(cat_launches)
     phase_s["categorical"] = time.perf_counter() - t
+    print("steps, s: %s" % "; ".join(
+        "%s: %s" % (ph, ", ".join(
+            "%s %.1f" % (kind, sec) for kind, sec in
+            [(k, v) for (p_, k), v in STEP_S.items() if p_ == ph]
+            + [("other", total - sum(v for (p_, _), v in STEP_S.items()
+                                     if p_ == ph))]))
+        for ph, total in phase_s.items()))
     print("phases, s: %s" % ", ".join("%s %.1f" % kv
                                       for kv in phase_s.items()))
     launches.update(mc_launches)
@@ -3738,11 +4414,12 @@ def main(argv=None) -> int:
     # run.  The kernels of NO_PATH are on no training path and report 0
     for name, r in results.items():
         if r.get("shape_of") in ("lambdarank", "multiclass", "efb",
-                                 "categorical"):
+                                 "categorical", "general"):
             # counted in the lambdarank fused run (rank_phase), the
             # multiclass f32 run (multiclass_phase), the EFB partition run
-            # (efb_runs) or the categorical f32 and valid-set runs
-            # (categorical_phase)
+            # (efb_runs), the categorical f32 and valid-set runs and the
+            # 300-airport label run (categorical_phase), or the general
+            # grower's f64 run (general_phase)
             expect(r["launches"] > 0, "kernel %s was not launched on the "
                    "%s path" % (name, r["shape_of"]))
             continue
@@ -3779,8 +4456,9 @@ def main(argv=None) -> int:
         expect(r["launches"] > 0, "kernel %s was not launched on the %s "
                "training path" % (name, path))
     launches.update(boost_launches)
+    launches.update(general_launches)
     print(json.dumps({"card": card, "training": train, "parity": parity,
-                      "boosting": boosting,
+                      "boosting": boosting, "general": general,
                       "lambdarank": ranking, "objectives": objectives,
                       "multiclass": multiclass, "efb": efb,
                       "categorical": categorical, "prediction": prediction,

@@ -49,6 +49,16 @@
 // f32 g/h are summed in f32 (equal to the plain version up to
 // reassociation), int8 codes in int32 (exact).  In int8 mode the ids are
 // uint8 and 255 is never a leaf.
+//
+// Wider forms, for the label engine's general grower: bins uint16 (a
+// column of more than 256 bins, max_bin up to 1024 here, as K1 takes), and
+// an f64 payload summed in f64 (tpu_double_precision).  The accumulate
+// kernel is a template on both; a row's bins are then read a feature at a
+// time (the 4-byte loads stay the uint8 form's), and the feature chunk is
+// sized from B and the accumulator's width: at B = 1024 a feature of f64
+// takes 24 KB of shared memory, so a block holds 8.  The uint8/f32 and
+// int8 forms are the same code as before.  What bounds the wider forms is
+// bytes too: 4n + m(2F+8) + 12FB (uint16) and 4n + m(F+16) + 24FB (f64).
 #include "smem_hist.cuh"
 
 namespace {
@@ -142,9 +152,9 @@ leaf_select_kernel(const L* __restrict__ ids, const int* __restrict__ leaf,
   }
 }
 
-template <typename P>
+template <typename P, typename Bn>
 __global__ void __launch_bounds__(HIST_THREADS)
-leaf_accumulate_kernel(const uint8_t* __restrict__ bins,
+leaf_accumulate_kernel(const Bn* __restrict__ bins,
                        const P* __restrict__ g, const P* __restrict__ h,
                        const int* __restrict__ rows,
                        const int* __restrict__ count,
@@ -167,8 +177,8 @@ leaf_accumulate_kernel(const uint8_t* __restrict__ bins,
       const long long r = __ldg(rows + i);
       const A gv = A(__ldg(g + r));
       const A hv = A(__ldg(h + r));
-      const uint8_t* b = bins + r * F + f0;
-      if (quads) {
+      const Bn* b = bins + r * F + f0;
+      if (sizeof(Bn) == 1 && quads) {
         const unsigned* bw = reinterpret_cast<const unsigned*>(b);
         for (int q = 0; q < nf / 4; ++q) {
           const unsigned w = __ldg(bw + q);
@@ -187,14 +197,15 @@ leaf_accumulate_kernel(const uint8_t* __restrict__ bins,
   hist_flush(sh, out + (size_t)f0 * B * 3, words);
 }
 
-template <typename P, typename L>
-int launch_leaf(const uint8_t* bins, const P* g, const P* h, const L* leaf_ids,
+template <typename P, typename L, typename Bn = uint8_t>
+int launch_leaf(const Bn* bins, const P* g, const P* h, const L* leaf_ids,
                 const int* leaf, long long n, typename HistAcc<P>::T* out,
                 int F, int B, int* rows, int* count, int grid_x, int R,
                 cudaStream_t stream) {
   using A = typename HistAcc<P>::T;
-  if (n < 0 || F < 1 || B < 1 || B > 256 || grid_x < 1 || R < 1 ||
-      rows == nullptr || count == nullptr)
+  // uint8 bins take B <= 256 (their values); uint16 bins up to 1024
+  if (n < 0 || F < 1 || B < 1 || B > (sizeof(Bn) == 1 ? 256 : 1024) ||
+      grid_x < 1 || R < 1 || rows == nullptr || count == nullptr)
     return (int)cudaErrorInvalidValue;
   static int select_blocks = 0;
   if (select_blocks == 0) {
@@ -214,17 +225,18 @@ int launch_leaf(const uint8_t* bins, const P* g, const P* h, const L* leaf_ids,
 
   // 4-byte bin loads: F a multiple of 4 on a 4-byte aligned matrix, and
   // then every feature chunk a multiple of 4 too
-  const bool quads = (F & 3) == 0 && ((uintptr_t)bins & 3) == 0;
+  const bool quads =
+      sizeof(Bn) == 1 && (F & 3) == 0 && ((uintptr_t)bins & 3) == 0;
   int f_chunk = HIST_MAX_SMEM / (B * 3 * (int)sizeof(A));
   if (quads) f_chunk &= ~3;
   if (f_chunk > F) f_chunk = F;
   const int smem = f_chunk * B * 3 * (int)sizeof(A);
-  err = cudaFuncSetAttribute(leaf_accumulate_kernel<P>,
+  err = cudaFuncSetAttribute(leaf_accumulate_kernel<P, Bn>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(grid_x, (F + f_chunk - 1) / f_chunk);
-  leaf_accumulate_kernel<P><<<grid, HIST_THREADS, smem, stream>>>(
+  leaf_accumulate_kernel<P, Bn><<<grid, HIST_THREADS, smem, stream>>>(
       bins, g, h, rows, count, out, F, B, f_chunk, R, quads);
   return (int)cudaGetLastError();
 }
@@ -252,4 +264,37 @@ LGBT_API int lgbt_leaf_histogram_i8(const uint8_t* bins, const int8_t* g_code,
   return launch_leaf<int8_t, uint8_t>(bins, g_code, h_code, leaf_ids, leaf, n,
                                       out, F, B, rows, count, grid_x, R,
                                       stream);
+}
+
+// The label engine's wider forms (int32 leaf ids, out zeroed):
+// uint16 bins with f32 g/h (out f32), uint8 bins with f64 g/h (out f64),
+// and uint16 bins with f64 g/h.
+LGBT_API int lgbt_leaf_histogram_u16(const uint16_t* bins, const float* grad,
+                                     const float* hess, const int* leaf_ids,
+                                     const int* leaf, long long n, float* out,
+                                     int F, int B, int* rows, int* count,
+                                     int grid_x, int R, cudaStream_t stream) {
+  return launch_leaf<float, int, uint16_t>(bins, grad, hess, leaf_ids, leaf,
+                                           n, out, F, B, rows, count, grid_x,
+                                           R, stream);
+}
+
+LGBT_API int lgbt_leaf_histogram_f64(const uint8_t* bins, const double* grad,
+                                     const double* hess, const int* leaf_ids,
+                                     const int* leaf, long long n,
+                                     double* out, int F, int B, int* rows,
+                                     int* count, int grid_x, int R,
+                                     cudaStream_t stream) {
+  return launch_leaf<double, int, uint8_t>(bins, grad, hess, leaf_ids, leaf,
+                                           n, out, F, B, rows, count, grid_x,
+                                           R, stream);
+}
+
+LGBT_API int lgbt_leaf_histogram_u16_f64(
+    const uint16_t* bins, const double* grad, const double* hess,
+    const int* leaf_ids, const int* leaf, long long n, double* out, int F,
+    int B, int* rows, int* count, int grid_x, int R, cudaStream_t stream) {
+  return launch_leaf<double, int, uint16_t>(bins, grad, hess, leaf_ids, leaf,
+                                            n, out, F, B, rows, count,
+                                            grid_x, R, stream);
 }

@@ -6,8 +6,9 @@
 // atomicAdd to shared memory is a compare-and-swap loop on Hopper, an
 // int32 one a native add, so one of the three atomics of every row and
 // feature is the cheap kind.  The flush converts the count to the output
-// type (exact: counts stay below 2^24 rows).  For int8 codes all three
-// words are int32 (exact).
+// type (exact: counts stay below 2^24 rows).  For f64 g/h (K7's f64
+// payload) the count word holds a uint64 (a native shared atomic), exact
+// in the f64 output.  For int8 codes all three words are int32 (exact).
 #pragma once
 
 #include "histogram.cuh"
@@ -23,6 +24,11 @@ __device__ __forceinline__ void hist_add(int* e, int g, int h) {
   atomicAdd(e, g);
   atomicAdd(e + 1, h);
   atomicAdd(e + 2, 1);
+}
+__device__ __forceinline__ void hist_add(double* e, double g, double h) {
+  atomicAdd(e, g);
+  atomicAdd(e + 1, h);
+  atomicAdd(reinterpret_cast<unsigned long long*>(e + 2), 1ull);
 }
 
 // The same sums straight into the global [F, B, 3] output (whose count is
@@ -44,6 +50,11 @@ __device__ __forceinline__ float hist_value(const float* sh, int i) {
 }
 __device__ __forceinline__ int hist_value(const int* sh, int i) {
   return sh[i];
+}
+__device__ __forceinline__ double hist_value(const double* sh, int i) {
+  return i % 3 == 2
+             ? (double)*reinterpret_cast<const unsigned long long*>(sh + i)
+             : sh[i];
 }
 
 template <typename A>

@@ -1,4 +1,4 @@
-// KP2: one tree walked over the uint8 bins, with the score update fused.
+// KP2: one tree walked over the bins, with the score update fused.
 //
 // Port-only: the JAX package walks a device tree over the binned rows with
 // plain jnp (lightgbm_tpu/ops/grow.py predict_leaf_inner :856-901, a
@@ -15,8 +15,8 @@
 // bin; a missing bin goes to the default side, any other bin left when
 // bin <= threshold_bin.  A categorical node (CategoricalDecision,
 // tree.h:259-273) sends the row left when its bin's bit is set in the
-// node's 256-bit set over bins (32 bytes a node), whatever the missing
-// type.  With EFB bundles the bins are group columns: the node's feature
+// node's set over bins, whatever the missing type: `cat_stride` bytes a
+// node, 32 (256 bins) for uint8 bins and ceil(B / 8) for wider ones.  With EFB bundles the bins are group columns: the node's feature
 // reads its group's column, and a value outside the feature's [lo, hi)
 // range decodes to the feature's default bin, any other to value - shift
 // (lightgbm_tpu/ops/grow.py:95-106).  Both are template flags, uniform
@@ -32,6 +32,12 @@
 // - add: every row walks and adds (a validation set's score).
 // lv holds the values to add, already shrunk by the caller.
 //
+// The label engine's general grower widens it: bins uint16 (columns of
+// more than 256 bins) and an f64 score with f64 leaf values
+// (tpu_double_precision), template flags as CAT and BUNDLE are, so the
+// uint8/f32 walk is the same code as before; an f64 add is one f64 add,
+// score[row] + lv[...].
+//
 // What bounds it on an H100: bytes.  Each row's G bins are read once
 // (a walk reads depth of them, but their 32-byte sectors are the row's),
 // the score read and written once, the ids read once.  A simple kernel:
@@ -44,8 +50,6 @@ namespace {
 constexpr int WALK_THREADS = 256;
 enum : int { MODE_LEAF = 0, MODE_MASKED_ADD = 1, MODE_ADD = 2 };
 
-constexpr int CAT_BYTES = 32;   // a categorical node's 256-bit bin set
-
 struct TreeT {
   const int* feature;          // [N] inner feature
   const int* threshold_bin;    // [N]
@@ -56,7 +60,9 @@ struct TreeT {
   const int* num_leaves;       // 0-d, on the device
   int nodes;                   // N, the node slots
   const uint8_t* is_cat;       // [N] bool (categorical trees)
-  const uint8_t* cat_bits;     // [N, 32] bin bit sets, bit b of byte b/8
+  const uint8_t* cat_bits;     // [N, cat_stride] bin bit sets, bit b of
+                               // byte b/8
+  int cat_stride;              // bytes of a node's bin set
 };
 
 struct BundleT {               // EFB maps, [F] each (bundled datasets)
@@ -66,9 +72,9 @@ struct BundleT {               // EFB maps, [F] each (bundled datasets)
   const int* shift;            // group bin = feature bin + shift
 };
 
-template <bool CAT, bool BUNDLE>
+template <bool CAT, bool BUNDLE, typename Bn>
 __device__ __forceinline__ int walk(const TreeT& t, const BundleT& e,
-                                    const uint8_t* b,
+                                    const Bn* b,
                                     const int* __restrict__ num_bins,
                                     const int* __restrict__ default_bins,
                                     int num_leaves) {
@@ -87,8 +93,9 @@ __device__ __forceinline__ int walk(const TreeT& t, const BundleT& e,
     }
     bool left;
     if (CAT && __ldg(t.is_cat + node) != 0) {
-      left = (unsigned)bin < 256u &&
-             ((__ldg(t.cat_bits + (long long)node * CAT_BYTES + (bin >> 3)) >>
+      left = (unsigned)bin < 8u * (unsigned)t.cat_stride &&
+             ((__ldg(t.cat_bits + (long long)node * t.cat_stride +
+                     (bin >> 3)) >>
                (bin & 7)) & 1) != 0;
     } else {
       const int mt = __ldg(t.missing_type + node);
@@ -102,56 +109,46 @@ __device__ __forceinline__ int walk(const TreeT& t, const BundleT& e,
   return node < 0 ? ~node : 0;
 }
 
-template <bool CAT, bool BUNDLE>
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+
+template <bool CAT, bool BUNDLE, typename Bn, typename S>
 __global__ void __launch_bounds__(WALK_THREADS)
-walk_binned_kernel(TreeT t, BundleT e, const uint8_t* __restrict__ bins,
+walk_binned_kernel(TreeT t, BundleT e, const Bn* __restrict__ bins,
                    long long n, int G, const int* __restrict__ num_bins,
                    const int* __restrict__ default_bins, int mode,
-                   const float* __restrict__ lv,
+                   const S* __restrict__ lv,
                    const int* __restrict__ leaf_ids, int* __restrict__ leaf,
-                   float* __restrict__ score) {
+                   S* __restrict__ score) {
   const long long row = (long long)blockIdx.x * WALK_THREADS + threadIdx.x;
   if (row >= n) return;
   int l = mode == MODE_MASKED_ADD ? leaf_ids[row] : -1;
   if (l < 0)
-    l = walk<CAT, BUNDLE>(t, e, bins + row * G, num_bins, default_bins,
-                          __ldg(t.num_leaves));
+    l = walk<CAT, BUNDLE, Bn>(t, e, bins + row * G, num_bins, default_bins,
+                              __ldg(t.num_leaves));
   if (mode == MODE_LEAF) {
     leaf[row] = l;
     return;
   }
-  score[row] = __fadd_rn(score[row], __ldg(lv + l));
+  score[row] = add_rn(score[row], __ldg(lv + l));
 }
 
-}  // namespace
-
-// bins [n, G] uint8 row-major; the tree's node arrays [nodes]; num_bins,
-// default_bins [F]; is_cat [nodes] and cat_bits [nodes, 32] (or null: no
-// categorical node); col, lo, hi, shift [F] (or null: one column a
-// feature); leaf [n] int32 (leaf mode); lv [L] f32, score [n] f32,
-// leaf_ids [n] int32 (masked add).
-LGBT_API int lgbt_walk_binned(
-    const int* feature, const int* threshold_bin, const uint8_t* default_left,
-    const int* missing_type, const int* left, const int* right,
-    const int* num_leaves, int nodes, const uint8_t* is_cat,
-    const uint8_t* cat_bits, const int* col, const int* lo, const int* hi,
-    const int* shift, const uint8_t* bins, long long n, int G,
-    const int* num_bins, const int* default_bins, int mode, const float* lv,
-    const int* leaf_ids, int* leaf, float* score, cudaStream_t stream) {
-  if (n <= 0 || nodes < 1 || mode < MODE_LEAF || mode > MODE_ADD)
-    return (int)cudaErrorInvalidValue;
-  const bool cat = is_cat != nullptr;
-  const bool bundle = col != nullptr;
-  if (cat != (cat_bits != nullptr) ||
-      bundle != (lo != nullptr && hi != nullptr && shift != nullptr))
-    return (int)cudaErrorInvalidValue;
-  TreeT t{feature, threshold_bin, default_left, missing_type, left,
-          right,   num_leaves,    nodes,        is_cat,       cat_bits};
-  BundleT e{col, lo, hi, shift};
+template <typename Bn, typename S>
+int launch_walk(const TreeT& t, const BundleT& e, const Bn* bins,
+                long long n, int G, const int* num_bins,
+                const int* default_bins, int mode, const S* lv,
+                const int* leaf_ids, int* leaf, S* score,
+                cudaStream_t stream) {
+  const bool cat = t.is_cat != nullptr;
+  const bool bundle = e.col != nullptr;
   const unsigned blocks =
       (unsigned)((n + WALK_THREADS - 1) / WALK_THREADS);
 #define LGBT_WALK(C, B)                                                  \
-  walk_binned_kernel<C, B><<<blocks, WALK_THREADS, 0, stream>>>(         \
+  walk_binned_kernel<C, B, Bn, S><<<blocks, WALK_THREADS, 0, stream>>>(  \
       t, e, bins, n, G, num_bins, default_bins, mode, lv, leaf_ids, leaf, \
       score)
   if (cat && bundle)
@@ -164,4 +161,45 @@ LGBT_API int lgbt_walk_binned(
     LGBT_WALK(false, false);
 #undef LGBT_WALK
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// bins [n, G] row-major, uint8 (bin_bytes 1) or uint16 (2); the tree's
+// node arrays [nodes]; num_bins, default_bins [F]; is_cat [nodes] and
+// cat_bits [nodes, cat_stride] (or null: no categorical node); col, lo,
+// hi, shift [F] (or null: one column a feature); leaf [n] int32 (leaf
+// mode); lv [L], score [n] f32 (score_bytes 4) or f64 (8), leaf_ids [n]
+// int32 (masked add).
+LGBT_API int lgbt_walk_binned(
+    const int* feature, const int* threshold_bin, const uint8_t* default_left,
+    const int* missing_type, const int* left, const int* right,
+    const int* num_leaves, int nodes, const uint8_t* is_cat,
+    const uint8_t* cat_bits, int cat_stride, const int* col, const int* lo,
+    const int* hi, const int* shift, const void* bins, int bin_bytes,
+    long long n, int G, const int* num_bins, const int* default_bins,
+    int mode, const void* lv, const int* leaf_ids, int* leaf, void* score,
+    int score_bytes, cudaStream_t stream) {
+  if (n <= 0 || nodes < 1 || mode < MODE_LEAF || mode > MODE_ADD ||
+      (bin_bytes != 1 && bin_bytes != 2) ||
+      (score_bytes != 4 && score_bytes != 8))
+    return (int)cudaErrorInvalidValue;
+  const bool cat = is_cat != nullptr;
+  const bool bundle = col != nullptr;
+  if (cat != (cat_bits != nullptr) || (cat && cat_stride < 1) ||
+      bundle != (lo != nullptr && hi != nullptr && shift != nullptr))
+    return (int)cudaErrorInvalidValue;
+  TreeT t{feature, threshold_bin, default_left, missing_type, left, right,
+          num_leaves, nodes, is_cat, cat_bits, cat_stride};
+  BundleT e{col, lo, hi, shift};
+#define LGBT_LAUNCH(Bn, S)                                                 \
+  launch_walk<Bn, S>(t, e, static_cast<const Bn*>(bins), n, G, num_bins,   \
+                     default_bins, mode, static_cast<const S*>(lv),        \
+                     leaf_ids, leaf, static_cast<S*>(score), stream)
+  if (bin_bytes == 1)
+    return score_bytes == 4 ? LGBT_LAUNCH(uint8_t, float)
+                            : LGBT_LAUNCH(uint8_t, double);
+  return score_bytes == 4 ? LGBT_LAUNCH(uint16_t, float)
+                          : LGBT_LAUNCH(uint16_t, double);
+#undef LGBT_LAUNCH
 }

@@ -5,8 +5,12 @@ matrices: the same row sample for bin finding, the same BinMappers
 (io/bin_mapper.py, numerical or categorical), the same trivial-feature
 filter and the same EFB bundles (io/efb.py), so bin boundaries and the
 binned matrix are equal bit for bit.  The bins are [n, G] columns, one a
-feature or, with bundles, one an EFB group, and become a uint8 tensor on
-the dataset's device.  File and binary-cache I/O and sparse input are not
+feature or, with bundles, one an EFB group: uint8, or uint16 where any
+column has more than 256 bins (lightgbm_tpu/io/dataset.py:376-378,
+:396-397).  On the dataset's device they are a uint8 tensor, or an int16
+tensor holding the uint16 bins' bytes (PyTorch's uint16 dtype takes few
+operations): the kernels read it as uint16, and plain code widens a value
+by `bin_values`.  File and binary-cache I/O and sparse input are not
 ported yet (ROADMAP.md queue 1, item 3).
 """
 from __future__ import annotations
@@ -31,7 +35,7 @@ class BinnedDataset:
         self.used_feature_map: List[int] = []      # raw idx -> inner idx or -1
         self.real_feature_index: List[int] = []    # inner idx -> raw idx
         self.bin_mappers: List[BinMapper] = []     # per inner feature
-        self.bins: Optional[np.ndarray] = None     # [n, G] uint8 host
+        self.bins: Optional[np.ndarray] = None     # [n, G] uint8/16 host
         self.bundle: Optional[efb.BundleInfo] = None   # EFB layout or None
         self.feature_offsets: Optional[np.ndarray] = None
         self.metadata = Metadata()
@@ -153,19 +157,20 @@ class BinnedDataset:
                 dtype=np.float64)
 
     def bin_block(self, X) -> np.ndarray:
-        """[k, num_raw] floats -> [k, G] uint8 bins: one column a feature,
-        or with bundles one a group, its features' non-default bins shifted
+        """[k, num_raw] floats -> [k, G] bins: one column a feature, or
+        with bundles one a group, its features' non-default bins shifted
         into the group's range, later features of a group winning
-        conflicts (lightgbm_tpu/io/dataset.py `bin_block`)."""
+        conflicts (lightgbm_tpu/io/dataset.py `bin_block`); uint8, or
+        uint16 where a column has more than 256 bins (:376-378,
+        :396-397)."""
         n = X.shape[0]
         info = self.bundle
         max_nb = (int(info.group_num_bins.max()) if info is not None else
                   max((m.num_bin for m in self.bin_mappers), default=2))
-        if max_nb > 256:
-            raise NotImplementedError(
-                "features with more than 256 bins need uint16 bins, which "
-                "are not ported yet (ROADMAP.md queue 1, item 11: uint16 "
-                "bins and max_bin > 256)")
+        if max_nb > 65536:
+            raise ValueError("a column of %d bins does not fit uint16 bins"
+                             % max_nb)
+        dtype = np.uint8 if max_nb <= 256 else np.uint16
 
         def feature_bins(inner):
             return self.bin_mappers[inner].values_to_bins(np.asarray(
@@ -173,17 +178,17 @@ class BinnedDataset:
 
         def group_bins(feats):
             if len(feats) == 1:
-                return feature_bins(feats[0]).astype(np.uint8)
+                return feature_bins(feats[0]).astype(dtype)
             col = np.zeros(n, np.int64)
             for inner in feats:
                 b = feature_bins(inner).astype(np.int64)
                 nz = b != int(info.feature_default[inner])
                 col = np.where(nz, b + int(info.feature_shift[inner]), col)
-            return col.astype(np.uint8)
+            return col.astype(dtype)
 
         groups = ([[f] for f in range(self.num_features)] if info is None
                   else info.groups)
-        bins = np.empty((n, len(groups)), dtype=np.uint8)
+        bins = np.empty((n, len(groups)), dtype=dtype)
         for g, feats in enumerate(groups):
             bins[:, g] = group_bins(feats)
         return bins
@@ -216,8 +221,21 @@ class BinnedDataset:
         return int(self.feature_num_bins().max()) if self.num_features else 2
 
     def device_bins(self, device) -> torch.Tensor:
-        """The binned matrix as a uint8 [n, G] tensor on `device` (cached)."""
+        """The binned matrix as an [n, G] tensor on `device` (cached):
+        uint8, or int16 holding uint16 bins' bytes (`bin_values` reads
+        them)."""
         device = torch.device(device)
         if self._device_bins is None or self._device_bins.device != device:
-            self._device_bins = torch.from_numpy(self.bins).to(device)
+            host = self.bins
+            if host.dtype == np.uint16:
+                host = host.view(np.int16)
+            self._device_bins = torch.from_numpy(host).to(device)
         return self._device_bins
+
+
+def bin_values(bins: torch.Tensor) -> torch.Tensor:
+    """Device bins (uint8, or int16 holding uint16 bins) as their int64
+    values: an int16 value is widened and its sign bits cleared."""
+    if bins.dtype == torch.int16:
+        return bins.long() & 0xFFFF
+    return bins.long()

@@ -100,6 +100,20 @@ so it never defers (`_allow_deferred`); RF drives its own iteration over
 gradients taken once.  Where the rounds read held gradients (k > 1, GOSS,
 RF), they sit in the booster's `_grad` and `_hess`.
 
+The general grower's options (gbdt.py:340-360, :1170-1208, :1281-1305):
+CEGB's coupled penalties live in a device vector of the features used so
+far (`_cegb_used`), which each round's grower reads and updates in place,
+so the rounds stay deferred and fused (JAX fetches every tree of a CEGB
+booster in its round, :520-524, and marks the features on the host,
+:653-655: the same vector at every tree); a drain's rollback rebuilds it
+from the model that remains.  Forced splits are a static plan of
+(leaf, feature, threshold bin, default left) entries mapped on the host,
+part of the round graphs' key.  Histogram pooling bounds the partition
+engine's cache (`_hist_slots`).  `tpu_double_precision` runs the label
+engine in f64: scores, gradients, histograms (K7's f64 payload), scans,
+trees and the walks' adds (KP2's f64 scores); the partition engine stays
+f32, as in JAX (:1216-1219).  `model_to_if_else` is models/codegen.py's.
+
 Configurations this slice does not run raise NotImplementedError naming the
 ROADMAP.md item that will bring them; none is served by a substitute.
 """
@@ -107,6 +121,9 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Hashable, List, NamedTuple, Optional, \
     Sequence, Tuple
+
+import json
+from collections import deque
 
 import numpy as np
 import torch
@@ -141,16 +158,18 @@ class _DatasetState:
     """A validation set's device state (ScoreUpdater, score_updater.hpp;
     lightgbm_tpu/models/gbdt.py:52-104): its bins (group columns with EFB)
     and bundle maps for the tree walk and its raw scores, class-major
-    [k, n] in row order (`score`: [n] for k = 1, as the GBDT's)."""
+    [k, n] in row order (`score`: [n] for k = 1, as the GBDT's), in the
+    booster's score type."""
 
-    def __init__(self, ds: BinnedDataset, device, k: int):
+    def __init__(self, ds: BinnedDataset, device, k: int,
+                 dtype=torch.float32):
         self.bins = ds.device_bins(device)
         self.num_bins = torch.as_tensor(ds.feature_num_bins(), device=device)
         self.default_bins = torch.as_tensor(
             np.array([m.default_bin for m in ds.bin_mappers], np.int32),
             device=device)
         self.bundle = bundle_maps(ds, device)
-        self.scores = init_score_matrix(ds, k, device)
+        self.scores = init_score_matrix(ds, k, device, dtype)
 
     @property
     def score(self) -> torch.Tensor:
@@ -167,19 +186,9 @@ def check_supported(cfg: Config) -> None:
         raise NotImplementedError("%s is not ported yet (ROADMAP.md %s)"
                                   % (what, item))
 
-    if cfg.tpu_double_precision:
-        no("tpu_double_precision", "queue 1, item 11: f64 on the label "
-           "engine")
-    if cfg.forcedsplits_filename:
-        no("forced splits", "queue 1, item 11: forced splits")
     if cfg.tree_learner != "serial" or cfg.num_machines > 1:
         no("the %s tree learner" % cfg.tree_learner,
            "queue 1, item 12: parallel learners")
-    if cfg.cegb_penalty_feature_coupled or cfg.cegb_penalty_feature_lazy:
-        no("CEGB feature penalties", "queue 1, item 11: CEGB")
-    if cfg.histogram_pool_size > 0:
-        no("histogram pooling (histogram_pool_size)",
-           "queue 1, item 11: histogram pooling")
 
 
 class Sample(NamedTuple):
@@ -209,6 +218,9 @@ class GBDT:
         self.config = config
         self.objective = objective
         self.device = torch.device(device)
+        # the score, gradient and label-engine type (gbdt.py:155)
+        self.dtype = (torch.float64 if config.tpu_double_precision
+                      else torch.float32)
         self.models: List[Tree] = []
         self.iter = 0
         self.num_class = config.num_class
@@ -309,16 +321,19 @@ class GBDT:
         # the width of a tree's cat_mask
         self._cat_w = self.max_bin if self.is_categorical is not None else 0
         k = self.num_tree_per_iteration
-        self.scores = init_score_matrix(ds, k, dev)
+        self.scores = init_score_matrix(ds, k, dev, self.dtype)
         self._held = k > 1 or self._holds_gradients
         if self._held:
             # every class's gradients of the round's starting score
-            self._grad = torch.zeros((k, n), dtype=torch.float32, device=dev)
-            self._hess = torch.zeros((k, n), dtype=torch.float32, device=dev)
+            self._grad = torch.zeros((k, n), dtype=self.dtype, device=dev)
+            self._hess = torch.zeros((k, n), dtype=self.dtype, device=dev)
         self.max_leaves = L
         self._pvec = params_vector(self.split_params, dev)
-        self._shrink_f32 = torch.tensor(self.shrinkage_rate,
-                                        dtype=torch.float32, device=dev)
+        # the shrinkage in the score's type, for the device score updates
+        self._shrink_dev = torch.tensor(self.shrinkage_rate,
+                                        dtype=self.dtype, device=dev)
+        self._setup_cegb(ds)
+        self._forced_splits = self._load_forced_splits()
         # the round's host inputs on the device, a row a class: the
         # quantization key's two words, then the feature mask (ops/graphs.py's
         # static inputs); a last row whose first two words are the sampling
@@ -326,6 +341,7 @@ class GBDT:
         self._round_inp = torch.zeros((k + 1, 2 + ds.num_features),
                                       dtype=torch.int64, device=dev)
         self._graphs = RoundGraphs(dev)
+        self._hist_slots = 0
         self._setup_tree_engine()
         self._quantized = bool(cfg.tpu_quantized_grad
                                and self._use_partition_engine)
@@ -346,7 +362,7 @@ class GBDT:
         if self.objective.is_renew_tree_output():
             # the residuals' raw label of the leaf refits (gbdt.py:1568-1589)
             self._renew_label = torch.as_tensor(
-                np.asarray(ds.metadata.label, np.float32), device=dev)
+                np.asarray(ds.metadata.label), device=dev).to(self.dtype)
         if self._use_partition_engine:
             # pristine layout (gbdt.py:1281-1282): factor >= 4 covers the
             # pristine block, the redirected root copy and the bump region
@@ -366,23 +382,113 @@ class GBDT:
     def _arena_factor(self) -> int:
         return max(self.config.tpu_arena_factor, 4)
 
+    def _setup_cegb(self, ds: BinnedDataset) -> None:
+        """gbdt.py:340-359: the coupled penalties, given by raw feature,
+        mapped to the used features and scaled by cegb_tradeoff, and the
+        used-feature vector, which lives for the whole ensemble as the
+        reference's SerialTreeLearner member (serial_tree_learner.cpp:
+        534-536); on the device, read and updated by each round's grower.
+        Saving it with the model is checkpointing's (ROADMAP.md queue 1,
+        item 14).  The lazy penalty warns and is ignored, as in JAX."""
+        cfg = self.config
+        F = ds.num_features
+        self._cegb_coupled = self._cegb_used = None
+        coupled = cfg.cegb_penalty_feature_coupled
+        if coupled:
+            if len(coupled) != ds.num_total_features:
+                log.fatal("cegb_penalty_feature_coupled size (%d) must equal "
+                          "num_total_features (%d)"
+                          % (len(coupled), ds.num_total_features))
+            vec = np.array([coupled[ds.real_feature_index[f]]
+                            for f in range(F)], np.float64)
+            self._cegb_coupled = torch.as_tensor(
+                cfg.cegb_tradeoff * vec, device=self.device).to(self.dtype)
+            self._cegb_used = torch.zeros(F, dtype=torch.bool,
+                                          device=self.device)
+        if cfg.cegb_penalty_feature_lazy:
+            log.warning("cegb_penalty_feature_lazy is not supported yet; "
+                        "ignoring it")
+
+    def _load_forced_splits(self) -> tuple:
+        """forcedsplits_filename's JSON as the static BFS plan of (leaf,
+        inner feature, threshold bin, default left) entries, thresholds
+        mapped to bins by the feature's BinMapper (gbdt.py:1170-1208,
+        ForceSplits, serial_tree_learner.cpp:593-751); a split on an
+        unused feature warns and is skipped."""
+        fname = self.config.forcedsplits_filename
+        if not fname:
+            return ()
+        with open(fname) as f:
+            root = json.load(f)
+        if not root:
+            return ()
+        ds = self.train_set
+        raw_to_inner = {raw: inner for inner, raw in
+                        enumerate(ds.real_feature_index)}
+        plan = []
+        num_leaves = 1
+        q = deque([(0, root)])
+        while q:
+            leaf, node = q.popleft()
+            raw_f = int(node["feature"])
+            if raw_f not in raw_to_inner:
+                log.warning("forced split on unused feature %d skipped", raw_f)
+                continue
+            inner = raw_to_inner[raw_f]
+            thr_bin = int(ds.bin_mappers[inner].value_to_bin(
+                float(node["threshold"])))
+            plan.append((leaf, inner, thr_bin,
+                         bool(node.get("default_left", False))))
+            right_leaf = num_leaves
+            num_leaves += 1
+            if node.get("left"):
+                q.append((leaf, node["left"]))
+            if node.get("right"):
+                q.append((right_leaf, node["right"]))
+        return tuple(plan)
+
     def _setup_tree_engine(self) -> None:
         """gbdt.py:1209-1345, the serial learner: the partition engine
-        needs max_bin <= 256, a feature and fewer than 2^24 rows (f32 is
-        the port's only precision); `partition` on an input it cannot take
-        warns and takes the label engine; `auto` takes the partition engine
-        where it applies and its arena fits the device's memory budget (the
-        JAX package's TPU branch, with the card in the TPU's place and the
-        VMEM terms, which exist only on a TPU, dropped)."""
+        needs f32, max_bin <= 256, a feature and fewer than 2^24 rows;
+        `partition` on an input it cannot take warns and takes the label
+        engine; `auto` takes the partition engine where it applies and its
+        arena fits the device's memory budget (the JAX package's TPU
+        branch, with the card in the TPU's place and the VMEM terms, which
+        exist only on a TPU, dropped).  The histogram cache is pooled
+        (`_hist_slots`) by histogram_pool_size, or at a quarter of the
+        budget when one slot a leaf would exceed it; forced splits need
+        the dense cache and turn pooling off with a warning."""
         cfg = self.config
-        base_ok = (self.max_bin <= 256 and self.train_set.num_features > 0
+        base_ok = (self.dtype == torch.float32 and self.max_bin <= 256
+                   and self.train_set.num_features > 0
                    and self.num_data < (1 << 24))
+        budget = device_memory_budget(self.device)
+        L = self.max_leaves
+        entry_bytes = self.train_set.num_groups * max(self.max_bin, 2) * 12
+        if cfg.histogram_pool_size > 0:
+            slots = int(cfg.histogram_pool_size * (1 << 20)
+                        / max(entry_bytes, 1))
+        elif L * entry_bytes > 0.25 * budget:
+            slots = int(0.25 * budget / max(entry_bytes, 1))
+        else:
+            slots = L
+        hist_slots = 0 if slots >= L else max(4, slots)
+        pooling_blocked = bool(self._forced_splits and hist_slots)
+        if pooling_blocked:
+            hist_slots = 0
         need = arena_bytes(self.num_data, self.train_set.num_groups,
-                           self._arena_factor(), self.max_leaves,
+                           self._arena_factor(), hist_slots or L,
                            self.max_bin, bool(cfg.tpu_quantized_grad))
-        eng = choose_tree_engine(cfg.tpu_tree_engine, base_ok, need,
-                                 device_memory_budget(self.device))
+        eng = choose_tree_engine(cfg.tpu_tree_engine, base_ok, need, budget)
         self._use_partition_engine = eng == "partition"
+        if self._use_partition_engine:
+            self._hist_slots = hist_slots
+            # the splits whose parent missed the pool, summed over the run
+            self._pool_misses = torch.zeros(1, dtype=torch.long,
+                                            device=self.device)
+            if pooling_blocked:
+                log.warning("forced splits disable histogram pooling (dense "
+                            "per-leaf cache required)")
 
     def _carried_ok(self) -> bool:
         """gbdt.py:847-869: one tree an iteration, the objective's carry
@@ -474,8 +580,9 @@ class GBDT:
     def _unpack(self, host: torch.Tensor) -> TreeArrays:
         """A fetched packed tree as host TreeArrays; warns once when the
         arena truncated it."""
-        arrays, truncated = unpack_tree_vector(host.numpy(), self.max_leaves,
-                                               self._cat_w)
+        arrays, truncated = unpack_tree_vector(
+            host.numpy(), self.max_leaves, self._cat_w,
+            np.float64 if self.dtype == torch.float64 else np.float32)
         if truncated and not self._truncation_warned:
             self._truncation_warned = True
             log.warning("Tree growth truncated at %d leaves by partition-"
@@ -615,11 +722,11 @@ class GBDT:
                                 sample)
 
     def _gradients(self):
-        """The objective's f32 gradients and hessians of the score ([n] for
-        k = 1), as [k, n]."""
+        """The objective's gradients and hessians of the score ([n] for
+        k = 1), as [k, n] in the booster's type (gbdt.py:598-599)."""
         grad, hess = self.objective.get_gradients(self.score)
-        return (grad.to(torch.float32).view(self.scores.shape),
-                hess.to(torch.float32).view(self.scores.shape))
+        return (grad.to(self.dtype).view(self.scores.shape),
+                hess.to(self.dtype).view(self.scores.shape))
 
     def _run_gradients(self, sample: Optional[Sample] = None) -> None:
         """Every class's gradients of the round's starting score into the
@@ -670,7 +777,10 @@ class GBDT:
         common = dict(max_leaves=self.max_leaves, max_depth=cfg.max_depth,
                       max_bin=self.max_bin, pvec=self._pvec,
                       is_categorical=self.is_categorical, bundle=self.bundle,
-                      max_cat_threshold=cfg.max_cat_threshold)
+                      max_cat_threshold=cfg.max_cat_threshold,
+                      cegb_coupled=self._cegb_coupled,
+                      cegb_used=self._cegb_used,
+                      forced_splits=self._forced_splits)
         if not self._use_partition_engine:
             row_init = (self._bag_pred.to(torch.int32) - 1 if bagged else
                         torch.zeros(n, dtype=torch.int32, device=dev))
@@ -698,19 +808,22 @@ class GBDT:
                           shrinkage=self.shrinkage_rate)
             if bagged:
                 kw["in_bag"] = self._bag_pred
+            if self._hist_slots:
+                kw["pool_misses"] = self._pool_misses
             tree, out, truncated = grow_tree_partition(
                 self.arena, grad, hess, mask, self.num_bins,
                 self.default_bins, self.missing_types, self.split_params,
-                self.monotone, self.penalty, emit=emit, **kw, **common)
+                self.monotone, self.penalty, emit=emit,
+                hist_slots=self._hist_slots, **kw, **common)
         if update:
-            lv = tree.leaf_value * self._shrink_f32
+            lv = tree.leaf_value * self._shrink_dev
             self._add_leaf_values(lv, out, bagged, tree, class_id)
         return (pack_tree_vector(tree, truncated), out) + tuple(tree)
 
     def _add_leaf_values(self, lv: torch.Tensor, leaf_ids: torch.Tensor,
                          bagged: bool, tree: TreeArrays,
                          class_id: int) -> None:
-        """The class's training score adds lv (f32 [L]) at each row's
+        """The class's training score adds lv ([L], the score's type) at each row's
         leaf: over a bag (leaf ids -1 out of it) by KP2's masked add, which
         walks the out-of-bag rows; otherwise by a gather of every row's
         leaf id."""
@@ -730,7 +843,8 @@ class GBDT:
         cfg = self.config
         key = (self._use_partition_engine, parity, emit, bagged, update,
                self._quantized, self.max_leaves, cfg.max_depth, self.max_bin,
-               self.num_data, self.train_set.num_features, class_id)
+               self.num_data, self.train_set.num_features,
+               self._forced_splits, self._hist_slots, class_id)
         out = self._graphs.run(
             key, key[:1] + key[2:-1],
             lambda: self._round(parity, emit, bagged, update, class_id))
@@ -846,8 +960,11 @@ class GBDT:
         return self._unpack(host)
 
     def _leaf_values(self, tree: Tree) -> torch.Tensor:
-        """A host tree's leaf values as f32 [max_leaves] on the device."""
-        host_lv = np.zeros(self.max_leaves, np.float32)
+        """A host tree's leaf values as [max_leaves] on the device, in the
+        score's type (gbdt.py:1623)."""
+        host_lv = np.zeros(self.max_leaves,
+                           np.float64 if self.dtype == torch.float64
+                           else np.float32)
         host_lv[:tree.num_leaves] = tree.leaf_value[:tree.num_leaves]
         return torch.as_tensor(host_lv, device=self.device)
 
@@ -919,8 +1036,20 @@ class GBDT:
                 del self.models[max(first, k):]
                 self.iter = it
                 self._rebuild_train_score()
+                self._rebuild_cegb_used()
                 return True
         return False
+
+    def _rebuild_cegb_used(self) -> None:
+        """The CEGB used-feature vector of the model that remains after a
+        rollback: the features its trees split on (JAX marks them as each
+        tree is fetched, gbdt.py:653-655)."""
+        if self._cegb_used is None:
+            return
+        used = np.zeros(self.train_set.num_features, bool)
+        for tree in self.models:
+            used[tree.split_feature_inner[:tree.num_leaves - 1]] = True
+        self._cegb_used.copy_(torch.from_numpy(used))
 
     def _rebuild_train_score(self) -> None:
         """The training score recomputed from the model (gbdt.py:
@@ -928,7 +1057,8 @@ class GBDT:
         tree i into class i % k, by KP2's add mode over the training
         bins."""
         k = self.num_tree_per_iteration
-        self.scores.copy_(init_score_matrix(self.train_set, k, self.device))
+        self.scores.copy_(init_score_matrix(self.train_set, k, self.device,
+                                            self.dtype))
         for i, tree in enumerate(self.models):
             self._add_train_tree_score(tree, i % k)
 
@@ -956,7 +1086,7 @@ class GBDT:
         i % k."""
         self._sync_model()
         k = self.num_tree_per_iteration
-        state = _DatasetState(valid_set, self.device, k)
+        state = _DatasetState(valid_set, self.device, k, self.dtype)
         for m in metrics:
             m.init(valid_set.metadata, valid_set.num_data)
         for i, tree in enumerate(self.models):
@@ -1188,6 +1318,13 @@ class GBDT:
                 imp[f] += 1
         return imp
 
+    def model_to_if_else(self) -> str:
+        """Standalone C++ if-else prediction code of the model
+        (ModelToIfElse, gbdt_model_text.cpp:60-242; gbdt.py:2155-2160)."""
+        self._sync_model()
+        from .codegen import model_to_if_else
+        return model_to_if_else(self)
+
     def save_model_to_string(self, num_iteration: int = -1) -> str:
         self._sync_model()
         ss = [self.sub_model_name, "version=v2",
@@ -1380,31 +1517,34 @@ def _tree_to_device(tree: Tree, device, max_bin: int) -> TreeArrays:
         is_cat=t(is_cat, bool), cat_mask=t(cat_mask, bool))
 
 
-def init_score_matrix(ds: BinnedDataset, k: int, device) -> torch.Tensor:
-    """f32 [k, n]: the dataset's init score, class-major (a k*n vector, or
-    an n vector every class shares: gbdt.py:2225 `_expand_init_score`),
-    or zeros."""
+def init_score_matrix(ds: BinnedDataset, k: int, device,
+                      dtype=torch.float32) -> torch.Tensor:
+    """[k, n] in dtype (f32, or f64 with tpu_double_precision): the
+    dataset's init score, class-major (a k*n vector, or an n vector every
+    class shares: gbdt.py:2225 `_expand_init_score`), or zeros."""
     n = ds.num_data
     if ds.metadata.init_score is None:
-        return torch.zeros((k, n), dtype=torch.float32, device=device)
+        return torch.zeros((k, n), dtype=dtype, device=device)
     init = np.asarray(ds.metadata.init_score, np.float64)
     init = (init.reshape(k, n) if init.size == k * n
             else np.tile(init.reshape(1, -1), (k, 1)))
-    return torch.as_tensor(init.astype(np.float32), device=device)
+    if dtype == torch.float32:
+        init = init.astype(np.float32)
+    return torch.as_tensor(init, device=device)
 
 
 def _walk_add(bins: torch.Tensor, num_bins: torch.Tensor,
               default_bins: torch.Tensor, score: torch.Tensor,
               tree: Tree, bundle: Optional[BundleMaps],
               max_bin: int) -> None:
-    """score += the host tree's f32 leaf value at each row's leaf (a
-    constant for a one-leaf tree), the rows walked by KP2's add mode."""
+    """score += the host tree's leaf value, in the score's type, at each
+    row's leaf (a constant for a one-leaf tree), the rows walked by KP2's
+    add mode."""
     if tree.num_leaves <= 1:
         score += float(tree.leaf_value[0])
         return
-    lv = torch.as_tensor(
-        tree.leaf_value[:tree.num_leaves].astype(np.float32),
-        device=score.device)
+    lv = torch.as_tensor(tree.leaf_value[:tree.num_leaves],
+                         device=score.device).to(score.dtype)
     walk_binned(bins, _tree_to_device(tree, score.device, max_bin), num_bins,
                 default_bins, lv=lv, score=score, bundle=bundle)
 

@@ -38,7 +38,8 @@ class RF(GBDT):
 
     def _compute_rf_gradients(self) -> None:
         """Gradients against the constant init score (rf.hpp:75-93,
-        rf.py:36-48), the score rounded to f32 as JAX's."""
+        rf.py:36-48), the score rounded to the
+        booster's type as JAX's."""
         k = self.num_tree_per_iteration
         n = self.num_data
         for kk in range(k):
@@ -46,11 +47,12 @@ class RF(GBDT):
                 self.objective.boost_from_score(kk)
                 if self.config.boost_from_average else 0.0)
         tmp = torch.as_tensor(
-            np.asarray(self._rf_init_scores, np.float64).astype(np.float32),
-            device=self.device).view(k, 1).expand(k, n).contiguous()
+            np.asarray(self._rf_init_scores, np.float64),
+            device=self.device).to(self.dtype).view(k, 1).expand(
+                k, n).contiguous()
         grad, hess = self.objective.get_gradients(tmp if k > 1 else tmp[0])
-        self._grad.copy_(grad.to(torch.float32).view(k, n))
-        self._hess.copy_(hess.to(torch.float32).view(k, n))
+        self._grad.copy_(grad.to(self.dtype).view(k, n))
+        self._hess.copy_(hess.to(self.dtype).view(k, n))
         self._rf_grad_ready = True
 
     def train_one_iter(self) -> bool:
@@ -116,4 +118,4 @@ class RF(GBDT):
         # RF's residuals are against the constant init score, not the
         # running average (rf.hpp:126 passes init_scores_[class])
         return torch.full((self.num_data,), self._rf_init_scores[class_id],
-                          dtype=torch.float32, device=self.device)
+                          dtype=self.dtype, device=self.device)

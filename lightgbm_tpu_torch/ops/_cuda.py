@@ -66,7 +66,10 @@ _ENTRY_POINTS = {
         "lgbt_leaf_histogram": [_P, _P, _P, _P, _P, _LL, _P, _I, _I, _P, _P,
                                 _I, _I, _P],
         "lgbt_leaf_histogram_i8": [_P, _P, _P, _P, _P, _LL, _P, _I, _I, _P,
-                                   _P, _I, _I, _P]},
+                                   _P, _I, _I, _P],
+        **{"lgbt_leaf_histogram_" + form: [_P, _P, _P, _P, _P, _LL, _P, _I,
+                                           _I, _P, _P, _I, _I, _P]
+           for form in ("u16", "f64", "u16_f64")}},
     "scatter_segments": {
         "lgbt_scatter_segments_f32": [_P, _P, _P, _P, _P, _I, _P],
         "lgbt_scatter_segments_i32": [_P, _P, _P, _P, _P, _I, _P],
@@ -83,8 +86,9 @@ _ENTRY_POINTS = {
                                                    _I, _I, _D, _I, _P, _LL,
                                                    _P, _P, _P]},
     "walk_binned": {
-        "lgbt_walk_binned": [_P] * 7 + [_I] + [_P] * 6
-                            + [_P, _LL, _I, _P, _P, _I, _P, _P, _P, _P, _P]},
+        "lgbt_walk_binned": [_P] * 7 + [_I, _P, _P, _I] + [_P] * 4
+                            + [_P, _I, _LL, _I, _P, _P, _I, _P, _P, _P, _P,
+                               _I, _P]},
 }
 
 LAUNCHES: Counter = Counter()

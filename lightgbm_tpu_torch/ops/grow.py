@@ -21,14 +21,16 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..io.dataset import bin_values
 from . import histogram as hist_ops
 from . import histogram_kernel
-from .split import (SplitParams, best_split_per_feature,
-                    best_split_per_feature_mixed, select_best_feature)
+from .split import (K_MIN_SCORE, SplitParams, best_split_per_feature,
+                    best_split_per_feature_mixed, forced_split_result,
+                    select_best_feature)
 from .split_kernel import (_OF, _OG, _OLC, _OLG, _OLH, _OLO, _ODL, _ORC, _ORG,
                            _ORH, _ORO, _OT, NEG, NEG_GATE,
-                           build_feature_statics, child_vector, no_split_row,
-                           params_vector, split_scan)
+                           build_feature_statics, cegb_statics, child_vector,
+                           no_split_row, params_vector, split_scan)
 
 MISSING_NONE = 0
 MISSING_ZERO = 1
@@ -82,8 +84,9 @@ def feature_bin_of(cols, feat, default_bins, bundle: Optional[BundleMaps]):
     """Feature-bin values (int64) of feature(s) `feat` from their group
     columns' bin values `cols`: the identity without EFB; otherwise values
     outside the feature's range decode to its default bin
-    (lightgbm_tpu/ops/grow.py:95-106)."""
-    cols = cols.long()
+    (lightgbm_tpu/ops/grow.py:95-106).  cols may be device bins (uint8,
+    or int16 holding uint16 bins: io/dataset.bin_values)."""
+    cols = bin_values(cols)
     if bundle is None:
         return cols
     inside = ((cols >= bundle.feat_lo[feat])
@@ -146,11 +149,12 @@ def _tree_field_spec(max_leaves: int, cat_bins: int):
 
 def pack_tree_arrays(t: TreeArrays):
     """Flatten a device TreeArrays into two device vectors (ints as int32,
-    floats as f32), so one host fetch replaces one per field."""
+    floats in their own type: f32, or f64 on the label engine's f64 path),
+    so one host fetch replaces one per field."""
     ints, floats = [], []
     for name, x in zip(TreeArrays._fields, t):
         if name in _TREE_FLOAT_FIELDS:
-            floats.append(x.reshape(-1).to(torch.float32))
+            floats.append(x.reshape(-1))
         else:
             ints.append(x.reshape(-1).to(torch.int32))
     return torch.cat(ints), torch.cat(floats)
@@ -165,13 +169,15 @@ def pack_tree_vector(t: TreeArrays, truncated: torch.Tensor) -> torch.Tensor:
                       fvec.double()])
 
 
-def unpack_tree_vector(vec: np.ndarray, max_leaves: int, cat_bins: int = 0):
+def unpack_tree_vector(vec: np.ndarray, max_leaves: int, cat_bins: int = 0,
+                       float_dtype=np.float32):
     """Host-side inverse of pack_tree_vector: (TreeArrays of numpy arrays,
-    truncated); cat_bins is the width of the tree's cat_mask."""
+    truncated); cat_bins is the width of the tree's cat_mask, float_dtype
+    the type the tree's floats were grown in."""
     ni = sum(int(np.prod(shape)) if shape else 1
              for name, shape, _ in _tree_field_spec(max_leaves, cat_bins)
              if name not in _TREE_FLOAT_FIELDS)
-    arrays = unpack_tree_vectors(vec[:ni], vec[ni + 1:].astype(np.float32),
+    arrays = unpack_tree_vectors(vec[:ni], vec[ni + 1:].astype(float_dtype),
                                  max_leaves, cat_bins)
     return arrays, bool(vec[ni])
 
@@ -259,10 +265,11 @@ def put(table: torch.Tensor, idx: torch.Tensor, new: torch.Tensor,
     table.index_copy_(0, idx, torch.where(keep, old, new.unsqueeze(0)))
 
 
-def new_tables(max_leaves: int, device):
-    """The f32 leaf table [L, 6] (value, count, parent, depth, output
-    bounds) and node table [L-1, 10] of an empty tree."""
-    f32 = torch.float32
+def new_tables(max_leaves: int, device, dtype=torch.float32):
+    """The leaf table [L, 6] (value, count, parent, depth, output bounds)
+    and node table [L-1, 10] of an empty tree, f32 (f64 on the label
+    engine's f64 path)."""
+    f32 = dtype
     leaf_mat = torch.zeros((max_leaves, 6), dtype=f32, device=device)
     # fills on the device: an assignment of a Python number would copy it
     # from the host, which a captured grower must not
@@ -282,8 +289,8 @@ def record_split(node_mat, leaf_mat, bi, nl, row, feat, mtype, keep, mono,
     the children's output bounds by monotone mid-constraint propagation
     (serial_tree_learner.cpp:837-846), which a categorical split (is_cat,
     a 0-d bool) does not carry.  Returns (parent depth, min_l, max_l,
-    min_r, max_r)."""
-    f32 = torch.float32
+    min_r, max_r).  The tables' type is the row's."""
+    f32 = leaf_mat.dtype
     lo, ro = row[_OLO], row[_ORO]
     lc_f, rc_f = row[_OLC], row[_ORC]
     lrow = leaf_mat.index_select(0, bi)[0]
@@ -331,10 +338,12 @@ def record_split(node_mat, leaf_mat, bi, nl, row, feat, mtype, keep, mono,
 
 def decision_table(feat, row, fstat, bundle: Optional[BundleMaps],
                    is_categorical: Optional[torch.Tensor] = None,
-                   cat_row: Optional[torch.Tensor] = None):
-    """(group column [1], go_left bool [256]): the go-left rule of a split
-    row of feature `feat` ([1] int64) over the 256 values of its column's
-    bins, as the JAX partition engine builds its mask
+                   cat_row: Optional[torch.Tensor] = None,
+                   values: int = 256):
+    """(group column [1], go_left bool [values]): the go-left rule of a
+    split row of feature `feat` ([1] int64) over the values of its
+    column's bins (256 for uint8 bins, more for uint16 ones), as the JAX
+    partition engine builds its mask
     (lightgbm_tpu/ops/grow_partition.py:706-733): numerical threshold and
     missing direction (NumericalDecision, tree.h:429-465), the bin set
     cat_row ([W] bool) of a categorical feature (CategoricalDecision,
@@ -342,7 +351,7 @@ def decision_table(feat, row, fstat, bundle: Optional[BundleMaps],
     decoded to the feature's.  fstat: int64 [F, 3] of (missing type,
     default bin, last bin)."""
     dev = row.device
-    bv = torch.arange(256, dtype=torch.long, device=dev)
+    bv = torch.arange(values, dtype=torch.long, device=dev)
     fs = fstat.index_select(0, feat)[0]
     if bundle is None:
         chan, fbin = feat, bv
@@ -412,9 +421,10 @@ KERNEL_SCAN_ROWS = 1 << 24
 
 
 def _split_row(res, f32=torch.float32):
-    """A SplitResult of select_best_feature ([C] fields) as split-cache rows
-    [C, ROW_W] (gain NEG and feature -1 where a leaf has no split) and
-    their int64 (left, right) counts [C, 2]."""
+    """A SplitResult of select_best_feature ([C] fields, or 0-d ones) as
+    split-cache rows [C, ROW_W] in type f32 (gain NEG and feature -1
+    where a leaf has no split; a forced split's gain +inf stays) and their
+    int64 (left, right) counts [C, 2]."""
     has = res.feature >= 0
     row = torch.stack([
         torch.where(has, res.gain, NEG).to(f32), res.feature.to(f32),
@@ -428,19 +438,22 @@ def _split_row(res, f32=torch.float32):
 def scan_rows(hists, sums, counts, minc, maxc, num_bins, default_bins,
               missing_types, params: SplitParams, monotone=None,
               penalty=None, feature_mask=None, is_categorical=None,
-              max_cat_threshold: int = 32):
+              max_cat_threshold: int = 32, cegb_feature_penalty=None):
     """The XLA route's scan of CH children at once (ops/split.py, as the
-    JAX package scans categorical datasets and leaves past 2^24 rows):
-    hists [CH, F, B, 3] per-feature histograms, sums [CH, 2] (g, h),
-    counts [CH] int64, minc/maxc [CH] output bounds.  Returns split rows
-    [CH, ROW_W], int64 counts [CH, 2] and, with is_categorical, the
-    left-going bins [CH, B] (else None)."""
+    JAX package scans categorical datasets, leaves past 2^24 rows and f64
+    histograms): hists [CH, F, B, 3] per-feature histograms, sums [CH, 2]
+    (g, h), counts [CH] int64, minc/maxc [CH] output bounds,
+    cegb_feature_penalty [F] the coupled penalties still charged.
+    Returns split rows [CH, ROW_W] in the histograms' type, int64 counts
+    [CH, 2] and, with is_categorical, the left-going bins [CH, B] (else
+    None)."""
     CH, F = hists.shape[:2]
     mn = mx = None
     if monotone is not None:
         mn, mx = minc[:, None].expand(CH, F), maxc[:, None].expand(CH, F)
     kw = dict(monotone=monotone, penalty=penalty, min_constraints=mn,
-              max_constraints=mx, feature_mask=feature_mask)
+              max_constraints=mx, feature_mask=feature_mask,
+              cegb_feature_penalty=cegb_feature_penalty)
     if is_categorical is None:
         pf = best_split_per_feature(
             hists, sums[:, 0], sums[:, 1], counts, num_bins, default_bins,
@@ -451,8 +464,27 @@ def scan_rows(hists, sums, counts, minc, maxc, num_bins, default_bins,
             missing_types, is_categorical, params,
             max_cat_threshold=max_cat_threshold, **kw)
     res = select_best_feature(pf)
-    rows, cnts = _split_row(res)
+    rows, cnts = _split_row(res, hists.dtype)
     return rows, cnts, res.cat_mask
+
+
+def forced_row(hist_cache, leaf_cnt, safe, plan_entry, bundle, num_bins,
+               default_bins, missing_types, params: SplitParams,
+               dtype=torch.float32):
+    """The split-cache row ([ROW_W], type dtype) and int64 counts [2] of a
+    forced split plan entry (leaf, feature, threshold bin, default left)
+    on the leaf `safe` ([1] int64) of the dense histogram cache
+    ([L, G, B, 3]) with counts leaf_cnt: the group histogram unbundled with
+    the leaf's totals from its first group (lightgbm_tpu/ops/grow.py:52
+    `build_forced_candidate`, shared by both engines)."""
+    _, f_feat, f_thr, f_dl = plan_entry
+    h = hist_cache.index_select(0, safe)[0]
+    cnt = leaf_cnt.index_select(0, safe)[0]
+    f_g, f_h = h[0, :, 0].sum(), h[0, :, 1].sum()
+    fsp = forced_split_result(
+        unbundle_hist(h, f_g, f_h, cnt, bundle, default_bins), f_feat, f_thr,
+        f_g, f_h, cnt, num_bins, default_bins, missing_types, params, f_dl)
+    return _split_row(fsp, dtype)
 
 
 def grow_tree_label(bins: torch.Tensor, grad: torch.Tensor,
@@ -466,14 +498,20 @@ def grow_tree_label(bins: torch.Tensor, grad: torch.Tensor,
                     bundle: Optional[BundleMaps] = None, *,
                     max_leaves: int, max_depth: int = -1, max_bin: int,
                     hist_impl: str = "auto", max_cat_threshold: int = 32,
-                    pvec: Optional[torch.Tensor] = None):
+                    pvec: Optional[torch.Tensor] = None,
+                    cegb_coupled: Optional[torch.Tensor] = None,
+                    cegb_used: Optional[torch.Tensor] = None,
+                    forced_splits: tuple = ()):
     """Grow one leaf-wise tree with the label engine; returns (TreeArrays
     on the bins' device, leaf_ids int32 [n]).
 
-    bins [n, G] uint8 row-major, a column a feature or, with `bundle`, a
-    column an EFB group; grad, hess f32 [n]; row_leaf_init int32 [n]: 0
-    for the rows in the bag, -1 for the others (which keep -1).
-    is_categorical: bool [F] where any feature is categorical, else None.
+    bins [n, G] row-major (uint8, or int16 holding uint16 bins), a column
+    a feature or, with `bundle`, a column an EFB group; grad, hess [n] f32,
+    or f64 (`tpu_double_precision`: histograms, scans, split rows and the
+    tree's floats then are f64, as JAX threads its dtype through,
+    lightgbm_tpu/ops/grow.py:235); row_leaf_init int32 [n]: 0 for the rows
+    in the bag, -1 for the others (which keep -1).  is_categorical: bool
+    [F] where any feature is categorical, else None.
 
     The root histogram covers the rows with row_leaf_init == 0; each split
     relabels the rows of its leaf with ~go_left to the new leaf, histograms
@@ -481,11 +519,27 @@ def grow_tree_label(bins: torch.Tensor, grad: torch.Tensor,
     subtraction; group histograms are unbundled to the features before
     each scan.  The split scan follows grow.py:346-392: K1 (both children
     in one CH=2 launch) below KERNEL_SCAN_ROWS = 2^24 rows, where its f32
-    prefix counts are exact, on a dataset with no categorical feature;
-    otherwise the XLA route's scan (ops/split.py, `scan_rows`) with
-    integer count cumsums, the categorical scan where a feature is
-    categorical.  A categorical split keeps its left-going bins
-    ([B] bool) beside its split row, and the tree's cat_mask is [N, B].
+    prefix counts are exact, on an f32 dataset with no categorical
+    feature; otherwise the XLA route's scan (ops/split.py, `scan_rows`)
+    with integer count cumsums, the categorical scan where a feature is
+    categorical.  That plain scan is the counterpart of JAX's code path for
+    f64 (JAX's Pallas scan serves f32 only, grow.py:346), not a fallback.
+    A categorical split keeps its left-going bins ([B] bool) beside its
+    split row, and the tree's cat_mask is [N, B].
+
+    CEGB (grow.py:160, :190-193, :365-367, :622): cegb_coupled [F] is the
+    coupled penalty (cegb_tradeoff times cegb_penalty_feature_coupled), charged
+    to a feature's gain while cegb_used [F] bool says it is unused; a
+    split marks its feature used for its children's scans, and the
+    booster's cegb_used is updated in place with the tree's features, so
+    the vector lives across trees on the device.
+
+    forced_splits: the static BFS plan of (leaf, inner feature, threshold
+    bin, default left) entries (grow.py:641-685): before the best-first
+    loop each entry injects a +inf-gain row for its leaf (`forced_row`)
+    and one standard step applies it; an entry that cannot apply (an
+    empty child, no leaf left, or its leaf abandoned) maps its new leaf to
+    -1, so its subtree is dropped.
 
     As in grow_partition, the JAX while_loop is a Python loop of exactly
     max_leaves-1 steps whose state lives on the device: the best leaf is a
@@ -503,11 +557,18 @@ def grow_tree_label(bins: torch.Tensor, grad: torch.Tensor,
         raise ValueError("bins has %d columns for %d features without a "
                          "bundle" % (G, F))
     L, B = max_leaves, max_bin
+    dt = grad.dtype
     f32, i64, i32 = torch.float32, torch.long, torch.int32
-    scan_kernel = n < KERNEL_SCAN_ROWS and is_categorical is None
+    if dt not in (f32, torch.float64):
+        raise TypeError("grad: dtype %s, expected float32 or float64" % dt)
+    scan_kernel = (n < KERNEL_SCAN_ROWS and is_categorical is None
+                   and dt == f32)
     W = B if is_categorical is not None else 0
+    # the go-left table spans every value a column's bins may hold
+    values = 256 if bins.dtype == torch.uint8 else max(B, 256)
     leaf_ids = row_leaf_init.to(device=dev, dtype=i32).contiguous()
     in_bag = leaf_ids == 0
+    used = None if cegb_coupled is None else cegb_used.clone()
 
     # K7's row list, one per tree (the plain version on the CPU needs none)
     rows = (histogram_kernel.row_list(n, dev) if dev.type == "cuda"
@@ -527,45 +588,52 @@ def grow_tree_label(bins: torch.Tensor, grad: torch.Tensor,
                                   feature_mask=feature_mask, children=1)
     fvec2 = fvec1.repeat(2, 1)
 
-    def scan(hists, sums, counts, minc, maxc):
+    def scan(hists, sums, counts, minc, maxc, used_now):
         """Split rows [CH, ROW_W], int64 counts [CH, 2] and left-going bins
         [CH, W] (or None) of CH children: group hists [CH, G, B, 3], sums
-        [CH] pairs (g, h), counts [CH] int64."""
+        [CH] pairs (g, h), counts [CH] int64; used_now the CEGB used
+        vector of their scans."""
         hists = unbundle_hist(hists, sums[:, 0], sums[:, 1], counts, bundle,
                               default_bins)
         if scan_kernel:
+            CH = len(hists)
+            fv = fvec2 if CH == 2 else fvec1
+            if used_now is not None:
+                fv = cegb_statics(fv, cegb_coupled, used_now, CH)
             svec = child_vector(sums[:, 0], sums[:, 1], counts.to(f32),
                                 minc, maxc)
-            rows = split_scan(hists, fvec2 if len(hists) == 2 else fvec1,
-                              svec, pvec)[1]
+            rows = split_scan(hists, fv, svec, pvec)[1]
             # lanes by stacking: indexing by a list would copy the
             # index from the host
             return rows, torch.stack([rows[:, _OLC], rows[:, _ORC]],
                                      dim=1).long(), None
+        pen = (None if used_now is None else
+               torch.where(used_now, torch.zeros((), dtype=dt, device=dev),
+                           cegb_coupled.to(dt)))
         return scan_rows(hists, sums, counts, minc, maxc, num_bins,
                          default_bins, missing_types, params, monotone,
                          penalty, feature_mask, is_categorical,
-                         max_cat_threshold)
+                         max_cat_threshold, pen)
 
-    inf = torch.full((1,), torch.inf, dtype=f32, device=dev)
+    inf = torch.full((1,), torch.inf, dtype=dt, device=dev)
     root_row, root_cnt, root_cat = scan(
         root_hist.unsqueeze(0), torch.stack([root_g, root_h]).view(1, 2),
-        root_c.view(1), -inf, inf)
-    split_cache = no_split_row(dev).repeat(L, 1)
+        root_c.view(1), -inf, inf, used)
+    split_cache = no_split_row(dev, dt).repeat(L, 1)
     split_cache[0] = root_row[0]
     split_cnt = torch.zeros((L, 2), dtype=i64, device=dev)
     split_cnt[0] = root_cnt[0]
     cat_cache = torch.zeros((L, W), dtype=torch.bool, device=dev)
-    leaf_mat, node_mat = new_tables(L, dev)
+    leaf_mat, node_mat = new_tables(L, dev, dt)
     node_cat = torch.zeros((node_mat.shape[0], W), dtype=torch.bool,
                            device=dev)
     if W:
         cat_cache[0] = root_cat[0]
-    leaf_mat[0, _LC] = root_c.to(f32)
+    leaf_mat[0, _LC] = root_c.to(dt)
     leaf_cnt = torch.zeros(L, dtype=i64, device=dev)
     leaf_cnt[0] = root_c
     node_cnt = torch.zeros(node_mat.shape[0], dtype=i64, device=dev)
-    hist_cache = torch.zeros((L,) + tuple(root_hist.shape), dtype=f32,
+    hist_cache = torch.zeros((L,) + tuple(root_hist.shape), dtype=dt,
                              device=dev)
     hist_cache[0] = root_hist
 
@@ -575,31 +643,44 @@ def grow_tree_label(bins: torch.Tensor, grad: torch.Tensor,
     fstat = torch.stack([missing_types, default_bins, num_bins - 1],
                         dim=1).to(device=dev, dtype=i64)
     mono = None if monotone is None else monotone.to(device=dev, dtype=i64)
+    # after forced splits the best-first steps may reach L leaves early
+    capped = bool(forced_splits)
 
-    for _ in range(L - 1):
+    def step(skip=None):
+        """One split of the best leaf (grow.py:510-639), every write masked
+        back once `done`; a forced step (skip given: its entry cannot
+        apply) leaves `done` as it is."""
+        nonlocal leaf_ids, nl, done, used
         bi = torch.argmax(split_cache[:, _OG]).view(1)
         row = split_cache.index_select(0, bi)[0]
         lc, rc = split_cnt.index_select(0, bi)[0]
         feat = row[_OF].long().clamp_min(0).view(1)
-        done = done | (row[_OG] <= NEG_GATE)
-        bi32, nl32 = bi.to(i32), nl.to(i32)
+        if skip is None:
+            done = done | (row[_OG] <= NEG_GATE)
+            if capped:
+                done = done | (nl[0] >= L)
+            halt = done
+        else:
+            halt = skip
+        nl_w = nl.clamp_max(L - 1) if capped else nl
+        bi32, nl32 = bi.to(i32), nl_w.to(i32)
         cat_row = cat_cache.index_select(0, bi)[0] if W else None
         is_cat = (None if is_categorical is None
                   else is_categorical.index_select(0, feat)[0])
 
         # relabel (DataPartition::Split, data_partition.hpp:108): the rows
         # of leaf bi whose bin goes right move to the new leaf, by the
-        # go-left rule over the 256 values of the feature's column
+        # go-left rule over the values of the feature's column
         chan, go_left = decision_table(feat, row, fstat, bundle,
-                                       is_categorical, cat_row)
-        col = bins.index_select(1, chan).view(-1)
-        moves = ((~go_left).index_select(0, col.to(i32))
-                 & (leaf_ids == torch.where(done, no_leaf, bi32)))
+                                       is_categorical, cat_row, values)
+        col = bin_values(bins.index_select(1, chan).view(-1))
+        moves = ((~go_left).index_select(0, col)
+                 & (leaf_ids == torch.where(halt, no_leaf, bi32)))
         leaf_ids = torch.where(moves, nl32, leaf_ids)
 
         # the smaller child by K7, its sibling by subtraction
         left_smaller = lc <= rc
-        small = torch.where(done, no_leaf,
+        small = torch.where(halt, no_leaf,
                             torch.where(left_smaller, bi32, nl32))
         small_hist = hist_ops.leaf_histogram(bins, grad, hess, leaf_ids,
                                              small, B, hist_impl, rows)
@@ -607,33 +688,71 @@ def grow_tree_label(bins: torch.Tensor, grad: torch.Tensor,
                                        small_hist)
         left_hist = torch.where(left_smaller, small_hist, large_hist)
         right_hist = torch.where(left_smaller, large_hist, small_hist)
-        put(hist_cache, bi, left_hist, done)
-        put(hist_cache, nl, right_hist, done)
-        put(leaf_cnt, bi, lc, done)
-        put(leaf_cnt, nl, rc, done)
-        put(node_cnt, nl - 1, lc + rc, done)
+        put(hist_cache, bi, left_hist, halt)
+        put(hist_cache, nl_w, right_hist, halt)
+        put(leaf_cnt, bi, lc, halt)
+        put(leaf_cnt, nl_w, rc, halt)
+        put(node_cnt, nl_w - 1, lc + rc, halt)
         if W:
-            put(node_cat, nl - 1, cat_row, done)
+            put(node_cat, nl_w - 1, cat_row, halt)
 
         depth, min_l, max_l, min_r, max_r = record_split(
-            node_mat, leaf_mat, bi, nl, row, feat, fstat[:, 0].index_select(
-                0, feat)[0], done, mono, is_cat)
+            node_mat, leaf_mat, bi, nl_w, row, feat, fstat[:, 0].index_select(
+                0, feat)[0], halt, mono, is_cat)
 
+        used2 = None if used is None else used.index_fill(0, feat, True)
         sums = torch.stack([row[_OLG:_OLH + 1], row[_ORG:_ORH + 1]])
         rows2, cnts2, cats2 = scan(torch.stack([left_hist, right_hist]),
                                    sums, torch.stack([lc, rc]),
                                    torch.stack([min_l, min_r]),
-                                   torch.stack([max_l, max_r]))
+                                   torch.stack([max_l, max_r]), used2)
         rows2 = mask_depth(rows2, depth, max_depth)
-        put(split_cache, bi, rows2[0], done)
-        put(split_cache, nl, rows2[1], done)
-        put(split_cnt, bi, cnts2[0], done)
-        put(split_cnt, nl, cnts2[1], done)
+        put(split_cache, bi, rows2[0], halt)
+        put(split_cache, nl_w, rows2[1], halt)
+        put(split_cnt, bi, cnts2[0], halt)
+        put(split_cnt, nl_w, cnts2[1], halt)
         if W:
-            put(cat_cache, bi, cats2[0], done)
-            put(cat_cache, nl, cats2[1], done)
-        nl = torch.where(done, nl, nl + 1)
+            put(cat_cache, bi, cats2[0], halt)
+            put(cat_cache, nl_w, cats2[1], halt)
+        if used is not None:
+            used = torch.where(halt, used, used2)
+        nl = torch.where(halt, nl, nl + 1)
 
+    if forced_splits:
+        # static plan leaf -> dynamic leaf, -1 once abandoned (grow.py:652)
+        leafmap = torch.full((len(forced_splits) + 1,), -1, dtype=i64,
+                             device=dev)
+        leafmap[0].fill_(0)
+        for i, entry in enumerate(forced_splits):
+            if i >= L - 1:
+                break       # each applied entry adds one leaf
+            dyn_leaf = leafmap[entry[0]].clone()
+            safe = dyn_leaf.clamp_min(0).view(1)
+            frow, fcnt = forced_row(hist_cache, leaf_cnt, safe, entry,
+                                    bundle, num_bins, default_bins,
+                                    missing_types, params, dt)
+            valid = (dyn_leaf >= 0) & (frow[_OG] > NEG_GATE) & (nl[0] < L)
+            saved = (split_cache.clone(), split_cnt.clone(),
+                     cat_cache.clone())
+            split_cache.index_copy_(0, safe, frow.view(1, -1))
+            split_cnt.index_copy_(0, safe, fcnt.view(1, -1))
+            if W:
+                cat_cache.index_fill_(0, safe, False)
+            dyn_new = nl[0].clone()
+            step(skip=~valid)
+            for cache, old in zip((split_cache, split_cnt, cat_cache),
+                                  saved):
+                cache.copy_(torch.where(valid, cache, old))
+            leafmap[i + 1] = torch.where(valid, dyn_new, -1)
+            # the only later entry on this static leaf is its left child's,
+            # which an entry that failed abandons with the right subtree
+            leafmap[entry[0]] = torch.where(valid, dyn_leaf, -1)
+
+    for _ in range(L - 1):
+        step()
+
+    if cegb_used is not None and used is not None:
+        cegb_used.copy_(used)
     tree = tree_from_tables(node_mat, leaf_mat, nl,
                             node_cat if W else None)._replace(
         leaf_count=leaf_cnt.to(i32), internal_count=node_cnt.to(i32))

@@ -4,8 +4,9 @@ Port of `grow_tree_partition_impl` (lightgbm_tpu/ops/grow_partition.py:91)
 in the forms models/gbdt.py runs it: serial, numerical and categorical
 features, the arena's columns a feature each or EFB groups, every
 row in the bag (`full_bag`) or a bag of rows (`in_bag`), a dense per-leaf
-histogram cache, `emit="score"|"leaf_ids"`, f32 or quantized gradients,
-and the pristine or the carried root.  Rows live grouped by leaf in the
+histogram cache or a pooled one, `emit="score"|"leaf_ids"`, f32 or
+quantized gradients, the pristine or the carried root, CEGB and forced
+splits.  Rows live grouped by leaf in the
 arena (ops/partition_kernel.py), so each split costs O(parent) to
 partition and O(smaller child) to histogram; the sibling's histogram comes
 by subtraction from the parent's.
@@ -36,6 +37,21 @@ allocator starts at `carried_bump0`, and `carry_dst` has K6 compact the
 finished tree's segments, in leaf-index order, into the block the next
 tree roots at.
 
+CEGB (`cegb_coupled`, `cegb_used`; grow_partition.py:87, :104-105,
+:362-365, :493-495, :569-574): each scan patches K1's CEGB column with the
+coupled penalty of every feature not yet used, a split marks its feature
+used, and the booster's device vector is updated in place with the tree's
+features.  Forced splits (`forced_splits`, :876-915) inject a +inf-gain
+row for each plan entry's leaf before the best-first steps, as the label
+engine does (ops/grow.py); they need the dense histogram cache.
+
+Histogram pooling (`hist_slots` < max_leaves, :79-83, :577-590, :687-790,
+HistogramPool, feature_histogram.hpp:646-818): the cache holds K slots,
+each a leaf's histogram, written least recently first; a split whose
+parent has no slot recomputes the parent's histogram with K2 over its
+arena segment, still intact before K3 partitions it (on a hit K2 runs
+over no rows).
+
 With EFB (`bundle`) the arena holds group columns: every histogram is a
 group histogram, unbundled to the features before its scan (JAX :323-325,
 :500-551), and K3's go-left mask over the group's 256 bin values decodes
@@ -63,9 +79,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from .grow import (_LC, BundleMaps, decision_table, mask_depth, new_tables,
-                   put, record_split, scan_rows, tree_from_tables,
-                   unbundle_hist)
+from .grow import (_LC, BundleMaps, decision_table, forced_row, mask_depth,
+                   new_tables, put, record_split, scan_rows,
+                   tree_from_tables, unbundle_hist)
 from .partition_kernel import (ALLOC, SC_CNT_A, SC_CNT_B, SC_DST_B, SC_LEN,
                                TILE, Arena, compact_carry,
                                fused_refresh_histogram, partition_segment,
@@ -74,8 +90,9 @@ from .partition_kernel import (ALLOC, SC_CNT_A, SC_CNT_B, SC_DST_B, SC_LEN,
 from .quantize import dequantize_hist
 from .split import SplitParams
 from .split_kernel import (_OF, _OG, _OLC, _OLG, _OLH, _ORC, _ORG, _ORH,
-                           NEG_GATE, build_feature_statics, child_vector,
-                           no_split_row, params_vector, split_scan)
+                           NEG, NEG_GATE, build_feature_statics, cegb_statics,
+                           child_vector, no_split_row, params_vector,
+                           split_scan)
 
 
 def _align(x, unit: int):
@@ -111,7 +128,11 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
                         in_bag: Optional[torch.Tensor] = None,
                         score: Optional[torch.Tensor] = None,
                         shrinkage: Optional[float] = None,
-                        pvec: Optional[torch.Tensor] = None):
+                        pvec: Optional[torch.Tensor] = None,
+                        cegb_coupled: Optional[torch.Tensor] = None,
+                        cegb_used: Optional[torch.Tensor] = None,
+                        forced_splits: tuple = (), hist_slots: int = 0,
+                        pool_misses: Optional[torch.Tensor] = None):
     """Grow one leaf-wise tree on the arena's rows.
 
     grad and hess [n] are f32 for an f32 arena; for a quantized arena they
@@ -133,6 +154,13 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
     pvec is the split parameters as K1 takes them
     (split_kernel.params_vector of params); without it the grower builds
     it, a copy from the host that a captured grower must not make.
+
+    cegb_coupled [F] f32 and cegb_used [F] bool (updated in place) charge
+    the coupled CEGB penalties; forced_splits is the static plan of
+    (leaf, inner feature, threshold bin, default left) entries;
+    hist_slots > 0 bounds the histogram cache at max(min(hist_slots, L),
+    4) slots (0: one a leaf); pool_misses (int64 [1], pooled only) gains
+    one for each split whose parent had no slot and was recomputed.
 
     Returns (TreeArrays on the arena's device, out, truncated): out is
     `score` (emit="score"), each row's leaf id in row order (emit=
@@ -162,6 +190,11 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
                          "none")
     L, B = max_leaves, max_bin
     f32, i64 = torch.float32, torch.long
+    K = max(min(hist_slots, L), 4) if hist_slots > 0 else L
+    pooled = K < L
+    if forced_splits and pooled:
+        raise ValueError("forced splits need the dense histogram cache "
+                         "(hist_slots=0): the injection indexes it by leaf")
     W = B if is_categorical is not None else 0
     work0 = pristine_work0(n)
     cap = arena.cap
@@ -231,24 +264,33 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
     if pvec is None:
         pvec = params_vector(params, dev)
 
-    def scan(hists, svec):
+    used = None if cegb_coupled is None else cegb_used.clone()
+
+    def scan(hists, svec, used_now):
         """Split rows [CH, ROW_W] and left-going bins [CH, W] (or None) of
         CH children: group hists [CH, G, B, 3], svec K1's child vector
-        [CH, 8] (g, h, count, min, max)."""
+        [CH, 8] (g, h, count, min, max); used_now the CEGB used vector of
+        their scans."""
         hists = unbundle_hist(hists, svec[:, 0], svec[:, 1], svec[:, 2],
                               bundle, default_bins)
+        CH = len(hists)
         if is_categorical is None:
-            return split_scan(hists, fvec2 if len(hists) == 2 else fvec1,
-                              svec, pvec)[1], None
+            fv = fvec2 if CH == 2 else fvec1
+            if used_now is not None:
+                fv = cegb_statics(fv, cegb_coupled, used_now, CH)
+            return split_scan(hists, fv, svec, pvec)[1], None
+        pen = (None if used_now is None else
+               torch.where(used_now, torch.zeros((), device=dev),
+                           cegb_coupled.to(f32)))
         rows, _, cats = scan_rows(
             hists, svec[:, :2], svec[:, 2].long(), svec[:, 3], svec[:, 4],
             num_bins, default_bins, missing_types, params, monotone,
-            penalty, feature_mask, is_categorical, max_cat_threshold)
+            penalty, feature_mask, is_categorical, max_cat_threshold, pen)
         return rows, cats
 
     root_rows, root_cat = scan(root_hist.unsqueeze(0),
                                child_vector(root_g.view(1), root_h.view(1),
-                                            root_cnt_f))
+                                            root_cnt_f), used)
     split_cache = no_split_row(dev).repeat(L, 1)
     split_cache[0] = root_rows[0]
     cat_cache = torch.zeros((L, W), dtype=torch.bool, device=dev)
@@ -261,9 +303,17 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
     leaf_seg = torch.zeros((L, 2), dtype=torch.int32, device=dev)
     leaf_seg[0, 0].fill_(root_s0)
     leaf_seg[0, 1] = root_cnt[0]
-    hist_cache = torch.zeros((L,) + tuple(root_hist.shape), dtype=f32,
+    hist_cache = torch.zeros((K,) + tuple(root_hist.shape), dtype=f32,
                              device=dev)
     hist_cache[0] = root_hist
+    if pooled:
+        # slot -> leaf (-1 free) and write recency (grow_partition.py:
+        # 585-590); the root holds slot 0
+        slot_leaf = torch.full((K,), -1, dtype=i64, device=dev)
+        slot_leaf[0].fill_(0)
+        slot_tick = torch.zeros(K, dtype=i64, device=dev)
+        slot_tick[0].fill_(1)
+        tick = torch.full((1,), 2, dtype=i64, device=dev)
 
     nl = torch.ones(1, dtype=i64, device=dev)
     cursor = torch.full((1,), cursor0, dtype=i64, device=dev)
@@ -273,8 +323,14 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
     mono = None if monotone is None else monotone.to(device=dev, dtype=i64)
     zl = torch.zeros((), dtype=i64, device=dev)
     zf = torch.zeros((), dtype=f32, device=dev)
+    # after forced splits the best-first steps may reach L leaves early
+    capped = bool(forced_splits)
 
-    for _ in range(L - 1):
+    def step():
+        """One split of the best leaf (grow_partition.py:620-843); a step
+        that cannot split (no positive gain, no room, no leaf left) runs
+        K3 and K2 over no rows and masks every write back."""
+        nonlocal nl, cursor, truncated, used, tick
         bi = torch.argmax(split_cache[:, _OG]).view(1)
         row = split_cache.index_select(0, bi)[0]
         gain = row[_OG]
@@ -288,10 +344,25 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
         # bump-allocator overflow: the split does not apply and growth stops
         need = _align(torch.minimum(lc_i, rc_i), ALLOC)
         no_split = gain <= NEG_GATE
+        if capped:
+            no_split = no_split | (nl[0] >= L)
         overflow = (~no_split) & (cursor[0] + need + TILE > cap)
         keep = no_split | overflow
+        nl_w = nl.clamp_max(L - 1) if capped else nl
         dst_a = torch.where(s0 < work0, work0, s0)
         dst_b = cursor[0]
+
+        if pooled:
+            # the parent's slot (HistogramPool::Get), or its histogram
+            # recomputed by K2 from its segment before K3 overwrites it
+            in_slot = slot_leaf == bi
+            found = in_slot.any()
+            pslot = torch.argmax(in_slot.to(torch.int32)).view(1)
+            rseg = torch.stack([s0, torch.where(found | keep, zl, seg[1])]
+                               ).to(torch.int32)
+            recomputed = seg_hist(rseg)
+            if pool_misses is not None:
+                pool_misses.add_((~found & ~keep).long())
 
         # the go-left mask over the column's bin values: threshold and
         # missing direction, bin set, bundle range (ops/grow.decision_table);
@@ -309,12 +380,32 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
         small_hist = seg_hist(sc[SC_DST_B:SC_DST_B + 2])
         cnt_b, cnt_a = sc[SC_CNT_B].long(), sc[SC_CNT_A].long()
 
-        parent_hist = hist_cache.index_select(0, bi)[0]
+        if pooled:
+            parent_hist = torch.where(
+                found, hist_cache.index_select(0, pslot)[0], recomputed)
+        else:
+            parent_hist = hist_cache.index_select(0, bi)[0]
         large_hist = parent_hist - small_hist
         left_hist = torch.where(left_smaller, small_hist, large_hist)
         right_hist = torch.where(left_smaller, large_hist, small_hist)
-        put(hist_cache, bi, left_hist, keep)
-        put(hist_cache, nl, right_hist, keep)
+        if pooled:
+            # both children stored: the left in the parent's slot if it
+            # had one, the right in the least recently written slot
+            # (HistogramPool::Move and LRU)
+            slot_l = torch.where(found, pslot,
+                                 torch.argmin(slot_tick).view(1))
+            tick_l = slot_tick.index_copy(0, slot_l, tick)
+            slot_r = torch.argmin(tick_l).view(1)
+            put(hist_cache, slot_l, left_hist, keep)
+            put(hist_cache, slot_r, right_hist, keep)
+            put(slot_leaf, slot_l, bi[0], keep)
+            put(slot_leaf, slot_r, nl_w[0], keep)
+            slot_tick.copy_(torch.where(
+                keep, slot_tick, tick_l.index_copy(0, slot_r, tick + 1)))
+            tick = torch.where(keep, tick, tick + 2)
+        else:
+            put(hist_cache, bi, left_hist, keep)
+            put(hist_cache, nl_w, right_hist, keep)
 
         start_l = torch.where(left_smaller, dst_b, dst_a)
         start_r = torch.where(left_smaller, dst_a, dst_b)
@@ -322,32 +413,74 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
         local_r = torch.where(left_smaller, cnt_a, cnt_b)
         put(leaf_seg, bi, torch.stack([start_l, local_l]).to(torch.int32),
             keep)
-        put(leaf_seg, nl, torch.stack([start_r, local_r]).to(torch.int32),
+        put(leaf_seg, nl_w, torch.stack([start_r, local_r]).to(torch.int32),
             keep)
 
         if W:
-            put(node_cat, nl - 1, cat_row, keep)
+            put(node_cat, nl_w - 1, cat_row, keep)
         depth, min_l, max_l, min_r, max_r = record_split(
-            node_mat, leaf_mat, bi, nl, row, feat,
+            node_mat, leaf_mat, bi, nl_w, row, feat,
             fstat[:, 0].index_select(0, feat)[0], keep, mono, is_cat)
 
         # one scan launch for both children, cross-feature select included
+        used2 = None if used is None else used.index_fill(0, feat, True)
         svec2 = torch.stack([torch.stack([lg, lh, lc_f, min_l, max_l, zf, zf,
                                           zf]),
                              torch.stack([rg, rh, rc_f, min_r, max_r, zf, zf,
                                           zf])])
-        rows2, cats2 = scan(torch.stack([left_hist, right_hist]), svec2)
+        rows2, cats2 = scan(torch.stack([left_hist, right_hist]), svec2,
+                            used2)
         rows2 = mask_depth(rows2, depth, max_depth)
         put(split_cache, bi, rows2[0], keep)
-        put(split_cache, nl, rows2[1], keep)
+        put(split_cache, nl_w, rows2[1], keep)
         if W:
             put(cat_cache, bi, cats2[0], keep)
-            put(cat_cache, nl, cats2[1], keep)
+            put(cat_cache, nl_w, cats2[1], keep)
 
+        if used is not None:
+            used = torch.where(keep, used, used2)
         cursor = torch.where(keep, cursor, dst_b + _align(cnt_b, ALLOC))
         nl = torch.where(keep, nl, nl + 1)
         truncated = truncated | overflow
 
+    if forced_splits:
+        # grow_partition.py:876-915: an entry that cannot apply has every
+        # gain of its injected cache masked, so its step splits nothing;
+        # the cache is restored unless the split applied (it may also stop
+        # on the arena's room), and its subtree is then abandoned
+        leafmap = torch.full((len(forced_splits) + 1,), -1, dtype=i64,
+                             device=dev)
+        leafmap[0].fill_(0)
+        lane = torch.arange(split_cache.shape[1], device=dev)
+        for i, entry in enumerate(forced_splits):
+            if i >= L - 1:
+                break
+            dyn_leaf = leafmap[entry[0]].clone()
+            safe = dyn_leaf.clamp_min(0).view(1)
+            leaf_cnt = leaf_mat[:, _LC].long()
+            frow, _ = forced_row(hist_cache, leaf_cnt, safe, entry, bundle,
+                                 num_bins, default_bins, missing_types,
+                                 params)
+            pre_valid = (dyn_leaf >= 0) & (frow[_OG] > NEG_GATE) & (nl[0] < L)
+            saved = (split_cache.clone(), cat_cache.clone())
+            split_cache.index_copy_(0, safe, frow.view(1, -1))
+            split_cache.copy_(torch.where((lane == _OG) & ~pre_valid, NEG,
+                                          split_cache))
+            if W:
+                cat_cache.index_fill_(0, safe, False)
+            prev = nl[0].clone()
+            step()
+            applied = nl[0] == prev + 1
+            for cache, old in zip((split_cache, cat_cache), saved):
+                cache.copy_(torch.where(applied, cache, old))
+            leafmap[i + 1] = torch.where(applied, prev, -1)
+            leafmap[entry[0]] = torch.where(applied, dyn_leaf, -1)
+
+    for _ in range(L - 1):
+        step()
+
+    if cegb_used is not None and used is not None:
+        cegb_used.copy_(used)
     tree = tree_from_tables(node_mat, leaf_mat, nl, node_cat if W else None)
 
     # per-row outputs from the final segments (K4): the shrunk leaf values

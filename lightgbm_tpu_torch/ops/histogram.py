@@ -25,8 +25,9 @@ def leaf_histogram(bins: torch.Tensor, grad: torch.Tensor,
                    hess: torch.Tensor, leaf_ids: torch.Tensor, leaf,
                    max_bin: int, impl: str = "auto",
                    rows: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[F, max_bin, 3] f32 (sum grad, sum hess, count) of the rows of bins
-    [n, F] uint8 whose leaf id equals `leaf` (an int32 device scalar);
+    """[F, max_bin, 3] (sum grad, sum hess, count), in the payload's type
+    (f32, or f64), of the rows of bins [n, F] (uint8, or int16 holding
+    uint16 bins) whose leaf id equals `leaf` (an int32 device scalar);
     rows: K7's row-list workspace (histogram_kernel.row_list)."""
     if impl not in IMPLS:
         raise ValueError("unknown histogram impl: %s" % impl)

@@ -12,6 +12,12 @@ its epilogue are not ported, only the function: the [F, max_bin, 3]
 
 - f32 mode: bins uint8 [n, F] (the dataset's device bins), grad and hess
   f32 [n], leaf ids int32 [n] (-1: out of the bag); f32 sums;
+- its wider forms, for the label engine's general grower: bins int16
+  holding uint16 bins (io/dataset.device_bins: a column of more than 256
+  bins) with max_bin up to 1024, and grad and hess f64 (summed in f64,
+  `tpu_double_precision`), each alone or both; JAX gives uint16 bins to
+  XLA's scatter (ops/histogram.py:149-155), the port serves every label
+  histogram by K7;
 - int8 mode: int8 g and h codes, uint8 leaf ids (255 is never a leaf);
   exact int32 code sums, as K2's int8 mode returns them (the JAX kernel
   returns the same integers in f32).
@@ -31,6 +37,7 @@ from typing import Optional, Union
 
 import torch
 
+from ..io.dataset import bin_values
 from . import _cuda
 
 # the accumulate pass: at most two blocks an SM with an 85.7 KB
@@ -64,14 +71,19 @@ def _leaf_tensor(leaf: Union[int, torch.Tensor], dev) -> torch.Tensor:
 
 
 def _check(bins, g, h, leaf_ids, max_bin, payload_dtype, id_dtype):
-    if not 1 <= max_bin <= 256:
-        raise ValueError("max_bin must be in [1, 256], got %d" % max_bin)
     if bins.dim() != 2:
         raise ValueError("bins: shape %s, expected (n, F)"
                          % (tuple(bins.shape),))
     n = bins.shape[0]
     dev = bins.device
-    _cuda.require(bins, "bins", torch.uint8, dev)
+    if bins.dtype == torch.int16 and id_dtype == torch.int32:
+        top = 1024          # uint16 bins: K1's bound on B
+    else:
+        _cuda.require(bins, "bins", torch.uint8, dev)
+        top = 256
+    if not 1 <= max_bin <= top:
+        raise ValueError("max_bin must be in [1, %d], got %d"
+                         % (top, max_bin))
     for t, name in ((g, "grad"), (h, "hess")):
         _cuda.require(t, name, payload_dtype, dev, (n,))
     _cuda.require(leaf_ids, "leaf_ids", id_dtype, dev, (n,))
@@ -81,7 +93,7 @@ def _rows_histogram_plain(bins, g, h, rows, max_bin, acc_dtype):
     """[F, max_bin, 3] sums over the given rows, one index_add_ per
     feature, accumulated in acc_dtype."""
     n, F = bins.shape
-    b = bins.index_select(0, rows).long()
+    b = bin_values(bins.index_select(0, rows))
     vals = torch.stack([g.index_select(0, rows).to(acc_dtype),
                         h.index_select(0, rows).to(acc_dtype),
                         torch.ones(rows.shape[0], dtype=acc_dtype,
@@ -93,7 +105,12 @@ def _rows_histogram_plain(bins, g, h, rows, max_bin, acc_dtype):
 
 
 def _launch(name, bins, g, h, leaf_ids, leaf, max_bin, out_dtype, rows):
-    """K7's CUDA kernels `name` into a zeroed [F, max_bin, 3] output."""
+    """K7's CUDA kernels `name` into a zeroed [F, max_bin, 3] output; the
+    name takes _u16 for uint16 bins and _f64 for an f64 payload."""
+    if bins.dtype == torch.int16:
+        name += "_u16"
+    if out_dtype == torch.float64:
+        name += "_f64"
     n, F = bins.shape
     rows = _check_rows(rows, n, bins.device)
     out = torch.zeros((F, max_bin, 3), dtype=out_dtype, device=bins.device)
@@ -108,26 +125,30 @@ def _launch(name, bins, g, h, leaf_ids, leaf, max_bin, out_dtype, rows):
 
 def leaf_histogram_plain(bins, grad, hess, leaf_ids, leaf,
                          max_bin: int) -> torch.Tensor:
-    """The f32 histogram accumulated in f64 and rounded once to f32, so the
-    plain version is not itself off by the f32 rounding of a long sum."""
+    """The histogram accumulated in f64, in the payload's type: an f32
+    one rounded once to f32, so the plain version is not itself off by the
+    f32 rounding of a long sum."""
     rows = (leaf_ids == _leaf_tensor(leaf, bins.device)).nonzero()[:, 0]
     return _rows_histogram_plain(bins, grad, hess, rows, max_bin,
-                                 torch.float64).to(torch.float32)
+                                 torch.float64).to(grad.dtype)
 
 
 def leaf_histogram(bins: torch.Tensor, grad: torch.Tensor,
                    hess: torch.Tensor, leaf_ids: torch.Tensor, leaf,
                    max_bin: int, rows: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
-    """[F, max_bin, 3] f32 (sum grad, sum hess, count) of the rows with
-    leaf_ids == leaf; rows: the kernel's workspace (`row_list`)."""
-    _check(bins, grad, hess, leaf_ids, max_bin, torch.float32, torch.int32)
+    """[F, max_bin, 3] (sum grad, sum hess, count) of the rows with
+    leaf_ids == leaf, in the payload's type (f32, or f64); bins uint8, or
+    int16 holding uint16 bins; rows: the kernel's workspace
+    (`row_list`)."""
+    dtype = grad.dtype if grad.dtype == torch.float64 else torch.float32
+    _check(bins, grad, hess, leaf_ids, max_bin, dtype, torch.int32)
     dev = bins.device
     leaf = _leaf_tensor(leaf, dev)
     if not _cuda.plain_or_cuda(dev):
         return leaf_histogram_plain(bins, grad, hess, leaf_ids, leaf, max_bin)
     return _launch("leaf_histogram", bins, grad, hess, leaf_ids, leaf,
-                   max_bin, torch.float32, rows)
+                   max_bin, dtype, rows)
 
 
 def leaf_histogram_quantized_plain(bins, g_code, h_code, leaf_ids, leaf,
@@ -157,10 +178,13 @@ def leaf_histogram_quantized(bins: torch.Tensor, g_code: torch.Tensor,
 
 
 def leaf_histogram_bytes(n: int, m: int, F: int, max_bin: int,
-                         quantized: bool = False) -> int:
+                         quantized: bool = False, bin_bytes: int = 1,
+                         payload_bytes: int = 4) -> int:
     """Bytes K7 must move: all n leaf ids (4 bytes, or 1 in int8 mode), the
-    F bins and the payload (8 bytes of g/h, or 2 of codes) of the leaf's m
-    rows, and the [F, max_bin, 3] histogram written once."""
+    F bins (bin_bytes each) and the payload (two words of payload_bytes,
+    or 2 bytes of codes) of the leaf's m rows, and the [F, max_bin, 3]
+    histogram written once in the payload's width."""
     if quantized:
         return n + m * (F + 2) + 12 * F * max_bin
-    return 4 * n + m * (F + 8) + 12 * F * max_bin
+    return (4 * n + m * (bin_bytes * F + 2 * payload_bytes)
+            + 3 * payload_bytes * F * max_bin)

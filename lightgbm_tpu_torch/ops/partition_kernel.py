@@ -103,8 +103,9 @@ def arena_bytes(num_data: int, num_groups: int, factor: int,
                 max_leaves: int, max_bin: int, quantized: bool = False) -> int:
     """Device bytes the partition engine holds for a dataset: the arena's
     planes and K3's tile status words (`Arena`), the dataset's [n, G] bins
-    and the dense per-leaf histogram cache: the port's counterpart of the
-    three terms of lightgbm_tpu/models/gbdt.py:1304-1306."""
+    and the histogram cache of max_leaves slots (one a leaf, or the pooled
+    cache's slots): the port's counterpart of the three terms of
+    lightgbm_tpu/models/gbdt.py:1304-1306."""
     G, cap = arena_geometry(num_data, num_groups, factor)
     row = G + 2 * (1 if quantized else 4) + 4       # bins, payload, row id
     hist_cache = max_leaves * G * max(max_bin, 2) * 3 * 4

@@ -14,14 +14,15 @@ CUDA tensor launches the kernel or raises.
   ops/predict.predict_ensemble_plain and, for the small batch,
   tree_values_plain with ordered_sum_plain.
 - `walk_binned` (KP2): one device tree (ops/grow.TreeArrays) over the
-  uint8 bins [n, G] (a column a feature, or EFB group columns decoded
-  through ops/grow.BundleMaps), its categorical nodes by their bin sets,
-  writing each row's leaf or adding a leaf value to the row's f32 score
-  (all rows, or the rows whose leaf id is -1, the others adding the value
-  of their leaf id); plain version
-  ops/grow.predict_leaf_inner and the same adds.  Counted as
+  bins [n, G] (uint8, or int16 holding uint16 bins; a column a feature,
+  or EFB group columns decoded through ops/grow.BundleMaps), its
+  categorical nodes by their bin sets, writing each row's leaf or adding
+  a leaf value to the row's f32 or f64 score (all rows, or the rows whose
+  leaf id is -1, the others adding the value of their leaf id); plain
+  version ops/grow.predict_leaf_inner and the same adds.  Counted as
   `walk_binned` (leaf mode), `walk_binned_add` and
-  `walk_binned_masked_add`.
+  `walk_binned_masked_add`, with `_u16` for uint16 bins and `_f64` for an
+  f64 score.
 """
 from __future__ import annotations
 
@@ -148,18 +149,24 @@ def walk_binned_plain(bins: torch.Tensor, tree: TreeArrays,
     return None
 
 
+def cat_set_bytes(W: int) -> int:
+    """Bytes of a node's bin set over W bins: 32 (256 bins) up to 256
+    bins, ceil(W / 8) past them."""
+    return max(32, -(-W // 8))
+
+
 def cat_bit_sets(cat_mask: torch.Tensor) -> torch.Tensor:
-    """uint8 [N, 32]: each node's left-going bins [N, W] (W <= 256) as a
-    256-bit set, bit b in byte b // 8 at b % 8, bins past W clear; built
-    on the device with no host copy, so it captures into a round graph."""
+    """uint8 [N, S] (S = cat_set_bytes(W)): each node's left-going bins
+    [N, W] as a bit set, bit b in byte b // 8 at b % 8, bins past W
+    clear; built on the device with no host copy, so it captures into a
+    round graph."""
     N, W = cat_mask.shape
-    if W > 256:
-        raise ValueError("a bin set holds 256 bins, the mask has %d" % W)
-    full = torch.nn.functional.pad(cat_mask.to(torch.uint8), (0, 256 - W))
+    S = cat_set_bytes(W)
+    full = torch.nn.functional.pad(cat_mask.to(torch.uint8), (0, 8 * S - W))
     weight = torch.bitwise_left_shift(
         torch.ones(8, dtype=torch.uint8, device=cat_mask.device),
         torch.arange(8, dtype=torch.uint8, device=cat_mask.device))
-    return (full.view(N, 32, 8) * weight).sum(dim=2, dtype=torch.uint8)
+    return (full.view(N, S, 8) * weight).sum(dim=2, dtype=torch.uint8)
 
 
 def walk_binned(bins: torch.Tensor, tree: TreeArrays,
@@ -168,18 +175,21 @@ def walk_binned(bins: torch.Tensor, tree: TreeArrays,
                 score: Optional[torch.Tensor] = None,
                 leaf_ids: Optional[torch.Tensor] = None,
                 bundle: Optional[BundleMaps] = None):
-    """KP2: one tree over bins [n, G] uint8, num_bins and default_bins [F]
-    per feature; with `bundle` the G columns are EFB groups (G = F
-    without).  With no score: returns each row's leaf (int32 [n]).  With
-    lv (f32 [L]) and score (f32 [n]): adds lv[leaf] to every row's score
-    in place (one f32 add), and with leaf_ids (int32 [n]) only the rows
-    whose id is -1 walk, the others adding lv[leaf_ids].  A tree whose
-    cat_mask is wider than 0 walks its categorical nodes by their bin
-    sets (`cat_bit_sets`)."""
+    """KP2: one tree over bins [n, G] (uint8, or int16 holding uint16
+    bins), num_bins and default_bins [F] per feature; with `bundle` the G
+    columns are EFB groups (G = F without).  With no score: returns each
+    row's leaf (int32 [n]).  With lv ([L]) and score ([n]), both f32 or
+    both f64: adds lv[leaf] to every row's score in place (one add in the
+    score's type), and with leaf_ids (int32 [n]) only the rows whose id is
+    -1 walk, the others adding lv[leaf_ids].  A tree whose cat_mask is
+    wider than 0 walks its categorical nodes by their bin sets
+    (`cat_bit_sets`)."""
     dev = bins.device
     n, G = bins.shape
     F = num_bins.shape[0]
-    _cuda.require(bins, "bins", torch.uint8, dev)
+    if bins.dtype != torch.int16:
+        _cuda.require(bins, "bins", torch.uint8, dev)
+    _cuda.require(bins, "bins", bins.dtype, dev)
     N = tree.split_feature.shape[0]
     for name, dtype in (("split_feature", torch.int32),
                         ("threshold_bin", torch.int32),
@@ -209,10 +219,13 @@ def walk_binned(bins: torch.Tensor, tree: TreeArrays,
         mode = _WALK_LEAF
         out = torch.empty(n, dtype=torch.int32, device=dev)
     else:
-        _cuda.require(score, "score", torch.float32, dev, (n,))
+        if score.dtype not in (torch.float32, torch.float64):
+            raise TypeError("score: dtype %s, expected float32 or float64"
+                            % score.dtype)
+        _cuda.require(score, "score", score.dtype, dev, (n,))
         if lv is None:
             raise ValueError("a score update needs lv")
-        _cuda.require(lv, "lv", torch.float32, dev)
+        _cuda.require(lv, "lv", score.dtype, dev)
         if leaf_ids is not None:
             _cuda.require(leaf_ids, "leaf_ids", torch.int32, dev, (n,))
         mode = _WALK_ADD if leaf_ids is None else _WALK_MASKED_ADD
@@ -227,17 +240,21 @@ def walk_binned(bins: torch.Tensor, tree: TreeArrays,
     def ptr(t):
         return 0 if t is None else t.data_ptr()
     bits = cat_bit_sets(tree.cat_mask) if has_cat else None
+    wide = score is not None and score.dtype == torch.float64
     rc = _cuda.fn("lgbt_walk_binned")(
         tree.split_feature.data_ptr(), tree.threshold_bin.data_ptr(),
         tree.default_left.data_ptr(), tree.missing_type.data_ptr(),
         tree.left_child.data_ptr(), tree.right_child.data_ptr(),
         nl.data_ptr(), N, ptr(tree.is_cat if has_cat else None), ptr(bits),
+        0 if bits is None else bits.shape[1],
         *(ptr(None if bundle is None else getattr(bundle, name))
           for name in ("feat_col", "feat_lo", "feat_hi", "feat_shift")),
-        bins.data_ptr(), n, G, num_bins.data_ptr(), default_bins.data_ptr(),
-        mode, ptr(lv), ptr(leaf_ids), ptr(out), ptr(score),
-        _cuda.stream(dev))
+        bins.data_ptr(), bins.element_size(), n, G, num_bins.data_ptr(),
+        default_bins.data_ptr(), mode, ptr(lv), ptr(leaf_ids), ptr(out),
+        ptr(score), 8 if wide else 4, _cuda.stream(dev))
     _cuda.check(rc, ("walk_binned", "walk_binned_masked_add",
-                     "walk_binned_add")[mode])
+                     "walk_binned_add")[mode]
+                + ("_u16" if bins.dtype == torch.int16 else "")
+                + ("_f64" if wide else ""))
     return out
 

@@ -538,3 +538,58 @@ def best_split_categorical_per_feature(hist: torch.Tensor, sum_gradient,
         right_count=rc, right_output=ro,
         cat_mask=res["mask"] & (feat_gain > K_MIN_SCORE)[..., None])
     return PerFeatureSplit(*[v.reshape(lead + v.shape[1:]) for v in out])
+
+
+def forced_split_result(hist: torch.Tensor, feat: int, thr_bin: int,
+                        sum_gradient, sum_hessian, num_data,
+                        num_bins: torch.Tensor, default_bins: torch.Tensor,
+                        missing_types: torch.Tensor, params: SplitParams,
+                        default_left: bool) -> SplitResult:
+    """The numerical split (feat, thr_bin) of one leaf, as a SplitResult of
+    0-d tensors (FeatureHistogram::GatherInfoForThreshold,
+    feature_histogram.hpp:273-411; lightgbm_tpu/ops/split.py:601
+    `forced_split_result`): hist [F, B, 3] per-feature, the leaf's sums
+    and its count.  The gain is +inf where both children hold rows (a
+    forced split applies whatever its gain) and K_MIN_SCORE otherwise,
+    the feature -1 then.  Plain tensor code, with no host read."""
+    dev, dtype = hist.device, hist.dtype
+    B = hist.shape[1]
+    l1, l2 = params.lambda_l1, params.lambda_l2
+    mds = params.max_delta_step
+    sum_gradient = torch.as_tensor(sum_gradient, device=dev).to(dtype)
+    sum_hessian = (torch.as_tensor(sum_hessian, device=dev).to(dtype)
+                   + 2 * K_EPSILON)
+    num_data = torch.as_tensor(num_data, device=dev).long()
+    h_f = hist[feat]                                           # [B, 3]
+    bins = torch.arange(B, device=dev)
+    nb = num_bins[feat].long()
+    in_range = bins < nb
+    mt = missing_types[feat].long()
+    excl = ((((mt == MISSING_ZERO) & (bins == default_bins[feat].long()))
+             | ((mt == MISSING_NAN) & (bins == nb - 1)))
+            & in_range & (nb > 2))
+    take_left = in_range & ~excl & (bins <= thr_bin)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+
+    def total(mask, lane):
+        return torch.where(mask, h_f[:, lane], zero).sum()
+
+    lg, lh, lc = (total(take_left, i) for i in range(3))
+    if default_left:
+        lg, lh, lc = (v + total(excl, i) for i, v in enumerate((lg, lh, lc)))
+    lc_i = torch.round(lc).long()
+    rg = sum_gradient - lg
+    rh = sum_hessian - lh
+    rc = num_data - lc_i
+    lo = calculate_splitted_leaf_output(lg, lh, l1, l2, mds)
+    ro = calculate_splitted_leaf_output(rg, rh, l1, l2, mds)
+    valid = (lc_i > 0) & (rc > 0)
+    return SplitResult(
+        feature=torch.where(valid, feat, -1),
+        threshold=torch.full((), thr_bin, dtype=torch.long, device=dev),
+        gain=torch.where(valid, torch.inf, K_MIN_SCORE).to(dtype),
+        default_left=torch.full((), bool(default_left), device=dev),
+        left_sum_gradient=lg, left_sum_hessian=lh - K_EPSILON,
+        left_count=lc_i, left_output=lo,
+        right_sum_gradient=rg, right_sum_hessian=rh - K_EPSILON,
+        right_count=rc, right_output=ro)

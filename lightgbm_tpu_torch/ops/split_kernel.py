@@ -64,6 +64,18 @@ def build_feature_statics(num_bins, default_bins, missing_types,
     return one.repeat(children, 1).contiguous()
 
 
+def cegb_statics(fvec: torch.Tensor, coupled: torch.Tensor,
+                 used: torch.Tensor, children: int) -> torch.Tensor:
+    """fvec [CH*F, 8] with its CEGB column set to the coupled penalty of
+    each feature not yet used (coupled [F], used [F] bool), as the JAX
+    growers patch it before each scan (grow_partition.py:362-367): built
+    on the device, so a round graph captures it."""
+    pen = torch.where(used, torch.zeros((), device=fvec.device),
+                      coupled.to(fvec.dtype)).to(fvec.dtype)
+    return torch.cat([fvec[:, :_CEGBF], pen.repeat(children)[:, None],
+                      fvec[:, _CEGBF + 1:]], dim=1)
+
+
 def params_vector(params: SplitParams, device) -> torch.Tensor:
     """pvec [8] f32 (split_pallas._pack_inputs)."""
     return torch.tensor(
@@ -304,9 +316,10 @@ def scan_bytes_and_ops(CH: int, F: int, B: int) -> tuple:
     return nbytes, CH * F * B * 70
 
 
-def no_split_row(device) -> torch.Tensor:
-    """The split-cache row of a leaf with no valid split."""
-    row = torch.zeros(ROW_W, dtype=torch.float32, device=device)
+def no_split_row(device, dtype=torch.float32) -> torch.Tensor:
+    """The split-cache row of a leaf with no valid split (f32, or f64 on
+    the label engine's f64 path)."""
+    row = torch.zeros(ROW_W, dtype=dtype, device=device)
     row[_OG].fill_(NEG)         # fills on the device, no host copy
     row[_OF].fill_(-1.0)
     return row

@@ -26,6 +26,15 @@ Tolerances, per kernel:
 - the binned tree walk, KP2 walk_binned: equal leaves on the card and
   the CPU, and in its add and masked-add modes equal f32 scores (bit for
   bit); a one-leaf tree puts every row in leaf 0;
+- K7's wider forms (uint16 bins at B 292 and 1023, an f64 payload, both):
+  counts equal, sums within 1e-5 (f32) or 1e-12 (f64) of each bin's sum
+  of |values|; KP2 over uint16 bins and bin sets wider than 256 bits,
+  f32 and f64 scores: bit for bit;
+- the general grower (CEGB on both engines, forced splits on both,
+  pooled quantized, f64 on the label engine, uint16 categorical bins):
+  three 31-leaf rounds at 20k rows on the card and the CPU from the
+  CPU's gradients rounded to 1/64, the same trees (split features,
+  thresholds, every row's leaf; leaf values rtol 1e-5);
 - KP1 predict_ensemble, every mode of its row tiles and of its
   small-batch walk against its plain version on the card, bit for bit,
   on f64 rows and on f32 rows: the fixture models ref50 (binary), cat50
@@ -2387,3 +2396,223 @@ def test_dart_device_prediction_follows_dropped_trees(dev):
     assert dropped >= 3
     np.testing.assert_allclose(g.score[:5000].cpu().numpy(), raw, rtol=0,
                                atol=1e-5)
+
+
+# --------------------------------------------------------------------------- #
+# the general grower: K7 and KP2 widened, CEGB, forced splits, pooling, f64,
+# uint16 bins
+# --------------------------------------------------------------------------- #
+WIDE_FORMS = {"u16": (True, np.float32, 292), "u16_1023": (True, np.float32,
+                                                          1023),
+              "f64": (False, np.float64, 255), "u16_f64": (True, np.float64,
+                                                           292)}
+
+
+@pytest.mark.parametrize("form", sorted(WIDE_FORMS))
+def test_leaf_histogram_wide_forms_match_plain(form, dev):
+    """K7 on uint16 bins (B 292 and 1023) and with an f64 payload, at the
+    root and on one leaf of eight: counts equal, sums within 1e-5 of each
+    bin's sum of |values| in f32 and 1e-12 in f64 (shared atomics add in
+    a varying order; the plain version sums in f64)."""
+    from lightgbm_tpu_torch.ops import histogram_kernel as hk
+    wide, dtype, B = WIDE_FORMS[form]
+    rng = np.random.RandomState(B)
+    n, F = 300_000, 8
+    b = rng.randint(0, B, (n, F))
+    bins = torch.from_numpy(b.astype(np.uint16).view(np.int16) if wide
+                            else b.astype(np.uint8)).to(dev)
+    g = torch.from_numpy(rng.randn(n).astype(dtype)).to(dev)
+    h = torch.from_numpy((rng.rand(n) + 0.05).astype(dtype)).to(dev)
+    ids = torch.from_numpy(rng.randint(-1, 7, n).astype(np.int32)).to(dev)
+    name = "leaf_histogram" + ("_u16" if wide else "") + (
+        "_f64" if dtype == np.float64 else "")
+    tol = 1e-12 if dtype == np.float64 else 1e-5
+    for leaf_ids, leaf in ((torch.zeros_like(ids), 0), (ids, 5)):
+        leaf_t = torch.tensor([leaf], dtype=torch.int32, device=dev)
+        _cuda.reset_launch_counts()
+        got = hk.leaf_histogram(bins, g, h, leaf_ids, leaf_t, B)
+        torch.cuda.synchronize()
+        assert dict(_cuda.LAUNCHES) == {name: 1}
+        want = hk.leaf_histogram_plain(bins, g, h, leaf_ids, leaf_t, B)
+        assert got.dtype == want.dtype == getattr(torch, np.dtype(dtype).name)
+        assert torch.equal(got[..., 2], want[..., 2])
+        assert int(want[..., 2].sum()) == F * int((leaf_ids == leaf).sum())
+        scale = hk.leaf_histogram_plain(bins, g.abs(), h, leaf_ids, leaf_t, B)
+        assert bool(((got - want).abs() <= tol * scale).all())
+
+
+@pytest.mark.parametrize("score_dtype", ["f32", "f64"])
+def test_walk_binned_wide_card_vs_cpu(score_dtype, dev):
+    """KP2 over uint16 bins and bin sets wider than 256 bits (the airline
+    layout with 300 airports: Origin and Dest have more than 256 bins),
+    two 31-leaf label-engine trees trained on the CPU, walked on the card
+    in every mode against the plain version on the CPU, f32 or f64
+    scores, bit for bit."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.models.gbdt import _tree_to_device
+    n = 120_001
+    X, y = _airline_like(n, 41, airports=300)
+    params = {"objective": "binary", "num_leaves": 31, "verbose": -1,
+              "learning_rate": 0.2, "tpu_tree_engine": "label",
+              "min_data_per_group": 20, "cat_smooth": 5.0}
+    bst = lt.train(params, lt.Dataset(X, y, device="cpu",
+                                      categorical_feature=AIRLINE_CATS), 2,
+                   device="cpu")
+    g = bst._gbdt
+    bins = g.train_set.device_bins("cpu")
+    assert bins.dtype == torch.int16 and g.max_bin > 256
+    dtype = torch.float64 if score_dtype == "f64" else torch.float32
+    sfx = "_u16" + ("_f64" if score_dtype == "f64" else "")
+    rng = np.random.RandomState(6)
+    ids = torch.from_numpy(np.where(rng.rand(n) < 0.7,
+                                    rng.randint(0, 31, n), -1)
+                           .astype(np.int32))
+    cats = 0
+    for tree in g.models:
+        t_cpu = _tree_to_device(tree, "cpu", g.max_bin)
+        t_dev = _tree_to_device(tree, dev, g.max_bin)
+        cats += int(t_cpu.is_cat.sum())
+        want = walk_binned(bins, t_cpu, g.num_bins, g.default_bins)
+        np.testing.assert_array_equal(want.numpy(),
+                                      tree.predict_leaf_index(X))
+        args = (bins.to(dev), t_dev, g.num_bins.to(dev),
+                g.default_bins.to(dev))
+        _cuda.reset_launch_counts()
+        got = walk_binned(*args)
+        assert torch.equal(got.cpu(), want)
+        lv = torch.from_numpy(rng.randn(tree.num_leaves)).to(dtype)
+        score = torch.from_numpy(rng.randn(n)).to(dtype)
+        for leaf_ids in (None, ids.clamp_max(tree.num_leaves - 1)):
+            s_cpu = score.clone()
+            walk_binned(bins, t_cpu, g.num_bins, g.default_bins, lv=lv,
+                        score=s_cpu, leaf_ids=leaf_ids)
+            s_dev = score.to(dev)
+            walk_binned(*args, lv=lv.to(dev), score=s_dev,
+                        leaf_ids=None if leaf_ids is None
+                        else leaf_ids.to(dev))
+            assert torch.equal(s_dev.cpu(), s_cpu)
+        assert dict(_cuda.LAUNCHES) == {"walk_binned_u16": 1,
+                                        "walk_binned_add" + sfx: 1,
+                                        "walk_binned_masked_add" + sfx: 1}
+    assert cats > 0
+
+
+def _card_and_cpu(dev, X, y, params, rounds=3, **ds_kw):
+    """`rounds` rounds of one booster on the card (its rounds eager) and
+    one on the CPU, both from the CPU booster's gradients rounded to
+    multiples of 1/64 (`_dyadic_gradients`): every histogram sum is then
+    exact on both devices, whatever order the card's atomics add in.
+    Returns both boosters, drained, and the card's launch counts."""
+    import lightgbm_tpu_torch as lt
+    a = lt.Booster(params, lt.Dataset(X, y, device=dev, **ds_kw), device=dev)
+    b = lt.Booster(params, lt.Dataset(X, y, device="cpu", **ds_kw),
+                   device="cpu")
+    _dyadic_gradients(b._gbdt)
+    cpu_get = b._gbdt.objective.get_gradients
+    last = []
+
+    def cpu_gradients(score):
+        out = cpu_get(score)
+        last[:] = out
+        return out
+
+    b._gbdt.objective.get_gradients = cpu_gradients
+    a._gbdt.objective.get_gradients = lambda score: tuple(
+        t.to(dev) for t in last)
+    a._gbdt._graphs = _EagerRounds()
+    _cuda.reset_launch_counts()
+    for _ in range(rounds):
+        b.update()
+        a.update()
+    assert a.num_trees() == b.num_trees() == rounds
+    counts = dict(_cuda.LAUNCHES)
+    for s, t in zip(a._gbdt.models, b._gbdt.models):
+        n = s.num_leaves - 1
+        assert s.num_leaves == t.num_leaves > 1
+        np.testing.assert_array_equal(s.split_feature[:n], t.split_feature[:n])
+        np.testing.assert_array_equal(s.threshold_in_bin[:n],
+                                      t.threshold_in_bin[:n])
+        np.testing.assert_array_equal(s.predict_leaf_index(X),
+                                      t.predict_leaf_index(X))
+        np.testing.assert_allclose(s.leaf_value[:n + 1], t.leaf_value[:n + 1],
+                                   rtol=1e-5, atol=1e-9)
+    return a, b, counts
+
+
+GENERAL_CASES = {
+    "cegb_carried": dict(cegb_tradeoff=1.0, cegb_penalty_split=1e-6,
+                         cegb_penalty_feature_coupled=[0.0, 2.0] * 14),
+    "cegb_label": dict(tpu_tree_engine="label", cegb_tradeoff=1.0,
+                       cegb_penalty_feature_coupled=[0.0, 2.0] * 14),
+    "forced_partition": dict(forced=True),
+    "forced_label": dict(forced=True, tpu_tree_engine="label"),
+    "pooled_quantized": dict(tpu_quantized_grad=True,
+                             histogram_pool_size=28 * 63 * 12 * 8
+                             / (1 << 20)),
+    "f64_label": dict(tpu_double_precision=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GENERAL_CASES))
+def test_general_grower_card_vs_cpu(case, dev, tmp_path):
+    """Each option of the general grower, 20k Higgs-like rows, 31 leaves,
+    3 rounds on the card and on the CPU from the same dyadic gradients:
+    the same trees (split features, thresholds, every row's leaf; leaf
+    values rtol 1e-5), and the card's rounds launched the kernels of their
+    path: K1 and K3 on the partition engine (K2 on a pooled recompute),
+    K7 on the label engine (its f64 form with tpu_double_precision)."""
+    import json
+    extra = dict(GENERAL_CASES[case])
+    X, y = _higgs_like(20_000, seed=27)
+    params = {"objective": "binary", "num_leaves": 31, "learning_rate": 0.1,
+              "max_bin": 63, "min_data_in_leaf": 20, "verbose": -1}
+    if extra.pop("forced", False):
+        fs = tmp_path / "forced.json"
+        fs.write_text(json.dumps({"feature": 5, "threshold": 0.0,
+                                  "left": {"feature": 7, "threshold": 0.5},
+                                  "right": {"feature": 9,
+                                            "threshold": -0.5}}))
+        extra["forcedsplits_filename"] = str(fs)
+    params.update(extra)
+    a, b, counts = _card_and_cpu(dev, X, y, params)
+    ga = a._gbdt
+    label = not ga._use_partition_engine
+    assert label is (params.get("tpu_tree_engine") == "label"
+                     or case == "f64_label")
+    if label:
+        k7 = "leaf_histogram" + ("_f64" if case == "f64_label" else "")
+        assert counts.get(k7, 0) > 0, counts
+    else:
+        assert counts.get("partition_segment", 0) + counts.get(
+            "partition_segment_i8", 0) > 0, counts
+    if case.startswith("cegb"):
+        np.testing.assert_array_equal(ga._cegb_used.cpu().numpy(),
+                                      b._gbdt._cegb_used.numpy())
+    if case.startswith("forced"):
+        for t in ga.models:
+            assert t.split_feature[0] == 5
+            assert t.split_feature[t.left_child[0]] == 7
+            assert t.split_feature[t.right_child[0]] == 9
+    if case == "pooled_quantized":
+        assert 4 <= ga._hist_slots < 31 and ga._quantized
+        assert counts["segment_histogram_i8"] > 3 * 30, counts
+    if case == "f64_label":
+        assert ga.score.dtype == torch.float64
+        want = b._gbdt.score.numpy()
+        np.testing.assert_allclose(ga.score.cpu().numpy(), want, rtol=0,
+                                   atol=1e-12 * float(np.abs(want).max()))
+
+
+def test_uint16_label_engine_card_vs_cpu(dev):
+    """The airline layout with 300 airports (uint16 bins, bin sets wider
+    than 256) on the label engine, card against CPU from the same dyadic
+    gradients: the same trees; K7's uint16 form launched."""
+    X, y = _airline_like(20_000, 43, airports=300)
+    params = {"objective": "binary", "num_leaves": 31, "learning_rate": 0.2,
+              "verbose": -1, "tpu_tree_engine": "label",
+              "min_data_per_group": 20, "cat_smooth": 5.0}
+    a, b, counts = _card_and_cpu(dev, X, y, params,
+                                 categorical_feature=AIRLINE_CATS)
+    assert a._gbdt.train_set.device_bins(dev).dtype == torch.int16
+    assert counts.get("leaf_histogram_u16", 0) > 0, counts
+    assert sum(t.num_cat for t in a._gbdt.models) > 0

@@ -7,8 +7,10 @@
 - entry points with no device and no CUDA raise, with no CPU fallback;
 - every configuration this slice does not run raises NotImplementedError
   naming the ROADMAP.md item that brings it, those that raised until they
-  were ported (categorical features, EFB bundles) train as JAX trains
-  them, and quantized training, bagging and the label engine engage;
+  were ported (categorical features, EFB bundles, the boosting modes, and
+  the general grower's f64, uint16 bins, forced splits and histogram
+  pooling) train as JAX trains them, and quantized training, bagging and
+  the label engine engage;
 - `Dataset.set_weight` moves training between the carried and pristine
   arenas as weights demand, and a validation set keeps it off the carried
   arena.
@@ -122,15 +124,10 @@ _schedule.before_iteration = True
 
 # name -> (params, Dataset keywords, train keywords)
 UNSUPPORTED = {
-    "double_precision": ({"tpu_double_precision": True}, {}),
-    # 600 distinct values a feature and min_data_in_bin=1: 511 bins
-    "wide_bins": ({"max_bin": 511, "min_data_in_bin": 1}, {}),
     "learning_rates": ({}, {}, {"learning_rates": [0.1]}),
     "reset_parameter_callback": ({}, {}, {"callbacks": [_schedule]}),
     "fobj": ({}, {}, {"fobj": lambda preds, data: (preds, preds)}),
     "init_model": ({}, {}, {"init_model": "model.txt"}),
-    "forced_splits": ({"forcedsplits_filename": "forced.json"}, {}),
-    "histogram_pool": ({"histogram_pool_size": 64.0}, {}),
     # with one machine and one device the config turns a parallel learner
     # into the serial one, as the reference does (config.cpp:230-260)
     "data_parallel": ({"tree_learner": "data", "num_machines": 2}, {}),
@@ -147,6 +144,13 @@ PORTED = {
     "rf": ({"boosting": "rf", "bagging_fraction": 0.8, "bagging_freq": 1},
            {}),
     "dart": ({"boosting": "dart"}, {}),
+    "double_precision": ({"tpu_double_precision": True}, {}),
+    # 600 distinct values a feature and min_data_in_bin=1: 511 bins, uint16
+    "wide_bins": ({"max_bin": 511, "min_data_in_bin": 1}, {}),
+    # a plan file of one split, written to the test's directory
+    "forced_splits": ({"forcedsplits_filename": "forced.json"}, {}),
+    # the label engine keeps one histogram a leaf, as JAX's does
+    "histogram_pool": ({"histogram_pool_size": 64.0}, {}),
 }
 
 
@@ -163,21 +167,25 @@ def _sparse_data(seed=1, n=600, F=6, flip=0.0):
     return X, y
 
 
-ROADMAP_ITEMS = {"double_precision": "f64 on the label engine",
-                 "wide_bins": "uint16 bins and max_bin > 256"}
+ROADMAP_ITEMS = {}
 
 
 @pytest.mark.parametrize("name", sorted(set(UNSUPPORTED) | set(PORTED)))
-def test_unsupported_config_raises(name):
+def test_unsupported_config_raises(name, tmp_path):
     """A configuration of UNSUPPORTED raises NotImplementedError naming its
     ROADMAP.md item; one of PORTED trains 2 rounds as the JAX package's
     label engine trains it: the same model text (names and integers
     equal, reals within rtol 1e-4)."""
     if name in PORTED:
+        import json
         import lightgbm_tpu as jlgb
         from test_torch_inflight import assert_texts_match
         extra, ds_kw = PORTED[name]
         ds_kw = dict(ds_kw)
+        if "forcedsplits_filename" in extra:
+            plan = tmp_path / extra["forcedsplits_filename"]
+            plan.write_text(json.dumps({"feature": 1, "threshold": 0.0}))
+            extra = dict(extra, forcedsplits_filename=str(plan))
         # labels with noise, so no split after the first ones rests on
         # gains of rounding noise
         X, y = (_sparse_data(flip=0.15) if ds_kw.pop("sparse", False)
