@@ -104,7 +104,7 @@
    plain version); each through train_and_check with its kernels
    launched and no other, KP1's holdout sums bit for bit the host walk's;
 7. prediction phase: the f32 carried configuration trained for
-   --predict-rounds rounds (100: the reference's Higgs experiment takes
+   --predict-rounds rounds (50: the reference's Higgs experiment takes
    500, cut to keep the whole smoke within its time) at the
    full row count, each drain timed; KP1 on the model over the holdout
    and 1M training rows, as f32 rows (as the data comes) and as f64 rows,
@@ -148,6 +148,21 @@
    than one leaf, a graph replay every round after the first, the fused
    runs' fetches deferred and L1's one a round, the training metric of
    the first 1..5 trees falling, KP1's sums bit for bit the host walk's;
+9b. api phase (api_phase), the public training and model API on the
+   Higgs data and holdout: a numpy binary-logloss fobj (objective=none)
+   f32 with an AUC feval on the holdout, quantized, and on the label
+   engine, each first tree putting 99% of the training rows in its
+   built-in run's leaves, AUC within 0.002 of it, the feval within 1e-6
+   of the built-in
+   auc; a learning-rate schedule deferred on the carried arena, quantized
+   (no graph beyond the unscheduled run's, its first tree that run's bit
+   for bit), and eager with the holdout, every tree shrunk by its round's
+   rate, each model predicting its training score;
+   continued training from a 5-round model on 1M rows against a 10-round
+   run, and rollback_one_iter; refit on the holdout against the CPU's;
+   save_model, model_file and model_from_string, importance against a
+   recount from the text; cv (3 folds, 3 rounds) over the 10.5M rows;
+   LGBMClassifier on 1M rows against train, bit for bit;
 10. multiclass phase (the UCI Covertype dataset's shape: 581,012 rows x 54
    dense f32 features from a generator with Covertype's 7 class counts,
    a 58,101-row holdout; PARAMS with objective=multiclass, num_class=7):
@@ -1135,7 +1150,9 @@ def k4_phase(ak, layouts, gen, results, entry):
                              for i, (_s, c) in enumerate(lay)])
         score = torch.randn(n, generator=gen, device=dev)
         for mode in ("set", "add"):
-            sh = shrink if mode == "add" else None
+            # the add mode's shrinkage a device scalar, as the fused
+            # rounds give it
+            sh = s_t if mode == "add" else None
             out_k = score.clone()
             out_p = score.clone()
             pk.scatter_segments(ak, seg, vals, nl, out_k, shrink=sh)
@@ -1859,6 +1876,25 @@ def profile_round(booster, what: str, rows: int = None,
     return out
 
 
+# the runs of the multiclass phase (its EFB runs included) and the
+# categorical phase whose round is profiled: softmax f32, and the
+# 300-airport label run (the only round-level reading of K7 on uint16
+# bins).  The others' profiles (PERF.md section 5 keeps their last
+# readings) were cut to keep the smoke within its time when the public
+# API's phase came in: a k-class round's trace holds some 250-310k
+# device events, whose reading takes the host 8-15 s
+PROFILED = ("multiclass_f32", "cat_label_wide_f32")
+
+
+def profile_kept(booster, name: str) -> dict:
+    """profile_round for a run of PROFILED; for another run a record that
+    says it was not profiled."""
+    if name in PROFILED:
+        return profile_round(booster, name)
+    print("profile of one %s round: not measured (PROFILED)" % name)
+    return {"not_measured": "cut for the smoke's time (PROFILED)"}
+
+
 def ops_over_rows(prof, rows: int) -> dict:
     """The innermost aten operations of a host profile with an input of
     `rows` elements, views and no-op conversions left out, by name."""
@@ -1878,8 +1914,9 @@ def ops_over_rows(prof, rows: int) -> dict:
 
 # the reference's Higgs experiment trains 500 rounds; cut to 250 to keep
 # the whole smoke within its time when the boosting-modes phase came in,
-# to 100 when the general grower's phase came in
-PREDICT_ROUNDS = 100
+# to 100 when the general grower's phase came in, to 50 when the public
+# API's phase came in
+PREDICT_ROUNDS = 50
 TRAIN_ROWS_PREDICTED = 1_000_000
 # processes that share the host walks of the prediction phase's checks: a
 # host walk of the 100k holdout rows through 500 trees takes ~45 s in
@@ -2344,9 +2381,13 @@ def kp2_phase(booster, dev, results):
 RANK_QUERIES = 18_900
 RANK_DOCS = 120
 RANK_FEATURES = 137
+# bins found from 50,000 sampled rows, not the default 200,000: the host's
+# greedy bin walk over 137 features of near-distinct values took 98.8 s of
+# the lambdarank phase (its `steps, s:` binning, on the NVIDIA H100 80GB
+# HBM3 machine, 700.00 W), and its time goes with the sample
 RANK_PARAMS = {"objective": "lambdarank", "metric": "ndcg", "num_leaves": 63,
                "learning_rate": 0.1, "min_data_in_leaf": 20, "max_bin": 255,
-               "verbose": -1}
+               "bin_construct_sample_cnt": 50_000, "verbose": -1}
 # 1,000 more queries of the generator (seed 12, relevance by the training
 # draw's utility weights) as the validation set
 RANK_VALID_QUERIES = 1_000
@@ -3227,7 +3268,7 @@ def multiclass_phase(dev, rounds: int, results) -> tuple:
             rec["predict"] = multiclass_predict_phase(booster, X, Xh, dev,
                                                       results)
         rec["replay_round_ms"] = replayed_round_ms(booster, REPLAYED_ROUNDS)
-        rec["profile"] = profile_round(booster, name)
+        rec["profile"] = profile_kept(booster, name)
         # the gradients of every class, one call's device time against the
         # replayed round's busy time
         rec["gradient_busy_ms"] = kernel_only_ms(
@@ -3586,7 +3627,7 @@ def categorical_phase(dev, rounds: int, results) -> tuple:
             extra = "; evals_result holdout AUC %s" % evals["holdout"]["auc"]
             rec["kp2"] = kp2_categorical(booster, X, dev, results)
         rec["replay_round_ms"] = replayed_round_ms(booster, REPLAYED_ROUNDS)
-        rec["profile"] = profile_round(booster, name)
+        rec["profile"] = profile_kept(booster, name)
         rec.update(holdout_auc=holdout_auc, categorical_splits=cats,
                    evals_result=evals or None)
         print("categorical (%s, %s%s): %d rows, %d rounds, leaves %s, %d "
@@ -3699,7 +3740,7 @@ def wide_label_run(dev, rounds: int, results) -> tuple:
     rec["kp2"] = kp2_categorical(booster, X, dev, results,
                                  key="walk_binned_u16")
     rec["replay_round_ms"] = replayed_round_ms(booster, REPLAYED_ROUNDS)
-    rec["profile"] = profile_round(booster, CAT_WIDE_RUN)
+    rec["profile"] = profile_kept(booster, CAT_WIDE_RUN)
     rec.update(holdout_auc=holdout_auc, categorical_splits=cats,
                evals_result=evals)
     print("categorical (%s, label engine, %d airports, uint16 bins): %d "
@@ -3822,7 +3863,7 @@ def efb_runs(dev, rounds: int, results) -> tuple:
                "%s: holdout multi_logloss %.6f, the prior's %.4f"
                % (name, got["multi_logloss"], COVTYPE_PRIOR_LOGLOSS))
         rec["replay_round_ms"] = replayed_round_ms(booster, REPLAYED_ROUNDS)
-        rec["profile"] = profile_round(booster, name)
+        rec["profile"] = profile_kept(booster, name)
         rec.update(holdout=got, groups=b.num_groups)
         print("EFB (%s, %s engine): %d rows, %d groups, %d rounds of %d "
               "trees, leaves %s; train %.3f s (%.1f ms a round, set-up "
@@ -4253,6 +4294,524 @@ def kp2_f64(booster, dev, results) -> dict:
     return r
 
 
+# the public API phase (api_phase): the learning-rate schedule of its
+# deferred and eager runs, the rows of its continuation, cv's folds and
+# rounds, the scikit-learn wrapper's rows, refit's decay.  TIE_RTOL: a
+# first tree grown from f32 histograms must be the built-in run's split
+# for split in growth order up to a split whose two gains are within
+# TIE_RTOL of each other (a near-tie), and the same tree where there is
+# none.  Two f32 runs of one configuration on the card sum their
+# histograms in a varying order: the gains of one split differ by up to
+# 8.7e-5 of their value between them, and where two candidates' gains are
+# that close the runs part (tools/first_tree_ties.py on an NVIDIA H100
+# 80GB HBM3 at 700.00 W, 1-round runs: the first difference at split 20,
+# two leaves of equal gains, or 3.5e-7 apart, split in the other order;
+# 2.5% of the rows then lie in leaves the trees do not share).  A
+# quantized first tree sums integer histograms and must part the rows as
+# the built-in one does
+TIE_RTOL = 1e-3
+# the most the continuation's two stages' raw holdout predictions summed
+# may differ from the 10-round run's: the continued trees' f32 histograms
+# add in another order (measured on an NVIDIA H100 80GB HBM3 at 700.00 W:
+# 1.14e-5 and 1.51e-5), and a split parted at a near-tie would move a
+# leaf's rows by far more
+CONT_MAX_DIFF = 1e-3
+API_RATES = [0.1, 0.1, 0.05, 0.05, 0.05]
+API_ROWS = 1_000_000
+# the rows the scikit-learn check's two bin findings sample (the host's
+# greedy bin walk is the smoke's slowest step; both runs take the value)
+SK_BIN_SAMPLE = 20_000
+CV_FOLDS, CV_ROUNDS = 3, 3
+REFIT_DECAY = 0.9
+# the built-in run of the training phase each custom-objective run is held
+# against (the same engine, arena root and quantization key), its params
+# and its kernels' path
+FOBJ_RUNS = {"fobj_f32": ("valid_f32", dict(metric="auc"), "valid_f32"),
+             "fobj_quantized": ("valid_quantized",
+                                dict(tpu_quantized_grad=True),
+                                "weighted_quantized"),
+             "fobj_label_f32": ("label_f32",
+                                dict(tpu_tree_engine="label",
+                                     tpu_histogram_impl="pallas"),
+                                "label_f32")}
+
+
+def logloss_fobj(preds, ds):
+    """Binary logloss of the raw scores in numpy, in f32 as the port's
+    built-in objective computes it (objective.py BinaryLogloss)."""
+    s = np.asarray(preds, np.float32)
+    sl = np.where(ds.get_label() > 0, np.float32(1), np.float32(-1))
+    resp = -sl / (np.float32(1) + np.exp(sl * s))
+    a = np.abs(resp)
+    return resp, a * (np.float32(1) - a)
+
+
+def auc_feval(preds, ds):
+    from lightgbm_tpu_torch.metric import auc
+    return ("feval_auc", auc(ds.get_label(), preds), True)
+
+
+def train_leaves(booster, tree, dev):
+    """Each training row's leaf in a host tree, by KP2's leaf mode over the
+    booster's device bins."""
+    from lightgbm_tpu_torch.models.gbdt import _tree_to_device
+    from lightgbm_tpu_torch.ops.predict_kernel import walk_binned
+    g = booster._gbdt
+    return walk_binned(g.train_set.device_bins(dev),
+                       _tree_to_device(tree, dev, g.max_bin), g.num_bins,
+                       g.default_bins, bundle=g.bundle)
+
+
+def partition_share(booster, a, b, dev) -> float:
+    """The share of the booster's training rows that lie in a leaf of
+    tree a holding the same rows as a leaf of tree b (1.0: the two trees
+    part the rows alike, whatever the numbering of their leaves)."""
+    import torch
+    la = train_leaves(booster, a, dev).long()
+    lb = train_leaves(booster, b, dev).long()
+    width = int(lb.max()) + 1
+    pairs, counts = torch.unique(la * width + lb, return_counts=True)
+    pa, pb = pairs // width, pairs % width
+    # a leaf of a in one (a, b) pair only, and that leaf of b too
+    alone = (torch.bincount(pa)[pa] == 1) & (torch.bincount(pb)[pb] == 1)
+    return float(counts[alone].sum()) / la.numel()
+
+
+def hold_first_tree(name, booster, tree, want, quantized, dev) -> dict:
+    """A first tree against the built-in run's: quantized, the same
+    partition of the training rows; f32, the same splits in growth order
+    up to a near-tie (TIE_RTOL).  Returns the comparison's record."""
+    share = partition_share(booster, tree, want, dev)
+    div = first_divergence(want, tree)
+    if quantized:
+        expect(share == 1.0, "%s: the first tree parts the training rows "
+               "unlike the built-in run's (%.6f of them in shared leaves)"
+               % (name, share))
+    else:
+        expect(div["rdiff"] <= TIE_RTOL, "%s: the first tree differs from "
+               "the built-in run's at split %s, gains %s there and %s in "
+               "the built-in tree (%.3g apart, at most %g)"
+               % (name, div["at"], div["gain_b"], div["gain_a"],
+                  div["rdiff"], TIE_RTOL))
+    return dict(first_tree_shared_leaves_share=share,
+                first_divergence=div["at"], divergence_rdiff=div["rdiff"],
+                prefix_gain_rdiff=div["prefix_rdiff"])
+
+
+def said_first_tree(c: dict) -> str:
+    return ("the first tree %s; %.6f of the training rows in leaves it "
+            "shares with the built-in run's; its equal splits' gains "
+            "within %.3g" % (
+                "the built-in run's split for split"
+                if c["first_divergence"] is None else
+                "parts from the built-in run's at split %d (a near-tie, "
+                "gains %.3g apart)" % (c["first_divergence"],
+                                       c["divergence_rdiff"]),
+                c["first_tree_shared_leaves_share"],
+                c["prefix_gain_rdiff"]))
+
+
+def split_parents(tree) -> dict:
+    """Each internal node's (parent node, side): the leaf a split took,
+    since a split's node is numbered in growth order and takes the slot of
+    the leaf it split."""
+    out = {0: (-1, -1)}
+    for j in range(tree.num_leaves - 1):
+        for side, c in ((0, tree.left_child[j]), (1, tree.right_child[j])):
+            if c >= 0:
+                out[int(c)] = (j, side)
+    return out
+
+
+def first_divergence(a, b) -> dict:
+    """Trees a and b compared split by split in growth order: `at`, the
+    first split that differs (the leaf it took, its feature, bin threshold
+    or decision), None where a and b are the same tree; there, their
+    split gains and the relative difference; `prefix_rdiff`, the largest
+    relative difference of the gains of the equal splits before it (what
+    rounding alone moved)."""
+    pa, pb = split_parents(a), split_parents(b)
+    na, nb = a.num_leaves - 1, b.num_leaves - 1
+
+    def rdiff(i):
+        ga, gb = float(a.split_gain[i]), float(b.split_gain[i])
+        return abs(ga - gb) / max(abs(ga), abs(gb), 1e-300)
+    prefix = 0.0
+    for i in range(min(na, nb)):
+        if (pa[i] != pb[i]
+                or a.split_feature_inner[i] != b.split_feature_inner[i]
+                or a.threshold_in_bin[i] != b.threshold_in_bin[i]
+                or a.decision_type[i] != b.decision_type[i]):
+            return dict(at=i, gain_a=float(a.split_gain[i]),
+                        gain_b=float(b.split_gain[i]), rdiff=rdiff(i),
+                        prefix_rdiff=prefix)
+        prefix = max(prefix, rdiff(i))
+    if na != nb:
+        # one tree stopped where the other split on: no gain to compare
+        return dict(at=min(na, nb), gain_a=None, gain_b=None,
+                    rdiff=float("inf"), prefix_rdiff=prefix)
+    return dict(at=None, gain_a=None, gain_b=None, rdiff=0.0,
+                prefix_rdiff=prefix)
+
+
+def text_importance(text: str, kind: str, F: int) -> np.ndarray:
+    """Split counts or summed positive gains by feature, recounted from the
+    model text's trees."""
+    imp = np.zeros(F)
+    for blk in text.split("Tree=")[1:]:
+        kv = dict(line.split("=", 1) for line in blk.split("\n")
+                  if "=" in line)
+        if int(kv["num_leaves"]) <= 1:
+            continue
+        feats = [int(v) for v in kv["split_feature"].split()]
+        gains = [float(v) for v in kv["split_gain"].split()]
+        for f, gn in zip(feats, gains):
+            imp[f] += 1 if kind == "split" else max(gn, 0.0)
+    return imp
+
+
+def launched(counts: dict, must) -> None:
+    for k in must:
+        expect(counts.get(k, 0) > 0, "kernel %s was not launched" % k)
+
+
+def api_phase(X, y, Xh, yh, ds_obj, valid_obj, dev, rounds, base) -> dict:
+    """The public training and model API at Higgs width (10.5M x 28,
+    PARAMS, 255 leaves), through the entry points a user calls:
+    - custom objectives: binary logloss in numpy as fobj (objective=none,
+      the training set's init score the built-in run's boost-from-average
+      score) against the built-in runs of the training phase with the same
+      root and key: f32 with the holdout as a validation set and an AUC
+      feval, quantized, and on the label engine; each through
+      train_and_check with its path's kernels, the first tree parting the
+      training rows as the built-in first tree does (quantized; KP2's leaf
+      mode) or its splits the built-in tree's in growth order up to a
+      near-tie (f32, TIE_RTOL), the holdout AUC within AUC_DRIFT of the
+      built-in run's, and the feval's AUC within 1e-6 of the built-in
+      `auc` of the same run every round;
+    - a learning-rate schedule (API_RATES), deferred on the carried arena
+      (quantized) and eager (f32) with the holdout as a validation set:
+      every tree shrunk by its own round's rate, each run capturing its
+      unscheduled run's graphs and no more, each model predicting its
+      training score within 1e-5 (1M rows), the first trees (the first
+      rate is the default) the unscheduled quantized run's bit for bit
+      (integer histograms) and the unscheduled valid_f32 run's split for
+      split up to a near-tie (a carried f32 tree ends where the arena's
+      room does, so it is not the f32 run held here);
+    - continued training on the first API_ROWS rows (binned with the
+      training set's mappers): a 5-round and a 10-round run, then 5 rounds
+      from the 5-round model (init scores by KP1, equal to its prediction);
+      the continued booster holds 5 trees, the two stages' holdout
+      predictions summed against the 10-round run's (AUC within AUC_DRIFT
+      and raw predictions within CONT_MAX_DIFF: the card's f32 histograms
+      add in a varying order, so the continued trees are not bitwise the
+      10-round run's last 5); rollback_one_iter
+      leaves a prediction bit for bit the 4-iteration one and a training
+      score within 1e-5 of it;
+    - refit of the training phase's f32 model on the holdout (decay
+      REFIT_DECAY) on the card against the CPU's refit of the same text:
+      leaf values within 1e-6 of each tree's largest;
+    - model text: save_model, Booster(model_file=...) and
+      model_from_string give the text back and predictions bit for bit;
+      split and gain importance equal a recount from the text;
+    - cv: CV_FOLDS folds of the 10.5M rows, CV_ROUNDS rounds, the
+      validation logloss falling every round;
+    - LGBMClassifier(device=..., num_leaves=255, n_estimators=5) on the
+      first API_ROWS rows (quantized, whose integer histograms make two
+      runs bitwise equal; bins found from SK_BIN_SAMPLE rows), without
+      scikit-learn on the card: predict_proba bit for bit `train` with the
+      same params, trees past the default 31 leaves, shrinkage 0.1.
+    Returns the records."""
+    import os
+    import tempfile
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import sklearn as lsk
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.metric import auc
+    from lightgbm_tpu_torch.objective import create_objective
+    from lightgbm_tpu_torch.ops import _cuda
+
+    recs = {}
+    n = len(X)
+    ds_obj.set_weight(None)
+    obj = create_objective("binary", Config(PARAMS))
+    obj.init(ds_obj._binned.metadata, n, "cpu")
+    init = obj.boost_from_score(0)
+
+    # custom objectives against the built-in runs
+    ds_obj.set_init_score(np.full(n, init))
+    try:
+        for name, (builtin, extra, kpath) in FOBJ_RUNS.items():
+            params = dict(PARAMS, objective="none", **extra)
+            kw, evals = {}, {}
+            if "metric" in extra:
+                kw = dict(valid_sets=[valid_obj], valid_names=["holdout"],
+                          evals_result=evals, feval=auc_feval)
+            must, never = path_kernels(kpath)
+            booster, rec = train_and_check(
+                name, params, ds_obj, dev, rounds, must, never,
+                deferred=not kw, fobj=logloss_fobj, verbose_eval=False,
+                **kw)
+            g = booster._gbdt
+            expect(g.objective is None and g._held
+                   and not g._carried_active,
+                   "%s: objective %s, held %s, carried %s"
+                   % (name, g.objective, g._held, g._carried_active))
+            first = hold_first_tree(name, booster, g.models[0],
+                                    base["trained"][builtin][0][0],
+                                    g._quantized, dev)
+            holdout_auc = auc(yh, booster.predict(Xh, raw_score=True))
+            gap = abs(holdout_auc - base["auc"][builtin])
+            expect(gap <= AUC_DRIFT, "%s: holdout AUC %.6f is %.6f from the "
+                   "built-in %s run's" % (name, holdout_auc, gap, builtin))
+            msg = ""
+            if evals:
+                diff = np.abs(np.subtract(evals["holdout"]["feval_auc"],
+                                          evals["holdout"]["auc"]))
+                expect(len(diff) == rounds and diff.max() <= 1e-6,
+                       "%s: feval AUC %s, built-in auc %s"
+                       % (name, evals["holdout"]["feval_auc"],
+                          evals["holdout"]["auc"]))
+                rec["feval_auc"] = evals["holdout"]["feval_auc"]
+                msg = "; feval AUC %s (built-in auc within %.3g)" % (
+                    ["%.6f" % v for v in evals["holdout"]["feval_auc"]],
+                    float(diff.max()))
+            rec.update(first, holdout_auc=holdout_auc, builtin_auc_gap=gap)
+            print("api (%s): %d rows, %d rounds, leaves %s; train %.3f s "
+                  "(%.1f ms a round); %s (%s); holdout AUC %.6f (built-in "
+                  "%.6f)%s; graphs x nodes %s; %d drains, %d tree fetches; "
+                  "peak %.3f GB"
+                  % (name, n, rounds, rec["leaves"], rec["train_s"],
+                     rec["round_ms"], said_first_tree(first), builtin,
+                     holdout_auc,
+                     base["auc"][builtin], msg,
+                     ["1 x %d" % x["nodes"] for x in rec["graphs"]],
+                     rec["drains"], rec["tree_fetches"],
+                     rec["peak_bytes"] / 1e9))
+            recs[name] = rec
+            del booster, g
+            torch.cuda.empty_cache()
+    finally:
+        ds_obj.set_init_score(None)
+
+    # a learning-rate schedule: deferred on the carried arena, eager with
+    # a validation set
+    sched = {}
+    for name, path, kw in (
+            ("schedule_carried", "quantized", {}),
+            ("schedule_valid", "valid_f32", dict(
+                valid_sets=[valid_obj], valid_names=["holdout"],
+                evals_result={}))):
+        must, never = path_kernels(path)
+        booster, rec = train_and_check(
+            name, path_params(path), ds_obj, dev, rounds, must, never,
+            deferred=not kw, graphs=base["graphs"][path],
+            learning_rates=API_RATES[:rounds], verbose_eval=False, **kw)
+        g = booster._gbdt
+        shrink = [t.shrinkage for t in g.models]
+        expect(shrink[1:] == API_RATES[1:rounds],
+               "%s: tree shrinkages %s, the schedule %s"
+               % (name, shrink, API_RATES[:rounds]))
+        rows = slice(0, API_ROWS)
+        err = float(np.abs(booster.predict(X[rows], raw_score=True)
+                           - g.score[rows].cpu().numpy()).max())
+        expect(err <= 1e-5, "%s: predict is %.3g from the training score"
+               % (name, err))
+        rec.update(shrinkages=shrink, predict_vs_score=err)
+        sched[name] = (booster, rec)
+        print("api (%s): learning rates %s; leaves %s; train %.3f s; "
+              "shrinkages %s; predict of %d training rows within %.3g of "
+              "the training score; graphs x nodes %s (the unscheduled %s "
+              "run's: %d); %d drains, %d tree fetches"
+              % (name, API_RATES[:rounds], rec["leaves"], rec["train_s"],
+                 shrink, API_ROWS, err,
+                 ["1 x %d" % x["nodes"] for x in rec["graphs"]], path,
+                 base["graphs"][path], rec["drains"], rec["tree_fetches"]))
+        recs[name] = rec
+    bc, bv, rv = (sched["schedule_carried"][0],) + sched["schedule_valid"]
+    # the quantized carried round sums integer histograms, so its first
+    # tree is the unscheduled run's bit for bit
+    first = bc._gbdt.models[0].to_string()
+    expect(first == base["trained"]["quantized"][0][0].to_string(),
+           "schedule: the carried quantized run's first tree is not the "
+           "unscheduled run's")
+    first = hold_first_tree("schedule_valid", bv, bv._gbdt.models[0],
+                            base["trained"]["valid_f32"][0][0], False, dev)
+    rv.update(first)
+    print("api (schedule): the carried quantized run's first tree the "
+          "unscheduled run's bit for bit; the eager f32 run's: %s "
+          "(unscheduled valid_f32)" % said_first_tree(first))
+    del sched, bc, bv
+    torch.cuda.empty_cache()
+
+    # continued training and rollback on the first API_ROWS rows
+    X1, y1 = X[:API_ROWS], y[:API_ROWS]
+
+    def part():
+        return lt.Dataset(X1, y1, reference=ds_obj, device=dev)
+    t = time.perf_counter()
+    d1 = part()
+    m5 = lt.train(PARAMS, d1, 5, verbose_eval=False, device=dev)
+    m10 = lt.train(PARAMS, d1, 10, verbose_eval=False, device=dev)
+    dc = part()
+    _cuda.reset_launch_counts()
+    cont = lt.train(PARAMS, dc, 5, init_model=m5, verbose_eval=False,
+                    device=dev)
+    torch.cuda.synchronize()
+    counts = dict(_cuda.LAUNCHES)
+    launched(counts, ("predict_ensemble", "segment_histogram",
+                      "partition_segment", "split_scan",
+                      "scatter_segments_add"))
+    init_pred = m5.predict(X1, raw_score=True)
+    expect(cont.num_trees() == 5 and np.array_equal(dc.get_init_score(),
+                                                    init_pred),
+           "continuation: %d trees, init score KP1's prediction %s"
+           % (cont.num_trees(), np.array_equal(dc.get_init_score(),
+                                               init_pred)))
+    p10 = m10.predict(Xh, raw_score=True)
+    psum = m5.predict(Xh, raw_score=True) + cont.predict(Xh, raw_score=True)
+    d = np.abs(psum - p10)
+    within = float(np.mean(d <= 1e-6 + 1e-5 * np.abs(p10)))
+    a10, asum = auc(yh, p10), auc(yh, psum)
+    expect(abs(a10 - asum) <= AUC_DRIFT and d.max() <= CONT_MAX_DIFF,
+           "continuation: holdout AUC %.6f, the 10-round run's %.6f; raw "
+           "predictions' |diff| max %.3g (at most %g)"
+           % (asum, a10, d.max(), CONT_MAX_DIFF))
+    before = cont.predict(Xh, raw_score=True, num_iteration=4)
+    cont.rollback_one_iter()
+    after = cont.predict(Xh, raw_score=True)
+    score_err = float(np.abs(cont.predict(X1, raw_score=True)
+                             + dc.get_init_score()
+                             - cont._gbdt.score.cpu().numpy()).max())
+    expect(np.array_equal(after, before) and cont.num_trees() == 4
+           and score_err <= 1e-5,
+           "rollback: %d trees, prediction the 4-iteration one %s, "
+           "training score %.3g from it" % (cont.num_trees(),
+                                             np.array_equal(after, before),
+                                             score_err))
+    recs["continue"] = dict(
+        seconds=time.perf_counter() - t, max_abs_diff=float(d.max()),
+        mean_abs_diff=float(d.mean()), share_within_jax_tol=within,
+        auc_sum=asum, auc_10=a10, launches=counts,
+        rollback_score_err=score_err)
+    print("api (continue): %d rows; 5 rounds from the 5-round model (init "
+          "scores by KP1, %d launches): holdout AUC of the two stages "
+          "%.6f, the 10-round run's %.6f; raw predictions' |diff| max "
+          "%.3g, mean %.3g, %.4f of the rows within the JAX package's "
+          "rtol 1e-5, atol 1e-6; rollback_one_iter: 4 trees, prediction "
+          "bit for bit the 4-iteration one, training score within %.3g"
+          % (API_ROWS, counts.get("predict_ensemble", 0), asum, a10,
+             float(d.max()), float(d.mean()), within, score_err))
+    del m5, m10, cont, d1, dc
+    torch.cuda.empty_cache()
+
+    # refit on the card against the CPU's refit of the same text
+    text = base["trained"]["f32"][1]
+    t = time.perf_counter()
+    _cuda.reset_launch_counts()
+    rf = lt.Booster(model_str=text, device=dev).refit(Xh, yh,
+                                                      decay_rate=REFIT_DECAY)
+    counts = dict(_cuda.LAUNCHES)
+    launched(counts, ("predict_ensemble",))
+    card_s = time.perf_counter() - t
+    rcpu = lt.Booster(model_str=text, device="cpu").refit(
+        Xh, yh, decay_rate=REFIT_DECAY)
+    err = max(float(np.abs(a.leaf_value[:a.num_leaves]
+                           - b.leaf_value[:b.num_leaves]).max()
+                    / np.abs(b.leaf_value[:b.num_leaves]).max())
+              for a, b in zip(rf._gbdt.models, rcpu._gbdt.models))
+    orig = lt.Booster(model_str=text, device="cpu")._gbdt.models
+    moved = sum(not np.array_equal(a.leaf_value, b.leaf_value)
+                for a, b in zip(rf._gbdt.models, orig))
+    expect(err <= 1e-6 and moved == len(orig),
+           "refit: leaf values %.3g from the CPU's, %d of %d trees moved"
+           % (err, moved, len(orig)))
+    recs["refit"] = dict(card_s=card_s, rel_err=err, launches=counts)
+    print("api (refit): the f32 model on the %d-row holdout, decay %.1f, "
+          "leaves by KP1 on the card (%.2f s): leaf values within %.3g of "
+          "the CPU's refit (of each tree's largest), every tree moved"
+          % (len(Xh), REFIT_DECAY, card_s, err))
+
+    # model text in and out; importance against a recount from the text
+    bst = lt.Booster(model_str=text, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.txt")
+        bst.save_model(path)
+        loaded = lt.Booster(model_file=path, device=dev)
+        with open(path) as f:
+            saved = f.read()
+    shell = lt.Booster(model_str=base["trained"]["quantized"][1],
+                       device=dev).model_from_string(text)
+    p = bst.predict(Xh, raw_score=True)
+    expect(saved == text and loaded.model_to_string() == text
+           and shell.model_to_string() == text
+           and np.array_equal(loaded.predict(Xh, raw_score=True), p)
+           and np.array_equal(shell.predict(Xh, raw_score=True), p),
+           "model text: save, load and model_from_string do not give the "
+           "text and predictions back")
+    for kind in ("split", "gain"):
+        want = text_importance(text, kind, X.shape[1])
+        expect(np.array_equal(bst.feature_importance(kind), want),
+               "%s importance differs from the text's recount" % kind)
+    print("api (model text): save_model, Booster(model_file=...) and "
+          "model_from_string give the %d-byte text back, predictions bit "
+          "for bit; split and gain importance equal the recount from the "
+          "text (top features by gain %s)"
+          % (len(text), list(np.argsort(-bst.feature_importance("gain"))
+                             [:5])))
+
+    # cv over subsets of the binned set
+    t = time.perf_counter()
+    _cuda.reset_launch_counts()
+    res = lt.cv(PARAMS, ds_obj, num_boost_round=CV_ROUNDS, nfold=CV_FOLDS,
+                device=dev)
+    torch.cuda.synchronize()
+    counts = dict(_cuda.LAUNCHES)
+    launched(counts, ("segment_histogram", "partition_segment",
+                      "split_scan", "scatter_segments_add", WALK_ADD))
+    means = res.get("binary_logloss-mean", [])
+    expect(len(means) == CV_ROUNDS and np.all(np.diff(means) < 0)
+           and means[-1] < np.log(2),
+           "cv: binary_logloss-mean %s" % means)
+    recs["cv"] = dict(seconds=time.perf_counter() - t, result=res,
+                      launches=counts)
+    print("api (cv): %d folds of %d rows, %d rounds in %.1f s: "
+          "binary_logloss-mean %s, -stdv %s (folds %s)"
+          % (CV_FOLDS, n, CV_ROUNDS, recs["cv"]["seconds"],
+             ["%.6f" % v for v in means],
+             ["%.6f" % v for v in res["binary_logloss-stdv"]],
+             "stratified" if lsk._SKLEARN else "plain, no scikit-learn"))
+    torch.cuda.empty_cache()
+
+    # the scikit-learn wrapper against train with the same params
+    t = time.perf_counter()
+    clf = lt.LGBMClassifier(device=dev, num_leaves=255, n_estimators=5,
+                            subsample_for_bin=SK_BIN_SAMPLE,
+                            tpu_quantized_grad=True)
+    clf.fit(X1, y1)
+    proba = clf.predict_proba(Xh)
+    ref = lt.train(dict(QPARAMS, bin_construct_sample_cnt=SK_BIN_SAMPLE),
+                   lt.Dataset(X1, y1, device=dev), 5, verbose_eval=False,
+                   device=dev)
+    trees = clf.booster_._gbdt.models
+    leaves = [tr.num_leaves for tr in trees]
+    shrink = [tr.shrinkage for tr in trees]
+    same = np.array_equal(proba[:, 1], ref.predict(Xh))
+    expect(same and max(leaves) > 31 and shrink[1:] == [0.1] * 4
+           and clf.get_params()["num_leaves"] == 255,
+           "sklearn: predict_proba equal to train's %s, leaves %s, "
+           "shrinkages %s" % (same, leaves, shrink))
+    recs["sklearn"] = dict(seconds=time.perf_counter() - t, leaves=leaves,
+                           sklearn=lsk._SKLEARN)
+    print("api (sklearn): LGBMClassifier on %d rows %s scikit-learn: "
+          "predict_proba bit for bit train's; leaves %s, shrinkages %s "
+          "(%.1f s with its binning)"
+          % (API_ROWS, "with" if lsk._SKLEARN else "without", leaves,
+             shrink, recs["sklearn"]["seconds"]))
+    return recs
+
+
 def phase_start(name: str) -> float:
     """The phase that timed steps count to from now (STEP_S), and the
     time it starts."""
@@ -4379,6 +4938,12 @@ def main(argv=None) -> int:
     t = phase_start("objectives")
     objectives = objectives_phase(X, y, dev, args.rounds)
     phase_s["objectives"] = time.perf_counter() - t
+    t = phase_start("api")
+    api = api_phase(X, y, Xh, yh, ds_obj, valid_obj, dev, args.rounds, dict(
+        trained=TRAINED, graphs={p: len(train[p]["graphs"]) for p in PATHS},
+        auc={p: train[p]["holdout_auc"] for p in PATHS}))
+    torch.cuda.empty_cache()
+    phase_s["api"] = time.perf_counter() - t
     del X, y, Xh, yh, ds_obj, valid_obj
     torch.cuda.empty_cache()
     t = phase_start("multiclass")
@@ -4462,7 +5027,7 @@ def main(argv=None) -> int:
                       "lambdarank": ranking, "objectives": objectives,
                       "multiclass": multiclass, "efb": efb,
                       "categorical": categorical, "prediction": prediction,
-                      "phase_s": phase_s}, default=str))
+                      "api": api, "phase_s": phase_s}, default=str))
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,30 +1,33 @@
 """Dataset and Booster: the port's public objects.
 
 Port of `Dataset` (:78) and `Booster` (:373) of lightgbm_tpu/basic.py for
-in-memory dense data with weights and query groups, with validation sets
-and their evaluation
-(`add_valid`, `eval_train`, `eval_valid`, :450-533).  Both take an explicit
-`device`: the CUDA card unless the caller passes device="cpu"; with no
-device and no CUDA they raise.
+in-memory dense data with weights, query groups and init scores: the
+Dataset's fields, validation sets made by `create_valid` and row subsets
+(`subset`, over the binned rows); the Booster's training (`update` with a
+custom objective, `rollback_one_iter`, `reset_parameter`), evaluation
+with custom eval functions, prediction, `refit`, model text in and out
+(`save_model`, `model_from_string`, `dump_model`, pickling) and
+introspection (`get_leaf_output`, `feature_importance`).  Both take an
+explicit `device`: the CUDA card unless the caller passes device="cpu";
+with no device and no CUDA they raise.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from .config import Config
+from .config import Config, alias_transform
 from .device import resolve_device
 from .io.dataset import BinnedDataset
 from .io.metadata import Metadata
 from .metric import is_bigger_better, metrics_from_config
-from .models import create_boosting
-from .models.gbdt import GBDT
+from .models import create_boosting, load_boosting_from_string
 from .objective import create_objective
 from .utils import log
 
 
-class LightGBMError(Exception):
+class LightGBMError(log.LightGBMError):
     pass
 
 
@@ -98,10 +101,17 @@ class Dataset:
         self.categorical_feature = categorical_feature
         self.params = dict(params) if params else {}
         self.free_raw_data = free_raw_data
+        self.used_indices: Optional[np.ndarray] = None
         self._binned: Optional[BinnedDataset] = None
 
     def construct(self) -> "Dataset":
         if self._binned is not None:
+            return self
+        if self.used_indices is not None and self.reference is not None:
+            # a subset: the reference's binned rows (basic.py:161-165)
+            ref = self.reference.construct()
+            self._binned = ref._binned.subset(self.used_indices)
+            self._set_fields(self._binned.metadata)
             return self
         if isinstance(self.data, str):
             raise NotImplementedError(
@@ -116,12 +126,7 @@ class Dataset:
         meta = Metadata(mat.shape[0])
         if self.label is not None:
             meta.set_label(np.asarray(self.label))
-        if self.weight is not None:
-            meta.set_weights(np.asarray(self.weight))
-        if self.group is not None:
-            meta.set_query(np.asarray(self.group))
-        if self.init_score is not None:
-            meta.set_init_score(np.asarray(self.init_score))
+        self._set_fields(meta)
         # category columns and names as lightgbm_tpu/basic.py:187-219 reads
         # them: a category column (its codes) reaches the binner as a
         # categorical feature
@@ -145,6 +150,37 @@ class Dataset:
             self.data = None
         return self
 
+    def _set_fields(self, meta: Metadata) -> None:
+        if self.weight is not None:
+            meta.set_weights(np.asarray(self.weight))
+        if self.group is not None:
+            meta.set_query(np.asarray(self.group))
+        if self.init_score is not None:
+            meta.set_init_score(np.asarray(self.init_score))
+
+    # -- the python-side surface (lightgbm_tpu/basic.py:234-371) ---------
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None) -> "Dataset":
+        """A validation set binned with this dataset's mappers, on its
+        device."""
+        return Dataset(data, label=label, reference=self, weight=weight,
+                       group=group, init_score=init_score,
+                       params=params or self.params, device=self.device)
+
+    def subset(self, used_indices, params=None) -> "Dataset":
+        """The rows used_indices (sorted) of this dataset, cut from its
+        binned rows when constructed: no binning anew."""
+        ds = Dataset(None, reference=self, params=params or self.params,
+                     device=self.device)
+        ds.used_indices = np.sort(np.asarray(used_indices))
+        return ds
+
+    def set_label(self, label) -> "Dataset":
+        self.label = label
+        if self._binned is not None and label is not None:
+            self._binned.metadata.set_label(np.asarray(label))
+        return self
+
     def set_weight(self, weight) -> "Dataset":
         """Set (or, with None, clear) the row weights; a constructed
         dataset keeps its bins."""
@@ -163,12 +199,58 @@ class Dataset:
             self._binned.metadata.set_query(np.asarray(group))
         return self
 
+    def set_init_score(self, init_score) -> "Dataset":
+        """The rows' initial raw scores (class-major [k*n], or [n, k]);
+        the score a booster on this dataset starts from."""
+        self.init_score = init_score
+        if self._binned is not None:
+            self._binned.metadata.set_init_score(init_score)
+        return self
+
     def get_group(self) -> Optional[np.ndarray]:
         """The query sizes, or None without queries
         (lightgbm_tpu/basic.py:332)."""
         self.construct()
         b = self._binned.metadata.query_boundaries
         return None if b is None else np.diff(b)
+
+    def get_label(self):
+        self.construct()
+        return self._binned.metadata.label
+
+    def get_weight(self):
+        self.construct()
+        return self._binned.metadata.weights
+
+    def get_init_score(self):
+        self.construct()
+        return self._binned.metadata.init_score
+
+    def get_field(self, name):
+        getter = {"label": self.get_label, "weight": self.get_weight,
+                  "group": self.get_group, "init_score": self.get_init_score}
+        if name not in getter:
+            raise LightGBMError("Unknown field name: %s" % name)
+        return getter[name]()
+
+    def set_field(self, name, data):
+        setter = {"label": self.set_label, "weight": self.set_weight,
+                  "group": self.set_group, "init_score": self.set_init_score}
+        if name not in setter:
+            raise LightGBMError("Unknown field name: %s" % name)
+        return setter[name](data)
+
+    def num_data(self) -> int:
+        self.construct()
+        return self._binned.num_data
+
+    def num_feature(self) -> int:
+        self.construct()
+        return self._binned.num_total_features
+
+    def get_feature_name(self) -> List[str]:
+        self.construct()
+        return list(self._binned.feature_names)
 
 
 class Booster:
@@ -183,6 +265,7 @@ class Booster:
         self.best_iteration = -1
         self.best_score: Dict[str, Dict[str, float]] = {}
         self._train_set = train_set
+        self._valid_sets: List[Tuple[str, Dataset]] = []
         if train_set is not None:
             if not isinstance(train_set, Dataset):
                 raise LightGBMError("Training data should be Dataset instance")
@@ -192,21 +275,27 @@ class Booster:
                 train_set.params = merged
             cfg = Config(self.params)
             train_set.construct()
+            # objective=none: the rounds take a custom objective's
+            # gradients (basic.py:465-470)
             objective = create_objective(cfg.objective, cfg)
             self.config = cfg
             self._gbdt = create_boosting(cfg, train_set._binned, objective,
                                          self.device)
-        elif model_file is not None or model_str is not None:
-            if model_file is not None:
-                with open(model_file) as f:
-                    model_str = f.read()
-            self.config = Config(self.params)
-            self._gbdt = GBDT(self.config, None, None, self.device)
-            self._gbdt.load_model_from_string(model_str)
+        elif model_file is not None:
+            with open(model_file) as f:
+                self._init_from_string(f.read())
+        elif model_str is not None:
+            self._init_from_string(model_str)
         else:
             raise LightGBMError("Booster needs at least one of train_set, "
                                 "model_file, model_str")
 
+    def _init_from_string(self, text: str) -> None:
+        self.config = Config(self.params)
+        self._gbdt = load_boosting_from_string(text, self.config,
+                                               self.device)
+
+    # -- training ----------------------------------------------------------
     def add_valid(self, data: Dataset, name: str) -> "Booster":
         """Attach a validation set, evaluated with the config's metrics.  A
         dataset given no reference is binned on its own, as the JAX package
@@ -225,11 +314,47 @@ class Booster:
         data.construct()
         self._gbdt.add_valid(name, data._binned,
                              metrics_from_config(self.config))
+        self._valid_sets.append((name, data))
         return self
 
-    def update(self) -> bool:
-        """One boosting iteration; True when training cannot continue."""
-        return self._gbdt.train_one_iter()
+    def update(self, train_set: Optional[Dataset] = None,
+               fobj=None) -> bool:
+        """One boosting iteration; True when training cannot continue.
+        fobj(preds, train_set) -> (grad, hess): a custom objective of the
+        training scores (raw, f64, flat class-major for k > 1), whose
+        gradients the round trains on (basic.py:457-470)."""
+        if fobj is None:
+            return self._gbdt.train_one_iter()
+        grad, hess = fobj(self._gbdt.raw_scores("training"),
+                          self._train_set)
+        return self._gbdt.train_one_iter(np.asarray(grad, np.float64),
+                                         np.asarray(hess, np.float64))
+
+    def rollback_one_iter(self) -> "Booster":
+        """Remove the last iteration's trees and their scores."""
+        self._gbdt.rollback_one_iter()
+        return self
+
+    def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
+        """Reset parameters of the live booster (basic.py:476-504): the
+        learning rate alone takes effect at the next round with no new
+        graph and no drain; anything else syncs the model and rebuilds the
+        config and split parameters, and the next round of each graph key
+        captures anew."""
+        updates = alias_transform(dict(params))
+        merged = dict(self.params)
+        merged.update(params)
+        self.params = merged
+        if set(updates) <= {"learning_rate"}:
+            lr = updates.get("learning_rate")
+            if lr is not None:
+                self.config.learning_rate = float(lr)
+                self._gbdt.config.learning_rate = float(lr)
+                self._gbdt.set_learning_rate(float(lr))
+            return self
+        self.config = Config(merged)
+        self._gbdt.reset_config(self.config)
+        return self
 
     @property
     def current_iteration(self) -> int:
@@ -242,15 +367,28 @@ class Booster:
         """Trees an iteration: num_class for multiclass, else one."""
         return self._gbdt.num_tree_per_iteration
 
-    def eval_train(self) -> List[tuple]:
+    # -- evaluation --------------------------------------------------------
+    def eval_train(self, feval=None) -> List[tuple]:
         """(dataset name, metric name, value, bigger_is_better) of each
-        training metric."""
-        return self._eval("training", self._gbdt.eval_train())
+        training metric, then of feval(preds, train_set) (a tuple of
+        (name, value, bigger_is_better) or a list of them)."""
+        out = self._eval("training", self._gbdt.eval_train())
+        if feval is not None:
+            out.extend(_normalize_feval(
+                feval(self._gbdt.raw_scores("training"), self._train_set),
+                "training"))
+        return out
 
-    def eval_valid(self) -> List[tuple]:
+    def eval_valid(self, feval=None) -> List[tuple]:
+        """The same for each validation set, its metrics then feval's."""
         out = []
+        data = dict(self._valid_sets)
         for name, res in self._gbdt.eval_valid().items():
             out.extend(self._eval(name, res))
+            if feval is not None:
+                out.extend(_normalize_feval(
+                    feval(self._gbdt.raw_scores(name), data.get(name)),
+                    name))
         return out
 
     @staticmethod
@@ -258,6 +396,7 @@ class Booster:
         return [(name, metric_name, v, is_bigger_better(metric_name))
                 for metric_name, vals in results.items() for v in vals]
 
+    # -- prediction --------------------------------------------------------
     def predict(self, data, num_iteration: int = -1, raw_score: bool = False,
                 pred_leaf: bool = False, pred_contrib: bool = False,
                 pred_early_stop: bool = False, pred_early_stop_freq: int = 10,
@@ -282,5 +421,86 @@ class Booster:
             early_stop_freq=pred_early_stop_freq,
             early_stop_margin=pred_early_stop_margin, device=device)
 
-    def model_to_string(self, num_iteration: int = -1) -> str:
-        return self._gbdt.save_model_to_string(num_iteration)
+    def refit(self, data, label, decay_rate: float = 0.9,
+              **kwargs) -> "Booster":
+        """A new Booster on this one's device, its leaf values refit on
+        (data, label) (basic.py:551-560): new = decay_rate * old +
+        (1 - decay_rate) * the leaf output of the rows' gradients."""
+        mat, _ = _to_matrix(data, float32=True)
+        new_booster = Booster(model_str=self.model_to_string(),
+                              params=dict(self.params,
+                                          refit_decay_rate=decay_rate),
+                              device=self.device)
+        new_booster._gbdt.refit(mat, label, **kwargs)
+        return new_booster
+
+    def refit_inplace(self, data, label, weight=None,
+                      group=None) -> "Booster":
+        """Refit this booster's leaf values in place (basic.py:562-567)."""
+        mat, _ = _to_matrix(data, float32=True)
+        self._gbdt.refit(mat, label, weight=weight, group=group)
+        return self
+
+    # -- model text and introspection --------------------------------------
+    def save_model(self, filename: str, num_iteration: int = -1,
+                   start_iteration: int = 0) -> "Booster":
+        """The model text, written atomically (basic.py:570-577)."""
+        self._gbdt.save_model_to_file(filename, start_iteration,
+                                      num_iteration)
+        return self
+
+    def model_to_string(self, num_iteration: int = -1,
+                        start_iteration: int = 0) -> str:
+        return self._gbdt.save_model_to_string(start_iteration, num_iteration)
+
+    def model_from_string(self, model_str: str) -> "Booster":
+        """This booster's model replaced by model text (basic.py:591-598)."""
+        self._init_from_string(model_str)
+        self.best_iteration = -1
+        return self
+
+    def dump_model(self, num_iteration: int = -1) -> dict:
+        """The model as a JSON-style dict (basic.py:579-589)."""
+        return self._gbdt.dump_model(num_iteration)
+
+    def get_leaf_output(self, tree_id: int, leaf_id: int) -> float:
+        """The raw output of one leaf (basic.py:600-603)."""
+        return self._gbdt.get_leaf_output(tree_id, leaf_id)
+
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: int = -1) -> np.ndarray:
+        """Per feature, its splits ("split") or their summed gains
+        ("gain") in the first `iteration` iterations (basic.py:605-607)."""
+        return self._gbdt.feature_importance(importance_type, iteration)
+
+    def feature_name(self) -> List[str]:
+        return list(self._gbdt.feature_names)
+
+    def num_feature(self) -> int:
+        return self._gbdt.max_feature_idx + 1
+
+    def __getstate__(self):
+        """Pickled as its params, model text and best round
+        (basic.py:614-628); it unpickles on the same device."""
+        return {"params": self.params, "model_str": self.model_to_string(),
+                "best_iteration": self.best_iteration,
+                "best_score": self.best_score, "device": str(self.device)}
+
+    def __setstate__(self, state):
+        self.params = state["params"]
+        self.best_iteration = state["best_iteration"]
+        self.best_score = state["best_score"]
+        self.device = resolve_device(state["device"])
+        self._train_set = None
+        self._valid_sets = []
+        self._init_from_string(state["model_str"])
+
+
+# Copied from lightgbm_tpu/engine.py:274-281.
+def _normalize_feval(res, data_name):
+    """feval returns (name, value, bigger_is_better) or a list of them."""
+    if res is None:
+        return []
+    if isinstance(res, tuple):
+        res = [res]
+    return [(data_name, r[0], r[1], r[2]) for r in res]

@@ -1,9 +1,9 @@
-# Copied from lightgbm_tpu/callback.py, lines 1-69 and 191-266 (CallbackEnv,
+# Copied from lightgbm_tpu/callback.py, lines 1-69 and 150-266 (CallbackEnv,
 # EarlyStopException, _format_eval_result, print_evaluation,
-# record_evaluation, _MetricTracker, early_stopping); kept in step with it
-# by tests/test_torch_bagging.py.  Its telemetry, checkpoint, preemption and
-# reset_parameter callbacks are not ported; reset_parameter, at the end,
-# raises.
+# record_evaluation, _resolve_schedule, reset_parameter, _MetricTracker,
+# early_stopping); kept in step with it by tests/test_torch_bagging.py.  Its
+# telemetry, checkpoint and preemption callbacks are not ported (ROADMAP.md
+# queue 1, item 14).
 """Training callbacks.
 
 The public surface (CallbackEnv fields, factory signatures, `order` /
@@ -72,6 +72,47 @@ def record_evaluation(eval_result: dict) -> Callable:
             series.setdefault(v[1], []).append(v[2])
 
     _callback.order = 20
+    return _callback
+
+
+def _resolve_schedule(key: str, spec, round_idx: int, num_rounds: int):
+    """A per-round parameter value from a list (one entry per round) or a
+    callable round_idx -> value."""
+    if isinstance(spec, list):
+        if len(spec) != num_rounds:
+            raise ValueError("Length of list %s has to equal to "
+                             "'num_boost_round'." % key)
+        return spec[round_idx]
+    if callable(spec):
+        return spec(round_idx)
+    raise ValueError("Only list and callable values are supported as a "
+                     "mapping from boosting round index to new parameter "
+                     "value.")
+
+
+def reset_parameter(**kwargs) -> Callable:
+    """Schedule parameter changes per boosting round (lists or callables
+    keyed by parameter name)."""
+
+    def _callback(env: CallbackEnv) -> None:
+        round_idx = env.iteration - env.begin_iteration
+        num_rounds = env.end_iteration - env.begin_iteration
+        updates = {k: _resolve_schedule(k, v, round_idx, num_rounds)
+                   for k, v in kwargs.items()}
+        if not updates:
+            return
+        # EVERY scheduled parameter goes through Booster.reset_parameter
+        # (-> LGBM_BoosterResetParameter), not just learning_rate: the
+        # growth params (lambda_l2, min_data_in_leaf, ...) only act via
+        # the booster's split-param refresh, so a bare env.params update
+        # would silently schedule nothing
+        targets = getattr(env.model, "boosters", None) or [env.model]
+        for bst in targets:
+            bst.reset_parameter(updates)
+        env.params.update(updates)
+
+    _callback.before_iteration = True
+    _callback.order = 10
     return _callback
 
 
@@ -151,11 +192,3 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
 
     _callback.order = 30
     return _callback
-
-
-def reset_parameter(**kwargs) -> Callable:
-    """Not ported yet: per-round parameter schedules (learning rates
-    among them) need the booster's reset_parameter."""
-    raise NotImplementedError(
-        "reset_parameter and learning-rate schedules are not ported yet "
-        "(ROADMAP.md queue 1, item 7b)")

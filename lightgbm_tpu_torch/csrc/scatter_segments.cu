@@ -14,7 +14,9 @@
 //   operations (__fmul_rn, then an add rounded as __fadd_rn): the fused
 //   paths' score update `score += delta * shrink`
 //   (lightgbm_tpu/models/gbdt.py:777) folded into the scatter, bit for
-//   bit.
+//   bit.  s is read from device memory at launch, so a captured round
+//   takes the learning rate of the moment it is replayed (a schedule
+//   rewrites the scalar; no graph is captured anew).
 //
 // What bounds it on an H100: bytes by count (8n: 84 MB at 10.5M rows, 25 us
 // at 3.35 TB/s; 12n in add mode, which also reads the score), but a row's
@@ -180,7 +182,9 @@ scatter_segments_kernel(const int* __restrict__ rid,
                         const int* __restrict__ seg,   // [L, 2] start, cnt
                         const T* __restrict__ vals,    // [L]
                         const int* __restrict__ nl,    // [1]
-                        int L, float s, T* __restrict__ out) {
+                        int L,
+                        const float* __restrict__ shrink,  // [1], add only
+                        T* __restrict__ out) {
   __shared__ int pre[PREFIX_CAP];
   __shared__ int warp_sum[SCATTER_THREADS / 32];
   __shared__ int total_sh;
@@ -189,6 +193,8 @@ scatter_segments_kernel(const int* __restrict__ rid,
   const long long total =
       scan_live<SCATTER_THREADS>(seg, live, K, pre, warp_sum, total_sh);
   if (total == 0) return;
+  float s = 0.f;
+  if constexpr (ADD) s = __ldg(shrink);
   const int ng = (live + K - 1) / K;
   const long long nw = (total + 32 * UNIT - 1) / (32 * UNIT);
   const long long warp =
@@ -201,7 +207,7 @@ scatter_segments_kernel(const int* __restrict__ rid,
 
 template <typename T, bool ADD>
 int launch(const int* rid, const int* seg, const T* vals, const int* nl,
-           float s, T* out, int L, cudaStream_t stream) {
+           const float* s, T* out, int L, cudaStream_t stream) {
   if (L < 1 || L > 65535) return (int)cudaErrorInvalidValue;
   // blocks: as many as the SMs hold at once, per device (set once)
   static int grid_of[64] = {};
@@ -230,18 +236,18 @@ LGBT_API int lgbt_scatter_segments_f32(const int* rid, const int* seg,
                                        const float* vals, const int* nl,
                                        float* out, int L,
                                        cudaStream_t stream) {
-  return launch<float, false>(rid, seg, vals, nl, 0.f, out, L, stream);
+  return launch<float, false>(rid, seg, vals, nl, nullptr, out, L, stream);
 }
 
 LGBT_API int lgbt_scatter_segments_i32(const int* rid, const int* seg,
                                        const int* vals, const int* nl,
                                        int* out, int L, cudaStream_t stream) {
-  return launch<int, false>(rid, seg, vals, nl, 0.f, out, L, stream);
+  return launch<int, false>(rid, seg, vals, nl, nullptr, out, L, stream);
 }
 
 LGBT_API int lgbt_scatter_segments_add(const int* rid, const int* seg,
                                        const float* vals, const int* nl,
-                                       float s, float* out, int L,
+                                       const float* s, float* out, int L,
                                        cudaStream_t stream) {
   return launch<float, true>(rid, seg, vals, nl, s, out, L, stream);
 }

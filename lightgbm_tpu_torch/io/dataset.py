@@ -10,7 +10,8 @@ column has more than 256 bins (lightgbm_tpu/io/dataset.py:376-378,
 :396-397).  On the dataset's device they are a uint8 tensor, or an int16
 tensor holding the uint16 bins' bytes (PyTorch's uint16 dtype takes few
 operations): the kernels read it as uint16, and plain code widens a value
-by `bin_values`.  File and binary-cache I/O and sparse input are not
+by `bin_values`.  A row subset (`subset`) shares the mappers and copies
+the binned rows.  File and binary-cache I/O and sparse input are not
 ported yet (ROADMAP.md queue 1, item 3).
 """
 from __future__ import annotations
@@ -192,6 +193,25 @@ class BinnedDataset:
         for g, feats in enumerate(groups):
             bins[:, g] = group_bins(feats)
         return bins
+
+    # Copied from lightgbm_tpu/io/dataset.py:715-731.
+    def subset(self, indices: np.ndarray) -> "BinnedDataset":
+        """Row-subset copy sharing mappers (dataset.h CopySubset)."""
+        out = BinnedDataset()
+        out.num_data = len(indices)
+        out.num_total_features = self.num_total_features
+        out.used_feature_map = list(self.used_feature_map)
+        out.real_feature_index = list(self.real_feature_index)
+        out.bin_mappers = self.bin_mappers
+        out.bins = self.bins[indices]
+        out.feature_offsets = self.feature_offsets
+        out.feature_names = list(self.feature_names)
+        out.monotone_constraints = self.monotone_constraints
+        out.feature_penalty = self.feature_penalty
+        out.max_bin = self.max_bin
+        out.bundle = self.bundle
+        out.metadata = self.metadata.subset(np.asarray(indices))
+        return out
 
     @property
     def num_features(self) -> int:

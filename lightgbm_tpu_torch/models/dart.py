@@ -31,9 +31,9 @@ class DART(GBDT):
         self.sum_weight = 0.0
         self._drop_index: List[int] = []
 
-    def train_one_iter(self) -> bool:
+    def train_one_iter(self, gradients=None, hessians=None) -> bool:
         self._dropping_trees()
-        if super().train_one_iter():
+        if super().train_one_iter(gradients, hessians):
             return True
         self._normalize()
         if not self.config.uniform_drop:

@@ -114,6 +114,17 @@ engine in f64: scores, gradients, histograms (K7's f64 payload), scans,
 trees and the walks' adds (KP2's f64 scores); the partition engine stays
 f32, as in JAX (:1216-1219).  `model_to_if_else` is models/codegen.py's.
 
+The public API's booster surface (gbdt.py:449-605, :1823-2190): custom
+gradients (`train_one_iter(gradients, hessians)`, a booster of
+objective=none or an fobj), staged from the host into the held `_grad` and
+`_hess` and grown on the eager path with no boost-from-average; the
+learning rate as the device scalar `_shrink_dev`, which the round graphs
+read at replay (K4's add takes a pointer to it), so a schedule captures no
+new graph, and each deferred tree keeps the rate of its own round for its
+drain (the JAX package shrinks a deferred tree by the rate of its drain,
+ROADMAP.md queue 3); `reset_config` for any other parameter; rollback,
+refit over KP1's leaf indices, model text, dumps and importances.
+
 Configurations this slice does not run raise NotImplementedError naming the
 ROADMAP.md item that will bring them; none is served by a substitute.
 """
@@ -271,10 +282,6 @@ class GBDT:
     def _setup_train(self, ds: BinnedDataset) -> None:
         cfg = self.config
         check_supported(cfg)
-        if self.objective is None:
-            raise NotImplementedError(
-                "custom objectives (objective=none with fobj) are not ported "
-                "yet (ROADMAP.md queue 1, item 7b)")
         if ds.num_features == 0:
             raise ValueError("the dataset has no feature with more than one "
                              "bin")
@@ -284,20 +291,12 @@ class GBDT:
         self.max_feature_idx = ds.num_total_features - 1
         self.feature_names = list(ds.feature_names)
         self.feature_infos = _feature_infos(ds)
-        self.objective.init(ds.metadata, n, dev)
+        if self.objective is not None:
+            self.objective.init(ds.metadata, n, dev)
         # bins per histogram column: the largest group's or feature's
         self.max_bin = ds.hist_max_bin()
         L = max(cfg.num_leaves, 2)
-        self.split_params = SplitParams(
-            lambda_l1=cfg.lambda_l1, lambda_l2=cfg.lambda_l2,
-            max_delta_step=cfg.max_delta_step,
-            min_data_in_leaf=cfg.min_data_in_leaf,
-            min_sum_hessian_in_leaf=cfg.min_sum_hessian_in_leaf,
-            min_gain_to_split=cfg.min_gain_to_split,
-            cegb_split_penalty=cfg.cegb_tradeoff * cfg.cegb_penalty_split,
-            max_cat_to_onehot=cfg.max_cat_to_onehot,
-            cat_smooth=cfg.cat_smooth, cat_l2=cfg.cat_l2,
-            min_data_per_group=cfg.min_data_per_group)
+        self.split_params = split_params(cfg)
         self.num_bins = torch.as_tensor(ds.feature_num_bins(), device=dev)
         self.default_bins = torch.as_tensor(
             np.array([m.default_bin for m in ds.bin_mappers], np.int32),
@@ -322,16 +321,20 @@ class GBDT:
         self._cat_w = self.max_bin if self.is_categorical is not None else 0
         k = self.num_tree_per_iteration
         self.scores = init_score_matrix(ds, k, dev, self.dtype)
-        self._held = k > 1 or self._holds_gradients
-        if self._held:
-            # every class's gradients of the round's starting score
-            self._grad = torch.zeros((k, n), dtype=self.dtype, device=dev)
-            self._hess = torch.zeros((k, n), dtype=self.dtype, device=dev)
+        # a booster of objective=none takes every round's gradients from
+        # the host (a custom objective)
+        self._held = False
+        if k > 1 or self._holds_gradients or self.objective is None:
+            self._hold_gradients()
+        # the pinned staging of custom gradients and its copies' event
+        self._grad_stage = self._grad_event = None
         self.max_leaves = L
         self._pvec = params_vector(self.split_params, dev)
         # the shrinkage in the score's type, for the device score updates
         self._shrink_dev = torch.tensor(self.shrinkage_rate,
                                         dtype=self.dtype, device=dev)
+        # K4's shrinkage for the host trees' exact adds (s = 1)
+        self._one = torch.ones((), dtype=torch.float32, device=dev)
         self._setup_cegb(ds)
         self._forced_splits = self._load_forced_splits()
         # the round's host inputs on the device, a row a class: the
@@ -359,7 +362,7 @@ class GBDT:
                 "the port's int32 histograms stay exact, the JAX package's "
                 "may round if one bin captures more than that", n,
                 qz.exact_rows(cfg.tpu_quantized_bits))
-        if self.objective.is_renew_tree_output():
+        if self._renews():
             # the residuals' raw label of the leaf refits (gbdt.py:1568-1589)
             self._renew_label = torch.as_tensor(
                 np.asarray(ds.metadata.label), device=dev).to(self.dtype)
@@ -371,6 +374,26 @@ class GBDT:
                                quantized=self._quantized)
             init_pristine(self.arena, ds.device_bins(dev).t())
 
+    def _hold_gradients(self) -> None:
+        """From now on every round reads its gradients from the booster's
+        [k, n] `_grad` and `_hess` (k > 1, GOSS, RF, custom gradients); a
+        booster that held none drops its graphs, whose rounds computed
+        them."""
+        if self._held:
+            return
+        if hasattr(self, "_graphs"):
+            self._graphs.reset()
+        self._held = True
+        shape = tuple(self.scores.shape)
+        self._grad = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        self._hess = torch.zeros(shape, dtype=self.dtype, device=self.device)
+
+    def _renews(self) -> bool:
+        """The objective refits leaves to percentiles (L1, quantile,
+        MAPE); never without an objective."""
+        return (self.objective is not None
+                and self.objective.is_renew_tree_output())
+
     @property
     def score(self) -> torch.Tensor:
         """The training score in row order: [n] f32 for one tree an
@@ -378,6 +401,29 @@ class GBDT:
         and `.score`); a view of `scores`, [k, n] for every k."""
         return self.scores[0] if self.num_tree_per_iteration == 1 \
             else self.scores
+
+    def set_learning_rate(self, rate: float) -> None:
+        """The shrinkage of the next rounds (basic.py:491-499's cheap
+        path): the device scalar the round graphs read at replay follows
+        it, so no graph is captured anew; each pending deferred tree keeps
+        its own round's rate."""
+        self.shrinkage_rate = rate
+        if hasattr(self, "_shrink_dev"):
+            self._shrink_dev.fill_(rate)
+
+    def reset_config(self, config: Config) -> None:
+        """Any other parameter (basic.py:500-504): the model synced, the
+        config, learning rate and split parameters (K1's vector) rebuilt,
+        and the captured graphs dropped, since a capture bakes the split
+        parameters in; the next round of each key captures anew."""
+        self._sync_model()
+        self.config = config
+        self.set_learning_rate(config.learning_rate)
+        if not hasattr(self, "train_set"):
+            return
+        self.split_params = split_params(config)
+        self._pvec = params_vector(self.split_params, self.device)
+        self._graphs.reset()
 
     def _arena_factor(self) -> int:
         return max(self.config.tpu_arena_factor, 4)
@@ -595,7 +641,8 @@ class GBDT:
         percentile of the labels for L1, quantile and MAPE, the log of the
         class prior for softmax) added to the class's scores before its
         first tree."""
-        if self.models or self.train_set.metadata.init_score is not None:
+        if (self.models or self.objective is None
+                or self.train_set.metadata.init_score is not None):
             return 0.0
         if self.config.boost_from_average:
             init_score = self.objective.boost_from_score(class_id)
@@ -666,28 +713,38 @@ class GBDT:
         overrides it."""
         return None
 
-    def train_one_iter(self) -> bool:
+    def train_one_iter(self, gradients=None, hessians=None) -> bool:
         """One boosting iteration, k trees; True when training cannot
         continue (no class grew a tree).  On the deferred paths that is
         known when the iteration's trees are drained, so a later call
         returns True and the drain rolls the iterations from the
-        degenerate one on back (gbdt.py:504-510)."""
+        degenerate one on back (gbdt.py:504-510).  gradients, hessians:
+        the host's class-major [k*n] custom gradients (gbdt.py:514-515,
+        :594-605), which skip boost-from-average and the fused paths; a
+        booster of objective=none needs them."""
         k = self.num_tree_per_iteration
         if len(self._inflight) >= k * _DRAIN_EVERY:
             self._sync_model()
         if self._deferred_stopped:
             return True
-        init_scores = [self._boost_from_average(kk) for kk in range(k)]
+        custom = gradients is not None and hessians is not None
+        if not custom and self.objective is None:
+            log.fatal("a booster of objective=none trains on custom "
+                      "gradients: pass fobj to train() or update()")
+        init_scores = ([0.0] * k if custom else
+                       [self._boost_from_average(kk) for kk in range(k)])
         cfg = self.config
         classes = tuple(kk for kk in range(k)
-                        if self.objective.class_need_train(kk))
+                        if self.objective is None
+                        or self.objective.class_need_train(kk))
         # gbdt.py:518-533, :695-702: the fused paths need every row in the
-        # bag, every class trained and no host tree within the iteration
-        # (no validation set or metric, no leaf refit)
+        # bag, every class trained, the objective's gradients and no host
+        # tree within the iteration (no validation set or metric, no leaf
+        # refit)
         deferred_ok = (self._allow_deferred and not self.valid_states
-                       and not self.train_metrics
-                       and not self.objective.is_renew_tree_output())
-        fused_ok = (deferred_ok and self._use_partition_engine
+                       and not self.train_metrics and not self._renews())
+        fused_ok = (deferred_ok and not custom
+                    and self._use_partition_engine
                     and len(classes) == k
                     and (cfg.bagging_freq <= 0
                          or cfg.bagging_fraction >= 1.0)
@@ -716,10 +773,37 @@ class GBDT:
         if classes:
             slot = self._slot()
             self._stage_inputs(slot, classes, keys, sample)
+        if custom:
+            self._stage_gradients(gradients, hessians)
         if fused_ok:
             return self._fused_iter(slot, init_scores)
         return self._eager_iter(slot, init_scores, classes, deferred_ok,
-                                sample)
+                                sample, custom)
+
+    def _stage_gradients(self, gradients, hessians) -> None:
+        """The host's custom gradients (class-major [k*n], any float type)
+        into `_grad` and `_hess` in the booster's type, on the card through
+        pinned staging whose previous copies are waited for first."""
+        self._hold_gradients()
+        shape = tuple(self.scores.shape)
+        np_type = np.float64 if self.dtype == torch.float64 else np.float32
+        grad = np.asarray(gradients, np_type).reshape(shape)
+        hess = np.asarray(hessians, np_type).reshape(shape)
+        if self.device.type != "cuda":
+            self._grad.copy_(torch.from_numpy(grad))
+            self._hess.copy_(torch.from_numpy(hess))
+            return
+        if self._grad_stage is None:
+            self._grad_stage = torch.empty((2,) + shape, dtype=self.dtype,
+                                           pin_memory=True)
+            self._grad_event = torch.cuda.Event()
+        else:
+            self._grad_event.synchronize()
+        host = self._grad_stage.numpy()
+        host[0], host[1] = grad, hess
+        self._grad.copy_(self._grad_stage[0], non_blocking=True)
+        self._hess.copy_(self._grad_stage[1], non_blocking=True)
+        self._grad_event.record()
 
     def _gradients(self):
         """The objective's gradients and hessians of the score ([n] for
@@ -728,19 +812,24 @@ class GBDT:
         return (grad.to(self.dtype).view(self.scores.shape),
                 hess.to(self.dtype).view(self.scores.shape))
 
-    def _run_gradients(self, sample: Optional[Sample] = None) -> None:
-        """Every class's gradients of the round's starting score into the
-        booster's static `_grad` and `_hess`, sampled by `sample` under the
-        key in `_round_inp`'s last row; one graph on the card a sampling."""
+    def _run_gradients(self, sample: Optional[Sample] = None,
+                       custom: bool = False) -> None:
+        """Every class's gradients of the round's starting score (with
+        `custom`, the staged ones) into the booster's static `_grad` and
+        `_hess`, sampled by `sample` under the key in `_round_inp`'s last
+        row; one graph on the card a sampling."""
+        if custom and sample is None:
+            return
         def fn():
-            grad, hess = self._gradients()
+            grad, hess = ((self._grad, self._hess) if custom
+                          else self._gradients())
             if sample is not None:
                 grad, hess = sample.fn(grad, hess, self._round_inp[-1, :2])
             self._grad.copy_(grad)
             self._hess.copy_(hess)
             return (self._grad, self._hess)
         key = ("gradients", tuple(self.scores.shape),
-               None if sample is None else sample.key)
+               None if sample is None else sample.key, custom)
         self._graphs.run(key, key, fn)
 
     def _round(self, parity: Optional[int], emit: str, bagged: bool,
@@ -805,7 +894,7 @@ class GBDT:
                 kw["quant_scales"] = (g_scale, h_scale)
             if emit == "score":
                 kw.update(score=self.scores[class_id],
-                          shrinkage=self.shrinkage_rate)
+                          shrinkage=self._shrink_dev)
             if bagged:
                 kw["in_bag"] = self._bag_pred
             if self._hist_slots:
@@ -857,7 +946,7 @@ class GBDT:
         the trees' fetches deferred."""
         k = self.num_tree_per_iteration
         p = self._carry_parity if self._carried_active else None
-        if k > 1:
+        if self._held:
             self._run_gradients()
         for kk in range(k):
             packed, _, _ = self._run_round(p, "score", False, class_id=kk)
@@ -872,16 +961,18 @@ class GBDT:
         """Start the packed tree's copy to the host and leave a placeholder
         in its model slot until a drain (gbdt.py:561-572, :623-641).  The
         copy is queued before the next graph runs, which may reuse the
-        packed tree's memory."""
+        packed tree's memory.  The entry keeps the round's learning rate,
+        which its device score update used, for the drain's shrink."""
         host, event = self._to_host(packed, slot, class_id)
         self.models.append(None)            # placeholder; drained later
         self._inflight.append(dict(host=host, event=event, it=self.iter,
                                    init_score=init_score,
+                                   shrink=self.shrinkage_rate,
                                    slot=len(self.models) - 1))
 
     def _eager_iter(self, slot, init_scores: List[float],
                     classes: Sequence[int], deferred_ok: bool,
-                    sample: Optional[Sample]) -> bool:
+                    sample: Optional[Sample], custom: bool = False) -> bool:
         """The eager path's iteration (gbdt.py:593-687, growing through
         `_grow_one_tree`, :1372-1417): the bag, drawn once for every class,
         the pristine root, per-row leaf ids (-1 out of the bag) or, on the
@@ -898,12 +989,13 @@ class GBDT:
         add over a bag, or a gather; each validation set's by KP2's add
         mode on the round's device tree.  A class that needs no training
         grows no tree: its first iteration keeps its prior as a constant
-        tree (:656-679).  A GOSS sample is drawn with the gradients and
-        grows the trees as a bag does (:609-610)."""
+        tree (:656-679).  A GOSS sample is drawn with the gradients (the
+        staged ones with `custom`) and grows the trees as a bag does
+        (:609-610)."""
         k = self.num_tree_per_iteration
         in_bag = self._bagging(self.iter)
         bagged = in_bag is not None
-        renew = self.objective.is_renew_tree_output()
+        renew = self._renews()
         if not self._use_partition_engine:
             emit = "leaf_ids"
         elif deferred_ok and not bagged:
@@ -912,7 +1004,7 @@ class GBDT:
             emit = "segments" if not bagged and not renew else "leaf_ids"
         update = deferred_ok and emit != "score"
         if self._held and classes:
-            self._run_gradients(sample)
+            self._run_gradients(sample, custom)
         should_continue = deferred_any = False
         for kk in range(k):
             new_tree, out, arrays = Tree(1), None, None
@@ -974,14 +1066,14 @@ class GBDT:
         quantile, MAPE), shrunk, and its host leaf values added to the
         class's scores (gbdt.py:1616-1630, :1623: the f64-shrunk values
         cast to f32)."""
-        if self.objective.is_renew_tree_output():
+        if self._renews():
             self._renew_tree_output(tree, class_id, out)
         tree.shrink(self.shrinkage_rate)
         lv = self._leaf_values(tree)
         if emit == "segments":
             # s = 1 adds each value exactly as `score += lv[leaf_ids]`
             scatter_segments(self.arena, out, lv, arrays.num_leaves.view(1),
-                             self.scores[class_id], shrink=1.0)
+                             self.scores[class_id], shrink=self._one)
         else:
             self._add_leaf_values(lv, out, bagged, arrays, class_id)
         for _, vs, _m in self.valid_states:
@@ -1020,7 +1112,7 @@ class GBDT:
                 tree = Tree(1)
                 if int(host_arrays.num_leaves) > 1:
                     tree = Tree.from_arrays(host_arrays, self.train_set)
-                    tree.shrink(self.shrinkage_rate)
+                    tree.shrink(ent["shrink"])
                     if abs(ent["init_score"]) > K_EPSILON:
                         tree.add_bias(ent["init_score"])
                     any_grew = True
@@ -1132,6 +1224,9 @@ class GBDT:
     def current_iteration(self) -> int:
         self._sync_model()
         return len(self.models) // max(self.num_tree_per_iteration, 1)
+
+    def num_model_per_iteration(self) -> int:
+        return self.num_tree_per_iteration
 
     def num_trees(self) -> int:
         self._sync_model()
@@ -1306,17 +1401,154 @@ class GBDT:
             return _by_dense_chunks(X, lambda x: _shap(self, x, num_iteration))
         return _shap(self, self._check_features(X), num_iteration)
 
-    def feature_importance(self, num_iteration: int = -1) -> np.ndarray:
-        """Split counts per raw feature."""
+    def feature_importance(self, importance_type: str = "split",
+                           num_iteration: int = -1) -> np.ndarray:
+        """Per raw feature, the splits on it ("split") or their summed
+        positive gains (any other type), over the first num_iteration
+        iterations (gbdt.py:1863-1877)."""
         self._sync_model()
         imp = np.zeros(self.max_feature_idx + 1, np.float64)
-        k = max(self.num_tree_per_iteration, 1)
-        total = len(self.models) // k
-        iters = total if num_iteration <= 0 else min(num_iteration, total)
-        for tree in self.models[:iters * k]:
-            for f in tree.split_feature[:tree.num_leaves - 1]:
-                imp[f] += 1
+        for tree in self.models[:self._iterations(num_iteration)
+                                * self.num_tree_per_iteration]:
+            for node in range(tree.num_leaves - 1):
+                if importance_type == "split":
+                    imp[tree.split_feature[node]] += 1
+                else:
+                    imp[tree.split_feature[node]] += max(
+                        tree.split_gain[node], 0)
         return imp
+
+    def get_leaf_output(self, tree_id: int, leaf_id: int) -> float:
+        """The raw output of one leaf (gbdt.py:1823-1834)."""
+        self._sync_model()
+        if not 0 <= tree_id < len(self.models):
+            log.fatal("tree_id %d out of range [0, %d)" % (tree_id,
+                                                           len(self.models)))
+        tree = self.models[tree_id]
+        if not 0 <= leaf_id < tree.num_leaves:
+            log.fatal("leaf_id %d out of range [0, %d)" % (leaf_id,
+                                                           tree.num_leaves))
+        return float(tree.leaf_value[leaf_id])
+
+    def dump_model(self, num_iteration: int = -1) -> dict:
+        """The model as a JSON-style dict (gbdt.py:1879-1901, GBDT::DumpModel,
+        gbdt_model_text.cpp:15-58)."""
+        self._sync_model()
+        k = self.num_tree_per_iteration
+        return {
+            "name": "tree",
+            "version": "v2",
+            "num_class": self.num_class,
+            "num_tree_per_iteration": k,
+            "label_index": self.label_idx,
+            "max_feature_idx": self.max_feature_idx,
+            "objective": (self.objective.to_string()
+                          if self.objective is not None else "none"),
+            "average_output": self.average_output,
+            "feature_names": list(self.feature_names),
+            "feature_infos": list(self.feature_infos),
+            "tree_info": [self.models[i].to_json(i) for i in
+                          range(self._iterations(num_iteration) * k)],
+        }
+
+    def raw_scores(self, name: str) -> np.ndarray:
+        """A dataset's raw scores ("training" or a validation set's name),
+        f64 in row order, flat class-major for k > 1, as a custom objective
+        or eval function takes them (gbdt.py:2183-2190): one copy from the
+        device."""
+        if name == "training":
+            scores = self.scores
+        else:
+            scores = next(vs.scores for nm, vs, _m in self.valid_states
+                          if nm == name)
+        out = scores.cpu().numpy().astype(np.float64)
+        return out[0] if out.shape[0] == 1 else out.reshape(-1)
+
+    def rollback_one_iter(self) -> None:
+        """Remove the last iteration's k trees (gbdt.py:2162-2178): each
+        negated tree is added into the training and validation scores by
+        KP2's add over the bins, the carried arena is left for good (the
+        rows' order there is the removed tree's), then the trees go."""
+        self._sync_model()
+        self._model_gen += 1
+        if self.iter <= 0:
+            return
+        k = self.num_tree_per_iteration
+        for kk in range(k):
+            tree = self.models[-k + kk]
+            tree.shrink(-1.0)
+            self._add_train_tree_score(tree, kk)
+            for _, vs, _m in self.valid_states:
+                self._add_tree_score(vs, tree, kk)
+            tree.shrink(-1.0)
+        if self._carried_active:
+            self._carried_active = False
+        del self.models[-k:]
+        self.iter -= 1
+        self._deferred_stopped = False
+        self._rebuild_cegb_used()
+
+    def refit(self, X, label, weight=None, group=None) -> None:
+        """New leaf values for every tree on (X, label), the structure
+        kept (gbdt.py:2098-2122; GBDT::RefitTree, gbdt.cpp:263-286): each
+        row's leaf in every tree from the device ensemble (KP1's leaf mode
+        on the card, bit for bit the host walk's)."""
+        self._sync_model()
+        from ..io.metadata import Metadata
+        if self.objective is None:
+            log.fatal("Cannot refit without an objective")
+        X = self._check_features(X, float32=True)
+        n = len(X)
+        meta = Metadata(n)
+        meta.set_label(np.asarray(label))
+        if weight is not None:
+            meta.set_weights(np.asarray(weight))
+        if group is not None:
+            meta.set_query(np.asarray(group))
+        self.objective.init(meta, n, self.device)
+        leaf_preds = self._device_ensemble().predict_leaf(
+            X, len(self.models) // self.num_tree_per_iteration)
+        self.refit_with_leaf_preds(leaf_preds, n)
+
+    def refit_with_leaf_preds(self, leaf_preds: np.ndarray, n: int) -> None:
+        """Leaf values renewed from an [n, num_models] row-to-leaf map
+        against the objective's labels (gbdt.py:2124-2153,
+        FitByExistingTree, serial_tree_learner.cpp:235-265): iteration by
+        iteration, the objective's gradients of the refit score, each
+        leaf's sums in f64 in the host's row order, the leaf output blended
+        by refit_decay_rate, and the score adding the new values."""
+        from ..ops.split import calculate_splitted_leaf_output
+        self._sync_model()
+        self._model_gen += 1
+        k = self.num_tree_per_iteration
+        cfg = self.config
+        decay = cfg.refit_decay_rate
+        leaf_preds = np.asarray(leaf_preds)
+        lp_dev = torch.as_tensor(leaf_preds.astype(np.int64),
+                                 device=self.device)
+        score = torch.zeros((k, n), dtype=self.dtype, device=self.device)
+        for it in range(len(self.models) // k):
+            grad, hess = self.objective.get_gradients(
+                score if k > 1 else score[0])
+            grad = grad.reshape(k, n).cpu().numpy()
+            hess = hess.reshape(k, n).cpu().numpy()
+            for kk in range(k):
+                t = it * k + kk
+                tree = self.models[t]
+                lp = leaf_preds[:, t]
+                nl = tree.num_leaves
+                sum_g = np.bincount(lp, weights=grad[kk], minlength=nl)[:nl]
+                sum_h = np.bincount(lp, weights=hess[kk],
+                                    minlength=nl)[:nl] + K_EPSILON
+                out = calculate_splitted_leaf_output(
+                    torch.from_numpy(sum_g), torch.from_numpy(sum_h),
+                    cfg.lambda_l1, cfg.lambda_l2, cfg.max_delta_step).numpy()
+                tree.leaf_value[:nl] = (decay * tree.leaf_value[:nl]
+                                        + (1.0 - decay) * out
+                                        * tree.shrinkage)
+                lv = torch.as_tensor(tree.leaf_value[:nl],
+                                     device=self.device).to(self.dtype)
+                score[kk] += lv[lp_dev[:, t]]
 
     def model_to_if_else(self) -> str:
         """Standalone C++ if-else prediction code of the model
@@ -1325,7 +1557,10 @@ class GBDT:
         from .codegen import model_to_if_else
         return model_to_if_else(self)
 
-    def save_model_to_string(self, num_iteration: int = -1) -> str:
+    def save_model_to_string(self, start_iteration: int = 0,
+                             num_iteration: int = -1) -> str:
+        """The model text of num_iteration iterations (all with <= 0) from
+        start_iteration on (gbdt.py:1903-1939)."""
         self._sync_model()
         ss = [self.sub_model_name, "version=v2",
               "num_class=%d" % self.num_class,
@@ -1338,22 +1573,33 @@ class GBDT:
             ss.append("average_output")
         ss.append("feature_names=" + " ".join(self.feature_names))
         ss.append("feature_infos=" + " ".join(self.feature_infos))
+        k = self.num_tree_per_iteration
+        start_iteration = min(max(start_iteration, 0), len(self.models) // k)
         num_used = len(self.models)
         if num_iteration > 0:
-            num_used = min(num_iteration * max(self.num_tree_per_iteration, 1),
-                           num_used)
-        tree_strs = ["Tree=%d\n%s\n" % (i, self.models[i].to_string())
-                     for i in range(num_used)]
+            num_used = min((start_iteration + num_iteration) * k, num_used)
+        start_model = start_iteration * k
+        tree_strs = ["Tree=%d\n%s\n" % (i - start_model,
+                                         self.models[i].to_string())
+                     for i in range(start_model, num_used)]
         ss.append("tree_sizes=" + " ".join(str(len(s)) for s in tree_strs))
         ss.append("")
         body = "\n".join(ss) + "\n" + "".join(tree_strs) + "end of trees\n"
-        imps = self.feature_importance(num_iteration)
+        imps = self.feature_importance("split", num_iteration)
         pairs = [(int(v), self.feature_names[i]) for i, v in enumerate(imps)
                  if v > 0]
         pairs.sort(key=lambda p: -p[0])
         body += "\nfeature importances:\n"
         body += "".join("%s=%d\n" % (nm, v) for v, nm in pairs)
         return body
+
+    def save_model_to_file(self, filename: str, start_iteration: int = 0,
+                           num_iteration: int = -1) -> None:
+        """The model text written atomically (gbdt.py:1941-1948): a crash
+        mid-save leaves the old file or the new one, never a part."""
+        atomic_write_text(filename, self.save_model_to_string(
+            start_iteration, num_iteration))
+        log.info("Saved model to %s", filename)
 
     def load_model_from_string(self, text: str) -> None:
         """LoadModelFromString (gbdt_model_text.cpp:343+), k trees an
@@ -1394,6 +1640,21 @@ class GBDT:
                 body = body[:body.index("end of trees")]
             self.models.append(Tree.from_string(body))
         self.iter = len(self.models) // max(self.num_tree_per_iteration, 1)
+
+
+def split_params(cfg: Config) -> SplitParams:
+    """The growth-time split parameters of a config (gbdt.py:382-396
+    `_refresh_split_params`)."""
+    return SplitParams(
+        lambda_l1=cfg.lambda_l1, lambda_l2=cfg.lambda_l2,
+        max_delta_step=cfg.max_delta_step,
+        min_data_in_leaf=cfg.min_data_in_leaf,
+        min_sum_hessian_in_leaf=cfg.min_sum_hessian_in_leaf,
+        min_gain_to_split=cfg.min_gain_to_split,
+        cegb_split_penalty=cfg.cegb_tradeoff * cfg.cegb_penalty_split,
+        max_cat_to_onehot=cfg.max_cat_to_onehot,
+        cat_smooth=cfg.cat_smooth, cat_l2=cfg.cat_l2,
+        min_data_per_group=cfg.min_data_per_group)
 
 
 def choose_tree_engine(requested: str, base_ok: bool, arena_bytes: int,
@@ -1547,6 +1808,32 @@ def _walk_add(bins: torch.Tensor, num_bins: torch.Tensor,
                          device=score.device).to(score.dtype)
     walk_binned(bins, _tree_to_device(tree, score.device, max_bin), num_bins,
                 default_bins, lv=lv, score=score, bundle=bundle)
+
+
+# Copied from lightgbm_tpu/io/file_io.py:60-90 `atomic_write_text`, local
+# paths only (the port has no remote file backends).
+def atomic_write_text(path, text: str) -> None:
+    """Write `text` to `path` so readers never observe a partial file: a
+    temp file in the same directory, flushed and fsynced, then
+    ``os.replace`` over the destination."""
+    import os
+    import tempfile
+    path = str(path)
+    directory = os.path.dirname(os.path.abspath(path))
+    fd, tmp = tempfile.mkstemp(
+        prefix=os.path.basename(path) + ".tmp.", dir=directory)
+    try:
+        with os.fdopen(fd, "w") as f:
+            f.write(text)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
 
 
 def _issparse(X) -> bool:

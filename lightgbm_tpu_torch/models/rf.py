@@ -55,10 +55,12 @@ class RF(GBDT):
         self._hess.copy_(hess.to(self.dtype).view(k, n))
         self._rf_grad_ready = True
 
-    def train_one_iter(self) -> bool:
+    def train_one_iter(self, gradients=None, hessians=None) -> bool:
         """rf.py:50-81: one bagged tree a class, fetched in its round; a
         class that grows no tree keeps its init score as a constant tree.
-        RF never stops early."""
+        RF never stops early, and takes no custom gradients."""
+        if gradients is not None or hessians is not None:
+            log.fatal("RF mode does not support custom objective")
         if not self._rf_grad_ready:
             self._compute_rf_gradients()
         k = self.num_tree_per_iteration

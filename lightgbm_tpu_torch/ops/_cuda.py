@@ -73,7 +73,7 @@ _ENTRY_POINTS = {
     "scatter_segments": {
         "lgbt_scatter_segments_f32": [_P, _P, _P, _P, _P, _I, _P],
         "lgbt_scatter_segments_i32": [_P, _P, _P, _P, _P, _I, _P],
-        "lgbt_scatter_segments_add": [_P, _P, _P, _P, _F, _P, _I, _P]},
+        "lgbt_scatter_segments_add": [_P, _P, _P, _P, _P, _P, _I, _P]},
     "compact_carry": {
         "lgbt_compact_carry": [_P, _P, _P, _LL, _P, _P, _I, _P, _P, _LL, _I,
                                _P],

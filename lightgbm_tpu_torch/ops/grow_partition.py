@@ -71,7 +71,8 @@ read the segment and the decision from the device vector `sc`, built on
 the device, and the split parameters come in as K1's vector (`pvec`).  So
 the whole grower can be captured into a CUDA graph (ops/graphs.py), which
 the driver replays once a round; the Python values it bakes in (the arena
-columns, max_leaves, the shrinkage) are fixed per graph.
+columns, max_leaves) are fixed per graph, and the shrinkage, a device
+scalar that K4 reads, takes its value of the replay.
 """
 from __future__ import annotations
 
@@ -127,7 +128,7 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
                         carry_dst: Optional[int] = None,
                         in_bag: Optional[torch.Tensor] = None,
                         score: Optional[torch.Tensor] = None,
-                        shrinkage: Optional[float] = None,
+                        shrinkage: Optional[torch.Tensor] = None,
                         pvec: Optional[torch.Tensor] = None,
                         cegb_coupled: Optional[torch.Tensor] = None,
                         cegb_used: Optional[torch.Tensor] = None,
@@ -146,9 +147,9 @@ def grow_tree_partition(arena: Arena, grad: torch.Tensor, hess: torch.Tensor,
     the same pass; the root count stays on the device.
 
     emit="score" needs every row in a live leaf (no in_bag): K4 adds each
-    row's leaf value times the f32 value of `shrinkage` into `score` (f32
-    [n], row order) in place, rounded as `score += delta * shrink` would
-    round it.  emit="segments" returns the leaves' segments instead, for
+    row's leaf value times the value of `shrinkage` (a one-value f32
+    device tensor read when K4 runs) into `score` (f32 [n], row order) in
+    place, rounded as `score += delta * shrink` would round it.  emit="segments" returns the leaves' segments instead, for
     the caller's own K4 pass over the arena as the tree left it.
 
     pvec is the split parameters as K1 takes them

@@ -522,7 +522,7 @@ def partition_ablate(arena: Arena, sc: torch.Tensor, goleft: torch.Tensor,
 def scatter_segments_plain(arena: Arena, seg: torch.Tensor,
                            vals: torch.Tensor, nl: torch.Tensor,
                            out: torch.Tensor,
-                           shrink: Optional[float] = None) -> None:
+                           shrink: Optional[torch.Tensor] = None) -> None:
     """The composition K4 replaces: compact the live segments into a
     (rowid, value) stream, then put each value at its row (set), or add
     it times the f32 shrinkage as two f32 operations (add)."""
@@ -535,9 +535,18 @@ def scatter_segments_plain(arena: Arena, seg: torch.Tensor,
         return
     rows, stream = torch.cat(rids), torch.cat(stream).to(out.dtype)
     if shrink is not None:
-        s = torch.tensor(shrink, dtype=torch.float32, device=out.device)
-        stream = out[rows] + stream * s
+        stream = out[rows] + stream * require_shrink(shrink, out.device)
     out.index_put_((rows,), stream)
+
+
+def require_shrink(shrink: torch.Tensor, dev) -> torch.Tensor:
+    """K4's add-mode shrinkage: a one-value f32 tensor on `dev`, read
+    where the launch runs, so a graph replay reads the value of its
+    moment."""
+    _cuda.require(shrink, "shrink", torch.float32, dev)
+    if shrink.numel() != 1:
+        raise ValueError("shrink: one value, got %d" % shrink.numel())
+    return shrink
 
 
 def _require_segments(seg: torch.Tensor, nl: torch.Tensor, dev) -> int:
@@ -551,15 +560,16 @@ def _require_segments(seg: torch.Tensor, nl: torch.Tensor, dev) -> int:
 
 def scatter_segments(arena: Arena, seg: torch.Tensor, vals: torch.Tensor,
                      nl: torch.Tensor, out: torch.Tensor,
-                     shrink: Optional[float] = None) -> None:
+                     shrink: Optional[torch.Tensor] = None) -> None:
     """For every live leaf l < nl[0] and row i of its segment (seg [L, 2]
     int32 (start, count)), r = rid[start_l + i]:
     - set (shrink None): out[r] = vals[l]; vals and out both f32 (leaf
       values) or both int32 (leaf ids);
     - add (shrink, f32 vals and out): out[r] = out[r] + vals[l] * s, s the
-      f32 value of shrink, rounded as two f32 operations: bit for bit
-      `out += delta * torch.tensor(shrink)` over a delta holding vals[l] at
-      every live row."""
+      value of shrink (a one-value f32 tensor on the arena's device that
+      the kernel reads when it runs), rounded as two f32 operations: bit
+      for bit `out += delta * s` over a delta holding vals[l] at every
+      live row."""
     dev = arena.device
     L = _require_segments(seg, nl, dev)
     if vals.dtype not in (torch.float32, torch.int32):
@@ -575,7 +585,9 @@ def scatter_segments(arena: Arena, seg: torch.Tensor, vals: torch.Tensor,
             nl.data_ptr())
     tail = (out.data_ptr(), L, _cuda.stream())
     if shrink is not None:
-        rc = _cuda.fn("lgbt_scatter_segments_add")(*head, shrink, *tail)
+        s = require_shrink(shrink, dev)
+        rc = _cuda.fn("lgbt_scatter_segments_add")(*head, s.data_ptr(),
+                                                    *tail)
         _cuda.check(rc, "scatter_segments_add")
         return
     name = ("lgbt_scatter_segments_f32" if vals.dtype == torch.float32

@@ -134,6 +134,8 @@ OLD_ENTRY_POINTS = {
                                               ctypes.c_double, _P, _LL, _P,
                                               _P]},
 }
+# K4's add mode before its shrinkage became a device scalar: s by value
+ADD_BY_VALUE = [_P, _P, _P, _P, ctypes.c_float, _P, _I, _P]
 OLD_PART_BLOCKS, OLD_PRED_BLOCKS, OLD_LEAF_BLOCKS = 1024, 264, 264
 OLD_CARRY_BLOCKS = OLD_SCATTER_BLOCKS = 64
 SECTIONS = ("sass", "K3", "K7", "K2", "K1", "K6", "K4", "KP1")
@@ -238,7 +240,16 @@ def _load(src_dir: str, stem: str, out_dir: str, tag: str):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         fns[name] = fn
+    if stem == "scatter_segments" and not old and _add_by_value(src_dir):
+        fns["lgbt_scatter_segments_add"].argtypes = ADD_BY_VALUE
     return fns, old
+
+
+def _add_by_value(src_dir: str) -> bool:
+    """K4's add mode takes its shrinkage by value (the tree's sources
+    before the device scalar)."""
+    with open(os.path.join(src_dir, "scatter_segments.cu")) as f:
+        return "const float* s, float* out" not in f.read()
 
 
 def _check(rc, what):
@@ -788,7 +799,8 @@ def scatters(other: str, n: int, out_dir: str, carried: dict = None) -> None:
     kernel-only beside.  Where the other tree's K4 has no add mode (the
     first version), its side of the add is the chain the add mode
     replaces: a zeroed delta, its K4 in set mode, a multiply and an add
-    over n rows.  Beside them, the bounds and the library calls over the
+    over n rows; where it takes the shrinkage by value (before the device
+    scalar), it is given the number.  Beside them, the bounds and the library calls over the
     expanded (row, value) pairs: index_put_, with accumulate=True for the
     add."""
     dev = torch.device("cuda")
@@ -839,9 +851,11 @@ def scatters(other: str, n: int, out_dir: str, carried: dict = None) -> None:
                     set_call(t, vals, delta)()
                     out.add_(delta * s_t)
                 return chain
+            s_arg = (shrink if fns["lgbt_scatter_segments_add"].argtypes
+                     == ADD_BY_VALUE else s_t.data_ptr())
             return lambda: _check(fns["lgbt_scatter_segments_add"](
                 rid.data_ptr(), seg.data_ptr(), vals.data_ptr(),
-                nl.data_ptr(), shrink, out.data_ptr(), L, _cuda.stream()),
+                nl.data_ptr(), s_arg, out.data_ptr(), L, _cuda.stream()),
                 "K4 add")
         runs = {"set": {t: set_call(t, vals, outs[t]["f32"]) for t in impl},
                 "add": {t: add_call(t) for t in impl}}

@@ -514,17 +514,21 @@ def test_valid_set_without_reference_warns_and_parts_from_predict():
 # the copied callback module
 # --------------------------------------------------------------------------- #
 def test_callback_copy_is_verbatim():
-    """lightgbm_tpu_torch/callback.py holds lines 1-69 and 191-266 of the
-    JAX package's callback.py unchanged, after its provenance comment."""
+    """lightgbm_tpu_torch/callback.py holds lines 1-69 and 150-266 of the
+    JAX package's callback.py unchanged, after its provenance comment: all
+    but the telemetry, checkpoint and preemption callbacks, so
+    reset_parameter is the JAX package's, a callback run before each
+    round."""
     def lines(path):
         with open(os.path.join(REPO, path)) as f:
             return f.read().splitlines()
     src = lines("lightgbm_tpu/callback.py")
     port = lines("lightgbm_tpu_torch/callback.py")
     assert port[0].startswith("# Copied from lightgbm_tpu/callback.py, "
-                              "lines 1-69 and 191-266")
+                              "lines 1-69 and 150-266")
     body = port[next(i for i, s in enumerate(port) if not s.startswith("#")):]
     assert body[:69] == src[:69]
-    assert body[71:71 + 76] == src[190:266]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tlgb.callback.reset_parameter(learning_rate=[0.1])
+    assert body[69:71] == ["", ""]
+    assert body[71:] == src[149:266]
+    cb = tlgb.callback.reset_parameter(learning_rate=[0.1])
+    assert cb.before_iteration and cb.order == 10

@@ -11,8 +11,9 @@
   queue 1, item 3;
 - `Booster.predict` reads a DataFrame's category column as its codes, as
   before;
-- the engine's and callback's not-yet-ported features name queue 1, item
-  7b, and checkpoint resume item 14.
+- checkpoint resume names queue 1, item 14; item 7b's training options
+  (fobj, feval, init_model, learning_rates), callbacks before a round and
+  cv, ported since, run on a frame.
 """
 import json
 
@@ -134,33 +135,58 @@ def test_predict_reads_category_codes():
                                               raw_score=True))
 
 
+def _logloss(preds, data):
+    p = 1.0 / (1.0 + np.exp(-preds))
+    return p - data.get_label(), p * (1.0 - p)
+
+
 @pytest.mark.parametrize("kw,item", [
-    ({"fobj": lambda p, d: (p, p)}, "item 7b"),
+    ({"fobj": _logloss}, "item 7b"),
     ({"feval": lambda p, d: ("m", 0.0, True)}, "item 7b"),
     ({"init_model": "model.txt"}, "item 7b"),
     ({"learning_rates": [0.1]}, "item 7b"),
     ({"resume_from": "ckpt"}, "item 14"),
 ])
-def test_unported_training_options_name_their_item(kw, item):
+def test_unported_training_options_name_their_item(kw, item, tmp_path):
+    """resume_from raises NotImplementedError naming its item (14); the
+    options of item 7b, ported since, train on a frame."""
     df, y = _frame(n=50)
-    with pytest.raises(NotImplementedError, match=item):
+    if item == "item 14":
+        with pytest.raises(NotImplementedError, match=item):
+            tlgb.train(PARAMS, tlgb.Dataset(df, y, device="cpu"), 1,
+                       device="cpu", **kw)
+        return
+    kw = dict(kw)
+    if "init_model" in kw:
+        kw["init_model"] = str(tmp_path / kw["init_model"])
         tlgb.train(PARAMS, tlgb.Dataset(df, y, device="cpu"), 1,
-                   device="cpu", **kw)
+                   device="cpu").save_model(kw["init_model"])
+    if "feval" in kw:
+        kw.update(valid_sets=[tlgb.Dataset(df, y, device="cpu")],
+                  evals_result={})
+    bst = tlgb.train(PARAMS, tlgb.Dataset(df, y, device="cpu"), 1,
+                     device="cpu", verbose_eval=False, **kw)
+    assert bst.current_iteration == 1
+    if "feval" in kw:
+        assert kw["evals_result"]["valid_0"]["m"] == [0.0]
 
 
 def test_unported_callbacks_and_cv_name_item_7b():
+    """Item 7b's callbacks before a round, reset_parameter and cv, ported
+    since, run on a frame."""
     df, y = _frame(n=50)
+    seen = []
 
     def before(env):
-        pass
+        seen.append((env.iteration, env.evaluation_result_list))
     before.before_iteration = True
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        tlgb.train(PARAMS, tlgb.Dataset(df, y, device="cpu"), 1,
-                   device="cpu", callbacks=[before])
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        tcallback.reset_parameter(learning_rate=[0.1])
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        tlgb.cv(PARAMS, tlgb.Dataset(df, y, device="cpu"))
+    tlgb.train(PARAMS, tlgb.Dataset(df, y, device="cpu"), 2, device="cpu",
+               callbacks=[before])
+    assert seen == [(0, None), (1, None)]
+    assert tcallback.reset_parameter(learning_rate=[0.1]).before_iteration
+    res = tlgb.cv(PARAMS, tlgb.Dataset(df, y, device="cpu"),
+                  num_boost_round=2, nfold=3, device="cpu")
+    assert len(res["binary_logloss-mean"]) == 2
 
 
 def test_mixed_columns_bin_as_jax_does():

@@ -147,6 +147,16 @@ Tolerances, per kernel:
   twin, bit for bit, K3's pred mode and KP2's masked add launched in the
   sampled rounds; DART's device prediction after every round, drops
   included, equal to the host walk of the rescaled trees, bit for bit.
+- the public API: K4's add mode captured in a graph with its shrinkage a
+  device scalar, replayed after the scalar is rewritten, bit for bit the
+  plain add with the new value; custom gradients (objective=none, a
+  numpy objective of the raw scores rounded to dyadic values) through the
+  round graphs against an eager twin, f32 and quantized on the partition
+  engine and f32 on the label engine, bit for bit; a learning-rate
+  schedule on the carried arena: no graph captured beyond the
+  unscheduled run's two, each round's rate in K4's score update (the
+  score bit for bit its eager twin's), each drained tree shrunk by its
+  own round's rate, and the model predicting the training score.
 """
 import os
 
@@ -373,13 +383,14 @@ def test_scatter_segments_matches_plain(mode, kind, dev):
         out_k = torch.randn(rows + 5, generator=gen, device=dev) * 3
         out_k[::97] = torch.tensor(-2e-39, device=dev)
         out_k[::89] = torch.tensor(7e-42, device=dev)
-    shrink = 0.1 if mode == "add" else None
+    shrink = (torch.full((), 0.1, device=dev) if mode == "add" else None)
     out_p = out_k.clone()
     _cuda.reset_launch_counts()
     pk.scatter_segments(arena, seg, vals, nl, out_k, shrink=shrink)
     torch.cuda.synchronize()
     assert dict(_cuda.LAUNCHES) == {
-        "scatter_segments_add" if shrink else "scatter_segments": 1}
+        "scatter_segments_add" if shrink is not None
+        else "scatter_segments": 1}
     pk.scatter_segments_plain(arena, seg, vals, nl, out_p, shrink=shrink)
     if mode == "add":
         out_k, out_p = out_k.view(torch.int32), out_p.view(torch.int32)
@@ -2616,3 +2627,123 @@ def test_uint16_label_engine_card_vs_cpu(dev):
     assert a._gbdt.train_set.device_bins(dev).dtype == torch.int16
     assert counts.get("leaf_histogram_u16", 0) > 0, counts
     assert sum(t.num_cat for t in a._gbdt.models) > 0
+
+
+# --------------------------------------------------------------------------- #
+# the public API: K4's device shrinkage, custom gradients, schedules
+# --------------------------------------------------------------------------- #
+def test_scatter_segments_add_reads_shrink_at_replay(dev):
+    """K4's add mode with its shrinkage a one-value device tensor, in a
+    captured graph: each replay reads the value written before it, bit for
+    bit the plain add with that value (and the launch counted a
+    replay)."""
+    from lightgbm_tpu_torch.ops.graphs import RoundGraphs
+    arena, seg, nl, rows = _scatter_layout("skewed", dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    vals = torch.randn(seg.shape[0], generator=gen, device=dev)
+    out = torch.randn(rows + 5, generator=gen, device=dev)
+    s = torch.zeros((), dtype=torch.float32, device=dev)
+    graphs = RoundGraphs(dev)
+
+    def fn():
+        pk.scatter_segments(arena, seg, vals, nl, out, shrink=s)
+        return (out,)
+    want = out.clone()
+    _cuda.reset_launch_counts()
+    for rate in (0.1, 0.05, 0.3, 1.0 / 3.0):
+        s.fill_(rate)
+        graphs.run("k4", "k4", fn)
+        pk.scatter_segments_plain(arena, seg, vals, nl, want,
+                                  shrink=torch.full((), rate, device=dev))
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    assert graphs.stats()[0]["replays"] == 3
+    assert dict(_cuda.LAUNCHES) == {"scatter_segments_add": 4}
+
+
+def _dyadic_fobj(preds, ds):
+    """Binary logloss of the raw scores, gradients rounded to 1/64 and
+    hessians to [1/64, 1] in steps of 1/64 (every histogram sum exact)."""
+    y = ds.get_label()
+    p = 1.0 / (1.0 + np.exp(-preds))
+    return (np.round((p - y) * 64) / 64,
+            np.maximum(np.round(p * (1.0 - p) * 64), 1) / 64)
+
+
+API_GRAPH_PATHS = {
+    "f32": {},
+    "quantized": {"tpu_quantized_grad": True},
+    "label_f32": {"tpu_tree_engine": "label", "tpu_histogram_impl": "pallas"},
+}
+
+
+@pytest.mark.parametrize("path", sorted(API_GRAPH_PATHS))
+def test_custom_gradient_graph_rounds_match_eager(path, dev):
+    """Five rounds of objective=none on custom gradients (staged from the
+    host into the held buffers) through the round graphs against an eager
+    twin: the score and each round's packed tree bit for bit, the trees
+    deferred (no fetch), one graph replayed at every round after the
+    first, and no boost-from-average."""
+    import lightgbm_tpu_torch as lt
+    X, y = _higgs_like(20_000, seed=23)
+    params = dict({"objective": "none", "num_leaves": 31,
+                   "learning_rate": 0.1, "max_bin": 63,
+                   "min_data_in_leaf": 20, "verbose": -1,
+                   "feature_fraction": 0.8}, **API_GRAPH_PATHS[path])
+    a, b = (lt.Booster(params, lt.Dataset(X, y, device=dev), device=dev)
+            for _ in range(2))
+    b._gbdt._graphs = _EagerRounds()
+    ga, gb = a._gbdt, b._gbdt
+    assert ga.objective is None and ga._held
+    for r in range(5):
+        a.update(fobj=_dyadic_fobj)
+        b.update(fobj=_dyadic_fobj)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(ga.score), _bits(gb.score)), r
+        ea, eb = ga._inflight[-1], gb._inflight[-1]
+        ea["event"].synchronize()
+        eb["event"].synchronize()
+        assert torch.equal(ea["host"], eb["host"]), r
+    stats = ga._graphs.stats()
+    assert len(stats) == 1 and stats[0]["replays"] == 4
+    assert ga._tree_fetches == 0 and not ga._carried_active
+    assert a.model_to_string() == b.model_to_string()
+    np.testing.assert_allclose(a.predict(X, raw_score=True),
+                               ga.score.cpu().numpy(), rtol=0, atol=1e-5)
+
+
+def test_schedule_rate_reaches_k4_at_replay(dev):
+    """A learning-rate schedule on the carried arena through
+    Booster.reset_parameter before each round, against an eager twin on
+    dyadic gradients: the score after every round bit for bit the twin's
+    (K4 read each round's rate from the device scalar), the two carried
+    graphs of the unscheduled run and no more, every round past the first
+    replayed, the drained trees shrunk by their own rounds' rates, and
+    the model's prediction equal to the training score."""
+    import lightgbm_tpu_torch as lt
+    X, y = _higgs_like(20_000, seed=23)
+    params = {"objective": "binary", "num_leaves": 31, "learning_rate": 0.1,
+              "max_bin": 63, "min_data_in_leaf": 20, "verbose": -1}
+    rates = [0.1, 0.1, 0.05, 0.3, 0.2, 0.05]
+    a, b = (lt.Booster(params, lt.Dataset(X, y, device=dev), device=dev)
+            for _ in range(2))
+    for bst in (a, b):
+        _dyadic_gradients(bst._gbdt)
+    b._gbdt._graphs = _EagerRounds()
+    ga, gb = a._gbdt, b._gbdt
+    for r, rate in enumerate(rates):
+        for bst in (a, b):
+            bst.reset_parameter({"learning_rate": rate})
+            bst.update()
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(ga.score), _bits(gb.score)), r
+    assert ga._carried_active and ga._tree_fetches == 0
+    stats = ga._graphs.stats()
+    assert len(stats) == 2 and sum(x["replays"] for x in stats) == 5
+    assert a.num_trees() == len(rates)
+    # the first tree's bias (boost from average) resets its shrinkage to 1
+    assert [t.shrinkage for t in ga.models] == pytest.approx(
+        [1.0] + rates[1:], rel=1e-12)
+    assert a.model_to_string() == b.model_to_string()
+    np.testing.assert_allclose(a.predict(X, raw_score=True),
+                               ga.score.cpu().numpy(), rtol=0, atol=1e-5)

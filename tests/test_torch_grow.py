@@ -137,7 +137,7 @@ def test_score_emit_is_leaf_value_per_row():
     score0 = np.random.RandomState(3).randn(n).astype(np.float32)
     score = torch.from_numpy(score0.copy())
     _, got, _ = _grow_port(c, params, 15, emit="score", score=score,
-                           shrinkage=0.1)
+                           shrinkage=torch.tensor(0.1))
     assert got is not None and np.shares_memory(got, score.numpy())
     lv = tree.leaf_value.numpy()[ids]
     np.testing.assert_array_equal(got, score0 + lv * np.float32(0.1))

@@ -338,7 +338,7 @@ def test_model_text_counts_whole_iterations(objective):
                                  "multiclassova": "ova-fused"}[objective])
     g, jg = tb._gbdt, jb._gbdt
     for it in (1, ROUNDS, ROUNDS + 1):
-        np.testing.assert_array_equal(g.feature_importance(it),
+        np.testing.assert_array_equal(g.feature_importance("split", it),
                                       jg.feature_importance("split", it))
         text = tb.model_to_string(num_iteration=it)
         assert_texts_match(text, jb.model_to_string(num_iteration=it))
@@ -348,7 +348,8 @@ def test_model_text_counts_whole_iterations(objective):
         assert again.num_trees() == want
         assert again.current_iteration == again._gbdt.iter == min(it, ROUNDS)
         assert jlgb.Booster(model_str=text)._gbdt.iter == min(it, ROUNDS)
-    assert g.feature_importance(1).sum() < g.feature_importance().sum()
+    assert g.feature_importance("split", 1).sum() < \
+        g.feature_importance().sum()
 
 
 # --------------------------------------------------------------------------- #

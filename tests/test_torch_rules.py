@@ -7,10 +7,12 @@
 - entry points with no device and no CUDA raise, with no CPU fallback;
 - every configuration this slice does not run raises NotImplementedError
   naming the ROADMAP.md item that brings it, those that raised until they
-  were ported (categorical features, EFB bundles, the boosting modes, and
-  the general grower's f64, uint16 bins, forced splits and histogram
-  pooling) train as JAX trains them, and quantized training, bagging and
-  the label engine engage;
+  were ported (categorical features, EFB bundles, the boosting modes, the
+  general grower's f64, uint16 bins, forced splits and histogram pooling,
+  and the public API's learning-rate schedules, callbacks before a round,
+  custom objectives and continued training) train as JAX trains them, and
+  quantized training, bagging and the label engine engage; cv and
+  reset_parameter run;
 - `Dataset.set_weight` moves training between the carried and pristine
   arenas as weights demand, and a validation set keeps it off the carried
   arena.
@@ -122,12 +124,15 @@ def _schedule(env):
 
 _schedule.before_iteration = True
 
+
+def _logloss(preds, data):
+    """A custom objective: binary logloss of the raw scores."""
+    p = 1.0 / (1.0 + np.exp(-preds))
+    return p - data.get_label(), p * (1.0 - p)
+
+
 # name -> (params, Dataset keywords, train keywords)
 UNSUPPORTED = {
-    "learning_rates": ({}, {}, {"learning_rates": [0.1]}),
-    "reset_parameter_callback": ({}, {}, {"callbacks": [_schedule]}),
-    "fobj": ({}, {}, {"fobj": lambda preds, data: (preds, preds)}),
-    "init_model": ({}, {}, {"init_model": "model.txt"}),
     # with one machine and one device the config turns a parallel learner
     # into the serial one, as the reference does (config.cpp:230-260)
     "data_parallel": ({"tree_learner": "data", "num_machines": 2}, {}),
@@ -151,6 +156,16 @@ PORTED = {
     "forced_splits": ({"forcedsplits_filename": "forced.json"}, {}),
     # the label engine keeps one histogram a leaf, as JAX's does
     "histogram_pool": ({"histogram_pool_size": 64.0}, {}),
+    # the public API (train keywords third): a schedule of the rate 0.2
+    # (one rate: with no validation set the JAX package shrinks a deferred
+    # tree by the rate of its drain, ROADMAP.md queue 3, which
+    # tests/test_torch_schedule.py holds the port apart from), a callback
+    # before each round, a custom objective, and two rounds on a one-round
+    # model written to the test's directory
+    "learning_rates": ({}, {}, {"learning_rates": [0.2, 0.2]}),
+    "reset_parameter_callback": ({}, {}, {"callbacks": [_schedule]}),
+    "fobj": ({}, {}, {"fobj": _logloss}),
+    "init_model": ({}, {}, {"init_model": "model.txt"}),
 }
 
 
@@ -180,8 +195,8 @@ def test_unsupported_config_raises(name, tmp_path):
         import json
         import lightgbm_tpu as jlgb
         from test_torch_inflight import assert_texts_match
-        extra, ds_kw = PORTED[name]
-        ds_kw = dict(ds_kw)
+        extra, ds_kw, train_kw = (PORTED[name] + ({},))[:3]
+        ds_kw, train_kw = dict(ds_kw), dict(train_kw)
         if "forcedsplits_filename" in extra:
             plan = tmp_path / extra["forcedsplits_filename"]
             plan.write_text(json.dumps({"feature": 1, "threshold": 0.0}))
@@ -192,10 +207,15 @@ def test_unsupported_config_raises(name, tmp_path):
                 else _data())
         params = dict({"objective": "binary", "verbose": -1,
                        "num_leaves": 7, "tpu_tree_engine": "label"}, **extra)
+        if "init_model" in train_kw:
+            model = tmp_path / train_kw["init_model"]
+            jlgb.train(params, jlgb.Dataset(X, y, **ds_kw),
+                       num_boost_round=1).save_model(str(model))
+            train_kw["init_model"] = str(model)
         tb = tlgb.train(params, tlgb.Dataset(X, y, device="cpu", **ds_kw),
-                        num_boost_round=2, device="cpu")
+                        num_boost_round=2, device="cpu", **train_kw)
         jb = jlgb.train(params, jlgb.Dataset(X, y, **ds_kw),
-                        num_boost_round=2)
+                        num_boost_round=2, **train_kw)
         binned = tb._gbdt.train_set
         if name == "efb_bundle":
             assert binned.bundle is not None and binned.bundle.any_bundled
@@ -233,10 +253,16 @@ def test_label_engine_engages():
 
 
 def test_cv_and_schedules_are_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tlgb.cv({"objective": "binary"}, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tlgb.callback.reset_parameter(learning_rate=[0.1])
+    """Refused until the public API was ported: cv now runs its folds and
+    reset_parameter makes a callback run before each round."""
+    X, y = _data()
+    res = tlgb.cv({"objective": "binary", "num_leaves": 7, "verbose": -1},
+                  tlgb.Dataset(X, y, device="cpu"), num_boost_round=2,
+                  nfold=3, device="cpu")
+    assert sorted(res) == ["binary_logloss-mean", "binary_logloss-stdv"]
+    assert len(res["binary_logloss-mean"]) == 2
+    cb = tlgb.callback.reset_parameter(learning_rate=[0.1])
+    assert cb.before_iteration
 
 
 def test_bagging_engages():

@@ -238,7 +238,7 @@ def _parent_formula(arena, seg, vals, nl, score, shrink):
     set mode, then `score += delta * torch.tensor(shrink)`."""
     delta = torch.zeros_like(score)
     pk.scatter_segments_plain(arena, seg, vals, nl, delta)
-    return score + delta * torch.tensor(shrink, dtype=torch.float32)
+    return score + delta * torch.as_tensor(shrink, dtype=torch.float32)
 
 
 @pytest.mark.parametrize("shrink", [0.1, 0.05, 1.0 / 3.0])
@@ -272,7 +272,8 @@ def test_plain_add_is_the_score_update(shrink):
     score[:50] = -0.0
     score[50:100] = 3e-41
     want = _parent_formula(arena, seg, vals, nl, score, shrink)
-    pk.scatter_segments(arena, seg, vals, nl, score, shrink=shrink)
+    pk.scatter_segments(arena, seg, vals, nl, score,
+                        shrink=torch.tensor(shrink, dtype=torch.float32))
     assert torch.equal(_bits(score), _bits(want))
 
 
