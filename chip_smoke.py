@@ -121,6 +121,29 @@
    ensemble's device bytes equal to the estimate; KP1's launches counted
    over the holdout's predict (row tiles) and the buckets' (small-batch
    walk);
+7b. serving phase (serving_phase), after the prediction phase, on its
+   model (50 rounds, 255 leaves, 28 features): the port's Server on the
+   card, port 0, batches of up to 256 rows after at most 2 ms, the
+   device-work floor at one row-tree so that every batch rides KP1 (the
+   default, the JAX package's 2^22 row-trees, sends every batch of this
+   model under 83,886 rows to the host walk); its warmup launches each of
+   the 9 buckets once; 8 client threads x 50 requests of 1, 2, 7, 16, 64
+   or 200 holdout rows, half over HTTP (ServingClient), half in process,
+   and one request of 100,000 rows alone (KP1's row tiles): every answer
+   bit for bit booster.predict(rows, device=False), raw scores through
+   the entry too, one KP1 launch a device batch, no build, no host batch,
+   no host fallback, no breaker failure, p50 and p99 by path and size on
+   the host clock; KP1 from numpy, the kernel alone and the host walk at
+   each bucket; v2 (the training phase's f32 model) hot-swapped in under
+   4 clients (every answer wholly v1's or v2's), rolled back (v1's answers
+   bit for bit); a shadow mirror of v2 (its divergence equal to the host
+   walks', the answers unchanged); /healthz, /models, /metrics (request
+   counters, device gauges); then a fleet of the training phase's f32,
+   quantized and weighted models under a budget of two and a half
+   tenants: the byte ledger equal to the tables' device_bytes(), the
+   third load spilling the least recently used, which answers at once on
+   the host walk and is promoted, the allocator's bytes back within its
+   rounding after the release;
 8. lambdarank phase (bench.py's second headline workload,
    MSLR-WEB30K-shaped: 18,900 queries of 120 documents, 2,268,000 rows x
    137 f32 features from bench.py's generator, seed 11; num_leaves=63,
@@ -161,7 +184,7 @@
    continued training from a 5-round model on 1M rows against a 10-round
    run, and rollback_one_iter; refit on the holdout against the CPU's;
    save_model, model_file and model_from_string, importance against a
-   recount from the text; cv (3 folds, 3 rounds) over the 10.5M rows;
+   recount from the text; cv (3 folds, 3 rounds) over the first 1M rows;
    LGBMClassifier on 1M rows against train, bit for bit;
 10. multiclass phase (the UCI Covertype dataset's shape: 581,012 rows x 54
    dense f32 features from a generator with Covertype's 7 class counts,
@@ -1617,6 +1640,8 @@ def share_gradients(card, cpu):
 # each training path's trees and model text as trained (training_phase),
 # which the general-grower phase compares with
 TRAINED = {}
+# the host walk of the prediction run's model over the holdout (raw sums)
+HOLDOUT_HOST = {}
 
 
 def training_phase(X, Xh, yh, ds_obj, valid_obj, rounds, dev, reduced, path):
@@ -2055,6 +2080,10 @@ def prediction_phase(X, Xh, ds_obj, dev, rounds, results):
     walks_s = time.perf_counter() - t
     host_h, host_s = walks["sums"]
     host_ms = host_s * 1e3
+    # the serving phase serves this model: its text and the holdout's
+    # host walk
+    TRAINED["prediction"] = (list(g.models), bst.model_to_string())
+    HOLDOUT_HOST["raw"] = host_h
     expect(np.array_equal(raw_h, host_h), "KP1: holdout sums differ from "
            "the host walk's by up to %.3g" % float(np.abs(raw_h - host_h)
                                                   .max()))
@@ -2295,6 +2324,482 @@ def small_phase(tb, T: int, F: int, Xh, table_bytes: int, dev) -> dict:
     return dict(rows=n, ms=cuda_ms(run, 20),
                 kernel_only_ms=kernel_only_ms(run, 20), plain_ms=plain_ms,
                 bytes=nbytes, bound_ms=bound(nbytes, 0)[0])
+
+
+# the serving phase (serving_phase): the server on the card over the
+# prediction run's model, every batch on KP1 (the device-work floor at one
+# row-tree; the JAX package's default of 2^22 row-trees would send every
+# batch under 83,886 rows of a 50-tree model to the host walk)
+SERVE_PARAMS = dict(serve_port=0, serve_max_batch_rows=256,
+                    serve_batch_wait_ms=2.0, serve_min_device_work=1,
+                    serve_queue_rows=1 << 18,
+                    serve_request_timeout_ms=60_000.0, verbosity=-1)
+SERVE_MODEL = "higgs"
+SERVE_SIZES = (1, 2, 7, 16, 64, 200)
+SERVE_CLIENTS = 8
+SERVE_REQUESTS = 50
+SERVE_BIG = 100_000
+# the traffic's rows: slices of the holdout's first SERVE_REGION rows
+SERVE_REGION = 20_000
+SERVE_SWAP_CLIENTS = 4
+SERVE_SHADOW_REQUESTS = 20
+# tenants of the fleet check: the training phase's models (5 rounds)
+FLEET_TENANTS = ("f32", "quantized", "weighted_f32")
+# the caching allocator rounds each block up to 512 bytes: a released
+# tenant's tables (six tensors) return within this of the bytes before
+ALLOC_ROUNDING = 512 * 6 * len(FLEET_TENANTS)
+WAIT_S = 60.0
+
+
+def _threads(target, jobs) -> None:
+    """Run target(i, job) for each job on its own thread; every thread
+    joined within WAIT_S."""
+    import threading
+    threads = [threading.Thread(target=target, args=(i, j))
+               for i, j in enumerate(jobs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=WAIT_S)
+    expect(not any(t.is_alive() for t in threads),
+           "serving: a client thread did not end within %.0f s" % WAIT_S)
+
+
+def _http_get(port: int, path: str) -> str:
+    import urllib.request
+    with urllib.request.urlopen("http://127.0.0.1:%d%s" % (port, path),
+                                timeout=WAIT_S) as resp:
+        expect(resp.status == 200, "GET %s: HTTP %d" % (path, resp.status))
+        return resp.read().decode()
+
+
+def _metric(text: str, line_start: str) -> float:
+    """The value of the exposition line that starts with line_start."""
+    for line in text.splitlines():
+        if line.startswith(line_start + " "):
+            return float(line.rsplit(" ", 1)[1])
+    raise Failure("metrics: no line %s" % line_start)
+
+
+def _stats(srv) -> dict:
+    return srv.stats_snapshot()["models"][SERVE_MODEL]
+
+
+def serving_traffic(srv, port, Xh, want, raw_want) -> dict:
+    """SERVE_CLIENTS threads of SERVE_REQUESTS requests each, of sizes
+    drawn from SERVE_SIZES over the first SERVE_REGION holdout rows, half
+    over HTTP through ServingClient, half through Server.predict, and one
+    request of SERVE_BIG rows alone: each response bit for bit `want`'s
+    rows.  The launch counters are zeroed just before and read just
+    after: one KP1 launch a device batch (the small-batch walk, the big
+    request's row tiles), no build, no host batch, no breaker failure.
+    Returns the latencies by path and size, the counts and the stats."""
+    from lightgbm_tpu_torch.obs import device as obs_device
+    from lightgbm_tpu_torch.ops import _cuda
+    from lightgbm_tpu_torch.serving import ServingClient
+    rng = np.random.RandomState(61)
+    jobs = []
+    for _ in range(SERVE_CLIENTS):
+        sizes = rng.choice(SERVE_SIZES, SERVE_REQUESTS)
+        jobs.append([(int(rng.randint(0, SERVE_REGION - n + 1)), int(n))
+                     for n in sizes])
+    jobs.append([(0, SERVE_BIG)])
+    lat, bad = {}, []
+    before = _stats(srv)
+    builds = (obs_device.compile_counts(), _cuda.BUILD_LOG.get("seconds"))
+
+    def client(i, mine):
+        http = i < SERVE_CLIENTS // 2
+        c = ServingClient(port=port, timeout=WAIT_S) if http else None
+        for a, n in mine:
+            X = Xh[a:a + n]
+            t = time.perf_counter()
+            got = c.predict(X, model=SERVE_MODEL) if http else srv.predict(
+                X, model=SERVE_MODEL)
+            ms = (time.perf_counter() - t) * 1e3
+            lat.setdefault(("http" if http else "in_process", n),
+                           []).append(ms)
+            if not np.array_equal(got, want[a:a + n]):
+                bad.append((i, a, n))
+
+    _cuda.reset_launch_counts()
+    t = time.perf_counter()
+    _threads(client, jobs)
+    wall = time.perf_counter() - t
+    counts = dict(_cuda.LAUNCHES)
+    after = _stats(srv)
+    expect(not bad, "serving: %d responses differ from the host walk's "
+           "(client, first row, rows: %s)" % (len(bad), bad[:5]))
+    delta = {k: after[k] - before[k] for k in (
+        "requests", "rows", "batches", "device_batches", "host_batches",
+        "host_fallback", "breaker_batches", "errors", "timeouts", "shed",
+        "rejected_queue_full")}
+    small = counts.get("predict_ensemble_small", 0)
+    tiles = counts.get("predict_ensemble", 0)
+    expect(delta["requests"] == SERVE_CLIENTS * SERVE_REQUESTS + 1
+           and delta["device_batches"] == delta["batches"] > 0
+           and not any(delta[k] for k in (
+               "host_batches", "host_fallback", "breaker_batches", "errors",
+               "timeouts", "shed", "rejected_queue_full"))
+           and after["breaker"]["consecutive_failures"] == 0
+           and after["breaker"]["open_count"] == 0,
+           "serving: counts %s, breaker %s" % (delta, after["breaker"]))
+    expect(tiles == 1 and small + tiles == delta["device_batches"]
+           and sum(counts.values()) == small + tiles,
+           "serving: launches %s for %d device batches (one a batch, the "
+           "%d-row request by row tiles)" % (counts, delta["device_batches"],
+                                             SERVE_BIG))
+    expect((obs_device.compile_counts(), _cuda.BUILD_LOG.get("seconds"))
+           == builds, "serving: a kernel was built during the traffic")
+    # raw scores through the entry, on KP1, off the counted run
+    entry = srv.registry.get(SERVE_MODEL)
+    for n in SERVE_SIZES + (256, SERVE_BIG):
+        raw, on_card = entry.predict(Xh[:n], raw_score=True)
+        expect(on_card and np.array_equal(raw, raw_want[:n]),
+               "serving: raw scores of %d rows differ from the host walk's"
+               % n)
+    pct = {"%s_%d" % key: dict(n=len(v), p50=float(np.percentile(v, 50)),
+                               p99=float(np.percentile(v, 99)))
+           for key, v in sorted(lat.items())}
+    print("serving traffic: %d requests (%d clients x %d, sizes %s, half "
+          "over HTTP; one of %d rows) in %.2f s: %d device batches (%.2f "
+          "rows a batch of the small ones), KP1 launches %d small-batch + "
+          "%d row tiles, 0 host batches, 0 host fallbacks, 0 breaker "
+          "failures, no build; every response (and the raw scores through "
+          "the entry) bit for bit the host walk's"
+          % (delta["requests"], SERVE_CLIENTS, SERVE_REQUESTS,
+             list(SERVE_SIZES), SERVE_BIG, wall, delta["device_batches"],
+             (delta["rows"] - SERVE_BIG) / max(small, 1), small, tiles))
+    print("serving latency, ms on the host clock, p50 / p99 (requests): %s"
+          % "; ".join("%s %.3f / %.3f (%d)" % (k, v["p50"], v["p99"],
+                                               v["n"])
+                      for k, v in pct.items()))
+    return dict(wall_s=wall, latency_ms=pct, launches=counts, counts=delta,
+                small_launches=small, tile_launches=tiles)
+
+
+def serving_swap(srv, Xh, want1, want2) -> dict:
+    """Hot swap and rollback under traffic: SERVE_SWAP_CLIENTS threads
+    keep sending while v2 loads under the same name; every response is
+    wholly v1's or wholly v2's (host walks), both are seen, and after
+    the rollback v1's answers come back bit for bit."""
+    import threading
+    rng = np.random.RandomState(67)
+    stop = threading.Event()
+    seen = {"v1": 0, "v2": 0}
+    bad = []
+    lock = threading.Lock()
+
+    def client(i, _):
+        r = np.random.RandomState(71 + i)
+        while not stop.is_set():
+            n = int(r.choice((16, 64)))
+            a = int(r.randint(0, SERVE_REGION - n + 1))
+            got = srv.predict(Xh[a:a + n], model=SERVE_MODEL)
+            with lock:
+                if np.array_equal(got, want1[a:a + n]):
+                    seen["v1"] += 1
+                elif np.array_equal(got, want2[a:a + n]):
+                    seen["v2"] += 1
+                else:
+                    bad.append((a, n))
+
+    threads = [threading.Thread(target=client, args=(i, None))
+               for i in range(SERVE_SWAP_CLIENTS)]
+    for t in threads:
+        t.start()
+    try:
+        time.sleep(0.3)
+        t = time.perf_counter()
+        e2 = srv.load_model(SERVE_MODEL, model_str=TRAINED["f32"][1])
+        swap_s = time.perf_counter() - t
+        time.sleep(0.3)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=WAIT_S)
+    expect(not any(t.is_alive() for t in threads),
+           "serving swap: a client did not end")
+    expect(not bad and seen["v1"] > 0 and seen["v2"] > 0 and e2.version == 2,
+           "serving swap: %d mixed responses, seen %s, version %d"
+           % (len(bad), seen, e2.version))
+    a = int(rng.randint(0, SERVE_REGION - 64))
+    expect(np.array_equal(srv.predict(Xh[a:a + 64], model=SERVE_MODEL),
+                          want2[a:a + 64]), "serving swap: v2 not served")
+    e3 = srv.registry.rollback(SERVE_MODEL)
+    got = srv.predict(Xh[:SERVE_REGION // 4], model=SERVE_MODEL)
+    expect(e3.version == 3 and np.array_equal(got, want1[:SERVE_REGION // 4]),
+           "serving rollback: version %d, v1's answers %s"
+           % (e3.version, np.array_equal(got, want1[:SERVE_REGION // 4])))
+    print("serving hot swap: v2 (the training phase's 5-round f32 model) "
+          "loaded and warmed in %.3f s under %d clients, %d responses "
+          "wholly v1's and %d wholly v2's, none mixed; rollback to v1 "
+          "(version %d) answers v1's bit for bit"
+          % (swap_s, SERVE_SWAP_CLIENTS, seen["v1"], seen["v2"], e3.version))
+    return dict(swap_s=swap_s, seen=seen, versions=[2, e3.version])
+
+
+def serving_shadow(srv, Xh, want1, want2) -> dict:
+    """The shadow mirror: v2 (a host booster) mirrors the served batches;
+    the served answers stay v1's, and the mirror's mean |v2 - v1| over
+    the rows it saw equals the host walks' within 1e-12."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.serving import ShadowMirror
+    mirror = ShadowMirror(SERVE_MODEL, lt.Booster(
+        model_str=TRAINED["f32"][1], device="cpu"))
+    srv.attach_shadow(SERVE_MODEL, mirror)
+    rows = []
+    try:
+        for i in range(SERVE_SHADOW_REQUESTS):
+            a = i * 64
+            got = srv.predict(Xh[a:a + 64], model=SERVE_MODEL)
+            expect(np.array_equal(got, want1[a:a + 64]),
+                   "serving shadow: a served answer changed")
+            rows.append(np.arange(a, a + 64))
+        expect(mirror.drain(WAIT_S), "serving shadow: the mirror did not "
+               "drain")
+        snap = mirror.snapshot()
+    finally:
+        srv.detach_shadow(SERVE_MODEL)
+    idx = np.concatenate(rows)
+    delta = np.abs(want2[idx] - want1[idx])
+    expect(snap["rows"] == len(idx) and snap["errors"] == 0
+           and snap["dropped_rows"] == 0
+           and abs(snap["mean_abs_delta"] - delta.mean()) <= 1e-12
+           and snap["max_abs_delta"] == delta.max(),
+           "serving shadow: %s against mean %.6g max %.6g"
+           % (snap, delta.mean(), delta.max()))
+    print("serving shadow: %d rows mirrored onto v2, mean |v2 - v1| %.6g, "
+          "max %.6g (the host walks'), served answers unchanged"
+          % (snap["rows"], snap["mean_abs_delta"], snap["max_abs_delta"]))
+    return snap
+
+
+def serving_endpoints(srv, port) -> dict:
+    """/healthz, /models and /metrics over HTTP: the model, its version,
+    the request counters and the card's device gauges."""
+    health = json.loads(_http_get(port, "/healthz"))
+    models = json.loads(_http_get(port, "/models"))["models"]
+    text = _http_get(port, "/metrics")
+    stats = _stats(srv)
+    label = '{model="%s"}' % SERVE_MODEL
+    requests = _metric(text, "lgbm_serve_requests_total" + label)
+    device = _metric(text, 'lgbm_serve_batches_total{model="%s",path="device"}'
+                     % SERVE_MODEL)
+    live = _metric(text, "lgbm_device_live_bytes")
+    compiles = _metric(text, "lgbm_xla_backend_compiles_total")
+    expect(health["status"] == "ok" and SERVE_MODEL in health["models"]
+           and models[SERVE_MODEL]["version"] == 3
+           and models[SERVE_MODEL]["device_eligible"]
+           and requests == stats["requests"]
+           and device == stats["device_batches"] and live > 0
+           and "lgbm_xla_traces_total" not in text,
+           "serving endpoints: health %s, models %s, requests %s, device "
+           "batches %s, live bytes %s" % (health, models, requests, device,
+                                          live))
+    print("serving endpoints: /healthz ok, /models v%d, /metrics: %d "
+          "requests, %d device batches, %d live device bytes, %d kernel "
+          "sources compiled" % (models[SERVE_MODEL]["version"], requests,
+                                device, live, compiles))
+    return dict(requests=requests, device_batches=device, live_bytes=live,
+                compiles=compiles)
+
+
+def serving_fleet(Xh, dev) -> dict:
+    """Fleet residency on the card: a budget of two and a half of the
+    largest FLEET_TENANTS estimate holds two; the byte ledger equals the
+    resident ensembles' device_bytes() exactly and the allocator's bytes
+    grow by it (within its rounding); loading the third spills the least
+    recently used, which then answers at once on the host walk, bit for
+    bit, and is promoted; after the release of every tenant the
+    allocator's bytes fall back within its rounding."""
+    import gc
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.obs import default_registry
+    from lightgbm_tpu_torch.ops import predict as pr
+    from lightgbm_tpu_torch.serving import Server
+    texts = [TRAINED[p][1] for p in FLEET_TENANTS]
+    hosts = [lt.Booster(model_str=t, device="cpu") for t in texts]
+    ests = [pr.estimate_device_bytes(h._gbdt.models, 1) for h in hosts]
+    budget = int(2.5 * max(ests))
+    X = Xh[:64].astype(np.float64)
+    wants = [h.predict(X, device=False) for h in hosts]
+    names = ["tenant_%s" % p for p in FLEET_TENANTS]
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    srv = Server(dict(SERVE_PARAMS, serve_max_models=8,
+                      tpu_fleet_hbm_budget_mb=budget / float(1 << 20)),
+                 device=dev)
+    fleet = srv.fleet
+
+    def ledger():
+        with fleet._lock:
+            recs = [r for r in fleet._records.values() if r.state == "resident"]
+            return fleet.resident_bytes, sum(r.ens.device_bytes()
+                                             for r in recs)
+    try:
+        for name, text in zip(names[:2], texts[:2]):
+            srv.load_model(name, model_str=text)
+        accounted, built = ledger()
+        torch.cuda.synchronize()
+        grew = torch.cuda.memory_allocated(dev) - base
+        expect(fleet.state_counts()["resident"] == 2
+               and accounted == built == ests[0] + ests[1]
+               and 0 <= grew - built <= ALLOC_ROUNDING,
+               "fleet: 2 tenants: ledger %d, built %d, estimates %s, "
+               "allocator +%d" % (accounted, built, ests[:2], grew))
+        srv.predict(X, model=names[1])          # names[0] becomes LRU
+        srv.load_model(names[2], model_str=texts[2])
+        accounted3, built3 = ledger()
+        expect(fleet.residency(names[0]) == "spilled"
+               and fleet.residency(names[2]) == "resident"
+               and accounted3 == built3 == ests[1] + ests[2]
+               and fleet.peak_resident_bytes <= budget,
+               "fleet: third load: %s, ledger %d, built %d"
+               % (fleet.state_counts(), accounted3, built3))
+        t = time.perf_counter()
+        got = srv.predict(X, model=names[0])
+        spilled_ms = (time.perf_counter() - t) * 1e3
+        st = srv.stats_snapshot()["models"][names[0]]
+        expect(np.array_equal(got, wants[0]) and st["host_batches"] == 1
+               and st["device_batches"] == 0,
+               "fleet: the spilled tenant's answer: equal %s, stats %s"
+               % (np.array_equal(got, wants[0]), st))
+        deadline = time.monotonic() + WAIT_S
+        while (fleet.residency(names[0]) != "resident"
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        promote_s = WAIT_S - (deadline - time.monotonic())
+        got = srv.predict(X, model=names[0])
+        st = srv.stats_snapshot()["models"][names[0]]
+        accounted4, built4 = ledger()
+        expect(fleet.residency(names[0]) == "resident"
+               and np.array_equal(got, wants[0])
+               and st["device_batches"] == 1 and accounted4 == built4
+               and fleet.peak_resident_bytes <= budget,
+               "fleet: promotion: %s, stats %s, ledger %d, built %d"
+               % (fleet.state_counts(), st, accounted4, built4))
+        snap = fleet.snapshot()
+        for name in names:
+            srv.evict_model(name)
+    finally:
+        srv.shutdown()
+        for name in names:
+            default_registry().remove(model=name)
+    del srv, fleet
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated(dev) - base
+    expect(abs(after) <= ALLOC_ROUNDING, "fleet: %d device bytes left after "
+           "the release of every tenant" % after)
+    print("serving fleet: budget %d bytes (2.5 x the largest of estimates "
+          "%s) held 2 of 3 tenants, the ledger equal to their tables' "
+          "device_bytes() (allocator +%d); the third spilled the LRU, which "
+          "answered at once on the host walk (%.3f ms, bit for bit) and was "
+          "promoted in %.3f s; %d evictions, %d promotions, warmup cache %s; "
+          "after the release the allocator is %+d bytes from before"
+          % (budget, ests, grew, spilled_ms, promote_s, snap["evictions"],
+             snap["promotions"], snap["compile_cache"], after))
+    return dict(budget=budget, estimates=ests, allocator_growth=grew,
+                spilled_ms=spilled_ms, promote_s=promote_s,
+                evictions=snap["evictions"], promotions=snap["promotions"],
+                compile_cache=snap["compile_cache"], released=after)
+
+
+def serving_buckets(g, Xh, dev) -> dict:
+    """At each warm bucket: KP1 through predict_bucketed from numpy (f64
+    rows as the server passes them: staging, copy, walk, fetch), the
+    kernel alone (CUDA events, X on the card), and the host walk; host
+    clock medians."""
+    import torch
+    from lightgbm_tpu_torch.ops.predict import pow2_buckets
+    from lightgbm_tpu_torch.ops.predict_kernel import predict_ensemble
+    ens = g._device_ensemble()
+    tb, T = ens.tables, len(g.models)
+    out = {}
+    for b in pow2_buckets(SERVE_PARAMS["serve_max_batch_rows"]):
+        X = np.ascontiguousarray(Xh[:b], np.float64)
+        ms = []
+        for _ in range(21):
+            t = time.perf_counter()
+            g.predict_bucketed(X, raw_score=True)
+            ms.append((time.perf_counter() - t) * 1e3)
+        Xd = torch.from_numpy(X).to(dev)
+        o = torch.empty((1, b), dtype=torch.float64, device=dev)
+        kernel = cuda_ms(lambda: predict_ensemble(tb, Xd, T, 1, o), 20)
+        host = []
+        for _ in range(5):
+            t = time.perf_counter()
+            g.predict(X, raw_score=True, device=False)
+            host.append((time.perf_counter() - t) * 1e3)
+        out[b] = dict(kp1_ms=float(np.median(ms)), kernel_ms=kernel,
+                      host_walk_ms=float(np.median(host)))
+    print("serving buckets, ms (KP1 from numpy, median of 21 / the kernel, "
+          "CUDA events / the host walk, median of 5): %s"
+          % "; ".join("%d rows %.4f / %.4f / %.4f" % (
+              b, r["kp1_ms"], r["kernel_ms"], r["host_walk_ms"])
+              for b, r in out.items()))
+    return out
+
+
+def serving_phase(Xh, dev, results) -> dict:
+    """The port's server on the card (lightgbm_tpu_torch.serving.Server,
+    port 0, batches of up to 256 rows after at most 2 ms, every batch on
+    KP1) over the prediction run's model: its warmup launches each bucket
+    once; the traffic (serving_traffic); hot swap and rollback
+    (serving_swap); the shadow mirror (serving_shadow); the endpoints
+    (serving_endpoints); KP1 and the host walk at each bucket
+    (serving_buckets); fleet residency (serving_fleet).  Every served
+    answer is checked against booster.predict(rows, device=False) of its
+    model, bit for bit (the holdout's host walk of the prediction phase,
+    through the objective's link; checked equal on 2,000 rows here)."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.obs import default_registry
+    from lightgbm_tpu_torch.ops import _cuda
+    from lightgbm_tpu_torch.ops.predict import pow2_buckets
+    from lightgbm_tpu_torch.serving import Server
+    v1 = TRAINED["prediction"][1]
+    host1 = lt.Booster(model_str=v1, device="cpu")
+    host2 = lt.Booster(model_str=TRAINED["f32"][1], device="cpu")
+    raw1 = HOLDOUT_HOST["raw"]
+    want1 = host1._gbdt._convert_output(raw1.copy(), False)
+    expect(np.array_equal(want1[:2000], host1.predict(Xh[:2000],
+                                                      device=False)),
+           "serving: the holdout's host walk is not predict(device=False)'s")
+    want2 = host2.predict(Xh[:SERVE_REGION], device=False)
+    srv = Server(dict(SERVE_PARAMS), device=dev)
+    try:
+        _cuda.reset_launch_counts()
+        t = time.perf_counter()
+        entry = srv.load_model(SERVE_MODEL, model_str=v1)
+        load_s = time.perf_counter() - t
+        warm = entry.warmed_buckets
+        counts = dict(_cuda.LAUNCHES)
+        expect(warm == pow2_buckets(SERVE_PARAMS["serve_max_batch_rows"])
+               and counts == {"predict_ensemble_small": len(warm)},
+               "serving warmup: buckets %s, launches %s" % (warm, counts))
+        print("serving: %s loaded onto %s in %.3f s (%d trees), warmup "
+              "launched KP1's small-batch walk once at each bucket %s"
+              % (SERVE_MODEL, dev, load_s, entry.num_trees, warm))
+        httpd = srv.serve_http(block=False)
+        port = httpd.server_address[1]
+        traffic = serving_traffic(srv, port, Xh, want1, raw1)
+        buckets = serving_buckets(entry.booster._gbdt, Xh, dev)
+        swap = serving_swap(srv, Xh, want1, want2)
+        shadow = serving_shadow(srv, Xh, want1, want2)
+        endpoints = serving_endpoints(srv, port)
+    finally:
+        srv.shutdown()
+        default_registry().remove(model=SERVE_MODEL)
+    fleet = serving_fleet(Xh, dev)
+    r = results["predict_ensemble_small"]
+    r["serving_launches"] = traffic["small_launches"]
+    r["serving_bucket_ms"] = buckets
+    results["predict_ensemble"]["serving_launches"] = traffic["tile_launches"]
+    return dict(load_s=load_s, warm=warm, traffic=traffic, buckets=buckets,
+                swap=swap, shadow=shadow, endpoints=endpoints, fleet=fleet)
 
 
 def kp2_phase(booster, dev, results):
@@ -4311,10 +4816,11 @@ def kp2_f64(booster, dev, results) -> dict:
 # the built-in one does
 TIE_RTOL = 1e-3
 # the most the continuation's two stages' raw holdout predictions summed
-# may differ from the 10-round run's: the continued trees' f32 histograms
-# add in another order (measured on an NVIDIA H100 80GB HBM3 at 700.00 W:
-# 1.14e-5 and 1.51e-5), and a split parted at a near-tie would move a
-# leaf's rows by far more
+# may differ from the 10-round run's where their ten trees are its split
+# for split: the continued trees' f32 histograms add in another order
+# (measured on an NVIDIA H100 80GB HBM3 at 700.00 W: 1.14e-5 and 1.51e-5).
+# A split parted at a near-tie moves a leaf's rows by far more (0.0126 on
+# the same card), so there the trees are held to TIE_RTOL instead
 CONT_MAX_DIFF = 1e-3
 API_RATES = [0.1, 0.1, 0.05, 0.05, 0.05]
 API_ROWS = 1_000_000
@@ -4322,6 +4828,9 @@ API_ROWS = 1_000_000
 # greedy bin walk is the smoke's slowest step; both runs take the value)
 SK_BIN_SAMPLE = 20_000
 CV_FOLDS, CV_ROUNDS = 3, 3
+# cv's rows: the binned set's first million at full width (10.5M until the
+# serving phase came in and the smoke needed its time)
+CV_ROWS = 1_000_000
 REFIT_DECAY = 0.9
 # the built-in run of the training phase each custom-objective run is held
 # against (the same engine, arena root and quantization key), its params
@@ -4475,6 +4984,180 @@ def launched(counts: dict, must) -> None:
         expect(counts.get(k, 0) > 0, "kernel %s was not launched" % k)
 
 
+def leaf_regions(tree) -> list:
+    """Each leaf's region: the conditions on its path from the root (split
+    feature, bin threshold, decision type, side), whatever the order the
+    tree grew in."""
+    out = [()] * tree.num_leaves
+    stack = [(0, ())] if tree.num_leaves > 1 else []
+    while stack:
+        node, path = stack.pop()
+        cond = (int(tree.split_feature_inner[node]),
+                int(tree.threshold_in_bin[node]),
+                int(tree.decision_type[node]))
+        for side, child in ((0, tree.left_child[node]),
+                            (1, tree.right_child[node])):
+            child = int(child)
+            if child < 0:
+                out[~child] = path + (cond + (side,),)
+            else:
+                stack.append((child, path + (cond + (side,),)))
+    return out
+
+
+def continuation_divergence(m5, m10, cont) -> dict:
+    """The 5-round run's trees, then the continued booster's, against the
+    10-round run's in order, up to the first pair whose leaves are not the
+    same regions (`regions_tree`, its index in the 10-round run; None where
+    all ten pairs are): `parted`, the pairs that part split for split in
+    growth order (two leaves of equal gains split in the other order part
+    the growth order only), and `tree`, `at` and the gains where the two
+    splits' gains lie furthest apart (first_divergence)."""
+    ours = m5._gbdt.models + cont._gbdt.models
+    theirs = m10._gbdt.models
+    expect(len(ours) == len(theirs) == 10, "continuation: %d trees against "
+           "the 10-round run's %d" % (len(ours), len(theirs)))
+    out = dict(tree=None, at=None, gain_a=None, gain_b=None, rdiff=0.0,
+               parted=[], regions_tree=None, ours=ours, theirs=theirs)
+    for i, (a, b) in enumerate(zip(ours, theirs)):
+        div = first_divergence(b, a)
+        if div["at"] is not None:
+            out["parted"].append(i)
+            if out["tree"] is None or div["rdiff"] > out["rdiff"]:
+                out.update(tree=i, at=div["at"], gain_a=div["gain_a"],
+                           gain_b=div["gain_b"], rdiff=div["rdiff"])
+        if set(leaf_regions(a)) != set(leaf_regions(b)):
+            out["regions_tree"] = i
+            break
+    return out
+
+
+def said_continuation(div: dict) -> str:
+    if div["tree"] is None:
+        return "the 10-round run's split for split"
+    return ("part from the 10-round run's in growth order at trees %s "
+            "(near-ties, the widest at tree %d, split %d, gains %.3g "
+            "apart), %s" % (
+                div["parted"], div["tree"], div["at"], div["rdiff"],
+                "their leaves the same regions in all ten"
+                if div["regions_tree"] is None else
+                "their leaves other regions first at tree %d"
+                % div["regions_tree"]))
+
+
+def continue_and_rollback(X, y, Xh, yh, ds_obj, dev) -> dict:
+    """Continued training and rollback on the first API_ROWS rows (see
+    api_phase): a 5-round and a 10-round run, then 5 rounds from the
+    5-round model.  The two stages' ten trees are held to the 10-round
+    run's in order (continuation_divergence) up to the first tree whose
+    leaves are other regions than its twin's: each that parts from its
+    twin in growth order must part at a near-tie (TIE_RTOL).  Two f32 runs
+    part so on the card, and the continuation's init score (KP1's f64 sum)
+    rounds otherwise than the 10-round run's f32 score: on the card the ten
+    trees parted at a near-tie in every one of five runs, mostly two
+    leaves of equal gains split in the other order.  The two stages' raw
+    holdout predictions summed must lie within CONT_MAX_DIFF of the
+    10-round run's through that first tree, on the rows whose leaf in it
+    is one region in both (all ten trees and all rows where none parts);
+    the trees after it grow from other scores, so there the holdout AUC
+    (within AUC_DRIFT) is held.  Returns the record."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.metric import auc
+    from lightgbm_tpu_torch.ops import _cuda
+
+    X1, y1 = X[:API_ROWS], y[:API_ROWS]
+
+    def part():
+        return lt.Dataset(X1, y1, reference=ds_obj, device=dev)
+    t = time.perf_counter()
+    d1 = part()
+    m5 = lt.train(PARAMS, d1, 5, verbose_eval=False, device=dev)
+    m10 = lt.train(PARAMS, d1, 10, verbose_eval=False, device=dev)
+    dc = part()
+    _cuda.reset_launch_counts()
+    cont = lt.train(PARAMS, dc, 5, init_model=m5, verbose_eval=False,
+                    device=dev)
+    torch.cuda.synchronize()
+    counts = dict(_cuda.LAUNCHES)
+    launched(counts, ("predict_ensemble", "segment_histogram",
+                      "partition_segment", "split_scan",
+                      "scatter_segments_add"))
+    init_pred = m5.predict(X1, raw_score=True)
+    expect(cont.num_trees() == 5 and np.array_equal(dc.get_init_score(),
+                                                    init_pred),
+           "continuation: %d trees, init score KP1's prediction %s"
+           % (cont.num_trees(), np.array_equal(dc.get_init_score(),
+                                               init_pred)))
+    div = continuation_divergence(m5, m10, cont)
+    expect(div["rdiff"] <= TIE_RTOL, "continuation: tree %s differs from "
+           "the 10-round run's at split %s, gains %s there and %s in the "
+           "10-round run's (%.3g apart, at most %g)"
+           % (div["tree"], div["at"], div["gain_b"], div["gain_a"],
+              div["rdiff"], TIE_RTOL))
+    p10 = m10.predict(Xh, raw_score=True)
+    psum = m5.predict(Xh, raw_score=True) + cont.predict(Xh, raw_score=True)
+    d = np.abs(psum - p10)
+    within = float(np.mean(d <= 1e-6 + 1e-5 * np.abs(p10)))
+    a10, asum = auc(yh, p10), auc(yh, psum)
+    # the raw predictions through the first tree of other regions, on the
+    # rows whose leaf there is one region in both
+    k = div["regions_tree"]
+    held = np.ones(len(Xh), bool)
+    upto = 10
+    if k is not None:
+        upto = k + 1
+        mine = (m5 if k < 5 else cont).predict(Xh, pred_leaf=True)[:, k % 5]
+        theirs = m10.predict(Xh, pred_leaf=True)[:, k]
+        at = {r: j for j, r in enumerate(leaf_regions(div["theirs"][k]))}
+        match = np.array([at.get(r, -1)
+                          for r in leaf_regions(div["ours"][k])])
+        held = match[mine] == theirs
+    pk = m5.predict(Xh, raw_score=True, num_iteration=min(upto, 5))
+    if upto > 5:
+        pk = pk + cont.predict(Xh, raw_score=True, num_iteration=upto - 5)
+    dk = np.abs(pk - m10.predict(Xh, raw_score=True, num_iteration=upto))
+    dk_max = float(dk[held].max()) if held.any() else 0.0
+    expect(abs(a10 - asum) <= AUC_DRIFT and dk_max <= CONT_MAX_DIFF,
+           "continuation: holdout AUC %.6f, the 10-round run's %.6f; raw "
+           "predictions' |diff| max %.3g through %d trees on %.6f of the "
+           "rows (at most %g; %.3g through all ten on all rows)"
+           % (asum, a10, dk_max, upto, float(held.mean()), CONT_MAX_DIFF,
+              d.max()))
+    before = cont.predict(Xh, raw_score=True, num_iteration=4)
+    cont.rollback_one_iter()
+    after = cont.predict(Xh, raw_score=True)
+    score_err = float(np.abs(cont.predict(X1, raw_score=True)
+                             + dc.get_init_score()
+                             - cont._gbdt.score.cpu().numpy()).max())
+    expect(np.array_equal(after, before) and cont.num_trees() == 4
+           and score_err <= 1e-5,
+           "rollback: %d trees, prediction the 4-iteration one %s, "
+           "training score %.3g from it" % (cont.num_trees(),
+                                             np.array_equal(after, before),
+                                             score_err))
+    rec = dict(
+        seconds=time.perf_counter() - t, max_abs_diff=float(d.max()),
+        mean_abs_diff=float(d.mean()), share_within_jax_tol=within,
+        auc_sum=asum, auc_10=a10, launches=counts,
+        rollback_score_err=score_err, parted_trees=div["parted"],
+        widest_tie_tree=div["tree"], widest_tie_split=div["at"],
+        widest_tie_rdiff=div["rdiff"], regions_tree=k, held_trees=upto,
+        held_share=float(held.mean()), held_max_abs_diff=dk_max)
+    print("api (continue): %d rows; 5 rounds from the 5-round model (init "
+          "scores by KP1, %d launches); the ten trees %s; holdout AUC of "
+          "the two stages %.6f, the 10-round run's %.6f; raw predictions' "
+          "|diff| max %.3g through %d trees on %.6f of the rows (%.3g, mean "
+          "%.3g, through all ten on all rows, %.4f of them within the JAX "
+          "package's rtol 1e-5, atol 1e-6); rollback_one_iter: 4 trees, "
+          "prediction bit for bit the 4-iteration one, training score "
+          "within %.3g"
+          % (API_ROWS, counts.get("predict_ensemble", 0),
+             said_continuation(div), asum, a10, dk_max, upto,
+             float(held.mean()), float(d.max()), float(d.mean()), within,
+             score_err))
+    return rec
+
 def api_phase(X, y, Xh, yh, ds_obj, valid_obj, dev, rounds, base) -> dict:
     """The public training and model API at Higgs width (10.5M x 28,
     PARAMS, 255 leaves), through the entry points a user calls:
@@ -4501,11 +5184,13 @@ def api_phase(X, y, Xh, yh, ds_obj, valid_obj, dev, rounds, base) -> dict:
     - continued training on the first API_ROWS rows (binned with the
       training set's mappers): a 5-round and a 10-round run, then 5 rounds
       from the 5-round model (init scores by KP1, equal to its prediction);
-      the continued booster holds 5 trees, the two stages' holdout
-      predictions summed against the 10-round run's (AUC within AUC_DRIFT
-      and raw predictions within CONT_MAX_DIFF: the card's f32 histograms
-      add in a varying order, so the continued trees are not bitwise the
-      10-round run's last 5); rollback_one_iter
+      the continued booster holds 5 trees, the two stages' ten trees the
+      10-round run's split for split up to a near-tie (TIE_RTOL), their
+      holdout predictions summed against the 10-round run's (AUC within
+      AUC_DRIFT, and raw predictions within CONT_MAX_DIFF where no tree
+      parts: the card's f32 histograms add in a varying order, so the
+      continued trees are not bitwise the 10-round run's last 5;
+      continue_and_rollback); rollback_one_iter
       leaves a prediction bit for bit the 4-iteration one and a training
       score within 1e-5 of it;
     - refit of the training phase's f32 model on the holdout (decay
@@ -4514,8 +5199,9 @@ def api_phase(X, y, Xh, yh, ds_obj, valid_obj, dev, rounds, base) -> dict:
     - model text: save_model, Booster(model_file=...) and
       model_from_string give the text back and predictions bit for bit;
       split and gain importance equal a recount from the text;
-    - cv: CV_FOLDS folds of the 10.5M rows, CV_ROUNDS rounds, the
-      validation logloss falling every round;
+    - cv: CV_FOLDS folds of the first CV_ROWS rows (a subset of the
+      binned set), CV_ROUNDS rounds, the validation logloss falling every
+      round;
     - LGBMClassifier(device=..., num_leaves=255, n_estimators=5) on the
       first API_ROWS rows (quantized, whose integer histograms make two
       runs bitwise equal; bins found from SK_BIN_SAMPLE rows), without
@@ -4646,64 +5332,7 @@ def api_phase(X, y, Xh, yh, ds_obj, valid_obj, dev, rounds, base) -> dict:
     torch.cuda.empty_cache()
 
     # continued training and rollback on the first API_ROWS rows
-    X1, y1 = X[:API_ROWS], y[:API_ROWS]
-
-    def part():
-        return lt.Dataset(X1, y1, reference=ds_obj, device=dev)
-    t = time.perf_counter()
-    d1 = part()
-    m5 = lt.train(PARAMS, d1, 5, verbose_eval=False, device=dev)
-    m10 = lt.train(PARAMS, d1, 10, verbose_eval=False, device=dev)
-    dc = part()
-    _cuda.reset_launch_counts()
-    cont = lt.train(PARAMS, dc, 5, init_model=m5, verbose_eval=False,
-                    device=dev)
-    torch.cuda.synchronize()
-    counts = dict(_cuda.LAUNCHES)
-    launched(counts, ("predict_ensemble", "segment_histogram",
-                      "partition_segment", "split_scan",
-                      "scatter_segments_add"))
-    init_pred = m5.predict(X1, raw_score=True)
-    expect(cont.num_trees() == 5 and np.array_equal(dc.get_init_score(),
-                                                    init_pred),
-           "continuation: %d trees, init score KP1's prediction %s"
-           % (cont.num_trees(), np.array_equal(dc.get_init_score(),
-                                               init_pred)))
-    p10 = m10.predict(Xh, raw_score=True)
-    psum = m5.predict(Xh, raw_score=True) + cont.predict(Xh, raw_score=True)
-    d = np.abs(psum - p10)
-    within = float(np.mean(d <= 1e-6 + 1e-5 * np.abs(p10)))
-    a10, asum = auc(yh, p10), auc(yh, psum)
-    expect(abs(a10 - asum) <= AUC_DRIFT and d.max() <= CONT_MAX_DIFF,
-           "continuation: holdout AUC %.6f, the 10-round run's %.6f; raw "
-           "predictions' |diff| max %.3g (at most %g)"
-           % (asum, a10, d.max(), CONT_MAX_DIFF))
-    before = cont.predict(Xh, raw_score=True, num_iteration=4)
-    cont.rollback_one_iter()
-    after = cont.predict(Xh, raw_score=True)
-    score_err = float(np.abs(cont.predict(X1, raw_score=True)
-                             + dc.get_init_score()
-                             - cont._gbdt.score.cpu().numpy()).max())
-    expect(np.array_equal(after, before) and cont.num_trees() == 4
-           and score_err <= 1e-5,
-           "rollback: %d trees, prediction the 4-iteration one %s, "
-           "training score %.3g from it" % (cont.num_trees(),
-                                             np.array_equal(after, before),
-                                             score_err))
-    recs["continue"] = dict(
-        seconds=time.perf_counter() - t, max_abs_diff=float(d.max()),
-        mean_abs_diff=float(d.mean()), share_within_jax_tol=within,
-        auc_sum=asum, auc_10=a10, launches=counts,
-        rollback_score_err=score_err)
-    print("api (continue): %d rows; 5 rounds from the 5-round model (init "
-          "scores by KP1, %d launches): holdout AUC of the two stages "
-          "%.6f, the 10-round run's %.6f; raw predictions' |diff| max "
-          "%.3g, mean %.3g, %.4f of the rows within the JAX package's "
-          "rtol 1e-5, atol 1e-6; rollback_one_iter: 4 trees, prediction "
-          "bit for bit the 4-iteration one, training score within %.3g"
-          % (API_ROWS, counts.get("predict_ensemble", 0), asum, a10,
-             float(d.max()), float(d.mean()), within, score_err))
-    del m5, m10, cont, d1, dc
+    recs["continue"] = continue_and_rollback(X, y, Xh, yh, ds_obj, dev)
     torch.cuda.empty_cache()
 
     # refit on the card against the CPU's refit of the same text
@@ -4761,11 +5390,11 @@ def api_phase(X, y, Xh, yh, ds_obj, valid_obj, dev, rounds, base) -> dict:
           % (len(text), list(np.argsort(-bst.feature_importance("gain"))
                              [:5])))
 
-    # cv over subsets of the binned set
+    # cv over subsets of the binned set's first CV_ROWS rows
     t = time.perf_counter()
     _cuda.reset_launch_counts()
-    res = lt.cv(PARAMS, ds_obj, num_boost_round=CV_ROUNDS, nfold=CV_FOLDS,
-                device=dev)
+    res = lt.cv(PARAMS, ds_obj.subset(np.arange(CV_ROWS)),
+                num_boost_round=CV_ROUNDS, nfold=CV_FOLDS, device=dev)
     torch.cuda.synchronize()
     counts = dict(_cuda.LAUNCHES)
     launched(counts, ("segment_histogram", "partition_segment",
@@ -4778,13 +5407,14 @@ def api_phase(X, y, Xh, yh, ds_obj, valid_obj, dev, rounds, base) -> dict:
                       launches=counts)
     print("api (cv): %d folds of %d rows, %d rounds in %.1f s: "
           "binary_logloss-mean %s, -stdv %s (folds %s)"
-          % (CV_FOLDS, n, CV_ROUNDS, recs["cv"]["seconds"],
+          % (CV_FOLDS, CV_ROWS, CV_ROUNDS, recs["cv"]["seconds"],
              ["%.6f" % v for v in means],
              ["%.6f" % v for v in res["binary_logloss-stdv"]],
              "stratified" if lsk._SKLEARN else "plain, no scikit-learn"))
     torch.cuda.empty_cache()
 
     # the scikit-learn wrapper against train with the same params
+    X1, y1 = X[:API_ROWS], y[:API_ROWS]
     t = time.perf_counter()
     clf = lt.LGBMClassifier(device=dev, num_leaves=255, n_estimators=5,
                             subsample_for_bin=SK_BIN_SAMPLE,
@@ -4932,6 +5562,10 @@ def main(argv=None) -> int:
                                   results)
     torch.cuda.empty_cache()
     phase_s["prediction"] = time.perf_counter() - t
+    t = phase_start("serving")
+    serving = serving_phase(Xh, dev, results)
+    torch.cuda.empty_cache()
+    phase_s["serving"] = time.perf_counter() - t
     t = phase_start("lambdarank")
     ranking = rank_phase(dev, args.rounds, results)
     phase_s["lambdarank"] = time.perf_counter() - t
@@ -5027,7 +5661,8 @@ def main(argv=None) -> int:
                       "lambdarank": ranking, "objectives": objectives,
                       "multiclass": multiclass, "efb": efb,
                       "categorical": categorical, "prediction": prediction,
-                      "api": api, "phase_s": phase_s}, default=str))
+                      "serving": serving, "api": api, "phase_s": phase_s},
+                     default=str))
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

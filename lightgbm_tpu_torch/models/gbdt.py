@@ -134,6 +134,7 @@ from typing import Callable, Dict, Hashable, List, NamedTuple, Optional, \
     Sequence, Tuple
 
 import json
+import threading
 from collections import deque
 
 import numpy as np
@@ -247,9 +248,11 @@ class GBDT:
         # (gbdt.py:1748-1751); loaded from model text, not trained here
         self.average_output = False
         # the device ensemble cached on (len(models), _model_gen): a load
-        # and every drain bump the generation
+        # and every drain bump the generation; the lock makes one model
+        # state build one ensemble when several threads predict at once
         self._model_gen = 0
         self._dev_ens_cache: Optional[tuple] = None
+        self._dev_ens_lock = threading.Lock()
         self._feat_rng = np.random.RandomState(config.feature_fraction_seed)
         # bagging (gbdt.py:159, :419-433): one RandomState per booster; the
         # bag as the JAX mask (int32 [n]: 0 in the bag, -1 out), its
@@ -1328,12 +1331,16 @@ class GBDT:
 
     def _device_ensemble(self) -> DeviceEnsemble:
         """The model's walk tables on the booster's device, cached on the
-        model's length and generation (gbdt.py:1754-1768)."""
-        key = (len(self.models), self._model_gen)
-        if self._dev_ens_cache is None or self._dev_ens_cache[0] != key:
-            self._dev_ens_cache = (key, DeviceEnsemble(
-                self.models, self.num_tree_per_iteration, self.device))
-        return self._dev_ens_cache[1]
+        model's length and generation (gbdt.py:1754-1768); built once per
+        model state whatever the threads asking."""
+        with self._dev_ens_lock:
+            key = (len(self.models), self._model_gen)
+            cache = self._dev_ens_cache
+            if cache is None or cache[0] != key:
+                cache = (key, DeviceEnsemble(
+                    self.models, self.num_tree_per_iteration, self.device))
+                self._dev_ens_cache = cache
+            return cache[1]
 
     def predict(self, X, num_iteration: int = -1, raw_score: bool = False,
                 early_stop: bool = False, early_stop_freq: int = 10,

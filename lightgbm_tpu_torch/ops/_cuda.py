@@ -9,9 +9,11 @@ time: the first wrapper that launches a kernel on a CUDA tensor triggers the
 build.
 
 Every entry point takes device pointers and the current stream and returns
-`cudaGetLastError()`; `check` raises on anything but 0.  `LAUNCHES` counts
-the launches each wrapper made, so a run can show which kernels its path
-went through.
+`cudaGetLastError()`; `check` raises `KernelError` on anything but 0, as
+`build` does when a source fails to compile.  `LAUNCHES` counts the
+launches each wrapper made, so a run can show which kernels its path went
+through; the build and the counts are safe from several threads at once
+(a serving process launches from its batchers, warmups and promotions).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from collections import Counter
 from pathlib import Path
@@ -94,10 +97,18 @@ _ENTRY_POINTS = {
 LAUNCHES: Counter = Counter()
 _FUNCS: Dict[str, object] = {}
 BUILD_LOG: Dict[str, object] = {}
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
+class KernelError(RuntimeError):
+    """A kernel that did not build or did not launch.  Nothing in the port
+    falls back to the CPU or to a plain version on it."""
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES.clear()
+    with _COUNT_LOCK:
+        LAUNCHES.clear()
 
 
 def find_nvcc() -> str:
@@ -107,8 +118,8 @@ def find_nvcc() -> str:
             return str(path)
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
-                           "(CUDA_HOME, /usr/local/cuda and PATH searched)")
+        raise KernelError("nvcc not found: the CUDA kernels cannot be built "
+                          "(CUDA_HOME, /usr/local/cuda and PATH searched)")
     return found
 
 
@@ -123,10 +134,16 @@ def _lib_path(stem: str) -> Path:
 def build(verbose: bool = False) -> Dict[str, object]:
     """Compile every kernel source that has no up-to-date library, one
     nvcc per source, all in parallel; load all libraries.  Returns a log:
-    seconds taken and, with verbose, each compiler's output (ptxas
-    register and shared-memory use)."""
-    if _FUNCS:
-        return BUILD_LOG
+    seconds taken, the sources compiled and those found built (`cached`)
+    and, with verbose, each compiler's output (ptxas register and
+    shared-memory use)."""
+    with _BUILD_LOCK:
+        if not _FUNCS:
+            _build(verbose)
+    return BUILD_LOG
+
+
+def _build(verbose: bool) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
@@ -151,25 +168,29 @@ def build(verbose: bool = False) -> Dict[str, object]:
             continue
         os.replace(tmp, out)
     if failed:
-        raise RuntimeError("nvcc failed for %s:\n%s" % (
+        raise KernelError("nvcc failed for %s:\n%s" % (
             ", ".join(failed), "\n".join(outputs[s] for s in failed)))
+    funcs = {}
     for stem, entries in _ENTRY_POINTS.items():
         lib = ctypes.CDLL(str(_lib_path(stem)))
         for name, argtypes in entries.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _FUNCS[name] = fn
+            funcs[name] = fn
     BUILD_LOG.update(seconds=time.perf_counter() - t0, compiled=sorted(procs),
+                     cached=sorted(set(_ENTRY_POINTS) - set(procs)),
                      output=outputs)
-    return BUILD_LOG
+    _FUNCS.update(funcs)
 
 
 def fn(name: str):
     """The loaded C entry point `name` (building the libraries first)."""
-    if not _FUNCS:
+    f = _FUNCS.get(name)
+    if f is None:
         build()
-    return _FUNCS[name]
+        f = _FUNCS[name]
+    return f
 
 
 def stream(device: Optional[torch.device] = None) -> int:
@@ -189,9 +210,10 @@ def _raw_stream(index: int) -> int:
 
 def check(rc: int, kernel: str) -> None:
     if rc != 0:
-        raise RuntimeError("CUDA kernel %s failed to launch: cudaError %d"
-                           % (kernel, rc))
-    LAUNCHES[kernel] += 1
+        raise KernelError("CUDA kernel %s failed to launch: cudaError %d"
+                          % (kernel, rc))
+    with _COUNT_LOCK:
+        LAUNCHES[kernel] += 1
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, device,

@@ -33,7 +33,7 @@ the plain version runs.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -394,10 +394,6 @@ class DeviceEnsemble:
         self.ok = lay["ok"]
         self.device = resolve_device(device)
         self.tables = build_tables(trees, self.device)
-        # the card's two pinned staging buffers of X and the events of
-        # their last copies (_chunks)
-        self._staging: List[torch.Tensor] = []
-        self._events: List[Optional[torch.cuda.Event]] = [None, None]
 
     def _trees(self, num_iteration: int) -> int:
         return min(max(num_iteration, 0) * self.k, self.num_trees)
@@ -408,7 +404,8 @@ class DeviceEnsemble:
         """[k, n] f64 summed raw scores over the first num_iteration*k
         trees; early_stop_freq > 0 stops a row once its margin reaches
         early_stop_margin, tested at the first iteration after every
-        early_stop_freq trees (predict_ensemble_plain)."""
+        early_stop_freq trees (predict_ensemble_plain).  Safe to call from
+        several threads at once."""
         from .predict_kernel import predict_ensemble
         mode = MODE_SUM_EARLY_STOP if early_stop_freq > 0 else MODE_SUM
         T = self._trees(num_iteration)
@@ -433,9 +430,14 @@ class DeviceEnsemble:
 
     def _chunks(self, X: np.ndarray):
         """(first row, rows on the device) of X, f32 if X is float32 and
-        f64 otherwise: on the card in chunks of at most _CHUNK_BYTES through
-        two pinned staging buffers of X's dtype, so a chunk's copy overlaps
-        the walk of the one before; on the CPU the whole matrix at once."""
+        f64 otherwise: on the card in chunks of at most _CHUNK_BYTES, each
+        staged in pinned memory of its own and copied without blocking on
+        the current stream of the ensemble's device (whatever device the
+        calling thread has current), so a chunk's copy overlaps the walk
+        of the one before; on the CPU the whole matrix at once.  PyTorch's
+        caching host allocator records each copy's event and hands a
+        staging block out again only after that copy ends, so callers on
+        several threads never read each other's rows."""
         dtype = np.float32 if X.dtype == np.float32 else np.float64
         X = np.ascontiguousarray(X, dtype)
         n, F = X.shape
@@ -446,25 +448,13 @@ class DeviceEnsemble:
             return
         rows = min(n, max(1, _CHUNK_BYTES // (X.itemsize * max(F, 1))))
         tdt = torch.float32 if dtype == np.float32 else torch.float64
-        if not self._staging or self._staging[0].shape[0] < rows \
-                or self._staging[0].shape[1] != F \
-                or self._staging[0].dtype != tdt:
-            for ev in self._events:
-                if ev is not None:
-                    ev.synchronize()
-            self._staging = [torch.empty((rows, F), dtype=tdt,
-                                         pin_memory=True) for _ in range(2)]
-        for i, a in enumerate(range(0, n, rows)):
+        stream = torch.cuda.current_stream(self.device)
+        for a in range(0, n, rows):
             b = min(n, a + rows)
-            j = i % 2
-            if self._events[j] is not None:
-                self._events[j].synchronize()
-            host = self._staging[j][:b - a]
+            host = torch.empty((b - a, F), dtype=tdt, pin_memory=True)
             host.numpy()[:] = X[a:b]
-            Xd = host.to(self.device, non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record()
-            self._events[j] = ev
+            with torch.cuda.stream(stream):
+                Xd = host.to(self.device, non_blocking=True)
             yield a, Xd
 
     # -- serving hooks ----------------------------------------------- #

@@ -49,6 +49,11 @@ Tolerances, per kernel:
   from the shared tile and through L1); DeviceEnsemble in small chunks
   against the host walk, f64 and f32 staging, and its device bytes
   against the estimate;
+- serving: 8 threads x 200 predicts of 1-256 rows on one booster, each
+  bit for bit its rows' host walk (DeviceEnsemble's staging under its
+  lock); the port's Server on the card, its warmup launching each bucket
+  once, in-process and HTTP clients bit for bit the host walk, one KP1
+  launch a device batch, no build, no host batch, no breaker failure;
 - K2 in int8 mode, K5 fused_refresh_histogram, K6 compact_carry and K3 with
   the code payload: exact (integer atomics are order-independent);
 - a grown tree on dyadic gradients (every sum exact in f32): the same
@@ -1002,8 +1007,8 @@ def test_predict_ensemble_large_tree_and_wide_rows(F, dtype, dev):
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 def test_device_ensemble_chunks_match_the_host_walk(dtype, dev, monkeypatch):
-    """DeviceEnsemble on the card with a small chunk (the staging buffers
-    cycle several times), on f64 rows and on f32 rows (staged as f32): the
+    """DeviceEnsemble on the card with a small chunk (several chunks, each
+    staged on its own), on f64 rows and on f32 rows (staged as f32): the
     sums equal the host walk of the same values as f64 bit for bit, the
     leaves the host leaves, and device_bytes the estimate."""
     from lightgbm_tpu_torch.ops import predict as pr
@@ -1015,8 +1020,12 @@ def test_device_ensemble_chunks_match_the_host_walk(dtype, dev, monkeypatch):
     for t in trees:
         host += t.predict(X.astype(np.float64))
     np.testing.assert_array_equal(ens.predict_sum(X, len(trees))[0], host)
-    assert ens._staging[0].dtype == (torch.float32 if dtype == np.float32
-                                     else torch.float64)
+    step = pr._CHUNK_BYTES // (X.itemsize * X.shape[1])
+    chunks = list(ens._chunks(X))
+    assert [a for a, _ in chunks] == list(range(0, len(X), step))
+    assert len(chunks) > 2
+    assert {Xd.dtype for _, Xd in chunks} == {
+        torch.float32 if dtype == np.float32 else torch.float64}
     leaf = ens.predict_leaf(X, len(trees))
     for i in (0, 17, len(trees) - 1):
         np.testing.assert_array_equal(
@@ -2747,3 +2756,136 @@ def test_schedule_rate_reaches_k4_at_replay(dev):
     assert a.model_to_string() == b.model_to_string()
     np.testing.assert_allclose(a.predict(X, raw_score=True),
                                ga.score.cpu().numpy(), rtol=0, atol=1e-5)
+
+
+# --------------------------------------------------------------------------- #
+# serving on the card: concurrent callers of one ensemble, the server
+# --------------------------------------------------------------------------- #
+def _ref50_booster(dev):
+    import lightgbm_tpu_torch as lt
+    with open(os.path.join(_INTEROP, "ref50.txt")) as f:
+        return lt.Booster(model_str=f.read(), device=dev)
+
+
+def test_concurrent_callers_of_one_booster_get_their_own_rows(dev):
+    """8 threads x 200 predicts of 1-256 rows each on one booster, each
+    call its own rows (f64, or f32, which the staging keeps f32), the
+    interpreter switching threads every 10 us: every result equals the
+    host walk of its rows bit for bit.  The booster's DeviceEnsemble
+    stages each call's X in pinned memory of its own.  It used to stage
+    X through two pinned buffers shared by every caller, with no lock, so
+    two callers could fill one buffer and a call got another call's rows
+    back.  So, and without the build's lock, on an H100: one run failed
+    in all 8 threads at once (their first launches built the kernels
+    into the same files), another in 19 calls (wrong rows, or a buffer
+    another thread had just reallocated, which ended 7 of the 8
+    threads)."""
+    import sys
+    import threading
+    bst = _ref50_booster(dev)
+    pool = _fixture_rows("binary.test", 4096, 29)
+    pool32 = pool.astype(np.float32)
+    host = bst.predict(pool, raw_score=True, device=False)
+    host32 = bst.predict(pool32.astype(np.float64), raw_score=True,
+                         device=False)
+    rng = np.random.RandomState(31)
+    jobs = [[(rng.randint(0, len(pool), rng.randint(1, 257)),
+              rng.rand() < 0.25) for _ in range(200)] for _ in range(8)]
+    bad, done = [], []
+
+    def caller(mine):
+        try:
+            for idx, f32 in mine:
+                got = bst.predict(pool32[idx] if f32 else pool[idx],
+                                  raw_score=True)
+                if not np.array_equal(got, (host32 if f32 else host)[idx]):
+                    bad.append(len(idx))
+            done.append(len(mine))
+        except Exception as exc:   # noqa: BLE001 — fail the test, not the thread
+            bad.append(repr(exc))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=caller, args=(j,)) for j in jobs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert sum(done) == 1600 and not bad, (len(bad), bad[:10])
+    assert bst._gbdt._dev_ens_cache is not None
+
+
+def test_server_on_the_card_matches_the_host_walk(dev):
+    """The port's Server on the card (every batch on KP1: the device-work
+    floor at 1 row-tree), its buckets warmed at load (each launched once,
+    no build or launch after it but one small-batch walk a device batch),
+    answering threads in process and over HTTP: every response bit for
+    bit the host walk's, converted and raw, no batch on the host, no
+    breaker failure."""
+    import threading
+    from lightgbm_tpu_torch.obs import default_registry
+    from lightgbm_tpu_torch.obs import device as obs_device
+    from lightgbm_tpu_torch.serving import Server, ServingClient
+    with open(os.path.join(_INTEROP, "ref50.txt")) as f:
+        text = f.read()
+    srv = Server({"serve_min_device_work": 1, "serve_max_batch_rows": 256,
+                  "serve_batch_wait_ms": 2.0, "serve_port": 0,
+                  "verbosity": -1}, device=dev)
+    _cuda.build()
+    _cuda.reset_launch_counts()
+    srv.load_model("default", model_str=text)
+    warm = srv.registry.get("default").warmed_buckets
+    assert warm == [1, 2, 4, 8, 16, 32, 64, 128, 256]
+    assert _cuda.LAUNCHES["predict_ensemble_small"] == len(warm)
+    httpd = srv.serve_http(block=False)
+    host_bst = _ref50_booster("cpu")
+    pool = _fixture_rows("binary.test", 2000, 37)
+    want = host_bst.predict(pool, device=False)
+    raw_want = host_bst.predict(pool, raw_score=True, device=False)
+    rng = np.random.RandomState(41)
+    jobs = [[(int(rng.randint(0, 1800)), int(rng.choice([1, 2, 7, 16, 64,
+                                                         200])))
+             for _ in range(25)] for _ in range(6)]
+    bad = []
+    builds = obs_device.compile_counts()
+    _cuda.reset_launch_counts()
+
+    def caller(i, mine):
+        client = ServingClient(port=httpd.server_address[1], timeout=60)
+        try:
+            for a, n in mine:
+                got = (client.predict(pool[a:a + n]) if i % 2
+                       else srv.predict(pool[a:a + n]))
+                if not np.array_equal(got, want[a:a + n]):
+                    bad.append((i, a, n))
+        except Exception as exc:   # noqa: BLE001 — fail the test, not the thread
+            bad.append(repr(exc))
+
+    try:
+        threads = [threading.Thread(target=caller, args=(i, j))
+                   for i, j in enumerate(jobs)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        assert not bad, bad[:10]
+        snap = srv.stats_snapshot()["models"]["default"]
+        assert snap["requests"] == 150 and snap["errors"] == 0
+        assert snap["host_batches"] == 0 and snap["host_fallback"] == 0
+        assert snap["breaker"]["consecutive_failures"] == 0
+        assert snap["breaker"]["open_count"] == 0
+        assert (_cuda.LAUNCHES["predict_ensemble_small"]
+                == snap["device_batches"] > 0)
+        assert sum(_cuda.LAUNCHES.values()) == snap["device_batches"]
+        assert obs_device.compile_counts() == builds
+        raw, on_card = srv.registry.get("default").predict(pool[:256],
+                                                           raw_score=True)
+        assert on_card and np.array_equal(raw, raw_want[:256])
+    finally:
+        srv.shutdown()
+        default_registry().remove(model="default")
